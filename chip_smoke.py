@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order (any failure exits non-zero before the last line):
+
+1. identify the card (name, power limit);
+2. build every hand-written kernel from `encodec_tpu_torch/kernels/csrc`
+   (one nvcc per source, in parallel);
+3. hold each kernel against its plain PyTorch twin on the card at the
+   24 kHz main-path shapes, and time kernel, twin, one PyTorch library call
+   computing the same function (a yardstick the port never calls) and the
+   card's bound for the same work;
+4. drive the main path as a server answering four requests (1, 3, 5.3 and
+   10 s of seeded audio) on the full-width 24 kHz model with seeded random
+   weights (`kmeans_init=False`, so the books are not all zero): encode at
+   6 and 24 kbps, decode, and a raw `.ecdc` compress → decompress roundtrip;
+   launch counts are zeroed before and read after, and every kernel of the
+   path must have launched; the outputs are checked, and the codes are held
+   against the plain twins' codes on the card;
+5. profile one 10 s request (torch.profiler): device time by kernel group
+   and the device's idle share;
+6. print the `kernels` JSON line, then the final `ok` JSON line.
+
+Imports no JAX. Exits non-zero without printing a result when no CUDA
+device is present or the port's package is not next to this script.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+# H100 SXM published peaks (NVIDIA data sheet): FP32 outside the tensor
+# cores and HBM3 bandwidth.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+TIE_THRESHOLD = 1e-3    # the container writer's near-tie guard
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def bound(flops: float, nbytes: float) -> tuple:
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def time_ms(torch, fn, iters: int) -> float:
+    """Mean device time of `fn` over `iters` launches (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def plain_stage_margins(torch, kernels, x, embed, n_q, shared):
+    """Per-stage codes and margins of the plain RVQ chain, [n_q, N] each."""
+    residual, codes, margins = x, [], []
+    for k in range(n_q):
+        book = embed[0 if shared else k]
+        idx, m = kernels.nearest_codebook_plain(residual, book)
+        codes.append(idx)
+        margins.append(m)
+        residual = residual - book[idx.long()]
+    return torch.stack(codes), torch.stack(margins)
+
+
+def books(torch, shape, seed, dev):
+    bound_ = math.sqrt(3.0) * math.sqrt(2.0 / shape[-1])
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy(rng.uniform(-bound_, bound_, shape)
+                            .astype(np.float32)).to(dev)
+
+
+def gauss(torch, shape, seed, dev, scale):
+    rng = np.random.RandomState(seed)
+    return torch.from_numpy((rng.randn(*shape) * scale)
+                            .astype(np.float32)).to(dev)
+
+
+def phase_k1(torch, kernels, dev):
+    N, D, bins = 4 * 750, 128, 1024
+    x = gauss(torch, (N, D), 10, dev, 0.3)
+    e = books(torch, (bins, D), 11, dev)
+    idx, margin = kernels.nearest_codebook(x, e)
+    ref_idx, ref_margin = kernels.nearest_codebook_plain(x, e)
+    torch.cuda.synchronize()
+    safe = ref_margin >= 1e-5
+    n_bad = int((idx[safe] != ref_idx[safe]).sum())
+    err = float((margin - ref_margin).abs().max())
+    check(n_bad == 0, f"K1: {n_bad} indices differ at plain margin >= 1e-5")
+    check(err <= 1e-4, f"K1: margin max|d| {err} > 1e-4")
+    ms = time_ms(torch, lambda: kernels.nearest_codebook(x, e), 50)
+    plain_ms = time_ms(torch, lambda: kernels.nearest_codebook_plain(x, e), 20)
+    lib_ms = time_ms(torch, lambda: torch.cdist(x, e).argmin(1), 20)
+    b_ms, b_by = bound(2.0 * N * bins * D, (N * D + bins * D + 2 * N) * 4)
+    print(f"K1 nearest_codebook N={N} D={D} bins={bins}: idx equal "
+          f"(margin>=1e-5), margin max|d|={err:.3g}; kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms(cdist+argmin)={lib_ms:.4f} "
+          f"bound_ms={b_ms:.5f} ({b_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err)
+
+
+def phase_k2(torch, kernels, dev):
+    N, D, bins = 750, 128, 1024
+    x = gauss(torch, (N, D), 20, dev, 0.3)
+    out = None
+    for n_q, shared in ((8, False), (32, False), (8, True)):
+        e = books(torch, (1 if shared else n_q, bins, D), 21 + n_q, dev)
+        codes = kernels.rvq_encode_fused(x, e, n_q, shared)
+        ref = kernels.rvq_encode_fused_plain(x, e, n_q, shared)
+        torch.cuda.synchronize()
+        _, margins = plain_stage_margins(torch, kernels, x, e, n_q, shared)
+        diff = codes != ref
+        first = torch.where(diff.any(0), diff.int().argmax(0), -1)
+        n_diff = int((first >= 0).sum())
+        n_bad = sum(1 for n, k in enumerate(first.tolist())
+                    if k >= 0 and margins[k, n] >= 1e-4)
+        check(n_bad == 0, f"K2 n_q={n_q} shared={shared}: {n_bad} rows "
+                          "differ at plain margin >= 1e-4")
+        # reconstruction difference between the two code sets
+        stage = torch.arange(n_q, device=dev)[:, None] * (0 if shared else 1)
+        err = float((e[stage, codes.long()].sum(0)
+                     - e[stage, ref.long()].sum(0)).abs().max())
+        ms = time_ms(torch, lambda: kernels.rvq_encode_fused(x, e, n_q, shared), 20)
+        plain_ms = time_ms(
+            torch, lambda: kernels.rvq_encode_fused_plain(x, e, n_q, shared), 5)
+
+        def lib():
+            r = x
+            for k in range(n_q):
+                book = e[0 if shared else k]
+                i = torch.cdist(r, book).argmin(1)
+                r = r - book[i]
+        lib_ms = time_ms(torch, lib, 5)
+        n_books = 1 if shared else n_q
+        b_ms, b_by = bound(2.0 * N * n_q * bins * D,
+                           (N * D + n_books * bins * D + n_q * N) * 4)
+        print(f"K2 rvq_encode_fused N={N} n_q={n_q} shared={shared}: "
+              f"rows differing {n_diff} (all at plain margin < 1e-4: "
+              f"{n_diff - n_bad}); kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms(cdist+argmin per stage)={lib_ms:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})")
+        if n_q == 32 and not shared:
+            out = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    return out
+
+
+def phase_k3(torch, kernels, dev):
+    B, T, H = 4, 750, 512
+    x = gauss(torch, (B, T, H), 30, dev, 0.5)
+    lim = 1.0 / math.sqrt(H)
+    rng = np.random.RandomState(31)
+    layers = [{k: torch.from_numpy(rng.uniform(-lim, lim, s).astype(np.float32)).to(dev)
+               for k, s in (("w_ih", (4 * H, H)), ("w_hh", (4 * H, H)),
+                            ("b", (4 * H,)))} for _ in range(2)]
+
+    def stack(scan):
+        y = x
+        for layer in layers:
+            y = scan((y @ layer["w_ih"].t() + layer["b"]).contiguous(),
+                     layer["w_hh"])
+        return y
+
+    got = stack(kernels.lstm_scan)
+    ref = stack(kernels.lstm_scan_plain)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    # 750 recurrent steps sum in another order than cuBLAS
+    check(err <= 1e-4, f"K3: 2-layer max|d| {err} > 1e-4")
+    xp = (x @ layers[0]["w_ih"].t() + layers[0]["b"]).contiguous()
+    w_hh = layers[0]["w_hh"]
+    ms = time_ms(torch, lambda: kernels.lstm_scan(xp, w_hh), 20)
+    plain_ms = time_ms(torch, lambda: kernels.lstm_scan_plain(xp, w_hh), 3)
+    # library yardstick: cuDNN's LSTM on the same xp (W_ih = I, zero bias
+    # computes exactly the same recurrence)
+    cudnn = torch.nn.LSTM(4 * H, H, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
+        cudnn.weight_hh_l0.copy_(w_hh)
+        cudnn.bias_ih_l0.zero_()
+        cudnn.bias_hh_l0.zero_()
+        lib_err = float((cudnn(xp)[0] - kernels.lstm_scan(xp, w_hh)).abs().max())
+        lib_ms = time_ms(torch, lambda: cudnn(xp), 20)
+    b_ms, b_by = bound(2.0 * B * T * H * 4 * H,
+                       (B * T * 4 * H + 4 * H * H + B * T * H) * 4)
+    print(f"K3 lstm_scan B={B} T={T} H={H}: 2-layer max|d|={err:.3g} "
+          f"(cuDNN vs kernel {lib_err:.3g}); per layer kernel_ms={ms:.4f} "
+          f"({ms / T * 1e3:.3f} us/step) plain_ms={plain_ms:.4f} "
+          f"library_ms(cuDNN LSTM)={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err)
+
+
+def request_audio(seconds: float, sr: int, seed: int) -> np.ndarray:
+    """Seeded noise plus two tones, [1, T] float32."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(round(seconds * sr))) / sr
+    wav = (0.05 * rng.randn(t.size) + 0.3 * np.sin(2 * np.pi * 440.0 * t)
+           + 0.2 * np.sin(2 * np.pi * 1230.0 * t + rng.uniform(0, np.pi)))
+    return np.clip(wav, -0.99, 0.99).astype(np.float32)[None]
+
+
+def phase_main_path(torch, kernels, dev):
+    from encodec_tpu_torch.models import encodec_model_24khz
+    from encodec_tpu_torch.models.model import (encode_frame,
+                                                encode_frame_margins)
+    from encodec_tpu_torch.stream import binary, compress, decompress
+
+    model = encodec_model_24khz(kmeans_init=False, device=dev)
+    registry = {model.name: lambda pretrained=True: model}
+    cfg = model.cfg
+    check(cfg.seanet.n_filters == 32 and cfg.seanet.dimension == 128
+          and cfg.rvq.bins == 1024 and cfg.rvq.n_q == 32,
+          "not the full-width 24 kHz configuration")
+    requests = [(s, request_audio(s, model.sample_rate, 100 + i))
+                for i, s in enumerate((1.0, 3.0, 5.3, 10.0))]
+    bandwidths = (6.0, 24.0)
+
+    # -- the served path, counted: nothing but user calls in here -------
+    kernels.reset_launch_counts()
+    served = []
+    for seconds, wav in requests:
+        for bw in bandwidths:
+            model.set_target_bandwidth(bw)
+            t0 = time.perf_counter()
+            frames = model.encode(wav[None])
+            audio = model.decode(frames)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            data = compress(model, wav, models=registry)
+            back, sr = decompress(data, models=registry)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            served.append(dict(seconds=seconds, wav=wav, bw=bw,
+                               codes=frames[0][0], audio=audio, data=data,
+                               back=back, sr=sr, n_q=model.n_q_active,
+                               codec_s=t1 - t0, ecdc_s=t2 - t1))
+    counts = kernels.launch_counts()
+    print(f"main path launches: {json.dumps(counts)}")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} was never launched on the main path")
+
+    # -- verification, not counted --------------------------------------
+    total_diff = total_flagged = 0
+    for r in served:
+        T = r["wav"].shape[-1]
+        frames_T = math.ceil(T / cfg.seanet.hop_length)
+        codes = r["codes"]
+        check(tuple(codes.shape) == (1, r["n_q"], frames_T),
+              f"codes shape {tuple(codes.shape)}")
+        check(bool(((codes >= 0) & (codes < cfg.rvq.bins)).all()),
+              "codes out of range")
+        audio = r["audio"]
+        check(tuple(audio.shape) == (1, 1, frames_T * cfg.seanet.hop_length),
+              f"audio shape {tuple(audio.shape)}")
+        check(bool(torch.isfinite(audio).all()), "decoded audio not finite")
+        check(tuple(r["back"].shape) == (1, T) and r["sr"] == model.sample_rate,
+              f"decompressed shape {tuple(r['back'].shape)}")
+        check(bool(torch.isfinite(r["back"]).all()), "decompressed not finite")
+        # the bytes decode back to the writer's (tie-guarded) codes
+        model.set_target_bandwidth(r["bw"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        guarded, stats = model.encode_guarded(r["wav"][None], TIE_THRESHOLD)
+        t_guarded = time.perf_counter() - t0
+        fo = io.BytesIO(r["data"])
+        meta = binary.read_ecdc_header(fo)
+        vals = binary.unpack_bits(fo.read(), model.bits_per_codebook,
+                                  count=frames_T * meta["nc"])
+        unpacked = vals.reshape(frames_T, meta["nc"]).T
+        check(np.array_equal(unpacked, guarded[0][0][0].cpu().numpy()),
+              "ecdc payload does not decode to the writer's codes")
+        # kernel path vs plain twins on the card: equal except at
+        # tie-guard-flagged positions
+        x = torch.from_numpy(r["wav"][None]).to(dev).transpose(1, 2)
+        # the writer's device part alone (encoder + K1 margins), to split
+        # encode_guarded into device work and host float64 tie resolution
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            encode_frame_margins(model.infer_params, model.qstate, x, cfg,
+                                 r["n_q"])
+        torch.cuda.synchronize()
+        t_device = time.perf_counter() - t0
+        plain = encode_frame(model.infer_params, model.qstate, x, cfg,
+                             r["n_q"], plain=True)
+        _, _, margins = encode_frame_margins(model.infer_params, model.qstate,
+                                             x, cfg, r["n_q"], plain=True)
+        flagged = (margins < TIE_THRESHOLD).any(1)[0]          # [T']
+        diff = (plain != codes).any(1)[0]                      # [T']
+        n_unflagged = int((diff & ~flagged).sum())
+        check(n_unflagged == 0, f"{n_unflagged} positions differ from the "
+                                "plain twins outside the tie guard")
+        total_diff += int(diff.sum())
+        total_flagged += int(flagged.sum())
+        print(f"request {r['seconds']:>4} s @ {r['bw']:>4} kbps: n_q={r['n_q']} "
+              f"frames={frames_T} encode+decode {r['codec_s'] * 1e3:.1f} ms, "
+              f"compress+decompress {r['ecdc_s'] * 1e3:.1f} ms, "
+              f"{len(r['data'])} B; vs plain twins: {int(diff.sum())} positions "
+              f"differ, {int(flagged.sum())} tie-flagged; min margin "
+              f"{stats['min_margin']:.3g}; encode_guarded {t_guarded * 1e3:.1f} ms"
+              f" = device {t_device * 1e3:.1f} ms + host f64 resolution of "
+              f"{stats['n_flagged']} positions")
+    print(f"main path vs plain twins: {total_diff} differing positions, all "
+          f"inside the {total_flagged} tie-flagged ones")
+    return counts, model, registry, requests[-1][1]
+
+
+KERNEL_GROUPS = (("K2", "vq_rvq_kernel"), ("K1", "vq_nearest_kernel"),
+                 ("K3", "lstm_scan_kernel"))
+
+
+def kernel_group(name: str) -> str:
+    for group, key in KERNEL_GROUPS:
+        if key in name:
+            return group
+    low = name.lower()
+    if any(k in low for k in ("conv", "cudnn", "xmma", "implicit")):
+        return "cuDNN conv"
+    if "gemm" in low or "cutlass" in low:
+        return "GEMM"
+    return "other"
+
+
+def phase_profile(torch, model, registry, wav):
+    """Device time of one 10 s request by kernel group (torch.profiler),
+    after the counted main path. Wall times here include the profiler's
+    own overhead, so the idle share is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from encodec_tpu_torch.stream import compress, decompress
+
+    def codec():
+        model.decode(model.encode(wav[None]))
+
+    def ecdc():
+        decompress(compress(model, wav, models=registry), models=registry)
+
+    for bw, what, fn in ((6.0, "encode+decode", codec),
+                         (24.0, "encode+decode", codec),
+                         (6.0, "compress+decompress", ecdc)):
+        model.set_target_bandwidth(bw)
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        groups: dict = {}
+        top = []
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != DeviceType.CUDA:
+                continue
+            us = e.self_device_time_total
+            if us > 0:
+                g = kernel_group(e.key)
+                groups[g] = groups.get(g, 0.0) + us / 1e3
+                top.append((us / 1e3, e.count, e.key[:60]))
+        busy = sum(groups.values())
+        if busy == 0:
+            print(f"profile {what} @ {bw} kbps: no device time recorded")
+            continue
+        split = ", ".join(f"{g} {ms:.3f} ms" for g, ms in
+                          sorted(groups.items(), key=lambda kv: -kv[1]))
+        print(f"profile 10 s request {what} @ {bw} kbps: wall {wall_ms:.2f} ms "
+              f"(profiled), device busy {busy:.3f} ms, idle share "
+              f"{1 - busy / wall_ms:.3f}; by group: {split}")
+        for ms, n, key in sorted(top, reverse=True)[:5]:
+            print(f"    {ms:8.3f} ms  x{n:<4d} {key}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 2
+    here = Path(__file__).resolve().parent
+    try:
+        import encodec_tpu_torch
+        from encodec_tpu_torch import kernels
+        from encodec_tpu_torch.device import set_fp32_policy
+        from encodec_tpu_torch.kernels import build
+    except ImportError as exc:
+        print(f"chip_smoke: the encodec_tpu_torch package is not next to "
+              f"this script ({exc})", file=sys.stderr)
+        return 2
+    pkg = Path(encodec_tpu_torch.__file__).resolve().parent
+    if pkg.parent != here:
+        # an installed copy elsewhere is not the checkout under test
+        print(f"chip_smoke: imported encodec_tpu_torch from {pkg}, not from "
+              f"the checkout next to this script ({here})", file=sys.stderr)
+        return 2
+
+    t_start = time.perf_counter()
+    set_fp32_policy()
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    print(f"device: {name}")
+    print(smi[0] if smi else "nvidia-smi: no output")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+
+    k1 = phase_k1(torch, kernels, dev)
+    k2 = phase_k2(torch, kernels, dev)
+    k3 = phase_k3(torch, kernels, dev)
+    counts, model, registry, wav10 = phase_main_path(torch, kernels, dev)
+    phase_profile(torch, model, registry, wav10)
+
+    rows = [
+        ("K1 nearest_codebook", "vq_search.cu", "vq_pallas.py:43",
+         "nearest_codebook", k1),
+        ("K2 rvq_encode_fused", "vq_search.cu", "vq_pallas.py:124",
+         "rvq_encode_fused", k2),
+        ("K3 lstm_scan", "lstm_scan.cu", "lstm_pallas.py:55", "lstm_scan", k3),
+    ]
+    print(json.dumps({"kernels": [
+        {"name": n, "route": "cuda",
+         "source": f"encodec_tpu_torch/kernels/csrc/{src}",
+         "replaces": f"encodec_tpu/kernels/{rep}",
+         "launches": counts[fn], **m}
+        for n, src, rep, fn, m in rows]}))
+    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

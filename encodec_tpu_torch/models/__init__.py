@@ -1,0 +1,17 @@
+"""Network architectures and the codec model API."""
+
+from .seanet import (  # noqa: F401
+    SEANetConfig,
+    init_seanet_encoder,
+    init_seanet_decoder,
+    seanet_encoder,
+    seanet_decoder,
+)
+from .model import (  # noqa: F401
+    EncodecConfig,
+    EncodecModel,
+    encodec_model_24khz,
+    build_model,
+    MODELS,
+)
+from .zoo import load_pretrained, load_state, model_params_from_state  # noqa: F401

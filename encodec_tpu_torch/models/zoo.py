@@ -1,0 +1,175 @@
+"""Load reference (PyTorch) EnCodec state dicts into the port's parameters.
+
+Mirrors `encodec_tpu/models/torch_zoo.py` (the walkers over the reference
+module tree `encoder.model.{i}...`, `decoder.model.{i}...`,
+`quantizer.vq.layers.{k}._codebook...`, and `load_pretrained` with the
+sha256-prefix check). Values may be numpy arrays or tensors. The port keeps
+torch weight layout, so conv weights (or `weight_g`/`weight_v`, old or
+parametrization keys) are taken as they are.
+
+Only a local `repository` is read: the port never downloads checkpoints.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import typing as tp
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..quant import RVQConfig, RVQState
+from .seanet import SEANetConfig
+
+State = tp.Mapping[str, tp.Any]
+
+
+def _get(state: State, key: str) -> torch.Tensor:
+    v = state[key]
+    if isinstance(v, torch.Tensor):
+        return v.detach().to(device="cpu", dtype=torch.float32).clone()
+    return torch.from_numpy(np.array(v, dtype=np.float32))
+
+
+def conv_params_from_state(state: State, prefix: str, norm: str = "none",
+                           kind: str = "conv") -> dict:
+    """`{prefix}{kind}.*` of a reference NormConv1d (`kind='conv'`) or
+    NormConvTranspose1d (`kind='convtr'`)."""
+    p: dict = {}
+    old = (f"{prefix}{kind}.weight_g", f"{prefix}{kind}.weight_v")
+    new = (f"{prefix}{kind}.parametrizations.weight.original0",
+           f"{prefix}{kind}.parametrizations.weight.original1")
+    if norm == "weight_norm" or old[1] in state or new[1] in state:
+        g_key, v_key = old if old[1] in state else new
+        p["v"] = _get(state, v_key)
+        p["g"] = _get(state, g_key).reshape(-1)  # dim 0 of the torch weight
+    else:
+        p["w"] = _get(state, f"{prefix}{kind}.weight")
+    if f"{prefix}{kind}.bias" in state:
+        p["b"] = _get(state, f"{prefix}{kind}.bias")
+    if norm in ("layer_norm", "time_group_norm"):
+        p["norm"] = {"scale": _get(state, f"{prefix}norm.weight"),
+                     "bias": _get(state, f"{prefix}norm.bias")}
+    return p
+
+
+def lstm_params_from_state(state: State, prefix: str, num_layers: int) -> dict:
+    return {"layers": [
+        {"w_ih": _get(state, f"{prefix}weight_ih_l{i}"),
+         "w_hh": _get(state, f"{prefix}weight_hh_l{i}"),
+         "b_ih": _get(state, f"{prefix}bias_ih_l{i}"),
+         "b_hh": _get(state, f"{prefix}bias_hh_l{i}")}
+        for i in range(num_layers)]}
+
+
+def _resblock(state: State, prefix: str, cfg: SEANetConfig) -> dict:
+    # block = Sequential(act, conv, act, conv): convs at odd indices
+    p: dict = {"convs": [conv_params_from_state(
+        state, f"{prefix}block.{2 * j + 1}.conv.", cfg.norm) for j in range(2)]}
+    if not cfg.true_skip:
+        p["shortcut"] = conv_params_from_state(
+            state, f"{prefix}shortcut.conv.", cfg.norm)
+    return p
+
+
+def encoder_params_from_state(state: State, cfg: SEANetConfig,
+                              root: str = "encoder.model.") -> dict:
+    idx = 0
+    p: dict = {"init_conv": conv_params_from_state(
+        state, f"{root}{idx}.conv.", cfg.norm), "stages": []}
+    idx += 1
+    for _ratio in cfg.encoder_ratios:
+        stage: dict = {"res": []}
+        for _j in range(cfg.n_residual_layers):
+            stage["res"].append(_resblock(state, f"{root}{idx}.", cfg))
+            idx += 1
+        idx += 1  # activation module
+        stage["down"] = conv_params_from_state(state, f"{root}{idx}.conv.",
+                                               cfg.norm)
+        idx += 1
+        p["stages"].append(stage)
+    if cfg.lstm:
+        p["lstm"] = lstm_params_from_state(state, f"{root}{idx}.lstm.",
+                                           cfg.lstm)
+        idx += 1
+    idx += 1  # activation
+    p["final_conv"] = conv_params_from_state(state, f"{root}{idx}.conv.",
+                                             cfg.norm)
+    return p
+
+
+def decoder_params_from_state(state: State, cfg: SEANetConfig,
+                              root: str = "decoder.model.") -> dict:
+    idx = 0
+    p: dict = {"init_conv": conv_params_from_state(
+        state, f"{root}{idx}.conv.", cfg.norm), "stages": []}
+    idx += 1
+    if cfg.lstm:
+        p["lstm"] = lstm_params_from_state(state, f"{root}{idx}.lstm.",
+                                           cfg.lstm)
+        idx += 1
+    for _ratio in cfg.ratios:
+        idx += 1  # activation
+        stage: dict = {"up": conv_params_from_state(
+            state, f"{root}{idx}.convtr.", cfg.norm, kind="convtr"), "res": []}
+        idx += 1
+        for _j in range(cfg.n_residual_layers):
+            stage["res"].append(_resblock(state, f"{root}{idx}.", cfg))
+            idx += 1
+        p["stages"].append(stage)
+    idx += 1  # activation
+    p["final_conv"] = conv_params_from_state(
+        state, f"{root}{idx}.conv.", cfg.resolved_decoder_final_norm())
+    return p
+
+
+def quantizer_state_from_state(state: State, cfg: RVQConfig,
+                               root: str = "quantizer.vq.layers.") -> RVQState:
+    def stack(name):
+        return torch.stack([_get(state, f"{root}{k}._codebook.{name}")
+                            for k in range(cfg.num_books)])
+
+    inited = state.get(f"{root}0._codebook.inited", [1.0])
+    return RVQState(embed=stack("embed"), embed_avg=stack("embed_avg"),
+                    cluster_size=stack("cluster_size"),
+                    inited=bool(np.asarray(inited, np.float32).reshape(-1)[0]))
+
+
+def model_params_from_state(state: State, cfg) -> tp.Tuple[dict, RVQState]:
+    """Full EncodecModel conversion (`cfg` is an EncodecConfig), on the CPU."""
+    params = {"encoder": encoder_params_from_state(state, cfg.seanet),
+              "decoder": decoder_params_from_state(state, cfg.seanet)}
+    return params, quantizer_state_from_state(state, cfg.rvq)
+
+
+def load_state(model, state: State) -> None:
+    """Load a reference-layout state dict into `model` (in place)."""
+    if "model_state_dict" in state:   # fork training checkpoints wrap it
+        state = state["model_state_dict"]
+    params, qstate = model_params_from_state(state, model.cfg)
+    model.params = params
+    model.qstate = qstate
+
+
+def load_pretrained(model, checkpoint_name: str,
+                    repository: tp.Optional[str] = None) -> None:
+    """Load `{repository}/{checkpoint_name}` into `model` (in place),
+    verifying the sha256 prefix embedded in the file name when it has one
+    (`name-<sha prefix>.th`)."""
+    if repository is None:
+        raise RuntimeError(
+            f"no local checkpoint repository given for {checkpoint_name}: "
+            "pass repository=DIR (CLI: --repository DIR); the port does "
+            "not download checkpoints")
+    file = Path(repository) / checkpoint_name
+    parts = file.stem.split("-")
+    if len(parts) > 1:
+        checksum = parts[1]
+        sha = hashlib.sha256()
+        with open(file, "rb") as fh:
+            for chunk in iter(lambda: fh.read(1 << 20), b""):
+                sha.update(chunk)
+        if sha.hexdigest()[:len(checksum)] != checksum:
+            raise RuntimeError(f"Invalid checksum for {file}")
+    load_state(model, torch.load(file, map_location="cpu", weights_only=True))

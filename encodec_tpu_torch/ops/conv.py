@@ -1,0 +1,201 @@
+"""Streamable 1-D convolutions, transposed convolutions and norms.
+
+Port of `encodec_tpu/ops/conv.py` (`sconv1d`, `sconv_transpose1d`, the
+weight-norm fold, `layer_norm`, `time_group_norm`). The JAX package never
+had a Pallas kernel for these — XLA computed them — so the convolutions go
+to `F.conv1d` / `F.conv_transpose1d` (cuDNN on the GPU, with TF32 off; see
+`device.py`). The TPU-only lowerings (`conv1d_shift`, `lowering=`) are not
+ported.
+
+Parameters are kept in torch layout: conv weights `[Cout, Cin, K]`,
+transposed-conv weights `[Cin, Cout, K]`. Weight norm is the reference's
+`weight_norm(dim=0)` of the torch weight: per-Cout for a conv but per-*Cin*
+for a transposed conv (an upstream quirk the published checkpoints carry).
+In torch layout both reduce over dims (1, 2), with `g` indexed by dim 0.
+
+Public functions take and return channels-last `[B, T, C]`; internally
+they run channels-first `[B, C, T]` for `F.conv1d`.
+"""
+
+from __future__ import annotations
+
+import math
+import typing as tp
+
+import torch
+import torch.nn.functional as F
+
+from .pad import get_extra_padding_for_conv1d, pad_time, unpad1d
+
+Params = tp.Dict[str, tp.Any]
+
+CONV_NORMALIZATIONS = frozenset(["none", "weight_norm", "layer_norm",
+                                 "time_group_norm"])
+
+
+# ---------------------------------------------------------------------------
+# Initialization (torch.nn.Conv1d defaults: kaiming uniform a=sqrt(5),
+# bias ~ U(-1/sqrt(fan_in), 1/sqrt(fan_in)))
+# ---------------------------------------------------------------------------
+
+def _uniform(shape, bound: float, generator: torch.Generator,
+             device: torch.device) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return ((u * 2.0 - 1.0) * bound).to(device)
+
+
+def _with_norm_params(params: Params, norm: str, out_ch: int,
+                      device: torch.device) -> Params:
+    if norm == "weight_norm":
+        v = params.pop("w")
+        params["v"] = v
+        params["g"] = v.square().sum(dim=(1, 2)).sqrt()
+    elif norm in ("layer_norm", "time_group_norm"):
+        params["norm"] = {
+            "scale": torch.ones(out_ch, device=device),
+            "bias": torch.zeros(out_ch, device=device),
+        }
+    return params
+
+
+def init_sconv1d(generator: torch.Generator, in_ch: int, out_ch: int,
+                 kernel_size: int, *, norm: str = "none",
+                 device: torch.device = torch.device("cpu")) -> Params:
+    if norm not in CONV_NORMALIZATIONS:
+        raise ValueError(f"unsupported norm {norm!r}")
+    fan_in = in_ch * kernel_size
+    bound = math.sqrt(2.0 / (1 + 5.0)) * math.sqrt(3.0 / fan_in)
+    params: Params = {
+        "w": _uniform((out_ch, in_ch, kernel_size), bound, generator, device),
+        "b": _uniform((out_ch,), 1.0 / math.sqrt(fan_in), generator, device)}
+    return _with_norm_params(params, norm, out_ch, device)
+
+
+def init_sconv_transpose1d(generator: torch.Generator, in_ch: int,
+                           out_ch: int, kernel_size: int, *,
+                           norm: str = "none",
+                           device: torch.device = torch.device("cpu")
+                           ) -> Params:
+    if norm not in CONV_NORMALIZATIONS:
+        raise ValueError(f"unsupported norm {norm!r}")
+    # torch ConvTranspose1d: weight [Cin, Cout, K], fan_in = Cout * K
+    fan_in = out_ch * kernel_size
+    bound = math.sqrt(2.0 / (1 + 5.0)) * math.sqrt(3.0 / fan_in)
+    params: Params = {
+        "w": _uniform((in_ch, out_ch, kernel_size), bound, generator, device),
+        "b": _uniform((out_ch,), 1.0 / math.sqrt(fan_in), generator, device)}
+    return _with_norm_params(params, norm, out_ch, device)
+
+
+# ---------------------------------------------------------------------------
+# Weight norm
+# ---------------------------------------------------------------------------
+
+def effective_weight(params: Params) -> torch.Tensor:
+    """The conv weight, folding weight norm `g·v/‖v‖` when present."""
+    if "v" in params:
+        v = params["v"]
+        norm = v.square().sum(dim=(1, 2), keepdim=True).sqrt()
+        return params["g"][:, None, None] * v / norm
+    return params["w"]
+
+
+def fold_weight_norm(params: Params) -> Params:
+    """Fold weight-norm (v, g) into a plain weight for inference."""
+    if "v" not in params:
+        return params
+    out = {k: v for k, v in params.items() if k not in ("v", "g")}
+    out["w"] = effective_weight(params)
+    return out
+
+
+def fold_weight_norm_tree(tree):
+    """`fold_weight_norm` applied to every conv dict of a parameter tree."""
+    if isinstance(tree, dict):
+        if "v" in tree and "g" in tree:
+            return fold_weight_norm(tree)
+        return {k: fold_weight_norm_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fold_weight_norm_tree(v) for v in tree)
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Norm layers, channels-first [B, C, T]
+# ---------------------------------------------------------------------------
+
+def _normalize(x: torch.Tensor, dims, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    mean = x.mean(dim=dims, keepdim=True)
+    var = (x - mean).square().mean(dim=dims, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * scale[:, None] + bias[:, None]
+
+
+def _apply_norm(y: torch.Tensor, params: Params, norm: str) -> torch.Tensor:
+    if norm == "layer_norm":
+        return _normalize(y, (1,), params["norm"]["scale"],
+                          params["norm"]["bias"], 1e-5)
+    if norm == "time_group_norm":
+        return _normalize(y, (1, 2), params["norm"]["scale"],
+                          params["norm"]["bias"], 1e-5)
+    return y
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the channel axis of `[B, T, C]`, per time step."""
+    return _normalize(x.transpose(1, 2), (1,), scale, bias, eps).transpose(1, 2)
+
+
+def time_group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm(1, C) over `[B, T, C]`: normalize over (T, C) per item."""
+    return _normalize(x.transpose(1, 2), (1, 2), scale, bias,
+                      eps).transpose(1, 2)
+
+
+# ---------------------------------------------------------------------------
+# Streamable convs (padding contract + norm)
+# ---------------------------------------------------------------------------
+
+def sconv1d(params: Params, x: torch.Tensor, *, kernel_size: int,
+            stride: int = 1, dilation: int = 1,
+            causal: bool = False, norm: str = "none",
+            pad_mode: str = "reflect") -> torch.Tensor:
+    """Conv1d with causal/asymmetric padding on `[B, T, C]` → `[B, T', C']`."""
+    if causal and norm == "time_group_norm":
+        raise ValueError("GroupNorm doesn't support causal evaluation.")
+    effective_k = (kernel_size - 1) * dilation + 1
+    padding_total = effective_k - stride
+    extra_padding = get_extra_padding_for_conv1d(
+        x.shape[1], effective_k, stride, padding_total)
+    if causal:
+        paddings = (padding_total, extra_padding)
+    else:
+        padding_right = padding_total // 2
+        paddings = (padding_total - padding_right, padding_right + extra_padding)
+    xc = pad_time(x.transpose(1, 2), paddings, mode=pad_mode)
+    y = F.conv1d(xc, effective_weight(params), params.get("b"),
+                 stride=stride, dilation=dilation)
+    return _apply_norm(y, params, norm).transpose(1, 2)
+
+
+def sconv_transpose1d(params: Params, x: torch.Tensor, *, kernel_size: int,
+                      stride: int = 1, causal: bool = False,
+                      norm: str = "none",
+                      trim_right_ratio: float = 1.0) -> torch.Tensor:
+    """ConvTranspose1d on `[B, T, C]` that trims `kernel_size - stride` of
+    implicit padding (causal: right-trim by `trim_right_ratio`)."""
+    if not (causal or trim_right_ratio == 1.0):
+        raise ValueError("trim_right_ratio != 1 only makes sense for causal")
+    if causal and norm == "time_group_norm":
+        raise ValueError("GroupNorm doesn't support causal evaluation.")
+    padding_total = kernel_size - stride
+    y = F.conv_transpose1d(x.transpose(1, 2), effective_weight(params),
+                           params.get("b"), stride=stride)
+    y = _apply_norm(y, params, norm).transpose(1, 2)
+    if causal:
+        padding_right = math.ceil(padding_total * trim_right_ratio)
+    else:
+        padding_right = padding_total // 2
+    return unpad1d(y, (padding_total - padding_right, padding_right))

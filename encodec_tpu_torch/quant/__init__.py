@@ -1,0 +1,13 @@
+"""Residual vector quantization (layer L2), inference half."""
+
+from .rvq import (  # noqa: F401
+    RVQConfig,
+    RVQState,
+    init_rvq,
+    rvq_encode,
+    rvq_encode_margins,
+    rvq_decode,
+    resolve_ties_f64,
+    num_quantizers_for_bandwidth,
+    bandwidth_per_quantizer,
+)
