@@ -9,9 +9,12 @@ Phases, in order (any failure exits non-zero before the last line):
 2. build every hand-written kernel from `encodec_tpu_torch/kernels/csrc`
    (one nvcc per source, in parallel);
 3. hold each kernel against its plain PyTorch twin on the card at the
-   24 kHz main-path shapes, and time kernel, twin, one PyTorch library call
-   computing the same function (a yardstick the port never calls) and the
-   card's bound for the same work;
+   24 kHz main-path shapes (K1 at N=750 and 3000 rows, including exact
+   duplicate rows in different CTAs' bin ranges; K3 over two layers at
+   B=1 and B=4, T=750, with its cluster plan), and time kernel, twin, one
+   PyTorch library call computing the same function (a yardstick the port
+   never calls) as device time under torch.profiler, beside the card's
+   bound for the same work;
 4. drive the main path as a server answering four requests (1, 3, 5.3 and
    10 s of seeded audio) on the full-width 24 kHz model with seeded random
    weights (`kmeans_init=False`, so the books are not all zero): encode at
@@ -35,6 +38,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -63,7 +67,9 @@ def bound(flops: float, nbytes: float) -> tuple:
 
 
 def time_ms(torch, fn, iters: int) -> float:
-    """Mean device time of `fn` over `iters` launches (CUDA events)."""
+    """Mean time per call of `fn` over `iters` back-to-back calls (CUDA
+    events): device time, or the host's cost of a call where that is
+    larger."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -74,6 +80,27 @@ def time_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int) -> float:
+    """Mean device time per call of `fn`: the CUDA kernels' own time under
+    torch.profiler, summed over `iters` calls (no host time, no gaps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        # each profiled window is its own cycle; the notice says only that
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if getattr(e, "device_type", None) == DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device time")
+    return us / iters / 1e3
 
 
 def plain_stage_margins(torch, kernels, x, embed, n_q, shared):
@@ -102,27 +129,52 @@ def gauss(torch, shape, seed, dev, scale):
 
 
 def phase_k1(torch, kernels, dev):
-    N, D, bins = 4 * 750, 128, 1024
-    x = gauss(torch, (N, D), 10, dev, 0.3)
+    """K1 at N=750 (one RVQ stage of a 10 s request, the main path's
+    shape) and N=3000; the JSON row is N=750."""
+    from encodec_tpu_torch.kernels import vq_cuda
+
+    D, bins = 128, 1024
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     e = books(torch, (bins, D), 11, dev)
-    idx, margin = kernels.nearest_codebook(x, e)
-    ref_idx, ref_margin = kernels.nearest_codebook_plain(x, e)
-    torch.cuda.synchronize()
-    safe = ref_margin >= 1e-5
-    n_bad = int((idx[safe] != ref_idx[safe]).sum())
-    err = float((margin - ref_margin).abs().max())
-    check(n_bad == 0, f"K1: {n_bad} indices differ at plain margin >= 1e-5")
-    check(err <= 1e-4, f"K1: margin max|d| {err} > 1e-4")
-    ms = time_ms(torch, lambda: kernels.nearest_codebook(x, e), 50)
-    plain_ms = time_ms(torch, lambda: kernels.nearest_codebook_plain(x, e), 20)
-    lib_ms = time_ms(torch, lambda: torch.cdist(x, e).argmin(1), 20)
-    b_ms, b_by = bound(2.0 * N * bins * D, (N * D + bins * D + 2 * N) * 4)
-    print(f"K1 nearest_codebook N={N} D={D} bins={bins}: idx equal "
-          f"(margin>=1e-5), margin max|d|={err:.3g}; kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms(cdist+argmin)={lib_ms:.4f} "
-          f"bound_ms={b_ms:.5f} ({b_by})")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=err)
+    # exact duplicates of the nearest row in three CTAs' bin ranges
+    dups = (900, 5, 700)
+    e_dup = e.clone()
+    for j in dups[1:]:
+        e_dup[j] = e_dup[dups[0]]
+    rows = {}
+    for N in (750, 4 * 750):
+        plan = vq_cuda.nearest_plan(N, bins, D, sms)
+        x = gauss(torch, (N, D), 10, dev, 0.3)
+        idx, margin = kernels.nearest_codebook(x, e)
+        ref_idx, ref_margin = kernels.nearest_codebook_plain(x, e)
+        xd = (e_dup[dups[0]][None] + gauss(torch, (N, D), 12, dev, 1e-3))
+        d_idx, d_margin = kernels.nearest_codebook(xd.contiguous(), e_dup)
+        torch.cuda.synchronize()
+        safe = ref_margin >= 1e-5
+        n_bad = int((idx[safe] != ref_idx[safe]).sum())
+        err = float((margin - ref_margin).abs().max())
+        check(n_bad == 0, f"K1 N={N}: {n_bad} indices differ at plain "
+                          "margin >= 1e-5")
+        check(err <= 1e-4, f"K1 N={N}: margin max|d| {err} > 1e-4")
+        check(bool((d_idx == min(dups)).all()) and bool((d_margin == 0).all()),
+              f"K1 N={N}: duplicate rows across CTAs do not give the lowest "
+              "index with margin 0")
+        ms = device_ms(torch, lambda: kernels.nearest_codebook(x, e), 50)
+        call_ms = time_ms(torch, lambda: kernels.nearest_codebook(x, e), 50)
+        plain_ms = device_ms(
+            torch, lambda: kernels.nearest_codebook_plain(x, e), 20)
+        lib_ms = device_ms(torch, lambda: torch.cdist(x, e).argmin(1), 20)
+        b_ms, b_by = bound(2.0 * N * bins * D, (N * D + bins * D + 2 * N) * 4)
+        print(f"K1 nearest_codebook N={N} D={D} bins={bins}: plan "
+              f"{plan.row_tiles} tiles x cluster {plan.cluster} = {plan.ctas} "
+              f"CTAs, {plan.bins_per_cta} bins/CTA; idx equal (margin>=1e-5), "
+              f"margin max|d|={err:.3g}, duplicates {dups} -> {min(dups)}, "
+              f"margin 0; device ms: kernel={ms:.4f} plain={plain_ms:.4f} "
+              f"library(cdist+argmin)={lib_ms:.4f} bound={b_ms:.5f} ({b_by}); "
+              f"per wrapper call (events)={call_ms:.4f}")
+        rows[N] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    return rows[750]
 
 
 def phase_k2(torch, kernels, dev):
@@ -146,8 +198,9 @@ def phase_k2(torch, kernels, dev):
         stage = torch.arange(n_q, device=dev)[:, None] * (0 if shared else 1)
         err = float((e[stage, codes.long()].sum(0)
                      - e[stage, ref.long()].sum(0)).abs().max())
-        ms = time_ms(torch, lambda: kernels.rvq_encode_fused(x, e, n_q, shared), 20)
-        plain_ms = time_ms(
+        ms = device_ms(
+            torch, lambda: kernels.rvq_encode_fused(x, e, n_q, shared), 20)
+        plain_ms = device_ms(
             torch, lambda: kernels.rvq_encode_fused_plain(x, e, n_q, shared), 5)
 
         def lib():
@@ -156,47 +209,53 @@ def phase_k2(torch, kernels, dev):
                 book = e[0 if shared else k]
                 i = torch.cdist(r, book).argmin(1)
                 r = r - book[i]
-        lib_ms = time_ms(torch, lib, 5)
+        lib_ms = device_ms(torch, lib, 5)
         n_books = 1 if shared else n_q
         b_ms, b_by = bound(2.0 * N * n_q * bins * D,
                            (N * D + n_books * bins * D + n_q * N) * 4)
         print(f"K2 rvq_encode_fused N={N} n_q={n_q} shared={shared}: "
               f"rows differing {n_diff} (all at plain margin < 1e-4: "
-              f"{n_diff - n_bad}); kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms(cdist+argmin per stage)={lib_ms:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by})")
+              f"{n_diff - n_bad}); device ms: kernel={ms:.4f} "
+              f"plain={plain_ms:.4f} library(cdist+argmin per stage)="
+              f"{lib_ms:.4f} bound={b_ms:.5f} ({b_by})")
         if n_q == 32 and not shared:
             out = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
     return out
 
 
+def k3_plan_line(torch, dev, H):
+    import ctypes
+
+    from encodec_tpu_torch.kernels import build, lstm_cuda
+
+    lib = build.load_library("lstm_scan")
+    n_max = lstm_cuda.max_active_clusters(H, dev)
+    plan = lstm_cuda.lstm_plan(1, H, n_max)
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    build.check(lib, "lstm_scan", lib.lstm_scan_attributes(
+        H, ctypes.addressof(regs), ctypes.addressof(local)))
+    check(lib.lstm_scan_smem_bytes(H) == plan.smem_bytes,
+          "K3 shared memory differs between the kernel and its plan")
+    return (f"K3 plan H={H}: clusters of {plan.cluster} CTAs x "
+            f"{plan.units_per_cta} units, max active clusters {n_max}, "
+            f"{lstm_cuda.K3_THREADS} threads/CTA, {regs.value} registers/"
+            f"thread ({local.value} B local), {plan.smem_bytes} B shared "
+            f"memory/CTA; W_hh rows per CTA: {plan.reg_rows} in registers, "
+            f"{plan.smem_rows} in shared memory")
+
+
 def phase_k3(torch, kernels, dev):
-    B, T, H = 4, 750, 512
-    x = gauss(torch, (B, T, H), 30, dev, 0.5)
+    """K3 per layer at T=750, H=512 (a 10 s request's LSTM) at the served
+    batch B=1 and at B=4; the JSON row is B=1."""
+    T, H = 750, 512
     lim = 1.0 / math.sqrt(H)
     rng = np.random.RandomState(31)
     layers = [{k: torch.from_numpy(rng.uniform(-lim, lim, s).astype(np.float32)).to(dev)
                for k, s in (("w_ih", (4 * H, H)), ("w_hh", (4 * H, H)),
                             ("b", (4 * H,)))} for _ in range(2)]
-
-    def stack(scan):
-        y = x
-        for layer in layers:
-            y = scan((y @ layer["w_ih"].t() + layer["b"]).contiguous(),
-                     layer["w_hh"])
-        return y
-
-    got = stack(kernels.lstm_scan)
-    ref = stack(kernels.lstm_scan_plain)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    # 750 recurrent steps sum in another order than cuBLAS
-    check(err <= 1e-4, f"K3: 2-layer max|d| {err} > 1e-4")
-    xp = (x @ layers[0]["w_ih"].t() + layers[0]["b"]).contiguous()
+    print(k3_plan_line(torch, dev, H))
     w_hh = layers[0]["w_hh"]
-    ms = time_ms(torch, lambda: kernels.lstm_scan(xp, w_hh), 20)
-    plain_ms = time_ms(torch, lambda: kernels.lstm_scan_plain(xp, w_hh), 3)
     # library yardstick: cuDNN's LSTM on the same xp (W_ih = I, zero bias
     # computes exactly the same recurrence)
     cudnn = torch.nn.LSTM(4 * H, H, batch_first=True).to(dev)
@@ -205,16 +264,40 @@ def phase_k3(torch, kernels, dev):
         cudnn.weight_hh_l0.copy_(w_hh)
         cudnn.bias_ih_l0.zero_()
         cudnn.bias_hh_l0.zero_()
-        lib_err = float((cudnn(xp)[0] - kernels.lstm_scan(xp, w_hh)).abs().max())
-        lib_ms = time_ms(torch, lambda: cudnn(xp), 20)
-    b_ms, b_by = bound(2.0 * B * T * H * 4 * H,
-                       (B * T * 4 * H + 4 * H * H + B * T * H) * 4)
-    print(f"K3 lstm_scan B={B} T={T} H={H}: 2-layer max|d|={err:.3g} "
-          f"(cuDNN vs kernel {lib_err:.3g}); per layer kernel_ms={ms:.4f} "
-          f"({ms / T * 1e3:.3f} us/step) plain_ms={plain_ms:.4f} "
-          f"library_ms(cuDNN LSTM)={lib_ms:.4f} bound_ms={b_ms:.5f} ({b_by})")
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, max_abs_err=err)
+    rows = {}
+    for B in (1, 4):
+        x = gauss(torch, (B, T, H), 30, dev, 0.5)
+
+        def stack(scan):
+            y = x
+            for layer in layers:
+                y = scan((y @ layer["w_ih"].t() + layer["b"]).contiguous(),
+                         layer["w_hh"])
+            return y
+
+        got = stack(kernels.lstm_scan)
+        ref = stack(kernels.lstm_scan_plain)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        # 750 recurrent steps sum in another order than cuBLAS
+        check(err <= 1e-4, f"K3 B={B}: 2-layer max|d| {err} > 1e-4")
+        xp = (x @ layers[0]["w_ih"].t() + layers[0]["b"]).contiguous()
+        ms = device_ms(torch, lambda: kernels.lstm_scan(xp, w_hh), 10)
+        plain_ms = device_ms(torch, lambda: kernels.lstm_scan_plain(xp, w_hh), 2)
+        with torch.no_grad():
+            lib_err = float((cudnn(xp)[0] - kernels.lstm_scan(xp, w_hh))
+                            .abs().max())
+            lib_ms = device_ms(torch, lambda: cudnn(xp), 10)
+        b_ms, b_by = bound(2.0 * B * T * H * 4 * H,
+                           (B * T * 4 * H + 4 * H * H + B * T * H) * 4)
+        print(f"K3 lstm_scan B={B} T={T} H={H}: 2-layer max|d|={err:.3g} "
+              f"(cuDNN vs kernel {lib_err:.3g}); per layer device ms: "
+              f"kernel={ms:.4f} ({ms / T * 1e3:.3f} us/step) "
+              f"plain={plain_ms:.4f} library(cuDNN LSTM)={lib_ms:.4f} "
+              f"({lib_ms / T * 1e3:.3f} us/step) bound={b_ms:.5f} ({b_by})")
+        rows[B] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    return rows[1]
 
 
 def request_audio(seconds: float, sr: int, seed: int) -> np.ndarray:

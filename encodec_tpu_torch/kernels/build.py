@@ -33,12 +33,23 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointer and the stream go as c_void_p, or ctypes would cut them to 32 bits.
 SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
     "lstm_scan": {
-        "lstm_scan_launch": ([_P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
-        "lstm_scan_max_cells": ([], _I),
+        "lstm_scan_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "lstm_scan_max_clusters": ([_I, _I], _I),
+        "lstm_scan_attributes": ([_I, _P, _P], _I),
+        "lstm_scan_smem_bytes": ([_I], _I),
+        "lstm_scan_units_per_cta_max": ([], _I),
+        "lstm_scan_max_cluster": ([], _I),
+        "lstm_scan_reg_rows": ([], _I),
+        "lstm_scan_threads": ([], _I),
         "lstm_scan_error_string": ([_I], ctypes.c_char_p),
     },
     "vq_search": {
-        "vq_nearest_launch": ([_P, _P, _I, _I, _I, _P, _P, _P], _I),
+        "vq_nearest_launch": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+        "vq_nearest_smem_bytes": ([_I], _I),
+        "vq_nearest_rows_per_cta": ([], _I),
+        "vq_nearest_tile_bins": ([], _I),
+        "vq_nearest_threads": ([], _I),
+        "vq_nearest_max_cluster": ([], _I),
         "vq_rvq_launch": ([_P, _P, _I, _I, _I, _I, _I, _P, _P], _I),
         "vq_search_error_string": ([_I], ctypes.c_char_p),
     },

@@ -1,10 +1,18 @@
 """K3: the LSTM recurrence — CUDA kernel wrapper and its plain twin.
 
-Replaces `encodec_tpu/kernels/lstm_pallas.py::lstm_scan_pallas`. The kernel
-(`csrc/lstm_scan.cu`) is bounded by the T-step dependency chain, not by
-FLOPs or bytes; it runs as one persistent cooperative grid split by hidden
-unit, with each CTA's slice of W_hh resident in shared memory and one
-grid-wide barrier per step (see the source for the design).
+Replaces `encodec_tpu/kernels/lstm_pallas.py:55::lstm_scan_pallas`. The
+kernel (`csrc/lstm_scan.cu`) is bounded by the T-step dependency chain, not
+by FLOPs or bytes. It runs one thread-block cluster per sequence in
+flight: the cluster's CTAs (16 at H=512) split the hidden units, keep
+their rows of W_hh resident (three quarters in registers, the rest in
+shared memory), and send each step's h slice straight into every CTA's
+shared memory (`st.async` counted on the receiver's mbarrier), so a step
+waits only for its inputs: no grid-wide barrier, no global atomics, no L2
+round trip. Sequences spread over as many clusters as the card holds at
+once (see the source for the design; `lstm_plan` sizes the launch).
+
+The kernel takes H ≤ 512, which covers every configuration of the repo;
+a CUDA call with a larger H raises.
 
 `lstm_scan` is the entry point: for CPU tensors it runs the plain PyTorch
 twin `lstm_scan_plain`; for CUDA tensors it launches the kernel or raises —
@@ -13,16 +21,26 @@ there is no fallback. `lstm_scan.launches` counts kernel launches.
 
 from __future__ import annotations
 
+import dataclasses
 import typing as tp
 
 import torch
 
 from . import build
-from .validate import check_tensor, require_same_device
+from .validate import SMEM_PER_BLOCK, check_tensor, require_same_device
 
-# Largest dynamic shared memory one launch may ask for; the batch is split
-# into chunks that fit (each chunk is an independent set of sequences).
-_SMEM_LIMIT = 200 * 1024
+# K3's layout; `csrc/lstm_scan.cu` reports the same numbers
+# (lstm_scan_units_per_cta_max, _max_cluster, _reg_rows, _threads,
+# _smem_bytes), which the card tests compare with these.
+K3_WARPS = 8
+K3_THREADS = 32 * K3_WARPS
+K3_UNITS_PER_WARP = 4
+K3_ROWS_PER_WARP = 4 * K3_UNITS_PER_WARP     # i, f, g, o rows of 4 units
+K3_MAX_UNITS = K3_WARPS * K3_UNITS_PER_WARP  # 32 units per CTA
+K3_REG_ROWS = 12                             # of each warp's 16 rows
+K3_KCHUNK = 128                              # k covered by a float4 per lane
+K3_MAX_H = 4 * K3_KCHUNK
+K3_MAX_CLUSTER = 16                          # non-portable above 8
 
 
 def lstm_cell(h: torch.Tensor, c: torch.Tensor, gates: torch.Tensor
@@ -57,17 +75,79 @@ def lstm_scan_plain(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
     return lstm_recurrence(xp, w_hh, zero, zero)[0]
 
 
-def _units_per_cta(H: int) -> int:
-    # at most 128 CTAs (the H100 has 132 SMs): U = ceil(H / 128)
-    return max(1, -(-H // 128))
+@dataclasses.dataclass(frozen=True)
+class LstmPlan:
+    """K3's launch: `n_clusters` clusters of `cluster` CTAs; CTA r owns
+    hidden units `[r·units_per_cta, (r+1)·units_per_cta)` ∩ `[0, H)`, and
+    cluster k runs batch items k, k + n_clusters, ..."""
+    B: int
+    H: int
+    cluster: int
+    units_per_cta: int
+    n_clusters: int
+    k_chunks: int
+    reg_rows: int     # W_hh rows per CTA held in registers
+    smem_rows: int    # W_hh rows per CTA held in shared memory
+    smem_bytes: int
+
+    def unit_ranges(self) -> tp.List[tp.Tuple[int, int]]:
+        u = self.units_per_cta
+        return [(r * u, min(self.H, (r + 1) * u)) for r in range(self.cluster)]
+
+    def batch_items(self) -> tp.List[tp.List[int]]:
+        return [list(range(k, self.B, self.n_clusters))
+                for k in range(self.n_clusters)]
 
 
-def _batch_chunk(B: int, H: int, U: int, max_cells: int) -> int:
-    R = 4 * U
-    chunk = min(B, max_cells // U)
-    while chunk > 1 and 4 * (R * H + chunk * H + R * chunk + U * chunk) > _SMEM_LIMIT:
-        chunk -= 1
-    return chunk
+def lstm_smem_bytes(H: int) -> int:
+    """Dynamic shared memory of one K3 CTA: its shared W_hh rows and two h
+    buffers, each zero-padded to a multiple of 128 floats, and the two
+    buffers' mbarriers."""
+    hp = -(-H // K3_KCHUNK) * K3_KCHUNK
+    smem_rows = K3_WARPS * (K3_ROWS_PER_WARP - K3_REG_ROWS)
+    return (smem_rows + 2) * hp * 4 + 2 * 8
+
+
+def lstm_plan(B: int, H: int, max_active_clusters: int) -> LstmPlan:
+    """The smallest power-of-two cluster whose CTAs (≤ 32 units each) cover
+    H (H=512 → 16 CTAs of 32 units; H=200 → 8 of 25), and one cluster per
+    batch item up to what the card holds at once (`max_active_clusters`,
+    from `cudaOccupancyMaxActiveClusters` on the card)."""
+    if not 1 <= H <= K3_MAX_H:
+        raise ValueError(f"the K3 kernel takes 1 <= H <= {K3_MAX_H}, got {H}")
+    if max_active_clusters < 1:
+        raise RuntimeError("the card cannot hold one K3 cluster "
+                           f"(max active clusters {max_active_clusters})")
+    cluster = 1
+    while cluster * K3_MAX_UNITS < H:
+        cluster *= 2
+    k_chunks = -(-H // K3_KCHUNK)
+    smem = lstm_smem_bytes(H)
+    assert smem <= SMEM_PER_BLOCK
+    return LstmPlan(B=B, H=H, cluster=cluster, units_per_cta=-(-H // cluster),
+                    n_clusters=max(1, min(B, max_active_clusters)),
+                    k_chunks=k_chunks,
+                    reg_rows=K3_WARPS * K3_REG_ROWS,
+                    smem_rows=K3_WARPS * (K3_ROWS_PER_WARP - K3_REG_ROWS),
+                    smem_bytes=smem)
+
+
+_MAX_ACTIVE: tp.Dict[tp.Tuple[int, int, int], int] = {}
+
+
+def max_active_clusters(H: int, device: torch.device) -> int:
+    """How many K3 clusters for H the card holds at once (cached)."""
+    cluster = lstm_plan(1, H, 1).cluster
+    key = (torch.cuda.current_device() if device.index is None
+           else device.index, H, cluster)
+    if key not in _MAX_ACTIVE:
+        lib = build.load_library("lstm_scan")
+        with torch.cuda.device(device):
+            n = lib.lstm_scan_max_clusters(H, cluster)
+        if n < 0:
+            build.check(lib, "lstm_scan", -n)
+        _MAX_ACTIVE[key] = n
+    return _MAX_ACTIVE[key]
 
 
 def lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
@@ -75,7 +155,7 @@ def lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
 
     xp: `[B, T, 4H]` f32 gate inputs (x W_ihᵀ + b_ih + b_hh); w_hh: `[4H, H]`
     f32 (torch layout). Returns h `[B, T, H]` f32. Both contiguous, on one
-    device."""
+    device. On CUDA: one launch laid out by `lstm_plan`, H ≤ 512."""
     check_tensor("xp", xp, ndim=3)
     check_tensor("w_hh", w_hh, ndim=2)
     require_same_device(xp, w_hh)
@@ -86,27 +166,18 @@ def lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
                          f"w_hh {tuple(w_hh.shape)} (want [B,T,4H], [4H,H])")
     if xp.device.type == "cpu":
         return lstm_scan_plain(xp, w_hh)
+    plan = lstm_plan(B, H, max_active_clusters(H, xp.device))
     lib = build.load_library("lstm_scan")
     out = torch.empty(B, T, H, device=xp.device, dtype=torch.float32)
     if B == 0 or T == 0:
         return out
-    U = _units_per_cta(H)
-    n_blocks = -(-H // U)
-    if n_blocks * T >= 2 ** 32:
-        raise ValueError(f"sequence too long for the barrier counter (T={T})")
-    max_cells = lib.lstm_scan_max_cells()
-    chunk = _batch_chunk(B, H, U, max_cells)
-    stream = torch.cuda.current_stream(xp.device).cuda_stream
     with torch.cuda.device(xp.device):
-        for b0 in range(0, B, chunk):
-            nb = min(chunk, B - b0)
-            counter = torch.zeros(1, dtype=torch.int32, device=xp.device)
-            rc = lib.lstm_scan_launch(
-                xp[b0:b0 + nb].data_ptr(), w_hh.data_ptr(),
-                out[b0:b0 + nb].data_ptr(), counter.data_ptr(),
-                nb, T, H, U, stream)
-            build.check(lib, "lstm_scan", rc)
-            lstm_scan.launches += 1
+        rc = lib.lstm_scan_launch(
+            xp.data_ptr(), w_hh.data_ptr(), out.data_ptr(), B, T, H,
+            plan.cluster, plan.units_per_cta, plan.n_clusters,
+            torch.cuda.current_stream(xp.device).cuda_stream)
+    build.check(lib, "lstm_scan", rc)
+    lstm_scan.launches += 1
     return out
 
 

@@ -10,6 +10,9 @@ from __future__ import annotations
 
 import torch
 
+# Dynamic shared memory one block may use on Hopper (227 KB).
+SMEM_PER_BLOCK = 232_448
+
 
 def check_tensor(name: str, t, *, ndim: int,
                  dtype: torch.dtype = torch.float32) -> None:

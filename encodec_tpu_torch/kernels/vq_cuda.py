@@ -1,13 +1,22 @@
 """K1 and K2: RVQ codebook search — CUDA kernel wrappers and plain twins.
 
 K1 `nearest_codebook` replaces
-`encodec_tpu/kernels/vq_pallas.py::nearest_codebook_pallas`, extended to
+`encodec_tpu/kernels/vq_pallas.py:43::nearest_codebook_pallas`, extended to
 return the top-2 margin the container writer's near-tie guard reads. K2
-`rvq_encode_fused` replaces `vq_pallas.py::rvq_encode_pallas`: every stage
-in one launch with the residual kept on chip. Both kernels live in
-`csrc/vq_search.cu`; at the 24 kHz shapes they are bounded by FP32 FFMA
-throughput (full-f32 dots are required for code parity), and keep the
+`rvq_encode_fused` replaces `vq_pallas.py:124::rvq_encode_pallas`: every
+stage in one launch with the residual kept on chip. Both kernels live in
+`csrc/vq_search.cu`; their work is bounded by FP32 FFMA throughput
+(full-f32 dots are required for code parity), and they keep the
 `[N, bins]` distance matrix out of device memory (see the source).
+
+K1 is a cluster split-bins search: a thread-block cluster of up to 8 CTAs
+shares a 32-row tile and each CTA searches one slice of the bins with a
+4×4 register tile fed by float4 shared loads from a cp.async ring; the
+CTAs merge (best, idx, runner-up) through distributed shared memory,
+lowest index first on exact ties. `nearest_plan` sizes the launch: the
+largest cluster that keeps the grid within one wave of CTA slots, so at
+the main path's N=750 (one stage of a 10 s request) 24 row tiles become
+192 CTAs.
 
 For CPU tensors the wrappers run the plain PyTorch twins; for CUDA tensors
 they launch the kernel or raise — no fallback. `<wrapper>.launches` counts
@@ -16,12 +25,76 @@ kernel launches.
 
 from __future__ import annotations
 
+import dataclasses
 import typing as tp
 
 import torch
 
 from . import build
-from .validate import check_tensor, require_same_device
+from .validate import SMEM_PER_BLOCK, check_tensor, require_same_device
+
+# K1's layout; `csrc/vq_search.cu` reports the same numbers
+# (vq_nearest_rows_per_cta, _tile_bins, _threads, _max_cluster,
+# _smem_bytes), which the card tests compare with these.
+K1_ROWS = 32          # rows of x per cluster tile
+K1_TILE_BINS = 64     # bins per shared-memory ring stage
+K1_STAGES = 2
+K1_THREADS = 128      # 8 row groups x 16 bin groups, 4x4 outputs each
+K1_MAX_CLUSTER = 8    # the portable cluster size
+SMEM_PER_SM = 233_472  # shared memory of one SM (228 KB)
+SMEM_RESERVED = 1_024  # per resident CTA, reserved by the runtime
+
+
+def nearest_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one K1 CTA: the row tile and the ring, rows
+    padded to a stride of 4·(odd) floats, plus four 32-float arrays."""
+    ld = 4 * ((((D + 3) // 4) + 1) | 1)
+    return ((K1_ROWS + K1_STAGES * K1_TILE_BINS) * ld + 4 * K1_ROWS) * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class NearestPlan:
+    """K1's launch: `row_tiles` clusters of `cluster` CTAs; CTA r of a
+    cluster searches bins `[r·bins_per_cta, min(bins, (r+1)·bins_per_cta))`
+    for the cluster's `K1_ROWS` rows."""
+    N: int
+    bins: int
+    row_tiles: int
+    cluster: int
+    bins_per_cta: int
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.row_tiles * self.cluster
+
+    def bin_ranges(self) -> tp.List[tp.Tuple[int, int]]:
+        p = self.bins_per_cta
+        return [(r * p, min(self.bins, (r + 1) * p))
+                for r in range(self.cluster)]
+
+    def row_ranges(self) -> tp.List[tp.Tuple[int, int]]:
+        return [(i * K1_ROWS, min(self.N, (i + 1) * K1_ROWS))
+                for i in range(self.row_tiles)]
+
+
+def nearest_plan(N: int, bins: int, D: int, sm_count: int) -> NearestPlan:
+    """Split the bins over the largest cluster (≤ 8 CTAs, each at least one
+    64-bin stage) that keeps the grid within one wave of CTA slots on
+    `sm_count` SMs; with more row tiles than slots, no split (C=1)."""
+    if N < 0 or bins < 1 or D < 1 or sm_count < 1:
+        raise ValueError(f"bad K1 shape N={N} bins={bins} D={D} "
+                         f"sm_count={sm_count}")
+    smem = nearest_smem_bytes(D)
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"D={D} needs {smem} B of shared memory per CTA "
+                         f"(at most {SMEM_PER_BLOCK})")
+    row_tiles = -(-N // K1_ROWS)
+    slots = sm_count * (SMEM_PER_SM // (smem + SMEM_RESERVED))
+    cluster = max(1, min(K1_MAX_CLUSTER, -(-bins // K1_TILE_BINS),
+                         slots // max(1, row_tiles)))
+    return NearestPlan(N=N, bins=bins, row_tiles=row_tiles, cluster=cluster,
+                       bins_per_cta=-(-bins // cluster), smem_bytes=smem)
 
 
 def distances(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -62,6 +135,10 @@ def rvq_encode_fused_plain(x: torch.Tensor, embed: torch.Tensor, n_q: int,
     return torch.stack(codes).to(torch.int32)
 
 
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _check_search(x: torch.Tensor, embed: torch.Tensor, book_dims: int) -> None:
     check_tensor("x", x, ndim=2)
     check_tensor("embed", embed, ndim=book_dims)
@@ -78,18 +155,22 @@ def nearest_codebook(x: torch.Tensor, embed: torch.Tensor
     """K1: nearest codebook row and top-2 margin for each row of x.
 
     x: `[N, D]` f32, embed: `[bins, D]` f32, contiguous, one device.
-    Returns (idx int32 `[N]`, margin f32 `[N]`)."""
+    Returns (idx int32 `[N]`, margin f32 `[N]`): the first maximum of the
+    negated distance and best minus runner-up (0 on an exact tie). On CUDA
+    the launch follows `nearest_plan`; D is limited by shared memory
+    (D ≤ 352)."""
     _check_search(x, embed, 2)
     if x.device.type == "cpu":
         return nearest_codebook_plain(x, embed)
     lib = build.load_library("vq_search")
     N, D = x.shape
+    plan = nearest_plan(N, embed.shape[0], D, _sm_count(x.device))
     idx = torch.empty(N, dtype=torch.int32, device=x.device)
     margin = torch.empty(N, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.vq_nearest_launch(
             x.data_ptr(), embed.data_ptr(), N, embed.shape[0], D,
-            idx.data_ptr(), margin.data_ptr(),
+            plan.cluster, plan.bins_per_cta, idx.data_ptr(), margin.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "vq_search", rc)
     nearest_codebook.launches += 1
