@@ -10,11 +10,13 @@ Phases, in order (any failure exits non-zero before the last line):
    (one nvcc per source, in parallel);
 3. hold each kernel against its plain PyTorch twin on the card at the
    24 kHz main-path shapes (K1 at N=750 and 3000 rows, including exact
-   duplicate rows in different CTAs' bin ranges; K3 over two layers at
-   B=1 and B=4, T=750, with its cluster plan), and time kernel, twin, one
-   PyTorch library call computing the same function (a yardstick the port
-   never calls) as device time under torch.profiler, beside the card's
-   bound for the same work;
+   duplicate rows in different CTAs' bin ranges; K2 at N=750 and 3000
+   for 8 and 32 stages and a shared book, with its plan, and equal to the
+   K1 chain at every position; K3 over two layers at B=1 and B=4, T=750,
+   with its cluster plan), and time kernel, twin, one PyTorch library call
+   computing the same function (a yardstick the port never calls) as
+   device time under torch.profiler, beside the card's bound for the same
+   work, and the wrappers' per-call time (CUDA events);
 4. drive the main path as a server answering four requests (1, 3, 5.3 and
    10 s of seeded audio) on the full-width 24 kHz model with seeded random
    weights (`kmeans_init=False`, so the books are not all zero): encode at
@@ -23,7 +25,8 @@ Phases, in order (any failure exits non-zero before the last line):
    path must have launched; the outputs are checked, and the codes are held
    against the plain twins' codes on the card;
 5. profile one 10 s request (torch.profiler): device time by kernel group
-   and the device's idle share;
+   and the device's idle share, and K2 in that request beside K2 alone on
+   the request's latents with the L2 cache warm and flushed;
 6. print the `kernels` JSON line, then the final `ok` JSON line.
 
 Imports no JAX. Exits non-zero without printing a result when no CUDA
@@ -82,9 +85,10 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int) -> float:
+def device_ms(torch, fn, iters: int, kernel: str = "") -> float:
     """Mean device time per call of `fn`: the CUDA kernels' own time under
-    torch.profiler, summed over `iters` calls (no host time, no gaps)."""
+    torch.profiler, summed over `iters` calls (no host time, no gaps); with
+    `kernel`, only the kernels whose name contains it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -98,7 +102,8 @@ def device_ms(torch, fn, iters: int) -> float:
                 fn()
             torch.cuda.synchronize()
     us = sum(e.self_device_time_total for e in prof.key_averages()
-             if getattr(e, "device_type", None) == DeviceType.CUDA)
+             if getattr(e, "device_type", None) == DeviceType.CUDA
+             and kernel in e.key)
     check(us > 0, "the profiler recorded no device time")
     return us / iters / 1e3
 
@@ -177,51 +182,87 @@ def phase_k1(torch, kernels, dev):
     return rows[750]
 
 
-def phase_k2(torch, kernels, dev):
-    N, D, bins = 750, 128, 1024
-    x = gauss(torch, (N, D), 20, dev, 0.3)
-    out = None
-    for n_q, shared in ((8, False), (32, False), (8, True)):
-        e = books(torch, (1 if shared else n_q, bins, D), 21 + n_q, dev)
-        codes = kernels.rvq_encode_fused(x, e, n_q, shared)
-        ref = kernels.rvq_encode_fused_plain(x, e, n_q, shared)
-        torch.cuda.synchronize()
-        _, margins = plain_stage_margins(torch, kernels, x, e, n_q, shared)
-        diff = codes != ref
-        first = torch.where(diff.any(0), diff.int().argmax(0), -1)
-        n_diff = int((first >= 0).sum())
-        n_bad = sum(1 for n, k in enumerate(first.tolist())
-                    if k >= 0 and margins[k, n] >= 1e-4)
-        check(n_bad == 0, f"K2 n_q={n_q} shared={shared}: {n_bad} rows "
-                          "differ at plain margin >= 1e-4")
-        # reconstruction difference between the two code sets
-        stage = torch.arange(n_q, device=dev)[:, None] * (0 if shared else 1)
-        err = float((e[stage, codes.long()].sum(0)
-                     - e[stage, ref.long()].sum(0)).abs().max())
-        ms = device_ms(
-            torch, lambda: kernels.rvq_encode_fused(x, e, n_q, shared), 20)
-        plain_ms = device_ms(
-            torch, lambda: kernels.rvq_encode_fused_plain(x, e, n_q, shared), 5)
+def k1_chain(x, e, n_q, shared):
+    """`rvq_encode_margins` of the port (K1 per stage, f32 torch update):
+    the codes K2 must equal bit for bit, [n_q, N]."""
+    from encodec_tpu_torch.quant.rvq import (RVQConfig, RVQState,
+                                             rvq_encode_margins)
 
-        def lib():
-            r = x
-            for k in range(n_q):
-                book = e[0 if shared else k]
-                i = torch.cdist(r, book).argmin(1)
-                r = r - book[i]
-        lib_ms = device_ms(torch, lib, 5)
-        n_books = 1 if shared else n_q
-        b_ms, b_by = bound(2.0 * N * n_q * bins * D,
-                           (N * D + n_books * bins * D + n_q * N) * 4)
-        print(f"K2 rvq_encode_fused N={N} n_q={n_q} shared={shared}: "
-              f"rows differing {n_diff} (all at plain margin < 1e-4: "
-              f"{n_diff - n_bad}); device ms: kernel={ms:.4f} "
-              f"plain={plain_ms:.4f} library(cdist+argmin per stage)="
-              f"{lib_ms:.4f} bound={b_ms:.5f} ({b_by})")
-        if n_q == 32 and not shared:
-            out = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-    return out
+    cfg = RVQConfig(dimension=x.shape[1], n_q=n_q, bins=e.shape[1],
+                    shared_codebook=shared)
+    state = RVQState(embed=e, embed_avg=e, cluster_size=e[..., 0],
+                     inited=True)
+    codes, _ = rvq_encode_margins(state, x[None], cfg, n_q)
+    return codes.reshape(n_q, x.shape[0])
+
+
+def phase_k2(torch, kernels, dev):
+    """K2 at N=750 (every stage of a 10 s request, the main path's shape)
+    and N=3000 (a 40 s request, or 4 x 10 s), n_q = 8, 32, and 8 with one
+    shared book; the JSON row is N=750, n_q=32."""
+    from encodec_tpu_torch.kernels import vq_cuda
+
+    D, bins = 128, 1024
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = {}
+    for N in (750, 4 * 750):
+        plan = vq_cuda.rvq_plan(N, bins, D, sms)
+        print(f"K2 plan N={N} D={D} bins={bins}: {plan.row_tiles} tiles x "
+              f"cluster {plan.cluster} = {plan.ctas} CTAs, "
+              f"{plan.bins_per_cta} bins/CTA, {plan.smem_bytes} B shared "
+              "memory/CTA")
+        x = gauss(torch, (N, D), 20, dev, 0.3)
+        for n_q, shared in ((8, False), (32, False), (8, True)):
+            e = books(torch, (1 if shared else n_q, bins, D), 21 + n_q, dev)
+            codes = kernels.rvq_encode_fused(x, e, n_q, shared)
+            chain = k1_chain(x, e, n_q, shared)
+            ref = kernels.rvq_encode_fused_plain(x, e, n_q, shared)
+            torch.cuda.synchronize()
+            n_chain = int((codes != chain).sum())
+            check(n_chain == 0, f"K2 N={N} n_q={n_q} shared={shared}: "
+                                f"{n_chain} codes differ from the K1 chain")
+            _, margins = plain_stage_margins(torch, kernels, x, e, n_q, shared)
+            diff = codes != ref
+            first = torch.where(diff.any(0), diff.int().argmax(0), -1)
+            n_diff = int((first >= 0).sum())
+            n_bad = sum(1 for n, k in enumerate(first.tolist())
+                        if k >= 0 and margins[k, n] >= 1e-4)
+            check(n_bad == 0, f"K2 N={N} n_q={n_q} shared={shared}: {n_bad} "
+                              "rows differ at plain margin >= 1e-4")
+            # reconstruction difference between the two code sets
+            stage = torch.arange(n_q, device=dev)[:, None] * (0 if shared else 1)
+            err = float((e[stage, codes.long()].sum(0)
+                         - e[stage, ref.long()].sum(0)).abs().max())
+            ms = device_ms(
+                torch, lambda: kernels.rvq_encode_fused(x, e, n_q, shared), 20)
+            call_ms = time_ms(
+                torch, lambda: kernels.rvq_encode_fused(x, e, n_q, shared), 20)
+            plain_ms = device_ms(
+                torch, lambda: kernels.rvq_encode_fused_plain(x, e, n_q, shared),
+                5)
+
+            def lib():
+                r = x
+                for k in range(n_q):
+                    book = e[0 if shared else k]
+                    i = torch.cdist(r, book).argmin(1)
+                    r = r - book[i]
+            lib_ms = device_ms(torch, lib, 5)
+            n_books = 1 if shared else n_q
+            b_ms, b_by = bound(2.0 * N * n_q * bins * D,
+                               (N * D + n_books * bins * D + n_q * N) * 4)
+            print(f"K2 rvq_encode_fused N={N} n_q={n_q} shared={shared}: "
+                  f"codes equal the K1 chain at all {n_q * N} positions; vs "
+                  f"plain: rows differing {n_diff} (all at plain margin < "
+                  f"1e-4: {n_diff - n_bad}); device ms: kernel={ms:.4f} "
+                  f"({ms / n_q * 1e3:.2f} us/stage) plain={plain_ms:.4f} "
+                  f"library(cdist+argmin per stage)={lib_ms:.4f} "
+                  f"bound={b_ms:.5f} ({b_by}); per wrapper call (events)="
+                  f"{call_ms:.4f}")
+            rows[N, n_q, shared] = dict(ms=ms, plain_ms=plain_ms,
+                                        library_ms=lib_ms, bound_ms=b_ms,
+                                        bound_by=b_by, max_abs_err=err)
+    return rows[750, 32, False]
 
 
 def k3_plan_line(torch, dev, H):
@@ -431,7 +472,48 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def phase_profile(torch, model, registry, wav):
+def k2_in_request(torch, kernels, model, wav, request_ms, phase_ms):
+    """K2 as the profiled request ran it, beside K2 alone on the same
+    request's latents with the L2 cache warm (back to back, as in the K2
+    phase) and flushed before each call (as in the request, where the
+    convolutions' activations pass through L2 between encodes)."""
+    from encodec_tpu_torch.models.model import encode_frame_margins
+
+    dev = model.qstate.embed.device
+    n_q = min(model.n_q_active, model.cfg.rvq.n_q)
+    x = torch.from_numpy(wav[None]).to(dev).transpose(1, 2)
+    with torch.inference_mode():
+        _, z, _ = encode_frame_margins(model.infer_params, model.qstate, x,
+                                       model.cfg, n_q)
+    z = z.reshape(-1, z.shape[-1]).contiguous()
+    embed = model.qstate.embed.contiguous()
+    shared = model.cfg.rvq.shared_codebook
+    flush = torch.empty(64 * 2 ** 20, device=dev)  # 256 MiB, 5x the L2
+
+    def run():
+        kernels.rvq_encode_fused(z, embed, n_q, shared)
+
+    def cold():
+        flush.fill_(1.0)
+        run()
+
+    g = gauss(torch, tuple(z.shape), 20, dev, 0.3)
+
+    def gaussian():
+        kernels.rvq_encode_fused(g, embed, n_q, shared)
+
+    warm_ms = device_ms(torch, run, 20, "vq_rvq_kernel")
+    cold_ms = device_ms(torch, cold, 20, "vq_rvq_kernel")
+    g_ms = device_ms(torch, gaussian, 20, "vq_rvq_kernel")
+    return (f"K2 in the 10 s request @ 24 kbps: {request_ms:.4f} ms under the "
+            f"profiler; alone on that request's latents (N={z.shape[0]}, "
+            f"n_q={n_q}): L2 warm {warm_ms:.4f} ms, L2 flushed before each "
+            f"call {cold_ms:.4f} ms; the phase's gaussian rows on the model's "
+            f"books, L2 warm {g_ms:.4f} ms; the K2 phase (N=750, n_q=32, "
+            f"gaussian rows, its own books, L2 warm) {phase_ms:.4f} ms")
+
+
+def phase_profile(torch, kernels, model, registry, wav, k2_phase_ms):
     """Device time of one 10 s request by kernel group (torch.profiler),
     after the counted main path. Wall times here include the profiler's
     own overhead, so the idle share is an upper bound."""
@@ -479,6 +561,9 @@ def phase_profile(torch, model, registry, wav):
               f"{1 - busy / wall_ms:.3f}; by group: {split}")
         for ms, n, key in sorted(top, reverse=True)[:5]:
             print(f"    {ms:8.3f} ms  x{n:<4d} {key}")
+        if bw == 24.0 and fn is codec:
+            print(k2_in_request(torch, kernels, model, wav,
+                                groups.get("K2", 0.0), k2_phase_ms))
 
 
 def main() -> int:
@@ -528,7 +613,7 @@ def main() -> int:
     k2 = phase_k2(torch, kernels, dev)
     k3 = phase_k3(torch, kernels, dev)
     counts, model, registry, wav10 = phase_main_path(torch, kernels, dev)
-    phase_profile(torch, model, registry, wav10)
+    phase_profile(torch, kernels, model, registry, wav10, k2["ms"])
 
     rows = [
         ("K1 nearest_codebook", "vq_search.cu", "vq_pallas.py:43",

@@ -50,7 +50,12 @@ SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
         "vq_nearest_tile_bins": ([], _I),
         "vq_nearest_threads": ([], _I),
         "vq_nearest_max_cluster": ([], _I),
-        "vq_rvq_launch": ([_P, _P, _I, _I, _I, _I, _I, _P, _P], _I),
+        "vq_rvq_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
+        "vq_rvq_smem_bytes": ([_I], _I),
+        "vq_rvq_rows_per_cta": ([], _I),
+        "vq_rvq_tile_bins": ([], _I),
+        "vq_rvq_threads": ([], _I),
+        "vq_rvq_max_cluster": ([], _I),
         "vq_search_error_string": ([_I], ctypes.c_char_p),
     },
 }

@@ -9,14 +9,17 @@ stage in one launch with the residual kept on chip. Both kernels live in
 (full-f32 dots are required for code parity), and they keep the
 `[N, bins]` distance matrix out of device memory (see the source).
 
-K1 is a cluster split-bins search: a thread-block cluster of up to 8 CTAs
-shares a 32-row tile and each CTA searches one slice of the bins with a
-4×4 register tile fed by float4 shared loads from a cp.async ring; the
-CTAs merge (best, idx, runner-up) through distributed shared memory,
-lowest index first on exact ties. `nearest_plan` sizes the launch: the
-largest cluster that keeps the grid within one wave of CTA slots, so at
-the main path's N=750 (one stage of a 10 s request) 24 row tiles become
-192 CTAs.
+Both are one cluster split-bins search: a thread-block cluster of up to 8
+CTAs shares a 32-row tile and each CTA searches one slice of the bins with
+a 4×4 register tile fed by float4 shared loads from a cp.async ring; the
+CTAs merge their results through distributed shared memory, lowest index
+first on exact ties. K2 runs that search once per stage, with the residual
+tile held in every CTA of the cluster for all stages and one cluster
+barrier per stage, so its codes equal K1's run once per stage with the
+f32 update `r −= E[idx]` (`rvq_encode_margins`) bit for bit. `nearest_plan`
+and `rvq_plan` size the launches: the largest cluster that keeps the grid
+within one wave of CTA slots, so at the main path's N=750 (a 10 s request)
+24 row tiles become 192 CTAs.
 
 For CPU tensors the wrappers run the plain PyTorch twins; for CUDA tensors
 they launch the kernel or raise — no fallback. `<wrapper>.launches` counts
@@ -26,6 +29,7 @@ kernel launches.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import typing as tp
 
 import torch
@@ -33,9 +37,10 @@ import torch
 from . import build
 from .validate import SMEM_PER_BLOCK, check_tensor, require_same_device
 
-# K1's layout; `csrc/vq_search.cu` reports the same numbers
-# (vq_nearest_rows_per_cta, _tile_bins, _threads, _max_cluster,
-# _smem_bytes), which the card tests compare with these.
+# The search's layout, shared by K1 and K2; `csrc/vq_search.cu` reports
+# the same numbers (vq_nearest_* and vq_rvq_*: rows_per_cta, tile_bins,
+# threads, max_cluster, smem_bytes), which the card tests compare with
+# these.
 K1_ROWS = 32          # rows of x per cluster tile
 K1_TILE_BINS = 64     # bins per shared-memory ring stage
 K1_STAGES = 2
@@ -45,16 +50,29 @@ SMEM_PER_SM = 233_472  # shared memory of one SM (228 KB)
 SMEM_RESERVED = 1_024  # per resident CTA, reserved by the runtime
 
 
-def nearest_smem_bytes(D: int) -> int:
-    """Dynamic shared memory of one K1 CTA: the row tile and the ring, rows
-    padded to a stride of 4·(odd) floats, plus four 32-float arrays."""
+def _tiles_bytes(D: int) -> int:
+    """The row tile and the ring, rows padded to a stride of 4·(odd)
+    floats (conflict-free float4 loads)."""
     ld = 4 * ((((D + 3) // 4) + 1) | 1)
-    return ((K1_ROWS + K1_STAGES * K1_TILE_BINS) * ld + 4 * K1_ROWS) * 4
+    return (K1_ROWS + K1_STAGES * K1_TILE_BINS) * ld * 4
+
+
+def nearest_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one K1 CTA: the row tile and the ring, plus
+    four 32-float arrays (‖x‖², and the slice's best, index, runner-up)."""
+    return _tiles_bytes(D) + 4 * K1_ROWS * 4
+
+
+def rvq_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one K2 CTA: the residual tile and the ring,
+    plus ‖x‖² [32], two stage buffers of 32 (best, index) pairs, and the
+    merged indices [32]."""
+    return _tiles_bytes(D) + 6 * K1_ROWS * 4
 
 
 @dataclasses.dataclass(frozen=True)
-class NearestPlan:
-    """K1's launch: `row_tiles` clusters of `cluster` CTAs; CTA r of a
+class SearchPlan:
+    """A K1 or K2 launch: `row_tiles` clusters of `cluster` CTAs; CTA r of a
     cluster searches bins `[r·bins_per_cta, min(bins, (r+1)·bins_per_cta))`
     for the cluster's `K1_ROWS` rows."""
     N: int
@@ -78,23 +96,36 @@ class NearestPlan:
                 for i in range(self.row_tiles)]
 
 
-def nearest_plan(N: int, bins: int, D: int, sm_count: int) -> NearestPlan:
+def _split_plan(kernel: str, N: int, bins: int, D: int, sm_count: int,
+                smem: int) -> SearchPlan:
     """Split the bins over the largest cluster (≤ 8 CTAs, each at least one
     64-bin stage) that keeps the grid within one wave of CTA slots on
     `sm_count` SMs; with more row tiles than slots, no split (C=1)."""
     if N < 0 or bins < 1 or D < 1 or sm_count < 1:
-        raise ValueError(f"bad K1 shape N={N} bins={bins} D={D} "
+        raise ValueError(f"bad {kernel} shape N={N} bins={bins} D={D} "
                          f"sm_count={sm_count}")
-    smem = nearest_smem_bytes(D)
     if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"D={D} needs {smem} B of shared memory per CTA "
-                         f"(at most {SMEM_PER_BLOCK})")
+        raise ValueError(f"{kernel}: D={D} needs {smem} B of shared memory "
+                         f"per CTA (at most {SMEM_PER_BLOCK})")
     row_tiles = -(-N // K1_ROWS)
     slots = sm_count * (SMEM_PER_SM // (smem + SMEM_RESERVED))
     cluster = max(1, min(K1_MAX_CLUSTER, -(-bins // K1_TILE_BINS),
                          slots // max(1, row_tiles)))
-    return NearestPlan(N=N, bins=bins, row_tiles=row_tiles, cluster=cluster,
-                       bins_per_cta=-(-bins // cluster), smem_bytes=smem)
+    return SearchPlan(N=N, bins=bins, row_tiles=row_tiles, cluster=cluster,
+                      bins_per_cta=-(-bins // cluster), smem_bytes=smem)
+
+
+@functools.lru_cache(maxsize=256)
+def nearest_plan(N: int, bins: int, D: int, sm_count: int) -> SearchPlan:
+    """K1's launch (see `_split_plan`); D ≤ 352."""
+    return _split_plan("K1", N, bins, D, sm_count, nearest_smem_bytes(D))
+
+
+@functools.lru_cache(maxsize=256)
+def rvq_plan(N: int, bins: int, D: int, sm_count: int) -> SearchPlan:
+    """K2's launch (see `_split_plan`), from K2's own shared memory; the
+    same split serves every stage. D ≤ 352."""
+    return _split_plan("K2", N, bins, D, sm_count, rvq_smem_bytes(D))
 
 
 def distances(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
@@ -135,6 +166,7 @@ def rvq_encode_fused_plain(x: torch.Tensor, embed: torch.Tensor, n_q: int,
     return torch.stack(codes).to(torch.int32)
 
 
+@functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
@@ -167,6 +199,8 @@ def nearest_codebook(x: torch.Tensor, embed: torch.Tensor
     plan = nearest_plan(N, embed.shape[0], D, _sm_count(x.device))
     idx = torch.empty(N, dtype=torch.int32, device=x.device)
     margin = torch.empty(N, dtype=torch.float32, device=x.device)
+    if N == 0:
+        return idx, margin
     with torch.cuda.device(x.device):
         rc = lib.vq_nearest_launch(
             x.data_ptr(), embed.data_ptr(), N, embed.shape[0], D,
@@ -182,19 +216,25 @@ def rvq_encode_fused(x: torch.Tensor, embed: torch.Tensor, n_q: int,
     """K2: full residual-VQ encode in one launch.
 
     x: `[N, D]` f32; embed: `[n_books, bins, D]` f32 (book 0 reused for
-    every stage when `shared`). Returns codes `[n_q, N]` int32."""
+    every stage when `shared`). Returns codes `[n_q, N]` int32: on CUDA
+    the same codes as K1 run once per stage with the f32 update
+    `r −= E[idx]`, bit for bit. The launch follows `rvq_plan`; D ≤ 352."""
     _check_search(x, embed, 3)
-    if n_q < 0 or (not shared and n_q > embed.shape[0]):
+    books_needed = min(n_q, 1) if shared else n_q
+    if n_q < 0 or books_needed > embed.shape[0]:
         raise ValueError(f"n_q={n_q} but {embed.shape[0]} codebooks")
     if x.device.type == "cpu":
         return rvq_encode_fused_plain(x, embed, n_q, shared)
     lib = build.load_library("vq_search")
     N, D = x.shape
+    plan = rvq_plan(N, embed.shape[1], D, _sm_count(x.device))
     codes = torch.empty(n_q, N, dtype=torch.int32, device=x.device)
+    if N == 0 or n_q == 0:
+        return codes
     with torch.cuda.device(x.device):
         rc = lib.vq_rvq_launch(
             x.data_ptr(), embed.data_ptr(), N, embed.shape[1], D, n_q,
-            int(shared), codes.data_ptr(),
+            int(shared), plan.cluster, plan.bins_per_cta, codes.data_ptr(),
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "vq_search", rc)
     rvq_encode_fused.launches += 1

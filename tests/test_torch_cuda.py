@@ -15,6 +15,7 @@ from encodec_tpu_torch.kernels import (build, lstm_cuda, lstm_scan,
                                        lstm_scan_plain, nearest_codebook,
                                        nearest_codebook_plain, rvq_encode_fused,
                                        rvq_encode_fused_plain, vq_cuda)
+from encodec_tpu_torch.quant.rvq import RVQConfig, RVQState, rvq_encode_margins
 
 pytestmark = pytest.mark.cuda
 
@@ -111,6 +112,12 @@ def test_kernel_layouts_match_the_plans(dev):
     assert vq.vq_nearest_max_cluster() == vq_cuda.K1_MAX_CLUSTER
     for D in (7, 48, 128, 256, 352):
         assert vq.vq_nearest_smem_bytes(D) == vq_cuda.nearest_smem_bytes(D)
+    assert vq.vq_rvq_rows_per_cta() == vq_cuda.K1_ROWS
+    assert vq.vq_rvq_tile_bins() == vq_cuda.K1_TILE_BINS
+    assert vq.vq_rvq_threads() == vq_cuda.K1_THREADS
+    assert vq.vq_rvq_max_cluster() == vq_cuda.K1_MAX_CLUSTER
+    for D in (1, 7, 30, 48, 128, 256, 352):
+        assert vq.vq_rvq_smem_bytes(D) == vq_cuda.rvq_smem_bytes(D)
     ls = build.load_library("lstm_scan")
     assert ls.lstm_scan_units_per_cta_max() == lstm_cuda.K3_MAX_UNITS
     assert ls.lstm_scan_max_cluster() == lstm_cuda.K3_MAX_CLUSTER
@@ -122,11 +129,27 @@ def test_kernel_layouts_match_the_plans(dev):
     assert lstm_cuda.max_active_clusters(512, dev) >= 1
 
 
-@pytest.mark.parametrize("n_q,shared", [(8, False), (32, False), (8, True)])
-def test_fused_rvq_kernel_matches_plain(dev, n_q, shared):
-    N, D, bins = 750, 128, 1024
-    e = _books((1 if shared else n_q, bins, D), 2, dev)
-    x = _rand((N, D), 3, dev, scale=0.3)
+# the fused kernel's edge shapes: rows that do not fill a tile (751, 37),
+# the main path's split (750: 8 CTAs of 128 bins) and a 2-CTA split (3000),
+# bins that the split does not divide (1000, 100), D not a multiple of 4,
+# one stage, all 32, and one shared book
+RVQ_SHAPES = [(750, 128, 1024, 8, False), (750, 128, 1024, 32, False),
+              (750, 128, 1024, 8, True), (751, 128, 1000, 32, False),
+              (3000, 128, 1024, 32, False), (3000, 128, 1024, 8, True),
+              (37, 30, 100, 8, False), (37, 128, 256, 1, False),
+              (751, 30, 1000, 8, True), (37, 128, 100, 32, True),
+              (3000, 30, 256, 1, False), (5, 30, 7, 32, False)]
+
+
+def _rvq_inputs(dev, N, D, bins, n_q, shared, seed):
+    e = _books((1 if shared else n_q, bins, D), seed, dev)
+    x = _rand((N, D), seed + 1, dev, scale=0.3)
+    return x, e
+
+
+@pytest.mark.parametrize("N,D,bins,n_q,shared", RVQ_SHAPES)
+def test_fused_rvq_kernel_matches_plain(dev, N, D, bins, n_q, shared):
+    x, e = _rvq_inputs(dev, N, D, bins, n_q, shared, 2)
     codes = rvq_encode_fused(x, e, n_q, shared)
     ref = rvq_encode_fused_plain(x, e, n_q, shared)
     torch.cuda.synchronize()
@@ -136,6 +159,64 @@ def test_fused_rvq_kernel_matches_plain(dev, n_q, shared):
     bad = [(k, n) for n, k in enumerate(first.tolist())
            if k >= 0 and margins[k, n] >= 1e-4]
     assert not bad, bad[:10]
+
+
+def _k1_chain(x, e, n_q, shared):
+    """`rvq_encode_margins` (K1 per stage, torch f32 update) on [1, N, D]."""
+    N, D = x.shape
+    cfg = RVQConfig(dimension=D, n_q=n_q, bins=e.shape[1],
+                    shared_codebook=shared)
+    state = RVQState(embed=e, embed_avg=e, cluster_size=e[..., 0],
+                     inited=True)
+    codes, _ = rvq_encode_margins(state, x[None], cfg, n_q)
+    return codes.reshape(n_q, N)
+
+
+@pytest.mark.parametrize("N,D,bins,n_q,shared", RVQ_SHAPES)
+def test_fused_rvq_kernel_equals_k1_chain_exactly(dev, N, D, bins, n_q,
+                                                  shared):
+    # the same IEEE operations in the same order: equal at every position,
+    # near-ties included
+    x, e = _rvq_inputs(dev, N, D, bins, n_q, shared, 12)
+    codes = rvq_encode_fused(x, e, n_q, shared)
+    chain = _k1_chain(x, e, n_q, shared)
+    torch.cuda.synchronize()
+    assert torch.equal(codes, chain), int((codes != chain).sum())
+
+
+@pytest.mark.parametrize("bins,dups", [(1024, (900, 5, 700)),
+                                       (1000, (999, 130, 126)),
+                                       (100, (60, 10, 49))])
+def test_fused_rvq_kernel_duplicates_across_ctas_in_a_later_stage(
+        dev, bins, dups):
+    # stages 0-2 use books 1000x smaller than stage 3's, so the residual
+    # reaching stage 3 is x up to 1e-3; x sits next to row dups[0] of book
+    # 3, which is duplicated at bins in different CTAs' ranges
+    N, D, n_q, k = 751, 128, 4, 3
+    plan = vq_cuda.rvq_plan(
+        N, bins, D, torch.cuda.get_device_properties(dev).multi_processor_count)
+    assert len({j // plan.bins_per_cta for j in dups}) > 1, (plan, dups)
+    e = _books((n_q, bins, D), 16, dev)
+    e[:k] *= 1e-3
+    for j in dups[1:]:
+        e[k, j] = e[k, dups[0]]
+    x = (e[k, dups[0]][None] + _rand((N, D), 17, dev, scale=1e-4)).contiguous()
+    codes = rvq_encode_fused(x, e, n_q)
+    chain = _k1_chain(x, e, n_q, False)
+    torch.cuda.synchronize()
+    assert codes[k].tolist() == [min(dups)] * N
+    assert torch.equal(codes, chain)
+
+
+def test_fused_rvq_kernel_empty_and_refused_shapes(dev):
+    e = _books((2, 64, 16), 18, dev)
+    before = rvq_encode_fused.launches
+    assert rvq_encode_fused(_rand((10, 16), 19, dev), e, 0).shape == (0, 10)
+    assert rvq_encode_fused(_rand((0, 16), 19, dev), e, 2).shape == (2, 0)
+    assert rvq_encode_fused.launches == before
+    with pytest.raises(ValueError):
+        rvq_encode_fused(_rand((10, 353), 19, dev),
+                         torch.zeros(1, 64, 353, device=dev), 1)
 
 
 @pytest.mark.parametrize("B,T,H", [(4, 750, 512), (2, 37, 32), (1, 5, 64),

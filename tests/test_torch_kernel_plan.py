@@ -3,7 +3,8 @@ is checked here on the CPU (the kernels themselves run only on the GPU:
 `tests/test_torch_cuda.py`, which also checks that each kernel reports the
 layout constants these plans assume).
 
-K1 (`vq_cuda.nearest_plan`): row tiles and the cluster's split of the bins.
+K1 (`vq_cuda.nearest_plan`) and K2 (`vq_cuda.rvq_plan`): row tiles and
+the cluster's split of the bins, each from its kernel's shared memory.
 K3 (`lstm_cuda.lstm_plan`): units per CTA, the register/shared-memory split
 of W_hh, the h messages between the cluster's CTAs, and the batch spread
 over clusters. Every plan must fit one block's shared memory and cover
@@ -72,6 +73,71 @@ def test_nearest_plan_smem_layout():
         vq_cuda.nearest_plan(10, 1024, 353, H100_SMS)
     with pytest.raises(ValueError):
         vq_cuda.nearest_plan(10, 0, 128, H100_SMS)
+
+
+SHAPES = [(750, 1024, 128), (3000, 1024, 128), (751, 1024, 128), (37, 100, 48),
+          (750, 1000, 128), (1, 1, 4), (5, 7, 30), (600, 256, 256),
+          (75, 128, 32), (10, 1024, 352), (100000, 1024, 128), (225, 65, 128)]
+
+
+@pytest.mark.parametrize("N,bins,D", SHAPES)
+def test_rvq_plan_covers_rows_and_bins_once(N, bins, D):
+    plan = vq_cuda.rvq_plan(N, bins, D, H100_SMS)
+    _covers_once(plan.bin_ranges(), bins)
+    _covers_once(plan.row_ranges(), N)
+    assert len(plan.bin_ranges()) == plan.cluster
+    assert 1 <= plan.cluster <= vq_cuda.K1_MAX_CLUSTER
+    # the launch's own check (vq_rvq_launch)
+    assert (plan.cluster - 1) * plan.bins_per_cta < bins <= (
+        plan.cluster * plan.bins_per_cta)
+    assert plan.smem_bytes == vq_cuda.rvq_smem_bytes(D) <= SMEM_PER_BLOCK
+    # one wave of CTA slots, counted with K2's own shared memory
+    per_sm = vq_cuda.SMEM_PER_SM // (plan.smem_bytes + vq_cuda.SMEM_RESERVED)
+    assert per_sm >= 1
+    assert plan.cluster == 1 or plan.ctas <= H100_SMS * per_sm
+
+
+def test_rvq_plan_at_main_path_shapes():
+    # all 32 stages of a 10 s request: 24 row tiles x 8 CTAs of 128 bins;
+    # a 40 s request (or 4 x 10 s): 94 tiles x 2
+    p750 = vq_cuda.rvq_plan(750, 1024, 128, H100_SMS)
+    assert (p750.row_tiles, p750.cluster, p750.bins_per_cta) == (24, 8, 128)
+    assert p750.ctas == 192
+    p3000 = vq_cuda.rvq_plan(3000, 1024, 128, H100_SMS)
+    assert (p3000.row_tiles, p3000.cluster, p3000.bins_per_cta) == (94, 2, 512)
+    # K2's CTA is larger than K1's but holds the same two slots per SM
+    assert vq_cuda.rvq_smem_bytes(128) > vq_cuda.nearest_smem_bytes(128)
+    assert vq_cuda.rvq_plan(751, 100, 128, H100_SMS).bin_ranges() == [
+        (0, 50), (50, 100)]
+
+
+def test_rvq_plan_smem_layout():
+    # the source's layout: residual tile [32][ld] and ring [2][64][ld],
+    # then |x|^2 [32], (best, idx) pairs [2][32], merged indices [32]
+    for D in (1, 4, 30, 48, 100, 128, 256, 352):
+        stride = 4 * ((((D + 3) // 4) + 1) | 1)
+        assert stride >= D + 4 and (stride // 4) % 2 == 1
+        floats = (32 + 2 * 64) * stride + 32 + 2 * 2 * 32 + 32
+        assert vq_cuda.rvq_smem_bytes(D) == floats * 4
+        # the (best, idx) pairs are 8-byte aligned
+        assert ((32 + 2 * 64) * stride + 32) * 4 % 8 == 0
+    assert vq_cuda.rvq_smem_bytes(352) <= SMEM_PER_BLOCK
+    assert vq_cuda.rvq_smem_bytes(353) > SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("N,bins,D", [(10, 1024, 353), (10, 0, 128),
+                                      (10, 1024, 0), (-1, 1024, 128),
+                                      (10, 1024, 4096)])
+def test_rvq_plan_refuses_what_the_kernel_cannot_take(N, bins, D):
+    with pytest.raises(ValueError):
+        vq_cuda.rvq_plan(N, bins, D, H100_SMS)
+
+
+def test_plans_are_cached_per_shape():
+    assert vq_cuda.rvq_plan(750, 1024, 128, H100_SMS) is vq_cuda.rvq_plan(
+        750, 1024, 128, H100_SMS)
+    assert vq_cuda.nearest_plan(750, 1024, 128, H100_SMS) is (
+        vq_cuda.nearest_plan(750, 1024, 128, H100_SMS))
 
 
 def _k3_rows(plan):
