@@ -9,25 +9,34 @@ Phases, in order (any failure exits non-zero before the last line):
 2. build every hand-written kernel from `encodec_tpu_torch/kernels/csrc`
    (one nvcc per source, in parallel);
 3. hold each kernel against its plain PyTorch twin on the card at the
-   24 kHz main-path shapes (K1 at N=750 and 3000 rows, including exact
-   duplicate rows in different CTAs' bin ranges; K2 at N=750 and 3000
-   for 8 and 32 stages and a shared book, with its plan, and equal to the
-   K1 chain at every position; K3 over two layers at B=1 and B=4, T=750,
-   with its cluster plan), and time kernel, twin, one PyTorch library call
-   computing the same function (a yardstick the port never calls) as
+   24 kHz and 48 kHz main-path shapes (K1 at N=750, 1500 and 3000 rows,
+   including exact duplicate rows in different CTAs' bin ranges; K2 at
+   N=750 and 3000 for 8 and 32 stages and a shared book and at N=1500 for
+   16 stages, with its plan, and equal to the K1 chain at every position;
+   K3 over two layers at B=1 and B=4, T=750, and at B=10, T=150 and B=1,
+   T=15, with its cluster plan), and time kernel, twin, one PyTorch library
+   call computing the same function (a yardstick the port never calls) as
    device time under torch.profiler, beside the card's bound for the same
    work, and the wrappers' per-call time (CUDA events);
-4. drive the main path as a server answering four requests (1, 3, 5.3 and
-   10 s of seeded audio) on the full-width 24 kHz model with seeded random
-   weights (`kmeans_init=False`, so the books are not all zero): encode at
-   6 and 24 kbps, decode, and a raw `.ecdc` compress → decompress roundtrip;
-   launch counts are zeroed before and read after, and every kernel of the
-   path must have launched; the outputs are checked, and the codes are held
-   against the plain twins' codes on the card;
+4. drive the 24 kHz main path as a server answering four requests (1, 3,
+   5.3 and 10 s of seeded audio) on the full-width 24 kHz model with seeded
+   random weights (`kmeans_init=False`, so the books are not all zero):
+   encode at 6 and 24 kbps, decode, and a raw `.ecdc` compress → decompress
+   roundtrip; launch counts are zeroed before and read after, and every
+   kernel of the path must have launched; the outputs are checked, and the
+   codes are held against the plain twins' codes on the card;
 5. profile one 10 s request (torch.profiler): device time by kernel group
    and the device's idle share, and K2 in that request beside K2 alone on
    the request's latents with the L2 cache warm and flushed;
-6. print the `kernels` JSON line, then the final `ok` JSON line.
+6. drive the 48 kHz stereo path the same way on the full-width 48 kHz
+   model (1, 5.3 and 10 s requests and one of 95,100 samples, whose last
+   two segments are both short), with its own launch counts; check the
+   segment layout, audio shapes, that each `.ecdc` holds the writer's codes
+   and, bit for bit, its scales, and the codes against the plain twins';
+7. profile one 10 s 48 kHz request at 24 kbps by kernel group, and run
+   the CLI's `-q -b 24` compression and its decompression on the card;
+8. print the `kernels` JSON line (launches per path), then the final `ok`
+   JSON line.
 
 Imports no JAX. Exits non-zero without printing a result when no CUDA
 device is present or the port's package is not next to this script.
@@ -38,6 +47,7 @@ from __future__ import annotations
 import io
 import json
 import math
+import struct
 import subprocess
 import sys
 import time
@@ -134,8 +144,9 @@ def gauss(torch, shape, seed, dev, scale):
 
 
 def phase_k1(torch, kernels, dev):
-    """K1 at N=750 (one RVQ stage of a 10 s request, the main path's
-    shape) and N=3000; the JSON row is N=750."""
+    """K1 at N=750 (one RVQ stage of a 10 s 24 kHz request, the main path's
+    shape), N=1500 (a 10 s 48 kHz request: 10 segments of 150 frames) and
+    N=3000; the JSON row is N=750."""
     from encodec_tpu_torch.kernels import vq_cuda
 
     D, bins = 128, 1024
@@ -147,7 +158,7 @@ def phase_k1(torch, kernels, dev):
     for j in dups[1:]:
         e_dup[j] = e_dup[dups[0]]
     rows = {}
-    for N in (750, 4 * 750):
+    for N in (750, 1500, 4 * 750):
         plan = vq_cuda.nearest_plan(N, bins, D, sms)
         x = gauss(torch, (N, D), 10, dev, 0.3)
         idx, margin = kernels.nearest_codebook(x, e)
@@ -196,23 +207,29 @@ def k1_chain(x, e, n_q, shared):
     return codes.reshape(n_q, x.shape[0])
 
 
+K2_CASES = {750: ((8, False), (32, False), (8, True)),
+            1500: ((16, False),),
+            3000: ((8, False), (32, False), (8, True))}
+
+
 def phase_k2(torch, kernels, dev):
-    """K2 at N=750 (every stage of a 10 s request, the main path's shape)
-    and N=3000 (a 40 s request, or 4 x 10 s), n_q = 8, 32, and 8 with one
-    shared book; the JSON row is N=750, n_q=32."""
+    """K2 at N=750 (every stage of a 10 s 24 kHz request, the main path's
+    shape) and N=3000 (a 40 s request, or 4 x 10 s), n_q = 8, 32, and 8
+    with one shared book, and at N=1500, n_q=16 (a 10 s 48 kHz request at
+    24 kbps); the JSON row is N=750, n_q=32."""
     from encodec_tpu_torch.kernels import vq_cuda
 
     D, bins = 128, 1024
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = {}
-    for N in (750, 4 * 750):
+    for N, cases in K2_CASES.items():
         plan = vq_cuda.rvq_plan(N, bins, D, sms)
         print(f"K2 plan N={N} D={D} bins={bins}: {plan.row_tiles} tiles x "
               f"cluster {plan.cluster} = {plan.ctas} CTAs, "
               f"{plan.bins_per_cta} bins/CTA, {plan.smem_bytes} B shared "
               "memory/CTA")
         x = gauss(torch, (N, D), 20, dev, 0.3)
-        for n_q, shared in ((8, False), (32, False), (8, True)):
+        for n_q, shared in cases:
             e = books(torch, (1 if shared else n_q, bins, D), 21 + n_q, dev)
             codes = kernels.rvq_encode_fused(x, e, n_q, shared)
             chain = k1_chain(x, e, n_q, shared)
@@ -287,9 +304,12 @@ def k3_plan_line(torch, dev, H):
 
 
 def phase_k3(torch, kernels, dev):
-    """K3 per layer at T=750, H=512 (a 10 s request's LSTM) at the served
-    batch B=1 and at B=4; the JSON row is B=1."""
-    T, H = 750, 512
+    """K3 per layer at H=512: T=750 (a 10 s 24 kHz request's LSTM) at the
+    served batch B=1 and at B=4; B=10, T=150 (a 10 s 48 kHz request's ten
+    full segments, one batch: more sequences than the card's K3 clusters,
+    so some clusters run a second pass) and B=1, T=15 (its 0.1 s tail). The
+    JSON row is B=1, T=750."""
+    H = 512
     lim = 1.0 / math.sqrt(H)
     rng = np.random.RandomState(31)
     layers = [{k: torch.from_numpy(rng.uniform(-lim, lim, s).astype(np.float32)).to(dev)
@@ -306,7 +326,7 @@ def phase_k3(torch, kernels, dev):
         cudnn.bias_ih_l0.zero_()
         cudnn.bias_hh_l0.zero_()
     rows = {}
-    for B in (1, 4):
+    for B, T in ((1, 750), (4, 750), (10, 150), (1, 15)):
         x = gauss(torch, (B, T, H), 30, dev, 0.5)
 
         def stack(scan):
@@ -320,8 +340,8 @@ def phase_k3(torch, kernels, dev):
         ref = stack(kernels.lstm_scan_plain)
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        # 750 recurrent steps sum in another order than cuBLAS
-        check(err <= 1e-4, f"K3 B={B}: 2-layer max|d| {err} > 1e-4")
+        # up to 750 recurrent steps sum in another order than cuBLAS
+        check(err <= 1e-4, f"K3 B={B} T={T}: 2-layer max|d| {err} > 1e-4")
         xp = (x @ layers[0]["w_ih"].t() + layers[0]["b"]).contiguous()
         ms = device_ms(torch, lambda: kernels.lstm_scan(xp, w_hh), 10)
         plain_ms = device_ms(torch, lambda: kernels.lstm_scan_plain(xp, w_hh), 2)
@@ -336,9 +356,9 @@ def phase_k3(torch, kernels, dev):
               f"kernel={ms:.4f} ({ms / T * 1e3:.3f} us/step) "
               f"plain={plain_ms:.4f} library(cuDNN LSTM)={lib_ms:.4f} "
               f"({lib_ms / T * 1e3:.3f} us/step) bound={b_ms:.5f} ({b_by})")
-        rows[B] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
-    return rows[1]
+        rows[B, T] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
+    return rows[1, 750]
 
 
 def request_audio(seconds: float, sr: int, seed: int) -> np.ndarray:
@@ -432,10 +452,10 @@ def phase_main_path(torch, kernels, dev):
                                  r["n_q"])
         torch.cuda.synchronize()
         t_device = time.perf_counter() - t0
-        plain = encode_frame(model.infer_params, model.qstate, x, cfg,
-                             r["n_q"], plain=True)
-        _, _, margins = encode_frame_margins(model.infer_params, model.qstate,
-                                             x, cfg, r["n_q"], plain=True)
+        plain, _ = encode_frame(model.infer_params, model.qstate, x, cfg,
+                                r["n_q"], plain=True)
+        _, _, _, margins = encode_frame_margins(
+            model.infer_params, model.qstate, x, cfg, r["n_q"], plain=True)
         flagged = (margins < TIE_THRESHOLD).any(1)[0]          # [T']
         diff = (plain != codes).any(1)[0]                      # [T']
         n_unflagged = int((diff & ~flagged).sum())
@@ -454,6 +474,195 @@ def phase_main_path(torch, kernels, dev):
     print(f"main path vs plain twins: {total_diff} differing positions, all "
           f"inside the {total_flagged} tie-flagged ones")
     return counts, model, registry, requests[-1][1]
+
+
+def phase_cli_48(model) -> None:
+    """`python -m encodec_tpu_torch in.wav out.ecdc -q -b 24` and its
+    decompression, in process on the card, with the registry's 48 kHz
+    factory returning the phase's random-weight model (the published
+    checkpoint is not in the repository)."""
+    import dataclasses
+    import tempfile
+    from unittest import mock
+
+    from encodec_tpu_torch import __main__ as cli
+    from encodec_tpu_torch.models import model as model_mod
+    from encodec_tpu_torch.utils.audio import load_wav, save_wav
+
+    # the name the CLI's registry and the .ecdc header carry
+    named = model_mod.EncodecModel(
+        dataclasses.replace(model.cfg, name="encodec_48khz"), model.params,
+        model.qstate, device=model.device)
+
+    def factory(pretrained=True, repository=None, device="cuda"):
+        check(device == "cuda", f"the CLI asked for device {device}")
+        return named
+
+    n = 3 * named.sample_rate
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.dict(model_mod.MODELS, {"encodec_48khz": factory}):
+        src, ecdc, out = (Path(tmp) / f for f in ("in.wav", "o.ecdc", "o.wav"))
+        save_wav(stereo_audio(n, named.sample_rate, 300)[:1], src,
+                 named.sample_rate)
+        t0 = time.perf_counter()
+        for argv in ([str(src), str(ecdc), "-q", "-b", "24"],
+                     [str(ecdc), str(out)]):
+            with mock.patch.object(sys, "argv", ["encodec_tpu_torch", *argv]):
+                cli.main()
+        wall = time.perf_counter() - t0
+        wav, sr = load_wav(out)
+        check(sr == named.sample_rate and wav.shape == (2, n)
+              and bool(np.isfinite(wav).all()),
+              f"CLI roundtrip gave {wav.shape} at {sr} Hz")
+        print(f"CLI -q -b 24: mono 3 s wav -> {ecdc.stat().st_size} B .ecdc "
+              f"-> stereo wav {wav.shape} at {sr} Hz in {wall:.2f} s")
+
+
+def stereo_audio(n: int, sr: int, seed: int) -> np.ndarray:
+    """Seeded noise plus two tones on each of two channels, [2, n] float32."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / sr
+    wav = (0.05 * rng.randn(2, n)
+           + 0.3 * np.sin(2 * np.pi * 440.0 * t + rng.uniform(0, np.pi, (2, 1)))
+           + 0.2 * np.sin(2 * np.pi * 1230.0 * t))
+    return np.clip(wav, -0.99, 0.99).astype(np.float32)
+
+
+def ecdc_records(data: bytes, model) -> tuple:
+    """A segmented raw `.ecdc` split into its header and, per segment, the
+    4-byte scale field and the codes `[K, T']` unpacked from its bytes."""
+    from encodec_tpu_torch.stream import binary
+
+    fo = io.BytesIO(data)
+    meta = binary.read_ecdc_header(fo)
+    records = []
+    for _, n in model.cfg.segments(meta["al"]):
+        frames = math.ceil(n * model.frame_rate / model.sample_rate)
+        scale = fo.read(4)
+        nbytes = (frames * meta["nc"] * model.bits_per_codebook + 7) // 8
+        vals = binary.unpack_bits(fo.read(nbytes), model.bits_per_codebook,
+                                  count=frames * meta["nc"])
+        records.append((scale, vals.reshape(frames, meta["nc"]).T))
+    check(fo.read() == b"", "bytes left over after the last segment")
+    return meta, records
+
+
+def phase_main_path_48(torch, kernels, dev):
+    """The 48 kHz stereo codec at full width, served like the 24 kHz one:
+    1, 5.3 and 10 s requests and one of 95,100 samples (segments of 48000,
+    47580 and 60 samples: the last two are both short), each at 6 and 24
+    kbps, encode → decode and compress → decompress. Launches are counted
+    for this phase alone."""
+    from encodec_tpu_torch.models import encodec_model_48khz
+    from encodec_tpu_torch.models.model import (encode_frame,
+                                                encode_frame_margins)
+    from encodec_tpu_torch.stream import compress, decompress
+
+    model = encodec_model_48khz(kmeans_init=False, device=dev)
+    registry = {model.name: lambda pretrained=True: model}
+    cfg = model.cfg
+    check(cfg.seanet.n_filters == 32 and cfg.seanet.dimension == 128
+          and cfg.rvq.bins == 1024 and cfg.rvq.n_q == 16
+          and cfg.channels == 2 and not cfg.seanet.causal
+          and cfg.seanet.norm == "time_group_norm" and cfg.normalize
+          and cfg.segment_length == 48_000 and cfg.segment_stride == 47_520,
+          "not the full-width 48 kHz configuration")
+    sr = model.sample_rate
+    requests = [(n, stereo_audio(n, sr, 200 + 2 * i)) for i, n in
+                enumerate((48_000, 254_400, 480_000, 95_100))]
+
+    # -- the served path, counted: nothing but user calls in here -------
+    kernels.reset_launch_counts()
+    served = []
+    for n, wav in requests:
+        for bw in (6.0, 24.0):
+            model.set_target_bandwidth(bw)
+            t0 = time.perf_counter()
+            frames = model.encode(wav[None])
+            audio = model.decode(frames)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            data = compress(model, wav, models=registry)
+            back, back_sr = decompress(data, models=registry)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            served.append(dict(n=n, wav=wav, bw=bw, frames=frames,
+                               audio=audio, data=data, back=back,
+                               sr=back_sr, n_q=model.n_q_active,
+                               codec_s=t1 - t0, ecdc_s=t2 - t1))
+    counts = kernels.launch_counts()
+    print(f"48 kHz path launches: {json.dumps(counts)}")
+    for name, k in counts.items():
+        check(k > 0, f"kernel {name} was never launched on the 48 kHz path")
+
+    # -- verification, not counted --------------------------------------
+    hop = cfg.seanet.hop_length
+    total_diff = total_flagged = 0
+    for r in served:
+        segs = cfg.segments(r["n"])
+        frames = r["frames"]
+        check(len(frames) == len(segs), f"{len(frames)} frames for "
+                                        f"{len(segs)} segments")
+        for (codes, scale), (_, length) in zip(frames, segs):
+            check(tuple(codes.shape) == (1, r["n_q"], math.ceil(length / hop)),
+                  f"codes shape {tuple(codes.shape)}")
+            check(bool(((codes >= 0) & (codes < cfg.rvq.bins)).all()),
+                  "codes out of range")
+            check(tuple(scale.shape) == (1, 1) and float(scale) > 0
+                  and math.isfinite(float(scale)), f"scale {scale}")
+        out_len = (cfg.segment_stride * (len(segs) - 1)
+                   + math.ceil(segs[-1][1] / hop) * hop)
+        audio = r["audio"]
+        check(tuple(audio.shape) == (1, 2, out_len),
+              f"audio shape {tuple(audio.shape)}, want (1, 2, {out_len})")
+        check(bool(torch.isfinite(audio).all()), "decoded audio not finite")
+        check(tuple(r["back"].shape) == (2, r["n"]) and r["sr"] == sr,
+              f"decompressed shape {tuple(r['back'].shape)}")
+        check(bool(torch.isfinite(r["back"]).all()), "decompressed not finite")
+        # the file holds the writer's (tie-guarded) codes and, bit for bit,
+        # the scales it computed
+        model.set_target_bandwidth(r["bw"])
+        guarded, stats = model.encode_guarded(r["wav"][None], TIE_THRESHOLD)
+        meta, records = ecdc_records(r["data"], model)
+        check(meta["al"] == r["n"] and meta["nc"] == r["n_q"],
+              f"ecdc header {meta}")
+        for (field, codes), (g_codes, g_scale) in zip(records, guarded):
+            check(np.array_equal(codes, g_codes[0].cpu().numpy()),
+                  "ecdc payload does not decode to the writer's codes")
+            check(field == struct.pack("!f", float(g_scale)),
+                  "ecdc scale field differs from the writer's scale")
+        # kernel path vs plain twins on the card, group by group: equal
+        # except at tie-guard-flagged positions
+        _, groups = model.segment_groups(r["wav"][None])
+        n_diff = n_flagged = 0
+        for idxs, stacked in groups:
+            with torch.inference_mode():
+                plain, _ = encode_frame(model.infer_params, model.qstate,
+                                        stacked, cfg, r["n_q"], plain=True)
+                _, _, _, margins = encode_frame_margins(
+                    model.infer_params, model.qstate, stacked, cfg, r["n_q"],
+                    plain=True)
+            kernel = torch.cat([frames[i][0] for i in idxs])
+            flagged = (margins < TIE_THRESHOLD).any(1)
+            diff = (plain != kernel).any(1)
+            k = int((diff & ~flagged).sum())
+            check(k == 0, f"{k} positions differ from the plain twins "
+                          "outside the tie guard")
+            n_diff += int(diff.sum())
+            n_flagged += int(flagged.sum())
+        total_diff += n_diff
+        total_flagged += n_flagged
+        print(f"48 kHz request {r['n'] / sr:.4f} s ({r['n']} samples, "
+              f"segments {[n for _, n in segs]}) @ {r['bw']:>4} kbps: "
+              f"n_q={r['n_q']} encode+decode {r['codec_s'] * 1e3:.1f} ms, "
+              f"compress+decompress {r['ecdc_s'] * 1e3:.1f} ms, "
+              f"{len(r['data'])} B; vs plain twins: {n_diff} positions "
+              f"differ, {n_flagged} tie-flagged; min margin "
+              f"{stats['min_margin']:.3g}, {stats['n_flagged']} positions "
+              "resolved in host f64")
+    print(f"48 kHz path vs plain twins: {total_diff} differing positions, "
+          f"all inside the {total_flagged} tie-flagged ones")
+    return counts, model, requests[2][1]
 
 
 KERNEL_GROUPS = (("K2", "vq_rvq_kernel"), ("K1", "vq_nearest_kernel"),
@@ -483,8 +692,8 @@ def k2_in_request(torch, kernels, model, wav, request_ms, phase_ms):
     n_q = min(model.n_q_active, model.cfg.rvq.n_q)
     x = torch.from_numpy(wav[None]).to(dev).transpose(1, 2)
     with torch.inference_mode():
-        _, z, _ = encode_frame_margins(model.infer_params, model.qstate, x,
-                                       model.cfg, n_q)
+        _, _, z, _ = encode_frame_margins(model.infer_params, model.qstate,
+                                          x, model.cfg, n_q)
     z = z.reshape(-1, z.shape[-1]).contiguous()
     embed = model.qstate.embed.contiguous()
     shared = model.cfg.rvq.shared_codebook
@@ -513,13 +722,49 @@ def k2_in_request(torch, kernels, model, wav, request_ms, phase_ms):
             f"gaussian rows, its own books, L2 warm) {phase_ms:.4f} ms")
 
 
-def phase_profile(torch, kernels, model, registry, wav, k2_phase_ms):
-    """Device time of one 10 s request by kernel group (torch.profiler),
-    after the counted main path. Wall times here include the profiler's
-    own overhead, so the idle share is an upper bound."""
+def profile_request(torch, fn, label: str) -> dict:
+    """Device time of one call of `fn` by kernel group (torch.profiler),
+    printed with the five largest kernels; returns ms per group. Wall time
+    includes the profiler's own overhead, so the idle share is an upper
+    bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups: dict = {}
+    top = []
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = e.self_device_time_total
+        if us > 0:
+            g = kernel_group(e.key)
+            groups[g] = groups.get(g, 0.0) + us / 1e3
+            top.append((us / 1e3, e.count, e.key[:60]))
+    busy = sum(groups.values())
+    if busy == 0:
+        print(f"profile {label}: no device time recorded")
+        return groups
+    split = ", ".join(f"{g} {ms:.3f} ms" for g, ms in
+                      sorted(groups.items(), key=lambda kv: -kv[1]))
+    print(f"profile {label}: wall {wall_ms:.2f} ms (profiled), device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}; by group: "
+          f"{split}")
+    for ms, n, key in sorted(top, reverse=True)[:5]:
+        print(f"    {ms:8.3f} ms  x{n:<4d} {key}")
+    return groups
+
+
+def phase_profile(torch, kernels, model, registry, wav, k2_phase_ms):
+    """One 10 s 24 kHz request by kernel group, after the counted main
+    path; K2 in the 24 kbps request beside K2 alone on its latents."""
     from encodec_tpu_torch.stream import compress, decompress
 
     def codec():
@@ -532,38 +777,22 @@ def phase_profile(torch, kernels, model, registry, wav, k2_phase_ms):
                          (24.0, "encode+decode", codec),
                          (6.0, "compress+decompress", ecdc)):
         model.set_target_bandwidth(bw)
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        groups: dict = {}
-        top = []
-        for e in prof.key_averages():
-            if getattr(e, "device_type", None) != DeviceType.CUDA:
-                continue
-            us = e.self_device_time_total
-            if us > 0:
-                g = kernel_group(e.key)
-                groups[g] = groups.get(g, 0.0) + us / 1e3
-                top.append((us / 1e3, e.count, e.key[:60]))
-        busy = sum(groups.values())
-        if busy == 0:
-            print(f"profile {what} @ {bw} kbps: no device time recorded")
-            continue
-        split = ", ".join(f"{g} {ms:.3f} ms" for g, ms in
-                          sorted(groups.items(), key=lambda kv: -kv[1]))
-        print(f"profile 10 s request {what} @ {bw} kbps: wall {wall_ms:.2f} ms "
-              f"(profiled), device busy {busy:.3f} ms, idle share "
-              f"{1 - busy / wall_ms:.3f}; by group: {split}")
-        for ms, n, key in sorted(top, reverse=True)[:5]:
-            print(f"    {ms:8.3f} ms  x{n:<4d} {key}")
+        groups = profile_request(torch, fn,
+                                 f"10 s request {what} @ {bw} kbps")
         if bw == 24.0 and fn is codec:
             print(k2_in_request(torch, kernels, model, wav,
                                 groups.get("K2", 0.0), k2_phase_ms))
+
+
+def phase_profile_48(torch, model, wav):
+    """One 10 s 48 kHz stereo request, encode+decode at 24 kbps, by kernel
+    group."""
+    def codec():
+        model.decode(model.encode(wav[None]))
+
+    model.set_target_bandwidth(24.0)
+    profile_request(torch, codec,
+                    "10 s 48 kHz stereo request encode+decode @ 24.0 kbps")
 
 
 def main() -> int:
@@ -614,6 +843,9 @@ def main() -> int:
     k3 = phase_k3(torch, kernels, dev)
     counts, model, registry, wav10 = phase_main_path(torch, kernels, dev)
     phase_profile(torch, kernels, model, registry, wav10, k2["ms"])
+    counts48, model48, wav48 = phase_main_path_48(torch, kernels, dev)
+    phase_profile_48(torch, model48, wav48)
+    phase_cli_48(model48)
 
     rows = [
         ("K1 nearest_codebook", "vq_search.cu", "vq_pallas.py:43",
@@ -626,7 +858,7 @@ def main() -> int:
         {"name": n, "route": "cuda",
          "source": f"encodec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"encodec_tpu/kernels/{rep}",
-         "launches": counts[fn], **m}
+         "launches": {"24k": counts[fn], "48k": counts48[fn]}, **m}
         for n, src, rep, fn, m in rows]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
 """`encodec`-compatible command line for the PyTorch/CUDA port.
 
 Usage:
-    python -m encodec_tpu_torch INPUT.wav [OUTPUT.ecdc|OUTPUT.wav] [-b BW]
+    python -m encodec_tpu_torch INPUT.wav [OUTPUT.ecdc|OUTPUT.wav] [-b BW] [-q]
     python -m encodec_tpu_torch INPUT.ecdc [OUTPUT.wav]
 
 .wav input → compression (or a full roundtrip when the output is also
 .wav); .ecdc input → decompression. Checkpoints are read from a local
-`--repository DIR`. `--device` (default `cuda`) picks where the codec runs;
+`--repository DIR`. `-q/--hq` selects the 48 kHz stereo model (which does
+not serve 1.5 kbps). `--device` (default `cuda`) picks where the codec runs;
 without a GPU pass `--device cpu`. Not ported yet: `--lm` (LM entropy
-coding) and `--hq` (the 48 kHz model).
+coding).
 """
 
 from __future__ import annotations
@@ -33,7 +34,10 @@ def get_parser():
                         help="Output file, otherwise inferred from input.")
     parser.add_argument("-b", "--bandwidth", type=float, default=6,
                         choices=[1.5, 3., 6., 12., 24.],
-                        help="Target bandwidth (1.5, 3, 6, 12 or 24 kbps).")
+                        help="Target bandwidth (1.5, 3, 6, 12 or 24 kbps). "
+                             "1.5 is not supported with --hq.")
+    parser.add_argument("-q", "--hq", action="store_true",
+                        help="Use the 48 kHz stereo HQ model.")
     parser.add_argument("-f", "--force", action="store_true",
                         help="Overwrite output file if it exists.")
     parser.add_argument("-s", "--decompress_suffix", type=str,
@@ -79,7 +83,7 @@ def main():
         fatal(f"Input file {args.input} does not exist.")
 
     # import lazily so `--help` stays instant
-    from .models.model import MODELS
+    from .models.model import MODELS, TARGET_BANDWIDTHS
     from .stream import compress, decompress
     from .utils.audio import load_wav, save_wav, convert_audio
 
@@ -108,7 +112,12 @@ def main():
     elif args.output.suffix.lower() not in [SUFFIX, ".wav"]:
         fatal(f"Output extension must be .wav or {SUFFIX}")
     check_output_exists(args)
-    model = models["encodec_24khz"]()
+    model_name = "encodec_48khz" if args.hq else "encodec_24khz"
+    # refuse an unserved bandwidth before any checkpoint is read
+    if args.bandwidth not in TARGET_BANDWIDTHS[model_name]:
+        fatal(f"Bandwidth {args.bandwidth} is not supported by the model "
+              f"{model_name}")
+    model = models[model_name]()
     model.set_target_bandwidth(args.bandwidth)
     wav, sr = load_wav(args.input)
     wav = convert_audio(wav, sr, model.sample_rate, model.channels)

@@ -11,6 +11,7 @@ from .model import (  # noqa: F401
     EncodecConfig,
     EncodecModel,
     encodec_model_24khz,
+    encodec_model_48khz,
     build_model,
     MODELS,
 )

@@ -1,17 +1,23 @@
-"""EncodecModel: the codec API (encode / decode / bandwidth), 24 kHz slice.
+"""EncodecModel: the codec API (encode / decode / bandwidth).
 
 Port of `encodec_tpu/models/model.py`: `EncodecConfig`, `encode_frame`,
-`encode_frame_margins`, `decode_frame`, `EncodecModel` (`encode`,
-`encode_guarded`, `decode`, `set_target_bandwidth`, `n_q_active`),
-`build_model`, `encodec_model_24khz` and `MODELS`. `encode` returns a list
-of `(codes [B, K, T'], scale)` frames and `decode` consumes them, the
-contract the `.ecdc` pipeline depends on. Audio is `[B, C, T]` at these
-methods, like the JAX package.
+`encode_frame_margins`, `decode_frame`, the PCM16 wire helpers,
+`EncodecModel` (`encode`, `encode_guarded`, `decode`,
+`set_target_bandwidth`, `n_q_active`), `build_model`,
+`encodec_model_24khz`, `encodec_model_48khz` and `MODELS`. `encode` returns
+a list of `(codes [B, K, T'], scale [B, 1] or None)` frames and `decode`
+consumes them, the contract the `.ecdc` pipeline depends on. Audio is
+`[B, C, T]` at these methods, like the JAX package.
 
-Not ported yet: the 48 kHz segment / overlap-add path (and per-segment
-normalization) — `encode`/`decode` raise on such a config — the PCM16 wire
-helpers, the training forward and the reduced-precision modes (only the
-'highest' float32 path exists).
+Segmented models (the 48 kHz codec) cut the input into `segment_length`
+segments `segment_stride` apart, normalize each by its RMS (the frame's
+scale) and overlap-add the decoded segments. Segments of equal length run
+as one batch, at row `s·B + b` for segment s and item b, so the LSTM kernel
+sees all of them at once; the frames `encode` returns are views into that
+batch.
+
+Not ported yet: the training forward and the reduced-precision modes (only
+the 'highest' float32 path exists).
 """
 
 from __future__ import annotations
@@ -28,10 +34,17 @@ from ..device import resolve_device
 from ..quant import (RVQConfig, RVQState, init_rvq, num_quantizers_for_bandwidth,
                      resolve_ties_f64, rvq_decode, rvq_encode,
                      rvq_encode_margins)
+from ..utils.overlap import linear_overlap_add
 from .seanet import (SEANetConfig, init_seanet_decoder, init_seanet_encoder,
                      seanet_decoder, seanet_encoder)
 
 EncodedFrame = tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]
+
+# served bandwidths (kbps) of the published models
+TARGET_BANDWIDTHS = {
+    "encodec_24khz": (1.5, 3.0, 6.0, 12.0, 24.0),
+    "encodec_48khz": (3.0, 6.0, 12.0, 24.0),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +56,7 @@ class EncodecConfig:
     channels: int
     normalize: bool = False
     segment: tp.Optional[float] = None
+    overlap: float = 0.01
     name: str = "unset"
 
     @property
@@ -56,44 +70,99 @@ class EncodecConfig:
         return int(self.segment * self.sample_rate)
 
     @property
+    def segment_stride(self) -> tp.Optional[int]:
+        sl = self.segment_length
+        if sl is None:
+            return None
+        return max(1, int((1 - self.overlap) * sl))
+
+    @property
     def bits_per_codebook(self) -> int:
         b = int(math.log2(self.rvq.bins))
         if 2 ** b != self.rvq.bins:
             raise ValueError("quantizer bins must be a power of 2")
         return b
 
+    def segments(self, length: int) -> tp.List[tp.Tuple[int, int]]:
+        """`(offset, length)` of each segment of a `length`-sample input; one
+        segment for an unsegmented model."""
+        seg_len = self.segment_length or length
+        stride = self.segment_stride or length
+        return [(off, min(seg_len, length - off))
+                for off in range(0, length, stride)]
+
 
 # ---------------------------------------------------------------------------
 # Pure compute functions (audio [B, T, C], codes [B, K, T'])
 # ---------------------------------------------------------------------------
 
+def _normalize(x: torch.Tensor, cfg: EncodecConfig):
+    """Per-item RMS normalization of `[B, T, C]` for normalized models:
+    returns (x / scale, scale [B, 1]), else (x, None)."""
+    if not cfg.normalize:
+        return x, None
+    mono = x.mean(dim=2, keepdim=True)                         # [B, T, 1]
+    volume = mono.square().mean(dim=1, keepdim=True).sqrt()
+    scale = 1e-8 + volume                                       # [B, 1, 1]
+    return x / scale, scale.reshape(-1, 1)
+
+
 def encode_frame(params, qstate: RVQState, x: torch.Tensor,
-                 cfg: EncodecConfig, n_q: int, plain: bool = False
-                 ) -> torch.Tensor:
-    """Encode one unsegmented frame `[B, T, C]` → codes `[B, K, T']` (K3, K2).
+                 cfg: EncodecConfig, n_q: int, plain: bool = False):
+    """Encode one segment `[B, T, C]` → (codes [B, K, T'], scale [B, 1] or
+    None) (K3, K2).
 
     `plain=True` runs every kernel's plain twin, even on CUDA tensors."""
+    x, scale = _normalize(x, cfg)
     emb = seanet_encoder(params["encoder"], x, cfg.seanet, plain=plain)
     codes = rvq_encode(qstate, emb, cfg.rvq, n_q=n_q, plain=plain)
-    return codes.permute(1, 0, 2)
+    return codes.permute(1, 0, 2), scale
 
 
 def encode_frame_margins(params, qstate: RVQState, x: torch.Tensor,
                          cfg: EncodecConfig, n_q: int, plain: bool = False):
     """`encode_frame` plus the latents and per-stage argmin margins, for the
-    near-tie guard (K3, K1). Returns (codes [B, K, T'], z [B, T', D],
-    margins [B, K, T'])."""
+    near-tie guard (K3, K1). Returns (codes [B, K, T'], scale or None,
+    z [B, T', D], margins [B, K, T'])."""
+    x, scale = _normalize(x, cfg)
     emb = seanet_encoder(params["encoder"], x, cfg.seanet, plain=plain)
     codes, margins = rvq_encode_margins(qstate, emb, cfg.rvq, n_q=n_q,
                                         plain=plain)
-    return codes.permute(1, 0, 2), emb, margins.permute(1, 0, 2)
+    return codes.permute(1, 0, 2), scale, emb, margins.permute(1, 0, 2)
 
 
 def decode_frame(params, qstate: RVQState, codes: torch.Tensor,
-                 cfg: EncodecConfig) -> torch.Tensor:
-    """Decode codes `[B, K, T']` → waveform `[B, T, C]` (K3)."""
+                 cfg: EncodecConfig,
+                 scale: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Decode codes `[B, K, T']` (and scale `[B, 1]`) → waveform `[B, T, C]`
+    (K3)."""
     emb = rvq_decode(qstate, codes.permute(1, 0, 2), cfg.rvq)
-    return seanet_decoder(params["decoder"], emb, cfg.seanet)
+    out = seanet_decoder(params["decoder"], emb, cfg.seanet)
+    if scale is not None:
+        out = out * scale.reshape(-1, 1, 1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# PCM16 wire format, converted on the device: int16 → f32 is exact (/32768
+# is a power of two), so an int16 input gives the codes of its float
+# conversion; the output quantizer is `utils.audio.save_wav`'s (clip ±0.99,
+# ×32767, truncate toward zero).
+# ---------------------------------------------------------------------------
+
+def _float_from_pcm16(x: torch.Tensor) -> torch.Tensor:
+    """int16 PCM → [-1, 1) float32, as `utils.audio.load_wav` converts it;
+    float input is cast to float32."""
+    if x.dtype == torch.int16:
+        return x.to(torch.float32) / 32768.0
+    if not x.is_floating_point():
+        raise TypeError(f"expected int16 PCM or float audio, got {x.dtype}")
+    return x.to(torch.float32)
+
+
+def _pcm16_from_float(wav: torch.Tensor) -> torch.Tensor:
+    """float → int16 PCM, bit-identical to `save_wav`'s host quantizer."""
+    return torch.trunc(wav.clamp(-0.99, 0.99) * 32767.0).to(torch.int16)
 
 
 # ---------------------------------------------------------------------------
@@ -158,6 +227,10 @@ class EncodecModel:
         return self.cfg.channels
 
     @property
+    def normalize(self) -> bool:
+        return self.cfg.normalize
+
+    @property
     def frame_rate(self) -> int:
         return self.cfg.frame_rate
 
@@ -166,8 +239,16 @@ class EncodecModel:
         return self.cfg.segment_length
 
     @property
+    def segment_stride(self) -> tp.Optional[int]:
+        return self.cfg.segment_stride
+
+    @property
     def bits_per_codebook(self) -> int:
         return self.cfg.bits_per_codebook
+
+    @property
+    def target_bandwidths(self) -> tp.List[float]:
+        return list(self.cfg.target_bandwidths)
 
     def set_target_bandwidth(self, bandwidth: float) -> None:
         if bandwidth not in self.cfg.target_bandwidths:
@@ -182,26 +263,48 @@ class EncodecModel:
                                             self.bandwidth)
 
     # -- public API -------------------------------------------------------
-    def _audio(self, x) -> torch.Tensor:
-        """`[B, C, T]` audio as float32 `[B, T, C]` on the model's device."""
-        if self.cfg.segment is not None or self.cfg.normalize:
-            raise NotImplementedError(
-                "segmented / normalized models (the 48 kHz path) are not "
-                "ported yet; this slice serves the unsegmented 24 kHz codec")
+    def segment_groups(self, x) -> tp.Tuple[int, tp.List[tp.Tuple[
+            tp.List[int], torch.Tensor]]]:
+        """Cut `[B, C, T]` audio (float, or int16 PCM) into the model's
+        segments and stack the segments of equal length on the batch axis.
+
+        Returns (B, [(segment indices, float32 `[G·B, L, C]` on the model's
+        device, row `j·B + b` = segment `indices[j]` of item b)]), groups in
+        the order of their first segment."""
         x = torch.as_tensor(x)
-        if x.dim() != 3 or not 0 < x.shape[1] <= 2:
+        if x.dim() != 3 or not 0 < x.shape[1] <= 2 or x.shape[2] == 0:
             raise ValueError(f"expected [B, C, T] audio, got {tuple(x.shape)}")
-        if not x.is_floating_point():
-            # int16 PCM input (the JAX package's wire format) is not ported
-            raise TypeError(f"expected float audio in [-1, 1], got {x.dtype}")
-        return x.to(device=self.device, dtype=torch.float32).transpose(1, 2)
+        x = _float_from_pcm16(x.to(self.device)).transpose(1, 2)
+        by_len: tp.Dict[int, tp.List[tp.Tuple[int, int]]] = {}
+        for i, (off, length) in enumerate(self.cfg.segments(x.shape[1])):
+            by_len.setdefault(length, []).append((i, off))
+        groups = []
+        for length, members in by_len.items():
+            idxs = [i for i, _ in members]
+            stacked = torch.cat([x[:, off:off + length] for _, off in members])
+            groups.append((idxs, stacked))
+        return x.shape[0], groups
+
+    @staticmethod
+    def _split(B: int, idxs: tp.List[int], codes: torch.Tensor,
+               scale: tp.Optional[torch.Tensor],
+               frames: tp.List[tp.Optional[EncodedFrame]]) -> None:
+        for j, i in enumerate(idxs):
+            frames[i] = (codes[j * B:(j + 1) * B],
+                         None if scale is None else scale[j * B:(j + 1) * B])
 
     @torch.inference_mode()
     def encode(self, x) -> tp.List[EncodedFrame]:
-        """x: `[B, C, T]` audio. Returns `[(codes [B, K, T'] int32, None)]`."""
-        codes = encode_frame(self.infer_params, self.qstate, self._audio(x),
-                             self.cfg, self.n_q_active)
-        return [(codes, None)]
+        """x: `[B, C, T]` audio (float in [-1, 1], or int16 PCM). Returns one
+        `(codes [B, K, T'] int32, scale [B, 1] or None)` frame per segment."""
+        B, groups = self.segment_groups(x)
+        frames: tp.List[tp.Optional[EncodedFrame]] = [None] * sum(
+            len(idxs) for idxs, _ in groups)
+        for idxs, stacked in groups:
+            codes, scale = encode_frame(self.infer_params, self.qstate,
+                                        stacked, self.cfg, self.n_q_active)
+            self._split(B, idxs, codes, scale, frames)
+        return frames  # type: ignore[return-value]
 
     @torch.inference_mode()
     def encode_guarded(self, x, threshold: float = 1e-3
@@ -212,41 +315,71 @@ class EncodecModel:
         (K1); positions whose margin at any stage falls under `threshold`
         get their whole code chain re-resolved on the host in float64 with
         the reference association order (`resolve_ties_f64`), so writers
-        whose latents agree emit identical codes. Returns (frames, stats:
-        min_margin, n_flagged, n_changed, n_positions)."""
-        codes, z, margins = encode_frame_margins(
-            self.infer_params, self.qstate, self._audio(x), self.cfg,
-            self.n_q_active)
-        codes = codes.cpu().numpy()                  # [B, K, T']
-        m = margins.cpu().numpy()                    # [B, K, T']
-        stats = {"min_margin": float(m.min()) if m.size else float("inf"),
-                 "n_flagged": 0, "n_changed": 0,
-                 "n_positions": int(m.shape[0] * m.shape[2])}
-        flagged = (m < threshold).any(axis=1)        # [B, T']
-        if flagged.any():
-            bs, ts = np.nonzero(flagged)
-            fixed = resolve_ties_f64(self.qstate, z.cpu().numpy()[bs, ts],
-                                     self.cfg.rvq, codes.shape[1])
-            before = codes[bs, :, ts].copy()
-            codes[bs, :, ts] = fixed
-            stats["n_flagged"] = int(bs.size)
-            stats["n_changed"] = int((before != fixed).any(1).sum())
-        return [(torch.from_numpy(codes).to(self.device), None)], stats
+        whose latents agree emit identical codes. Runs once per group of
+        equal-length segments. Returns (frames, stats: min_margin (minimum
+        over groups), n_flagged, n_changed, n_positions (sums))."""
+        B, groups = self.segment_groups(x)
+        frames: tp.List[tp.Optional[EncodedFrame]] = [None] * sum(
+            len(idxs) for idxs, _ in groups)
+        stats = {"min_margin": float("inf"), "n_flagged": 0, "n_changed": 0,
+                 "n_positions": 0}
+        for idxs, stacked in groups:
+            codes, scale, z, margins = encode_frame_margins(
+                self.infer_params, self.qstate, stacked, self.cfg,
+                self.n_q_active)
+            codes = codes.cpu().numpy()              # [G·B, K, T']
+            m = margins.cpu().numpy()                # [G·B, K, T']
+            stats["n_positions"] += int(m.shape[0] * m.shape[2])
+            if m.size:
+                stats["min_margin"] = min(stats["min_margin"], float(m.min()))
+            flagged = (m < threshold).any(axis=1)    # [G·B, T']
+            if flagged.any():
+                bs, ts = np.nonzero(flagged)
+                fixed = resolve_ties_f64(self.qstate, z.cpu().numpy()[bs, ts],
+                                         self.cfg.rvq, codes.shape[1])
+                before = codes[bs, :, ts].copy()
+                codes[bs, :, ts] = fixed
+                stats["n_flagged"] += int(bs.size)
+                stats["n_changed"] += int((before != fixed).any(1).sum())
+            self._split(B, idxs, torch.from_numpy(codes).to(self.device),
+                        scale, frames)
+        return frames, stats  # type: ignore[return-value]
 
     @torch.inference_mode()
-    def decode(self, frames: tp.Sequence[EncodedFrame]) -> torch.Tensor:
+    def decode(self, frames: tp.Sequence[EncodedFrame],
+               pcm16: bool = False) -> torch.Tensor:
         """Decode frames → `[B, C, T]` waveform (may be slightly longer than
-        the original input; callers trim)."""
-        if self.cfg.segment is not None or len(frames) != 1:
-            raise NotImplementedError(
-                "segmented decode (the 48 kHz path) is not ported yet")
-        codes, scale = frames[0]
-        if scale is not None:
-            raise NotImplementedError("scaled frames (normalized models) are "
-                                      "not ported yet")
-        codes = torch.as_tensor(codes).to(self.device)
-        out = decode_frame(self.infer_params, self.qstate, codes, self.cfg)
-        return out.transpose(1, 2)
+        the original input; callers trim).
+
+        Frames of equal code length and scale presence decode as one batch
+        (the S full segments of a segmented stream at once, the shorter tail
+        by itself), then a segmented model overlap-adds them, even a single
+        one. `pcm16=True` returns int16 PCM quantized on the device,
+        bit-identical to `utils.audio.save_wav`'s host quantizer."""
+        if not frames:
+            raise ValueError("no frames to decode")
+        if self.cfg.segment is None and len(frames) != 1:
+            raise ValueError(f"an unsegmented model decodes one frame, got "
+                             f"{len(frames)}")
+        B = frames[0][0].shape[0]
+        by_key: tp.Dict[tp.Tuple[int, bool], tp.List[int]] = {}
+        for i, (codes, scale) in enumerate(frames):
+            by_key.setdefault((codes.shape[-1], scale is None), []).append(i)
+        outs: tp.List[tp.Optional[torch.Tensor]] = [None] * len(frames)
+        for (_, no_scale), idxs in by_key.items():
+            codes = torch.cat([torch.as_tensor(frames[i][0]) for i in idxs])
+            scale = None if no_scale else torch.cat(
+                [torch.as_tensor(frames[i][1]) for i in idxs]).to(self.device)
+            out = decode_frame(self.infer_params, self.qstate,
+                               codes.to(self.device), self.cfg, scale)
+            for j, i in enumerate(idxs):
+                outs[i] = out[j * B:(j + 1) * B]
+        if self.cfg.segment is None:
+            out = outs[0]
+        else:
+            out = linear_overlap_add(outs, self.segment_stride)
+        out = out.transpose(1, 2)
+        return _pcm16_from_float(out) if pcm16 else out
 
 
 # ---------------------------------------------------------------------------
@@ -301,9 +434,9 @@ def encodec_model_24khz(pretrained: bool = False,
     up to 32 stages, LSTM H=512). `pretrained` loads the published
     checkpoint from the local `repository`."""
     model = build_model(
-        target_bandwidths=[1.5, 3.0, 6.0, 12.0, 24.0], sample_rate=24_000,
-        channels=1, causal=True, model_norm="weight_norm",
-        audio_normalize=False,
+        target_bandwidths=TARGET_BANDWIDTHS["encodec_24khz"],
+        sample_rate=24_000, channels=1, causal=True,
+        model_norm="weight_norm", audio_normalize=False,
         name="encodec_24khz" if pretrained else "unset",
         ratios=[8, 5, 4, 2], bins=1024, dimension=128,
         kmeans_init=kmeans_init, device=device)
@@ -313,6 +446,28 @@ def encodec_model_24khz(pretrained: bool = False,
     return model
 
 
+def encodec_model_48khz(pretrained: bool = False,
+                        repository: tp.Optional[str] = None, *,
+                        device: tp.Union[str, torch.device] = "cuda",
+                        kmeans_init: bool = True) -> EncodecModel:
+    """Non-causal stereo 48 kHz model (n_filters=32, dimension=128, 1024
+    bins, up to 16 stages, `time_group_norm`, per-segment normalization, 1 s
+    segments with 1% overlap). `pretrained` loads the published checkpoint
+    from the local `repository`."""
+    model = build_model(
+        target_bandwidths=TARGET_BANDWIDTHS["encodec_48khz"],
+        sample_rate=48_000, channels=2, causal=False,
+        model_norm="time_group_norm", audio_normalize=True, segment=1.0,
+        name="encodec_48khz" if pretrained else "unset",
+        ratios=[8, 5, 4, 2], bins=1024, dimension=128,
+        kmeans_init=kmeans_init, device=device)
+    if pretrained:
+        from .zoo import load_pretrained
+        load_pretrained(model, "encodec_48khz-7e698e3e.th", repository)
+    return model
+
+
 MODELS = {
     "encodec_24khz": encodec_model_24khz,
+    "encodec_48khz": encodec_model_48khz,
 }

@@ -1,12 +1,18 @@
 """Compress / decompress audio to `.ecdc` bytestreams — raw path.
 
 Port of the raw (no-LM) path of `encodec_tpu/stream/compress.py`: the
-header (`m`, `al`, `nc`, `lm`), then the codes packed LSB-first in (t, k)
-order. Files are byte-identical to the JAX writer's on the same weights
-and audio, and each package reads the other's. The writer encodes through
-the near-tie guard (`EncodecModel.encode_guarded`, threshold 1e-3), so
-positions whose RVQ top-2 gap is razor-thin resolve the same way in every
-writer whose latents agree.
+header (`m`, `al`, `nc`, `lm`), then one record per segment — for a
+normalized model its big-endian f32 scale, then its codes packed LSB-first
+in (t, k) order. The writer encodes through the near-tie guard
+(`EncodecModel.encode_guarded`, threshold 1e-3), so positions whose RVQ
+top-2 gap is razor-thin resolve the same way in every writer whose latents
+agree.
+
+Unsegmented (24 kHz) files are byte-identical to the JAX writer's on the
+same weights and audio. In segmented (48 kHz) files the header and every
+code byte are identical, but a scale may differ from the JAX writer's by up
+to 2 ulp: the per-segment RMS is a float32 reduction whose summation order
+each framework picks. Each package reads the other's files.
 
 LM entropy coding (`use_lm=True`) is not ported yet.
 """
@@ -16,6 +22,7 @@ from __future__ import annotations
 import io
 import logging
 import math
+import struct
 import typing as tp
 
 import numpy as np
@@ -25,6 +32,7 @@ from . import binary
 
 _LM_MISSING = ("LM entropy coding (use_lm / lmv=3 streams) is not ported to "
                "encodec_tpu_torch yet; it comes with the LM slice of the port")
+_SCALE = struct.Struct("!f")
 
 
 def compress_to_file(model, wav, fo: tp.IO[bytes], use_lm: bool = False,
@@ -58,7 +66,9 @@ def compress_to_file(model, wav, fo: tp.IO[bytes], use_lm: bool = False,
         "lm": False,
     }
     binary.write_ecdc_header(fo, metadata)
-    for codes, _scale in frames:
+    for codes, scale in frames:
+        if scale is not None:
+            fo.write(_SCALE.pack(float(scale.reshape(-1)[0])))
         codes = codes[0].cpu().numpy()                       # [K, T]
         fo.write(binary.pack_bits(codes.T, model.bits_per_codebook))
 
@@ -84,17 +94,21 @@ def decompress_from_file(fo: tp.IO[bytes], models=None
     if metadata["lm"]:
         raise NotImplementedError(_LM_MISSING)
     model = registry[model_name](pretrained=True)
-    if model.segment_length is not None:
-        raise NotImplementedError("segmented streams (the 48 kHz path) are "
-                                  "not ported yet")
-    frame_length = int(math.ceil(
-        audio_length * model.frame_rate / model.sample_rate))
-    nbytes = (frame_length * num_codebooks * model.bits_per_codebook + 7) // 8
-    vals = binary.unpack_bits(binary._read_exactly(fo, nbytes),
-                              model.bits_per_codebook,
-                              count=frame_length * num_codebooks)
-    codes = vals.reshape(frame_length, num_codebooks).T.astype(np.int32)
-    wav = model.decode([(torch.from_numpy(codes)[None], None)])
+    bits = model.bits_per_codebook
+    frames = []
+    for _offset, length in model.cfg.segments(audio_length):
+        scale = None
+        if model.normalize:
+            scale_f, = _SCALE.unpack(binary._read_exactly(fo, _SCALE.size))
+            scale = torch.full((1, 1), scale_f, dtype=torch.float32)
+        frame_length = int(math.ceil(
+            length * model.frame_rate / model.sample_rate))
+        nbytes = (frame_length * num_codebooks * bits + 7) // 8
+        vals = binary.unpack_bits(binary._read_exactly(fo, nbytes), bits,
+                                  count=frame_length * num_codebooks)
+        codes = vals.reshape(frame_length, num_codebooks).T.astype(np.int32)
+        frames.append((torch.from_numpy(codes)[None], scale))
+    wav = model.decode(frames)
     return wav[0, :, :audio_length], model.sample_rate
 
 

@@ -1,3 +1,5 @@
-"""Utility subpackage: audio IO (a copy of `encodec_tpu/utils/audio.py`)."""
+"""Utility subpackage: audio IO (a copy of `encodec_tpu/utils/audio.py`) and
+the segments' overlap-add."""
 
 from .audio import load_wav, save_wav, convert_audio  # noqa: F401
+from .overlap import linear_overlap_add  # noqa: F401

@@ -1,5 +1,7 @@
 """Kernel checks that need the GPU: each hand-written CUDA kernel against its
-plain PyTorch twin on the card, at the 24 kHz main-path shapes.
+plain PyTorch twin on the card, at the 24 kHz and 48 kHz main-path shapes
+(a 10 s 48 kHz request: K1 and K2 at N=1500 rows, n_q up to 16; K3 at
+B=10, T=150 for the ten full segments and B=1, T=15 or 1 for the tail).
 
 This file imports no JAX (the GPU machine has none). On a machine without
 a CUDA device every test skips. Run on the H100 with:
@@ -56,7 +58,8 @@ def plain_stage_margins(x, embed, n_q, shared):
     return torch.stack(codes), torch.stack(margins)
 
 
-@pytest.mark.parametrize("N,D,bins", [(3000, 128, 1024), (600, 128, 1024),
+@pytest.mark.parametrize("N,D,bins", [(3000, 128, 1024), (1500, 128, 1024),
+                                      (600, 128, 1024),
                                       (75, 128, 256), (1024, 256, 512),
                                       (37, 48, 100), (751, 128, 1024),
                                       (750, 128, 1000), (37, 128, 100),
@@ -132,13 +135,15 @@ def test_kernel_layouts_match_the_plans(dev):
 # the fused kernel's edge shapes: rows that do not fill a tile (751, 37),
 # the main path's split (750: 8 CTAs of 128 bins) and a 2-CTA split (3000),
 # bins that the split does not divide (1000, 100), D not a multiple of 4,
-# one stage, all 32, and one shared book
+# one stage, all 32, and one shared book; and the 48 kHz main path's shape
+# (1500 rows, 16 stages)
 RVQ_SHAPES = [(750, 128, 1024, 8, False), (750, 128, 1024, 32, False),
               (750, 128, 1024, 8, True), (751, 128, 1000, 32, False),
               (3000, 128, 1024, 32, False), (3000, 128, 1024, 8, True),
               (37, 30, 100, 8, False), (37, 128, 256, 1, False),
               (751, 30, 1000, 8, True), (37, 128, 100, 32, True),
-              (3000, 30, 256, 1, False), (5, 30, 7, 32, False)]
+              (3000, 30, 256, 1, False), (5, 30, 7, 32, False),
+              (1500, 128, 1024, 16, False)]
 
 
 def _rvq_inputs(dev, N, D, bins, n_q, shared, seed):
@@ -221,7 +226,8 @@ def test_fused_rvq_kernel_empty_and_refused_shapes(dev):
 
 @pytest.mark.parametrize("B,T,H", [(4, 750, 512), (2, 37, 32), (1, 5, 64),
                                    (70, 9, 512), (3, 11, 200), (1, 1, 512),
-                                   (1, 750, 512), (8, 750, 512), (2, 20, 7)])
+                                   (1, 750, 512), (8, 750, 512), (2, 20, 7),
+                                   (10, 150, 512), (1, 15, 512)])
 def test_lstm_scan_kernel_matches_plain(dev, B, T, H):
     xp = _rand((B, T, 4 * H), 4, dev)
     bound = 1.0 / np.sqrt(H)
