@@ -35,7 +35,18 @@ Phases, in order (any failure exits non-zero before the last line):
    and, bit for bit, its scales, and the codes against the plain twins';
 7. profile one 10 s 48 kHz request at 24 kbps by kernel group, and run
    the CLI's `-q -b 24` compression and its decompression on the card;
-8. print the `kernels` JSON line (launches per path), then the final `ok`
+8. K3 from a carried state at a streamed chunk's shapes (B=1, T=6 and 7)
+   and at B=10, T=150, against its twin and cuDNN's LSTM from the same
+   state, and one launch over T steps against a carried 7 + 6 + ... split
+   (bit-equal);
+9. stream the 24 kHz model (`StreamingCodec`) as a live service would: a
+   10 s + 100-sample request in a 7-hop first chunk, 6-hop (80 ms) chunks
+   and an `encode_finish` tail, each chunk's codes decoded as they arrive,
+   at 6 and 24 kbps, then the fixed-chunk extractor on 30 s signals, with
+   their own launch counts; streamed codes against the offline encode
+   outside tie-flagged positions, streamed audio against the offline decode
+   of the same codes, per-chunk latency, and one profiled chunk;
+10. print the `kernels` JSON line (launches per path), then the final `ok`
    JSON line.
 
 Imports no JAX. Exits non-zero without printing a result when no CUDA
@@ -209,14 +220,17 @@ def k1_chain(x, e, n_q, shared):
 
 K2_CASES = {750: ((8, False), (32, False), (8, True)),
             1500: ((16, False),),
-            3000: ((8, False), (32, False), (8, True))}
+            3000: ((8, False), (32, False), (8, True)),
+            7: ((8, False), (32, False)),    # a stream's first chunk
+            6: ((8, False), (32, False))}    # and each 80 ms chunk after it
 
 
 def phase_k2(torch, kernels, dev):
     """K2 at N=750 (every stage of a 10 s 24 kHz request, the main path's
     shape) and N=3000 (a 40 s request, or 4 x 10 s), n_q = 8, 32, and 8
-    with one shared book, and at N=1500, n_q=16 (a 10 s 48 kHz request at
-    24 kbps); the JSON row is N=750, n_q=32."""
+    with one shared book, at N=1500, n_q=16 (a 10 s 48 kHz request at
+    24 kbps), and at N=7 and 6 (a streamed chunk's frames) for n_q 8 and
+    32; the JSON row is N=750, n_q=32."""
     from encodec_tpu_torch.kernels import vq_cuda
 
     D, bins = 128, 1024
@@ -290,15 +304,18 @@ def k3_plan_line(torch, dev, H):
     lib = build.load_library("lstm_scan")
     n_max = lstm_cuda.max_active_clusters(H, dev)
     plan = lstm_cuda.lstm_plan(1, H, n_max)
-    regs, local = ctypes.c_int(), ctypes.c_int()
-    build.check(lib, "lstm_scan", lib.lstm_scan_attributes(
-        H, ctypes.addressof(regs), ctypes.addressof(local)))
+    attrs = []
+    for state in (0, 1):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        build.check(lib, "lstm_scan", lib.lstm_scan_attributes(
+            H, state, ctypes.addressof(regs), ctypes.addressof(local)))
+        attrs.append(f"{regs.value} registers/thread ({local.value} B local)")
     check(lib.lstm_scan_smem_bytes(H) == plan.smem_bytes,
           "K3 shared memory differs between the kernel and its plan")
     return (f"K3 plan H={H}: clusters of {plan.cluster} CTAs x "
             f"{plan.units_per_cta} units, max active clusters {n_max}, "
-            f"{lstm_cuda.K3_THREADS} threads/CTA, {regs.value} registers/"
-            f"thread ({local.value} B local), {plan.smem_bytes} B shared "
+            f"{lstm_cuda.K3_THREADS} threads/CTA, zero state {attrs[0]}, "
+            f"from a state {attrs[1]}, {plan.smem_bytes} B shared "
             f"memory/CTA; W_hh rows per CTA: {plan.reg_rows} in registers, "
             f"{plan.smem_rows} in shared memory")
 
@@ -359,6 +376,77 @@ def phase_k3(torch, kernels, dev):
         rows[B, T] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
     return rows[1, 750]
+
+
+def phase_k3_state(torch, kernels, dev):
+    """K3 from a carried (h0, c0) per layer at H=512: B=1, T=6 and T=7 (an
+    80 ms chunk of a stream and its 7-hop first chunk) and B=10, T=150
+    (distinct state rows; two waves of clusters), against the twin and
+    cuDNN's LSTM from the same state; then one launch over T steps against
+    launches over a 7 + 6 + ... split with the state carried, which must
+    give the same bits."""
+    H = 512
+    lim = 1.0 / math.sqrt(H)
+    rng = np.random.RandomState(41)
+    w_hh = torch.from_numpy(rng.uniform(-lim, lim, (4 * H, H))
+                            .astype(np.float32)).to(dev)
+    cudnn = torch.nn.LSTM(4 * H, H, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
+        cudnn.weight_hh_l0.copy_(w_hh)
+        cudnn.bias_ih_l0.zero_()
+        cudnn.bias_hh_l0.zero_()
+
+    def inputs(B, T, seed):
+        xp = gauss(torch, (B, T, 4 * H), seed, dev, 1.0)
+        h0 = torch.tanh(gauss(torch, (B, H), seed + 1, dev, 1.0))
+        c0 = gauss(torch, (B, H), seed + 2, dev, 1.0)
+        return xp, h0, c0
+
+    for B, T in ((1, 6), (1, 7), (10, 150)):
+        xp, h0, c0 = inputs(B, T, 42)
+        out, hT, cT = kernels.lstm_scan(xp, w_hh, h0, c0, return_state=True)
+        ref, ref_h, ref_c = kernels.lstm_scan_plain(xp, w_hh, h0, c0,
+                                                    return_state=True)
+        torch.cuda.synchronize()
+        err = max(float((a - b).abs().max())
+                  for a, b in ((out, ref), (hT, ref_h), (cT, ref_c)))
+        check(err <= 1e-4, f"K3 from state B={B} T={T}: max|d| {err} > 1e-4")
+        ms = device_ms(torch, lambda: kernels.lstm_scan(
+            xp, w_hh, h0, c0, return_state=True), 50)
+        plain_ms = device_ms(torch, lambda: kernels.lstm_scan_plain(
+            xp, w_hh, h0, c0, return_state=True), 5)
+        with torch.no_grad():
+            lib_out, _ = cudnn(xp, (h0[None], c0[None]))
+            lib_err = float((lib_out - out).abs().max())
+            lib_ms = device_ms(torch, lambda: cudnn(xp, (h0[None], c0[None])),
+                               50)
+        b_ms, b_by = bound(2.0 * B * T * H * 4 * H,
+                           (B * T * 4 * H + 4 * H * H + 3 * B * H
+                            + B * T * H) * 4)
+        print(f"K3 lstm_scan from state B={B} T={T} H={H}: out/hT/cT max|d| "
+              f"vs plain {err:.3g} (cuDNN vs kernel {lib_err:.3g}); per layer "
+              f"device ms: kernel={ms:.4f} ({ms / T * 1e3:.3f} us/step) "
+              f"plain={plain_ms:.4f} library(cuDNN LSTM from (h0, c0))="
+              f"{lib_ms:.4f} bound={b_ms:.5f} ({b_by})")
+    for B, T in ((1, 750), (10, 150)):
+        xp, h0, c0 = inputs(B, T, 43)
+        whole, hT, cT = kernels.lstm_scan(xp, w_hh, h0, c0, return_state=True)
+        outs, h, c, t = [], h0, c0, 0
+        while t < T:
+            n = min(7 if t == 0 else 6, T - t)
+            out, h, c = kernels.lstm_scan(xp[:, t:t + n].contiguous(), w_hh,
+                                          h.contiguous(), c, return_state=True)
+            outs.append(out)
+            t += n
+        torch.cuda.synchronize()
+        check(torch.equal(torch.cat(outs, 1), whole) and torch.equal(h, hT)
+              and torch.equal(c, cT),
+              f"K3 B={B} T={T}: the carried 7 + 6 + ... split differs from "
+              "one launch")
+        print(f"K3 from state B={B} T={T}: one launch == {len(outs)} launches "
+              "of 7, 6, ... steps with (h, c) carried, bit for bit (out, hT, "
+              "cT)")
 
 
 def request_audio(seconds: float, sr: int, seed: int) -> np.ndarray:
@@ -665,6 +753,152 @@ def phase_main_path_48(torch, kernels, dev):
     return counts, model, requests[2][1]
 
 
+def stream_pieces(n: int, first: int, chunk: int, hop: int) -> list:
+    """A live stream's pieces of an n-sample request: (start, end, finish?)
+    for a `first`-sample first chunk, `chunk`-sample chunks, one chunk of
+    the whole hops left, then the tail shorter than a hop."""
+    pieces, t = [], 0
+    n_full = n - n % hop
+    while t < n_full:
+        end = min(t + (first if t == 0 else chunk), n_full)
+        pieces.append((t, end, False))
+        t = end
+    if n > n_full:
+        pieces.append((n_full, n, True))
+    return pieces
+
+
+def offline_flags(torch, model, wav, n_q):
+    """Positions [T'] whose offline K1 margin is under the tie guard at
+    some stage (the codes there may fairly differ between two writers)."""
+    from encodec_tpu_torch.models.model import encode_frame_margins
+
+    x = torch.from_numpy(wav[None]).to(model.device).transpose(1, 2)
+    with torch.inference_mode():
+        _, _, _, margins = encode_frame_margins(
+            model.infer_params, model.qstate, x, model.cfg, n_q)
+    return (margins < TIE_THRESHOLD).any(1)[0]
+
+
+def phase_stream(torch, kernels, model):
+    """The 24 kHz model streamed as a live service streams it, then the
+    fixed-chunk extractor, counted as one path. Per bandwidth (6 and 24
+    kbps) one 10 s + 100-sample request: a 7-hop first chunk (the least that
+    primes every conv), 6-hop (80 ms) chunks, a 5-hop chunk and the
+    100-sample tail through `encode_finish`, each chunk's codes decoded as
+    they arrive. Then `_StreamExtractor(chunk_hops=1024)` on a 30 s +
+    57-sample signal and on one of another length."""
+    from encodec_tpu_torch.models import StreamingCodec, min_first_chunk
+    from encodec_tpu_torch.tools.inference import (_StreamExtractor,
+                                                   extract_codes)
+
+    cfg = model.cfg
+    sr, hop = model.sample_rate, cfg.seanet.hop_length
+    first = min_first_chunk(cfg.seanet)
+    check(first == 7 * hop, f"min_first_chunk {first}, want {7 * hop}")
+    n = 10 * sr + 100
+    wav = request_audio(n / sr, sr, 400)
+    check(wav.shape == (1, n), f"request shape {wav.shape}")
+    pieces = stream_pieces(n, first, 6 * hop, hop)
+    sig = {k: request_audio(m / sr, sr, 410 + k)
+           for k, m in ((1, 30 * sr + 57), (2, 30 * sr + 100))}
+
+    # -- the stream path, counted: nothing but user calls in here -------
+    kernels.reset_launch_counts()
+    runs = {}
+    for bw in (6.0, 24.0):
+        model.set_target_bandwidth(bw)
+        codec = StreamingCodec(model)
+        codes, audio, lat = [], [], []
+        for a, b, finish in pieces:
+            chunk = wav[None, :, a:b]
+            t0 = time.perf_counter()
+            c = codec.encode_finish(chunk) if finish else \
+                codec.encode_chunk(chunk)
+            out = codec.decode_chunk(c)
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            codes.append(c)
+            audio.append(out)
+        runs[bw] = dict(codes=torch.cat(codes, -1), audio=torch.cat(audio, -1),
+                        lat=np.array(lat),
+                        n_q=min(model.n_q_active, cfg.rvq.n_q))
+    extractor = _StreamExtractor(model, chunk_hops=1024)
+    ex_codes, ex_s = {}, {}
+    for k in (1, 2):
+        t0 = time.perf_counter()
+        ex_codes[k] = extractor(sig[k])
+        ex_s[k] = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    stateful = kernels.lstm_scan.stateful_launches
+    print(f"stream path launches: {json.dumps(counts)}, K3 from a carried "
+          f"state: {stateful}")
+    check(counts["rvq_encode_fused"] > 0 and counts["lstm_scan"] > 0
+          and stateful > 0, "the stream path did not launch K2 and K3 from "
+                            "a carried state")
+
+    # -- verification, not counted --------------------------------------
+    frames = -(-n // hop)
+    for bw, r in runs.items():
+        model.set_target_bandwidth(bw)
+        check(tuple(r["codes"].shape) == (1, r["n_q"], frames),
+              f"stream codes shape {tuple(r['codes'].shape)}")
+        offline = model.encode(wav[None])[0][0]
+        flagged = offline_flags(torch, model, wav, r["n_q"])
+        diff = (r["codes"] != offline).any(1)[0]
+        n_unflagged = int((diff & ~flagged).sum())
+        check(n_unflagged == 0, f"stream @ {bw} kbps: {n_unflagged} positions "
+                                "differ from the offline encode outside the "
+                                "tie guard")
+        audio = r["audio"]
+        check(tuple(audio.shape) == (1, 1, frames * hop)
+              and bool(torch.isfinite(audio).all()),
+              f"stream audio shape {tuple(audio.shape)} or not finite")
+        ref = model.decode([(r["codes"], None)])
+        err = float((audio - ref).abs().max())
+        check(err <= 1e-3, f"stream @ {bw} kbps: audio max|d| {err} > 1e-3 "
+                           "from the offline decode of the same codes")
+        lat = r["lat"] * 1e3
+        print(f"stream 10 s + 100 samples @ {bw:>4} kbps: n_q={r['n_q']}, "
+              f"{len(pieces)} chunks ({pieces[0][1]} samples, then "
+              f"{6 * hop}, ..., a {pieces[-1][1] - pieces[-1][0]}-sample "
+              f"tail); codes vs offline: {int(diff.sum())} positions differ, "
+              f"all inside the {int(flagged.sum())} tie-flagged; audio vs "
+              f"offline decode of the same codes max|d|={err:.3g}; per-chunk "
+              f"encode+decode ms (host clock, synchronized): median "
+              f"{np.median(lat):.3f}, p99 {np.percentile(lat, 99):.3f}, max "
+              f"{lat.max():.3f}, first {lat[0]:.3f}; real-time factor "
+              f"{lat.sum() / 1e3 / (n / sr):.4f}")
+
+    model.set_target_bandwidth(24.0)
+    offline_s = {}
+    for k in (1, 2):
+        t0 = time.perf_counter()
+        want = extract_codes(model, sig[k])
+        offline_s[k] = time.perf_counter() - t0
+        flagged = offline_flags(torch, model, sig[k],
+                                min(model.n_q_active, cfg.rvq.n_q))
+        diff = torch.from_numpy((ex_codes[k] != want).any(0)).to(
+            flagged.device)
+        check(ex_codes[k].shape == want.shape and int((diff & ~flagged).sum()) == 0,
+              f"extractor: codes differ from extract_codes outside the tie "
+              f"guard (signal {k})")
+        print(f"extractor chunk_hops=1024 on {sig[k].shape[1]} samples @ 24 "
+              f"kbps: codes {ex_codes[k].shape}, {int(diff.sum())} positions differ "
+              f"from extract_codes, all inside the {int(flagged.sum())} "
+              f"tie-flagged; time {'first call' if k == 1 else 'new length'} "
+              f"{ex_s[k] * 1e3:.1f} ms vs extract_codes (first call at "
+              f"this length) {offline_s[k] * 1e3:.1f} ms")
+
+    # one profiled 80 ms chunk of a primed stream
+    codec = StreamingCodec(model)
+    codec.decode_chunk(codec.encode_chunk(wav[None, :, :first]))
+    chunk = wav[None, :, first:first + 6 * hop]
+    profile_request(torch, lambda: codec.decode_chunk(codec.encode_chunk(chunk)),
+                    "one streamed 80 ms chunk encode+decode @ 24.0 kbps")
+    return counts
+
+
 KERNEL_GROUPS = (("K2", "vq_rvq_kernel"), ("K1", "vq_nearest_kernel"),
                  ("K3", "lstm_scan_kernel"))
 
@@ -846,6 +1080,8 @@ def main() -> int:
     counts48, model48, wav48 = phase_main_path_48(torch, kernels, dev)
     phase_profile_48(torch, model48, wav48)
     phase_cli_48(model48)
+    phase_k3_state(torch, kernels, dev)
+    counts_stream = phase_stream(torch, kernels, model)
 
     rows = [
         ("K1 nearest_codebook", "vq_search.cu", "vq_pallas.py:43",
@@ -858,7 +1094,8 @@ def main() -> int:
         {"name": n, "route": "cuda",
          "source": f"encodec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"encodec_tpu/kernels/{rep}",
-         "launches": {"24k": counts[fn], "48k": counts48[fn]}, **m}
+         "launches": {"24k": counts[fn], "48k": counts48[fn],
+                      "stream": counts_stream[fn]}, **m}
         for n, src, rep, fn, m in rows]}))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -7,7 +7,8 @@
 | `lstm_scan` (K3) | `lstm_pallas.py::lstm_scan_pallas` | `csrc/lstm_scan.cu` |
 
 Each wrapper runs its plain twin for CPU tensors and launches its kernel
-for CUDA tensors (or raises); each counts its launches in `.launches`.
+for CUDA tensors (or raises); each counts its launches in `.launches`, and
+`lstm_scan.stateful_launches` counts K3's launches from a given `(h0, c0)`.
 """
 
 from .lstm_cuda import lstm_scan, lstm_scan_plain  # noqa: F401
@@ -24,6 +25,7 @@ WRAPPERS = (nearest_codebook, rvq_encode_fused, lstm_scan)
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0  # type: ignore[attr-defined]
+    lstm_scan.stateful_launches = 0  # type: ignore[attr-defined]
 
 
 def launch_counts() -> dict:

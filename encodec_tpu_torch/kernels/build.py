@@ -33,9 +33,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointer and the stream go as c_void_p, or ctypes would cut them to 32 bits.
 SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
     "lstm_scan": {
-        "lstm_scan_launch": ([_P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        "lstm_scan_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _P], _I),
         "lstm_scan_max_clusters": ([_I, _I], _I),
-        "lstm_scan_attributes": ([_I, _P, _P], _I),
+        "lstm_scan_attributes": ([_I, _I, _P, _P], _I),
         "lstm_scan_smem_bytes": ([_I], _I),
         "lstm_scan_units_per_cta_max": ([], _I),
         "lstm_scan_max_cluster": ([], _I),

@@ -1,12 +1,23 @@
 // LSTM recurrence for Hopper (sm_90a): K3 of the port.
 //
 // Replaces encodec_tpu/kernels/lstm_pallas.py:55 lstm_scan_pallas (body
-// _scan_kernel): one LSTM layer's recurrence from zero state over gate
-// inputs xp [B, T, 4H] (= x W_ih^T + b_ih + b_hh, computed before the
-// scan), gate order i, f, g, o:
+// _scan_kernel): one LSTM layer's recurrence over gate inputs xp [B, T, 4H]
+// (= x W_ih^T + b_ih + b_hh, computed before the scan), gate order i, f,
+// g, o:
 //   gates_t = xp_t + h_{t-1} W_hh^T
 //   c_t = sigmoid(f) c_{t-1} + sigmoid(i) tanh(g),  h_t = sigmoid(o) tanh(c_t)
-// with IEEE expf/tanhf (no fast math). Output h [B, T, H].
+// with IEEE expf/tanhf (no fast math). Output h [B, T, H]. The TPU kernel
+// starts from zero state only; this one also starts from a given (h0, c0)
+// [B, H] and can write the final c [B, H] (the final h is out[:, T-1]),
+// which is what a chunked stream carries. With a state, step 0 copies
+// h0[b] into the h buffer it reads and runs the same matvec, butterfly and
+// cell code as every later step, so one launch over T steps and launches
+// over any split of T with (h, c) carried give the same bits. Without one
+// (h0 == nullptr) step 0 skips the recurrent term. The state code is a
+// second instantiation (STATE = true), so the zero-state kernel of the
+// offline path compiles as it did without it: at 255 registers per thread
+// the state code doubles the local spill (16 -> 32 B per thread at
+// H=512).
 //
 // What bounds it: the T-step dependency chain, not FLOPs or bytes (at the
 // 24 kHz shapes 2*B*T*H*4H FLOPs and ~12 MB run in tens of microseconds at
@@ -173,10 +184,12 @@ __device__ __forceinline__ void fold(float (&acc)[ROWS_PER_WARP], int lane) {
   }
 }
 
-template <int KM>
+template <int KM, bool STATE>
 __global__ void __launch_bounds__(THREADS, 1)
 lstm_scan_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
-                 float* __restrict__ out, int B, int T, int H, int U) {
+                 const float* __restrict__ h0, const float* __restrict__ c0,
+                 float* __restrict__ out, float* __restrict__ c_out, int B,
+                 int T, int H, int U) {
   constexpr int HP = KM * KCHUNK;
   extern __shared__ __align__(16) float smem[];
   float* w_s = smem;                          // [WARPS][SMEM_ROWS][HP]
@@ -252,8 +265,13 @@ lstm_scan_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
   // The cluster's steps run back to back over its sequences; step s reads
   // buffer s & 1 (sent at step s-1) and sends into buffer (s+1) & 1. The
   // last step sends nothing, so every message is awaited by a live CTA.
+  // Step 0 of a sequence with a state overwrites buffer s & 1 with h0[b]:
+  // the message it awaited (the previous sequence's last h) has fully
+  // arrived, and the next one into that buffer is sent only after every
+  // CTA has received this step's h, so nothing else writes it meanwhile.
   const int n_seq = (B - cl + n_cl - 1) / n_cl;
   const unsigned n_steps = (unsigned)n_seq * T;
+  const bool stateful = STATE && h0 != nullptr;
   unsigned phase = 0;  // bit i: parity of buffer i's next phase
   unsigned s = 0;
   for (int b = cl; b < B; b += n_cl) {
@@ -261,18 +279,26 @@ lstm_scan_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
     // gate inputs of steps t and t+1, prefetched two steps ahead
     float xv = my_valid ? __ldg(xrow) : 0.f;
     float xv1 = (my_valid && T > 1) ? __ldg(xrow + H4) : 0.f;
-    float c = 0.f;
+    // lanes 0..3 keep the cell state of unit warp*4 + lane
+    float c = (STATE && c0 != nullptr && lane < warp_nu)
+                  ? c0[(size_t)b * H + warp_u + lane] : 0.f;
     for (int t = 0; t < T; ++t, ++s) {
       const unsigned cb = s & 1;
+      float* hb = h_s + cb * HP;
       if (s > 0) {
         mbar_wait(bar + cb, (phase >> cb) & 1);
         phase ^= 1u << cb;
         __syncthreads();  // all threads saw this phase before it is re-armed
         if (threadIdx.x == 0) mbar_expect_tx(bar + cb, h_bytes);
       }
-      float v = 0.f;  // h_{-1} = 0: the recurrent term of step 0 is 0
-      if (t > 0) {
-        const float* hb = h_s + cb * HP;
+      if (stateful && t == 0) {
+        // h_{-1} = h0[b]; the zero padding past H stays as it is
+        for (int k = threadIdx.x; k < H; k += THREADS)
+          hb[k] = h0[(size_t)b * H + k];
+        __syncthreads();
+      }
+      float v = 0.f;  // zero state: the recurrent term of step 0 is 0
+      if (t > 0 || stateful) {
         float acc[ROWS_PER_WARP];
 #pragma unroll
         for (int q = 0; q < ROWS_PER_WARP; ++q) acc[q] = 0.f;
@@ -323,20 +349,22 @@ lstm_scan_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
         }
       }
       if (lane < warp_nu) out[((size_t)b * T + t) * H + warp_u + lane] = h;
+      if (STATE && c_out != nullptr && t == T - 1 && lane < warp_nu)
+        c_out[(size_t)b * H + warp_u + lane] = c;
       xv = xv1;
       xv1 = (my_valid && t + 2 < T) ? __ldg(xrow + (size_t)(t + 2) * H4) : 0.f;
     }
   }
 }
 
-template <int KM>
+template <int KM, bool STATE>
 cudaError_t prepare(int H, int cluster) {
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_scan_kernel<KM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_scan_kernel<KM, STATE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes(H)));
   if (err != cudaSuccess) return err;
   if (cluster > 8)
-    err = cudaFuncSetAttribute(lstm_scan_kernel<KM>,
+    err = cudaFuncSetAttribute(lstm_scan_kernel<KM, STATE>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   return err;
@@ -358,34 +386,52 @@ cudaLaunchConfig_t config(int H, int cluster, int n_clusters,
   return cfg;
 }
 
+// (both instantiations take the same shared memory and threads, and run at
+// the launch bound's one CTA per SM)
 template <int KM>
 int max_clusters(int H, int cluster) {
-  cudaError_t err = prepare<KM>(H, cluster);
+  cudaError_t err = prepare<KM, false>(H, cluster);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(H, cluster, 1, &attr, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, lstm_scan_kernel<KM>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, lstm_scan_kernel<KM, false>, &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-template <int KM>
-int launch(const float* xp, const float* w_hh, float* out, int B, int T,
-           int H, int cluster, int U, int n_clusters, cudaStream_t stream) {
-  cudaError_t err = prepare<KM>(H, cluster);
+template <int KM, bool STATE>
+int launch_as(const float* xp, const float* w_hh, const float* h0,
+              const float* c0, float* out, float* c_out, int B, int T, int H,
+              int cluster, int U, int n_clusters, cudaStream_t stream) {
+  cudaError_t err = prepare<KM, STATE>(H, cluster);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(H, cluster, n_clusters, &attr, stream);
-  err = cudaLaunchKernelEx(&cfg, lstm_scan_kernel<KM>, xp, w_hh, out, B, T,
-                           H, U);
+  err = cudaLaunchKernelEx(&cfg, lstm_scan_kernel<KM, STATE>, xp, w_hh, h0,
+                           c0, out, c_out, B, T, H, U);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// the state instantiation when a state is read or written
 template <int KM>
-int attributes(int* regs, int* local_bytes) {
+int launch(const float* xp, const float* w_hh, const float* h0,
+           const float* c0, float* out, float* c_out, int B, int T, int H,
+           int cluster, int U, int n_clusters, cudaStream_t stream) {
+  if (h0 != nullptr || c_out != nullptr)
+    return launch_as<KM, true>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster,
+                               U, n_clusters, stream);
+  return launch_as<KM, false>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster,
+                              U, n_clusters, stream);
+}
+
+template <int KM>
+int attributes(bool state, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, lstm_scan_kernel<KM>);
+  const void* fn = state
+      ? reinterpret_cast<const void*>(lstm_scan_kernel<KM, true>)
+      : reinterpret_cast<const void*>(lstm_scan_kernel<KM, false>);
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return err;
   *regs = a.numRegs;
   *local_bytes = static_cast<int>(a.localSizeBytes);
@@ -424,34 +470,45 @@ int lstm_scan_max_clusters(int H, int cluster) {
   }
 }
 
-// Registers per thread and local (spill) bytes of the kernel for H.
-int lstm_scan_attributes(int H, int* regs, int* local_bytes) {
+// Registers per thread and local (spill) bytes of the kernel for H, the
+// zero-state instantiation (state = 0) or the one with a state (1).
+int lstm_scan_attributes(int H, int state, int* regs, int* local_bytes) {
   if (!valid_h(H)) return cudaErrorInvalidValue;
   switch (k_chunks(H)) {
-    case 1: return attributes<1>(regs, local_bytes);
-    case 2: return attributes<2>(regs, local_bytes);
-    case 3: return attributes<3>(regs, local_bytes);
-    default: return attributes<4>(regs, local_bytes);
+    case 1: return attributes<1>(state != 0, regs, local_bytes);
+    case 2: return attributes<2>(state != 0, regs, local_bytes);
+    case 3: return attributes<3>(state != 0, regs, local_bytes);
+    default: return attributes<4>(state != 0, regs, local_bytes);
   }
 }
 
-// xp [B, T, 4H], w_hh [4H, H], out [B, T, H] (all contiguous f32). The
-// plan: clusters of `cluster` CTAs, CTA r owning units [r*U, r*U+U), and
-// `n_clusters` clusters sharing the batch.
-int lstm_scan_launch(const float* xp, const float* w_hh, float* out, int B,
-                     int T, int H, int cluster, int U, int n_clusters,
-                     void* stream) {
+// xp [B, T, 4H], w_hh [4H, H], out [B, T, H] (all contiguous f32); h0 and
+// c0 [B, H], the initial state (both null: zero state), and c_out [B, H],
+// the final cell state (null: not written). The plan: clusters of
+// `cluster` CTAs, CTA r owning units [r*U, r*U+U), and `n_clusters`
+// clusters sharing the batch.
+int lstm_scan_launch(const float* xp, const float* w_hh, const float* h0,
+                     const float* c0, float* out, float* c_out, int B, int T,
+                     int H, int cluster, int U, int n_clusters, void* stream) {
   if (B == 0 || T == 0) return 0;
   if (!valid_h(H) || cluster < 1 || cluster > MAX_CLUSTER || U < 1 ||
       U > MAX_UNITS || cluster * U < H || (cluster - 1) * U >= H ||
-      n_clusters < 1)
+      n_clusters < 1 || (h0 == nullptr) != (c0 == nullptr))
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (k_chunks(H)) {
-    case 1: return launch<1>(xp, w_hh, out, B, T, H, cluster, U, n_clusters, st);
-    case 2: return launch<2>(xp, w_hh, out, B, T, H, cluster, U, n_clusters, st);
-    case 3: return launch<3>(xp, w_hh, out, B, T, H, cluster, U, n_clusters, st);
-    default: return launch<4>(xp, w_hh, out, B, T, H, cluster, U, n_clusters, st);
+    case 1:
+      return launch<1>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster, U,
+                       n_clusters, st);
+    case 2:
+      return launch<2>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster, U,
+                       n_clusters, st);
+    case 3:
+      return launch<3>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster, U,
+                       n_clusters, st);
+    default:
+      return launch<4>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster, U,
+                       n_clusters, st);
   }
 }
 

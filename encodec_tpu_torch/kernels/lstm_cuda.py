@@ -12,11 +12,15 @@ round trip. Sequences spread over as many clusters as the card holds at
 once (see the source for the design; `lstm_plan` sizes the launch).
 
 The kernel takes H ≤ 512, which covers every configuration of the repo;
-a CUDA call with a larger H raises.
+a CUDA call with a larger H raises. It starts from zero state or, unlike
+the TPU kernel, from a given `(h0, c0)`, and can return the final state:
+a chunked stream carries `(h, c)` from one launch to the next, and the
+split gives the same bits as one launch over the whole sequence.
 
 `lstm_scan` is the entry point: for CPU tensors it runs the plain PyTorch
 twin `lstm_scan_plain`; for CUDA tensors it launches the kernel or raises —
-there is no fallback. `lstm_scan.launches` counts kernel launches.
+there is no fallback. `lstm_scan.launches` counts kernel launches and
+`lstm_scan.stateful_launches` those that started from a given state.
 """
 
 from __future__ import annotations
@@ -68,11 +72,16 @@ def lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, h: torch.Tensor,
     return torch.stack(ys, dim=1), h, c
 
 
-def lstm_scan_plain(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """The plain PyTorch twin of the kernel: zero-state recurrence."""
-    B, H = xp.shape[0], w_hh.shape[1]
-    zero = xp.new_zeros(B, H)
-    return lstm_recurrence(xp, w_hh, zero, zero)[0]
+def lstm_scan_plain(xp: torch.Tensor, w_hh: torch.Tensor,
+                    h0: tp.Optional[torch.Tensor] = None,
+                    c0: tp.Optional[torch.Tensor] = None,
+                    return_state: bool = False):
+    """The plain PyTorch twin of the kernel, with `lstm_scan`'s signature:
+    the recurrence from `(h0, c0)` (zeros when not given)."""
+    if h0 is None:
+        h0 = c0 = xp.new_zeros(xp.shape[0], w_hh.shape[1])
+    out, hT, cT = lstm_recurrence(xp, w_hh, h0, c0)
+    return (out, hT, cT) if return_state else out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,35 +159,59 @@ def max_active_clusters(H: int, device: torch.device) -> int:
     return _MAX_ACTIVE[key]
 
 
-def lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor) -> torch.Tensor:
-    """One LSTM layer's zero-state recurrence.
+def lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor,
+              h0: tp.Optional[torch.Tensor] = None,
+              c0: tp.Optional[torch.Tensor] = None,
+              return_state: bool = False):
+    """One LSTM layer's recurrence.
 
     xp: `[B, T, 4H]` f32 gate inputs (x W_ihᵀ + b_ih + b_hh); w_hh: `[4H, H]`
-    f32 (torch layout). Returns h `[B, T, H]` f32. Both contiguous, on one
+    f32 (torch layout); h0, c0: `[B, H]` f32 initial state, both or neither
+    (zero state). Returns h `[B, T, H]` f32 or, with `return_state`,
+    `(h, hT, cT)` (`hT` is the view `h[:, -1]`). All contiguous, on one
     device. On CUDA: one launch laid out by `lstm_plan`, H ≤ 512."""
     check_tensor("xp", xp, ndim=3)
     check_tensor("w_hh", w_hh, ndim=2)
-    require_same_device(xp, w_hh)
+    if (h0 is None) != (c0 is None):
+        raise ValueError("pass both h0 and c0, or neither")
+    state = () if h0 is None else (h0, c0)
+    for name, t in zip(("h0", "c0"), state):
+        check_tensor(name, t, ndim=2)
+    require_same_device(xp, w_hh, *state)
     B, T, H4 = xp.shape
     H = w_hh.shape[1]
     if H4 != 4 * H or w_hh.shape[0] != H4:
         raise ValueError(f"shape mismatch: xp {tuple(xp.shape)}, "
                          f"w_hh {tuple(w_hh.shape)} (want [B,T,4H], [4H,H])")
+    if any(tuple(t.shape) != (B, H) for t in state):
+        raise ValueError(f"h0/c0 must be [B, H] = [{B}, {H}], got "
+                         f"{[tuple(t.shape) for t in state]}")
     if xp.device.type == "cpu":
-        return lstm_scan_plain(xp, w_hh)
+        return lstm_scan_plain(xp, w_hh, h0, c0, return_state)
     plan = lstm_plan(B, H, max_active_clusters(H, xp.device))
     lib = build.load_library("lstm_scan")
     out = torch.empty(B, T, H, device=xp.device, dtype=torch.float32)
     if B == 0 or T == 0:
-        return out
+        if not return_state:
+            return out
+        zero = xp.new_zeros(B, H)
+        return (out, zero, zero) if h0 is None else (out, h0, c0)
+    c_out = (torch.empty(B, H, device=xp.device, dtype=torch.float32)
+             if return_state else None)
     with torch.cuda.device(xp.device):
         rc = lib.lstm_scan_launch(
-            xp.data_ptr(), w_hh.data_ptr(), out.data_ptr(), B, T, H,
+            xp.data_ptr(), w_hh.data_ptr(),
+            None if h0 is None else h0.data_ptr(),
+            None if c0 is None else c0.data_ptr(), out.data_ptr(),
+            None if c_out is None else c_out.data_ptr(), B, T, H,
             plan.cluster, plan.units_per_cta, plan.n_clusters,
             torch.cuda.current_stream(xp.device).cuda_stream)
     build.check(lib, "lstm_scan", rc)
     lstm_scan.launches += 1
-    return out
+    if h0 is not None:
+        lstm_scan.stateful_launches += 1
+    return (out, out[:, -1], c_out) if return_state else out
 
 
 lstm_scan.launches = 0  # type: ignore[attr-defined]
+lstm_scan.stateful_launches = 0  # type: ignore[attr-defined]

@@ -15,4 +15,9 @@ from .model import (  # noqa: F401
     build_model,
     MODELS,
 )
+from .streaming import (  # noqa: F401
+    StreamingCodec,
+    min_first_chunk,
+    min_first_latent_chunk,
+)
 from .zoo import load_pretrained, load_state, model_params_from_state  # noqa: F401

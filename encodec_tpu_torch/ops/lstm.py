@@ -2,10 +2,11 @@
 
 Port of `encodec_tpu/ops/lstm.py`. The input projection of a whole layer,
 `x·W_ihᵀ + b_ih + b_hh`, is one large `torch.matmul` outside any kernel;
-the zero-state full-sequence recurrence goes to the K3 wrapper
-(`kernels.lstm_scan`: the CUDA kernel for CUDA tensors, its plain twin for
-CPU tensors). Streaming paths (`state=`, `return_state=`, `lstm_step`) run
-the plain recurrence. Gate packing follows torch.nn.LSTM (i, f, g, o).
+each layer's recurrence goes to the K3 wrapper (`kernels.lstm_scan`: the
+CUDA kernel for CUDA tensors, its plain twin for CPU tensors), from zero
+state or, for streaming (`state=`, `return_state=`), from the carried
+`(h, c)`. `lstm_step` runs the plain cell (no path calls it on the card).
+Gate packing follows torch.nn.LSTM (i, f, g, o).
 Parameters per layer, torch layout: w_ih [4H, in], w_hh [4H, H], b_ih, b_hh.
 """
 
@@ -17,7 +18,7 @@ import typing as tp
 import torch
 
 from ..kernels import lstm_scan, lstm_scan_plain
-from ..kernels.lstm_cuda import lstm_cell, lstm_recurrence
+from ..kernels.lstm_cuda import lstm_cell
 
 Params = tp.Dict[str, tp.Any]
 
@@ -52,28 +53,24 @@ def lstm(params: Params, x: torch.Tensor, *, skip: bool = True,
     """Stacked LSTM over `[B, T, C]` with an additive residual skip.
 
     `state` is an optional `(h, c)` pair of `[num_layers, B, H]` tensors;
-    zeros when omitted (SLSTM always starts from zero). `plain=True` runs
-    the plain recurrence even on CUDA tensors (the kernel's twin, used to
-    hold the kernel path against it on the card)."""
-    layers = params["layers"]
+    zeros when omitted (SLSTM always starts from zero). With
+    `return_state` it returns `(y, (h, c))`, the final state in the same
+    form. `plain=True` runs the plain recurrence even on CUDA tensors (the
+    kernel's twin, used to hold the kernel path against it on the card)."""
+    scan = lstm_scan_plain if plain else lstm_scan
     y = x
-    if state is None and not return_state:
-        scan = lstm_scan_plain if plain else lstm_scan
-        for layer in layers:
-            y = scan(_project(layer, y), layer["w_hh"].contiguous())
-        return y + x if skip else y
-    B = x.shape[0]
-    H = layers[0]["w_hh"].shape[-1]
-    if state is None:
-        h0 = c0 = x.new_zeros(len(layers), B, H)
-    else:
-        h0, c0 = state
     hs, cs = [], []
-    for i, layer in enumerate(layers):
-        y, hT, cT = lstm_recurrence(_project(layer, y), layer["w_hh"],
-                                    h0[i], c0[i])
-        hs.append(hT)
-        cs.append(cT)
+    for i, layer in enumerate(params["layers"]):
+        h0, c0 = (None, None) if state is None else (
+            state[0][i].contiguous(), state[1][i].contiguous())
+        out = scan(_project(layer, y), layer["w_hh"].contiguous(), h0, c0,
+                   return_state=return_state)
+        if return_state:
+            y, hT, cT = out
+            hs.append(hT)
+            cs.append(cT)
+        else:
+            y = out
     if skip:
         y = y + x
     if return_state:

@@ -1,7 +1,9 @@
 """Kernel checks that need the GPU: each hand-written CUDA kernel against its
 plain PyTorch twin on the card, at the 24 kHz and 48 kHz main-path shapes
 (a 10 s 48 kHz request: K1 and K2 at N=1500 rows, n_q up to 16; K3 at
-B=10, T=150 for the ten full segments and B=1, T=15 or 1 for the tail).
+B=10, T=150 for the ten full segments and B=1, T=15 or 1 for the tail) and
+the stream's (K2 at N=6 and 7; K3 from a carried state, bit-equal to one
+launch over the whole sequence).
 
 This file imports no JAX (the GPU machine has none). On a machine without
 a CUDA device every test skips. Run on the H100 with:
@@ -143,7 +145,10 @@ RVQ_SHAPES = [(750, 128, 1024, 8, False), (750, 128, 1024, 32, False),
               (37, 30, 100, 8, False), (37, 128, 256, 1, False),
               (751, 30, 1000, 8, True), (37, 128, 100, 32, True),
               (3000, 30, 256, 1, False), (5, 30, 7, 32, False),
-              (1500, 128, 1024, 16, False)]
+              (1500, 128, 1024, 16, False),
+              # a streamed chunk's frames (6 or 7 per 80 ms chunk)
+              (6, 128, 1024, 8, False), (6, 128, 1024, 32, False),
+              (7, 128, 1024, 8, False), (7, 128, 1024, 32, False)]
 
 
 def _rvq_inputs(dev, N, D, bins, n_q, shared, seed):
@@ -253,6 +258,70 @@ def test_lstm_scan_kernel_batch_above_cluster_count(dev):
     ref = lstm_scan_plain(xp, w)
     torch.cuda.synchronize()
     assert (got - ref).abs().max().item() <= 1e-4
+
+
+def _lstm_inputs(dev, B, T, H, seed):
+    """Gate inputs, W_hh and a state with distinct rows per sequence."""
+    bound = 1.0 / np.sqrt(H)
+    w = torch.from_numpy(np.random.RandomState(seed).uniform(
+        -bound, bound, (4 * H, H)).astype(np.float32)).to(dev)
+    xp = _rand((B, T, 4 * H), seed + 1, dev)
+    h0 = torch.tanh(_rand((B, H), seed + 2, dev))
+    c0 = _rand((B, H), seed + 3, dev)
+    return xp, w, h0, c0
+
+
+@pytest.mark.parametrize("B,T", [(1, 6), (1, 7), (1, 750), (10, 150),
+                                 (2, 20)])
+def test_lstm_scan_kernel_from_state_matches_plain(dev, B, T):
+    # B=10: more sequences than clusters in flight, so a second wave's
+    # step 0 reads its own h0 row, not the previous sequence's last h
+    H = 512 if B != 2 else 200
+    xp, w, h0, c0 = _lstm_inputs(dev, B, T, H, 20)
+    before = lstm_scan.stateful_launches
+    out, hT, cT = lstm_scan(xp, w, h0, c0, return_state=True)
+    ref, ref_h, ref_c = lstm_scan_plain(xp, w, h0, c0, return_state=True)
+    torch.cuda.synchronize()
+    assert lstm_scan.stateful_launches == before + 1
+    assert torch.equal(hT, out[:, -1])
+    for got, want in ((out, ref), (hT, ref_h), (cT, ref_c)):
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+def _chunks(T, first):
+    sizes = [first] if first else []
+    while sum(sizes) < T:
+        sizes.append(min(first - 1 if first else 1, T - sum(sizes)))
+    return sizes
+
+
+@pytest.mark.parametrize("B,T,first", [(1, 750, 7), (10, 150, 7), (1, 40, 0),
+                                       (10, 12, 0)])
+def test_lstm_scan_kernel_chunks_bit_equal_to_one_launch(dev, B, T, first):
+    """One launch over T steps equals launches over a split of T (7 then
+    6s, as a stream's chunks; or single steps) with (h, c) carried."""
+    xp, w, h0, c0 = _lstm_inputs(dev, B, T, 512, 30)
+    whole, hT, cT = lstm_scan(xp, w, h0, c0, return_state=True)
+    outs, h, c, t = [], h0, c0, 0
+    for n in _chunks(T, first):
+        out, h, c = lstm_scan(xp[:, t:t + n].contiguous(), w, h.contiguous(),
+                              c, return_state=True)
+        outs.append(out)
+        t += n
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(outs, dim=1), whole)
+    assert torch.equal(h, hT) and torch.equal(c, cT)
+
+
+def test_lstm_scan_kernel_zero_state_equals_stateless(dev):
+    xp, w, _, _ = _lstm_inputs(dev, 3, 50, 512, 40)
+    zero = torch.zeros(3, 512, device=dev)
+    plain_launch = lstm_scan(xp, w)
+    out, _, cT = lstm_scan(xp, w, zero, zero, return_state=True)
+    out2, _, cT2 = lstm_scan(xp, w, return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_launch) and torch.equal(out2, plain_launch)
+    assert torch.equal(cT, cT2)
 
 
 def test_lstm_scan_kernel_refuses_large_hidden(dev):
