@@ -46,8 +46,24 @@ Phases, in order (any failure exits non-zero before the last line):
    their own launch counts; streamed codes against the offline encode
    outside tie-flagged positions, streamed audio against the offline decode
    of the same codes, per-chunk latency, and one profiled chunk;
-10. print the `kernels` JSON line (launches per path), then the final `ok`
-   JSON line.
+10. K3's grid kernel at H=1024 (the breathing model's LSTM): its plan
+   (CTAs, units, shared memory, registers and spill); B=1 and 32 with
+   T=480 and B=1 with T=64, each from zero state and from a carried state,
+   against its twin and cuDNN's LSTM, with the bound; one launch against a
+   carried 64 + 64 + ... split, bit for bit;
+11. serve the breathing tokenizer (`breathing_model`, full width) with its
+   own launch counts: two 4 h nights encoded and decoded, 32 nights of 4 h
+   through `encode` (the training batch), and `process_dataset` over a
+   `BreathingDataset` of three synthetic nights (4 h, 6 h + 17 samples and
+   8 h) offline and in 64-hop stream chunks; codes against the plain twins
+   outside tie-flagged positions, audio within 1e-3 of the plain decode,
+   streamed extraction codes equal to the offline ones, seconds per hour of
+   signal, and a profile of one night (device busy, idle share, K3's
+   share);
+12. `params/hires_tokens.yaml`'s model (H=256, T=14,400 steps per 4 h
+   night) from a config dict: one night, K3 ms per layer;
+13. print the `kernels` JSON line (launches per path, the grid kernel in a
+   row of its own), then the final `ok` JSON line.
 
 Imports no JAX. Exits non-zero without printing a result when no CUDA
 device is present or the port's package is not next to this script.
@@ -106,27 +122,122 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int, kernel: str = "") -> float:
-    """Mean device time per call of `fn`: the CUDA kernels' own time under
-    torch.profiler, summed over `iters` calls (no host time, no gaps); with
-    `kernel`, only the kernels whose name contains it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# The port's kernels by name, and the launch counter that counts each
+OWN_KERNELS = {"vq_nearest_kernel": "nearest_codebook",
+               "vq_rvq_kernel": "rvq_encode_fused",
+               "lstm_scan_kernel": "lstm_cluster",
+               "lstm_grid_kernel": "lstm_grid"}
+PROFILE_WINDOWS = 10     # windows tried before a measurement fails
+PROFILE_EDGE_S = 0.05    # host time between a window's edges and its work
+PROFILE_AGREE = 0.05     # two windows agree within this device time
+profiler_stats = {"windows": 0, "short": 0, "restored": 0, "unmatched": 0}
 
+
+def own_launches() -> dict:
+    """Launches so far of each of the port's kernels, by kernel name."""
+    from encodec_tpu_torch import kernels
+
+    c = launch_counts(kernels)
+    c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
+    return {name: c[counter] for name, counter in OWN_KERNELS.items()}
+
+
+def kernel_window(torch, fn, iters: int, kernel: str = "") -> tuple:
+    """Device records of `iters` back-to-back calls of `fn` under
+    torch.profiler: {kernel name: (launches, device µs)} for the CUDA
+    kernels whose name contains `kernel`, and the calls' wall ms.
+
+    Profiler windows on the H100 machine have come back wrong in two ways:
+    short of records (in some processes every window of ten K3 launches
+    kept nine), and with every record of a window stretched or shrunk
+    alike. So each window profiles one
+    discarded warm-up call and waits `PROFILE_EDGE_S` before its calls and
+    after them. Its launches are counted, not taken from the records: each
+    of the port's kernels launches `iters` times what its counter gives one
+    call, any other kernel a multiple of `iters`. A window that kept fewer
+    records (at most `iters` - 1 fewer of a kernel) is scaled up at its
+    records' mean time and counted in `profiler_stats`. It is used once an
+    earlier window had the same launches and a device time within
+    `PROFILE_AGREE`. Fails after `PROFILE_WINDOWS` windows."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    before = own_launches()
     fn()
     torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        # each profiled window is its own cycle; the notice says only that
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+    per_call = {k: n - before[k] for k, n in own_launches().items()}
+    seen = []
+    for _ in range(PROFILE_WINDOWS):
+        traces = []
+        with warnings.catch_warnings():
+            # each profiled window is its own cycle; the notice says only that
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CUDA],
+                         schedule=schedule(wait=0, warmup=1, active=1),
+                         on_trace_ready=lambda p: traces.append(
+                             p.key_averages())) as prof:
                 fn()
-            torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if getattr(e, "device_type", None) == DeviceType.CUDA
-             and kernel in e.key)
-    check(us > 0, "the profiler recorded no device time")
-    return us / iters / 1e3
+                torch.cuda.synchronize()
+                prof.step()
+                time.sleep(PROFILE_EDGE_S)
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                time.sleep(PROFILE_EDGE_S)
+                prof.step()
+        profiler_stats["windows"] += 1
+        records = {}
+        for e in (traces[0] if traces else ()):
+            if (getattr(e, "device_type", None) == DeviceType.CUDA
+                    and kernel in e.key):
+                n, us = records.get(e.key, (0, 0.0))
+                records[e.key] = (n + e.count, us + e.self_device_time_total)
+        # kept records per kernel (the port's by name, template instances
+        # together) against the launches made
+        kept = {}
+        for key, (n, _) in records.items():
+            g = next((name for name in OWN_KERNELS if name in key), key)
+            kept[g] = kept.get(g, 0) + n
+        made = {g: iters * per_call[g] if g in OWN_KERNELS
+                else -(-n // iters) * iters for g, n in kept.items()}
+        missing = [name for name in OWN_KERNELS
+                   if kernel in name and per_call[name] and name not in kept]
+        if (not kept or missing
+                or any(not made[g] - iters < n <= made[g]
+                       for g, n in kept.items())):
+            profiler_stats["unmatched"] += 1
+            continue
+        lost = sum(made[g] - n for g, n in kept.items())
+        if lost:
+            profiler_stats["short"] += 1
+            profiler_stats["restored"] += lost
+        scaled = {}
+        for key, (n, us) in records.items():
+            g = next((name for name in OWN_KERNELS if name in key), key)
+            f = made[g] / kept[g]
+            scaled[key] = (n * f, us * f)
+        busy = sum(us for _, us in scaled.values())
+        if any(m == made and abs(b - busy) <= PROFILE_AGREE * max(b, busy)
+               for m, b in seen):
+            return scaled, wall_ms
+        if seen:
+            profiler_stats["unmatched"] += 1
+        seen.append((made, busy))
+    fail(f"torch.profiler gave no two windows that agree in "
+         f"{PROFILE_WINDOWS} ({'kernels ' + kernel if kernel else 'all kernels'}"
+         f"; {iters} calls; device us of the usable windows: "
+         f"{[round(b, 1) for _, b in seen]})")
+
+
+def device_ms(torch, fn, iters: int, kernel: str = "") -> float:
+    """Mean device time per call of `fn`: the CUDA kernels' own time under
+    torch.profiler over `iters` calls of a whole window (`kernel_window`;
+    no host time, no gaps); with `kernel`, only the kernels whose name
+    contains it."""
+    records, _ = kernel_window(torch, fn, iters, kernel)
+    return sum(us for _, us in records.values()) / iters / 1e3
 
 
 def plain_stage_margins(torch, kernels, x, embed, n_q, shared):
@@ -320,6 +431,19 @@ def k3_plan_line(torch, dev, H):
             f"{plan.smem_rows} in shared memory")
 
 
+def lstm_yardstick(torch, w_hh, dev):
+    """cuDNN's LSTM computing K3's function: W_ih = I and zero biases, so
+    its input projection is a [B·T, 4H] x [4H, 4H] GEMM of its own."""
+    H = w_hh.shape[1]
+    cudnn = torch.nn.LSTM(4 * H, H, batch_first=True).to(dev)
+    with torch.no_grad():
+        cudnn.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
+        cudnn.weight_hh_l0.copy_(w_hh)
+        cudnn.bias_ih_l0.zero_()
+        cudnn.bias_hh_l0.zero_()
+    return cudnn
+
+
 def phase_k3(torch, kernels, dev):
     """K3 per layer at H=512: T=750 (a 10 s 24 kHz request's LSTM) at the
     served batch B=1 and at B=4; B=10, T=150 (a 10 s 48 kHz request's ten
@@ -334,14 +458,7 @@ def phase_k3(torch, kernels, dev):
                             ("b", (4 * H,)))} for _ in range(2)]
     print(k3_plan_line(torch, dev, H))
     w_hh = layers[0]["w_hh"]
-    # library yardstick: cuDNN's LSTM on the same xp (W_ih = I, zero bias
-    # computes exactly the same recurrence)
-    cudnn = torch.nn.LSTM(4 * H, H, batch_first=True).to(dev)
-    with torch.no_grad():
-        cudnn.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
-        cudnn.weight_hh_l0.copy_(w_hh)
-        cudnn.bias_ih_l0.zero_()
-        cudnn.bias_hh_l0.zero_()
+    cudnn = lstm_yardstick(torch, w_hh, dev)
     rows = {}
     for B, T in ((1, 750), (4, 750), (10, 150), (1, 15)):
         x = gauss(torch, (B, T, H), 30, dev, 0.5)
@@ -390,12 +507,7 @@ def phase_k3_state(torch, kernels, dev):
     rng = np.random.RandomState(41)
     w_hh = torch.from_numpy(rng.uniform(-lim, lim, (4 * H, H))
                             .astype(np.float32)).to(dev)
-    cudnn = torch.nn.LSTM(4 * H, H, batch_first=True).to(dev)
-    with torch.no_grad():
-        cudnn.weight_ih_l0.copy_(torch.eye(4 * H, device=dev))
-        cudnn.weight_hh_l0.copy_(w_hh)
-        cudnn.bias_ih_l0.zero_()
-        cudnn.bias_hh_l0.zero_()
+    cudnn = lstm_yardstick(torch, w_hh, dev)
 
     def inputs(B, T, seed):
         xp = gauss(torch, (B, T, 4 * H), seed, dev, 1.0)
@@ -493,10 +605,11 @@ def phase_main_path(torch, kernels, dev):
                                codes=frames[0][0], audio=audio, data=data,
                                back=back, sr=sr, n_q=model.n_q_active,
                                codec_s=t1 - t0, ecdc_s=t2 - t1))
-    counts = kernels.launch_counts()
+    counts = launch_counts(kernels)
     print(f"main path launches: {json.dumps(counts)}")
     for name, n in counts.items():
-        check(n > 0, f"kernel {name} was never launched on the main path")
+        check(n > 0 or name == "lstm_grid",
+              f"kernel {name} was never launched on the main path")
 
     # -- verification, not counted --------------------------------------
     total_diff = total_flagged = 0
@@ -678,10 +791,11 @@ def phase_main_path_48(torch, kernels, dev):
                                audio=audio, data=data, back=back,
                                sr=back_sr, n_q=model.n_q_active,
                                codec_s=t1 - t0, ecdc_s=t2 - t1))
-    counts = kernels.launch_counts()
+    counts = launch_counts(kernels)
     print(f"48 kHz path launches: {json.dumps(counts)}")
     for name, k in counts.items():
-        check(k > 0, f"kernel {name} was never launched on the 48 kHz path")
+        check(k > 0 or name == "lstm_grid",
+              f"kernel {name} was never launched on the 48 kHz path")
 
     # -- verification, not counted --------------------------------------
     hop = cfg.seanet.hop_length
@@ -829,7 +943,7 @@ def phase_stream(torch, kernels, model):
         t0 = time.perf_counter()
         ex_codes[k] = extractor(sig[k])
         ex_s[k] = time.perf_counter() - t0
-    counts = kernels.launch_counts()
+    counts = launch_counts(kernels)
     stateful = kernels.lstm_scan.stateful_launches
     print(f"stream path launches: {json.dumps(counts)}, K3 from a carried "
           f"state: {stateful}")
@@ -899,8 +1013,327 @@ def phase_stream(torch, kernels, model):
     return counts
 
 
+def k3_grid_plan_line(torch, dev, H):
+    import ctypes
+
+    from encodec_tpu_torch.kernels import build, lstm_cuda
+
+    lib = build.load_library("lstm_grid")
+    n_max = lstm_cuda.max_grid_ctas(H, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    build.check(lib, "lstm_grid", lib.lstm_grid_attributes(
+        H, ctypes.addressof(regs), ctypes.addressof(local)))
+    plans = {B: lstm_cuda.grid_plan(B, H, n_max) for B in (1, 32)}
+    for B, plan in plans.items():
+        check(plan.ctas <= n_max, f"K3 grid plan at B={B}: {plan}")
+        check(lib.lstm_grid_smem_bytes(H, plan.batch_per_launch)
+              == plan.smem_bytes,
+              "K3 grid shared memory differs between the kernel and its plan")
+    p = plans[1]
+    return (f"K3 grid plan H={H}: {p.ctas} CTAs x {p.units_per_cta} units "
+            f"({4 * p.units_per_cta} W_hh rows in registers per CTA) on {sms} "
+            f"SMs, max co-resident CTAs {n_max} (occupancy API), "
+            f"{lstm_cuda.GRID_THREADS} threads/CTA, {regs.value} "
+            f"registers/thread ({local.value} B local), shared memory "
+            f"{p.smem_bytes} B/CTA at B=1 and {plans[32].smem_bytes} at B=32 "
+            f"({plans[32].n_launches} launch), at most "
+            f"{lstm_cuda.grid_max_batch(H)} sequences per launch")
+
+
+def phase_k3_grid(torch, kernels, dev):
+    """K3's grid kernel per layer at H=1024, the breathing model's LSTM: B=1
+    and 32 with T=480 (a 4 h night; the training batch of 32 nights) and
+    B=1 with T=64 (a 64-hop extractor chunk), each from zero state and from
+    a carried (h0, c0), against its twin and cuDNN's LSTM; then one launch
+    over T=480 against launches over a carried 64 + 64 + ... split, which
+    must give the same bits. The JSON row is B=1, T=480 from zero state."""
+    H = 1024
+    print(k3_grid_plan_line(torch, dev, H))
+    w_hh = books(torch, (4 * H, H), 51, dev) / math.sqrt(6.0)  # ±1/sqrt(H)
+    cudnn = lstm_yardstick(torch, w_hh, dev)
+    rows = {}
+    for B, T in ((1, 480), (32, 480), (1, 64)):
+        xp = gauss(torch, (B, T, 4 * H), 52, dev, 1.0)
+        h0 = torch.tanh(gauss(torch, (B, H), 53, dev, 1.0))
+        c0 = gauss(torch, (B, H), 54, dev, 1.0)
+        proj = xp.reshape(B * T, 4 * H)
+        eye = cudnn.weight_ih_l0.detach()
+        gemm_ms = device_ms(torch, lambda: proj @ eye, 5)
+        for stateful in (False, True):
+            st = (h0, c0) if stateful else (None, None)
+            before = kernels.lstm_scan.grid_launches
+            out, hT, cT = kernels.lstm_scan(xp, w_hh, *st, return_state=True)
+            check(kernels.lstm_scan.grid_launches == before + 1,
+                  f"K3 B={B} T={T} H={H} did not launch the grid kernel once")
+            ref = kernels.lstm_scan_plain(xp, w_hh, *st, return_state=True)
+            torch.cuda.synchronize()
+            err = max(float((a - b).abs().max())
+                      for a, b in zip((out, hT, cT), ref))
+            # 480 recurrent steps sum in another order than cuBLAS
+            check(err <= 1e-4, f"K3 grid B={B} T={T} state={stateful}: "
+                               f"max|d| {err} > 1e-4")
+            ms = device_ms(torch, lambda: kernels.lstm_scan(
+                xp, w_hh, *st, return_state=True), 10)
+            plain_ms = device_ms(torch, lambda: kernels.lstm_scan_plain(
+                xp, w_hh, *st, return_state=True), 2)
+            lib_state = (h0[None], c0[None]) if stateful else None
+            with torch.no_grad():
+                lib_err = float((cudnn(xp, lib_state)[0] - out).abs().max())
+                lib_ms = device_ms(torch, lambda: cudnn(xp, lib_state), 5)
+            nbytes = (B * T * 4 * H + 4 * H * H + B * T * H + B * H
+                      + (2 * B * H if stateful else 0)) * 4
+            b_ms, b_by = bound(2.0 * B * T * H * 4 * H, nbytes)
+            print(f"K3 grid lstm_scan B={B} T={T} H={H} "
+                  f"{'from (h0, c0)' if stateful else 'zero state'}: out/hT/cT "
+                  f"max|d| vs plain {err:.3g} (cuDNN vs kernel {lib_err:.3g}); "
+                  f"per layer device ms: kernel={ms:.4f} ({ms / T * 1e3:.3f} "
+                  f"us/step) plain={plain_ms:.4f} library(cuDNN LSTM)="
+                  f"{lib_ms:.4f} (its identity input GEMM alone {gemm_ms:.4f}) "
+                  f"bound={b_ms:.5f} ({b_by})")
+            rows[B, T, stateful] = dict(ms=ms, plain_ms=plain_ms,
+                                        library_ms=lib_ms, bound_ms=b_ms,
+                                        bound_by=b_by, max_abs_err=err)
+    for B in (1, 32):
+        T = 480
+        xp = gauss(torch, (B, T, 4 * H), 55, dev, 1.0)
+        h0 = torch.tanh(gauss(torch, (B, H), 56, dev, 1.0))
+        c0 = gauss(torch, (B, H), 57, dev, 1.0)
+        whole, hT, cT = kernels.lstm_scan(xp, w_hh, h0, c0, return_state=True)
+        outs, h, c = [], h0, c0
+        for t in range(0, T, 64):
+            out, h, c = kernels.lstm_scan(xp[:, t:t + 64].contiguous(), w_hh,
+                                          h.contiguous(), c, return_state=True)
+            outs.append(out)
+        torch.cuda.synchronize()
+        check(torch.equal(torch.cat(outs, 1), whole) and torch.equal(h, hT)
+              and torch.equal(c, cT),
+              f"K3 grid B={B}: the carried 64 + 64 + ... split differs from "
+              "one launch")
+        print(f"K3 grid from state B={B} T={T} H={H}: one launch == "
+              f"{len(outs)} launches of 64, ..., {T % 64 or 64} steps with "
+              "(h, c) carried, bit for bit (out, hT, cT)")
+    return rows[1, 480, False]
+
+
+def breathing_signal(n: int, seed: int) -> np.ndarray:
+    """A seeded synthetic night at 10 Hz, [n] float32: breathing at 12-18
+    breaths a minute with a slowly varying depth, noise and a few motion
+    bursts."""
+    rng = np.random.RandomState(seed)
+    t = np.arange(n) / 10.0
+    rate = 0.25 + 0.04 * np.sin(2 * np.pi * t / 3600.0 + rng.uniform(0, 6))
+    sig = np.sin(2 * np.pi * np.cumsum(rate) / 10.0)
+    sig *= 1.0 + 0.3 * np.sin(2 * np.pi * t / 1800.0)
+    sig += 0.1 * rng.randn(n)
+    for start in rng.randint(0, max(1, n - 600), size=3):
+        sig[start:start + 600] += 3.0 * rng.randn(600)
+    return sig.astype(np.float32)
+
+
+def phase_breathing(torch, kernels, dev):
+    """The breathing tokenizer (`breathing_model`, full width, H=1024) served
+    as its users run it, counted as one path: two 4 h nights encoded and
+    decoded, the training batch of 32 nights of 4 h through `encode`, then
+    `tools.inference.process_dataset` over a `BreathingDataset` of three
+    nights (4 h, 6 h + 17 samples, 8 h) offline and with
+    `stream_chunk_hops=64`."""
+    import tempfile
+
+    from encodec_tpu_torch.data import BreathingDataset
+    from encodec_tpu_torch.models import breathing_model
+    from encodec_tpu_torch.models.model import (decode_frame, encode_frame,
+                                                encode_frame_margins)
+    from encodec_tpu_torch.tools.inference import process_dataset
+
+    model = breathing_model(kmeans_init=False, device=dev)
+    cfg = model.cfg
+    check(cfg.seanet.n_filters == 32 and cfg.seanet.dimension == 256
+          and cfg.rvq.bins == 1024 and model.n_q_active == 8
+          and cfg.rvq.shared_codebook and cfg.seanet.hop_length == 300
+          and model.params["encoder"]["lstm"]["layers"][0]["w_hh"].shape
+          == (4096, 1024), "not the full-width breathing configuration")
+    n4 = 4 * 36_000
+    nights = [breathing_signal(n4, 600 + i)[None] for i in range(2)]
+    batch = np.stack([breathing_signal(n4, 700 + i)[None]
+                      for i in range(32)])                     # [32, 1, n]
+    tmp = tempfile.TemporaryDirectory()
+    chan = Path(tmp.name) / "synth" / "thorax"
+    chan.mkdir(parents=True)
+    lengths = (n4, 6 * 36_000 + 17, 8 * 36_000)
+    for i, n in enumerate(lengths):
+        np.savez(chan / f"night{i}.npz", data=breathing_signal(n, 800 + i),
+                 fs=10)
+    dataset = BreathingDataset(tmp.name, "synth", mode="test")
+    hours = sum(lengths) / 36_000
+
+    # -- the breathing path, counted: nothing but user calls in here ------
+    kernels.reset_launch_counts()
+    served = []
+    for wav in nights:
+        t0 = time.perf_counter()
+        frames = model.encode(wav[None])
+        audio = model.decode(frames)
+        torch.cuda.synchronize()
+        served.append(dict(wav=wav, codes=frames[0][0], audio=audio,
+                           s=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    batch_codes = model.encode(batch)[0][0]
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    out_dirs, extract_s = {}, {}
+    for hops in (None, 64):
+        out_dirs[hops] = Path(tmp.name) / f"codes_{hops}"
+        t0 = time.perf_counter()
+        n_written = process_dataset(model, dataset, str(out_dirs[hops]),
+                                    stream_chunk_hops=hops)
+        extract_s[hops] = time.perf_counter() - t0
+        check(n_written == 3, f"process_dataset wrote {n_written} files")
+    counts = launch_counts(kernels)
+    stateful = kernels.lstm_scan.stateful_launches
+    print(f"breathing path launches: {json.dumps(counts)}, K3 from a carried "
+          f"state: {stateful}")
+    check(counts["rvq_encode_fused"] > 0 and counts["lstm_grid"] > 0
+          and counts["lstm_grid"] == counts["lstm_scan"] and stateful > 0,
+          "the breathing path did not launch K2 and K3's grid kernel (from "
+          "zero and from a carried state)")
+
+    # -- verification, not counted --------------------------------------
+    hop = cfg.seanet.hop_length
+    for i, r in enumerate(served):
+        codes = r["codes"]
+        check(tuple(codes.shape) == (1, 8, n4 // hop),
+              f"night codes shape {tuple(codes.shape)}")
+        check(tuple(r["audio"].shape) == (1, 1, n4)
+              and bool(torch.isfinite(r["audio"]).all()),
+              f"night audio shape {tuple(r['audio'].shape)} or not finite")
+        x = torch.from_numpy(r["wav"][None]).to(dev).transpose(1, 2)
+        with torch.inference_mode():
+            plain, _ = encode_frame(model.infer_params, model.qstate, x, cfg,
+                                    8, plain=True)
+            _, _, _, margins = encode_frame_margins(
+                model.infer_params, model.qstate, x, cfg, 8, plain=True)
+            plain_audio = decode_frame(model.infer_params, model.qstate,
+                                       codes, cfg, plain=True)
+        flagged = (margins < TIE_THRESHOLD).any(1)[0]
+        diff = (plain != codes).any(1)[0]
+        check(int((diff & ~flagged).sum()) == 0,
+              f"night {i}: codes differ from the plain twins outside the tie "
+              "guard")
+        err = float((r["audio"].transpose(1, 2) - plain_audio).abs().max())
+        check(err <= 1e-3, f"night {i}: audio max|d| {err} > 1e-3 from the "
+                           "plain twins' decode of the same codes")
+        print(f"breathing night {i} (4 h, {n4} samples, T={n4 // hop} LSTM "
+              f"steps): encode+decode {r['s'] * 1e3:.1f} ms; vs plain twins: "
+              f"{int(diff.sum())} positions differ, {int(flagged.sum())} "
+              f"tie-flagged; audio max|d| {err:.3g}")
+    xb = torch.from_numpy(batch).to(dev).transpose(1, 2)
+    with torch.inference_mode():
+        plain, _ = encode_frame(model.infer_params, model.qstate, xb, cfg, 8,
+                                plain=True)
+        _, _, _, margins = encode_frame_margins(
+            model.infer_params, model.qstate, xb, cfg, 8, plain=True)
+    flagged = (margins < TIE_THRESHOLD).any(1)
+    diff = (plain != batch_codes).any(1)
+    check(tuple(batch_codes.shape) == (32, 8, n4 // hop)
+          and int((diff & ~flagged).sum()) == 0,
+          "batch of 32 nights: codes differ from the plain twins outside the "
+          "tie guard")
+    print(f"breathing batch B=32 x 4 h through encode: {batch_s * 1e3:.1f} ms; "
+          f"vs plain twins: {int(diff.sum())} positions differ, "
+          f"{int(flagged.sum())} tie-flagged")
+    n_diff = 0
+    for i, n in enumerate(lengths):
+        with np.load(out_dirs[None] / "thorax" / f"night{i}.npz") as a, \
+                np.load(out_dirs[64] / "thorax" / f"night{i}.npz") as b:
+            check(a["codes"].shape == b["codes"].shape == (8, -(-n // hop))
+                  and float(a["fs"]) == float(b["fs"]) == 10 / hop,
+                  f"extraction night {i}: codes {a['codes'].shape}, "
+                  f"{b['codes'].shape}")
+            n_diff += int((a["codes"] != b["codes"]).any(0).sum())
+    check(n_diff == 0, f"streamed extraction differs from the offline one at "
+                       f"{n_diff} positions")
+    print(f"extraction over {len(lengths)} nights ({hours:.4f} h): offline "
+          f"{extract_s[None]:.2f} s ({extract_s[None] / hours:.4f} s per hour "
+          f"of signal), stream_chunk_hops=64 {extract_s[64]:.2f} s "
+          f"({extract_s[64] / hours:.4f} s per hour); codes equal at every "
+          "position")
+    tmp.cleanup()
+
+    groups = profile_request(
+        torch, lambda: model.decode(model.encode(nights[0][None])),
+        "one 4 h breathing night encode+decode")
+    busy = sum(groups.values())
+    check(busy > 0, "the breathing night's profile recorded no device time")
+    print(f"breathing night: K3 {groups.get('K3', 0.0):.3f} ms of {busy:.3f} "
+          f"ms device busy (share {groups.get('K3', 0.0) / busy:.3f})")
+    return counts
+
+
+def phase_hires(torch, kernels, dev):
+    """`params/hires_tokens.yaml`'s model (H=256, hop 10: T=14,400 LSTM steps
+    per 4 h night; the cluster kernel's longest chain), built by
+    `model_from_config` from that file's `model:` values as a dict: one
+    night encoded and decoded, K3's device ms per layer. Counted as its own
+    path."""
+    from encodec_tpu_torch.train import ConfigNamespace, model_from_config
+
+    model = model_from_config(ConfigNamespace({"model": dict(
+        audio_normalize=False, bins=1024, causal=True, channels=1,
+        dimension=256, filters=32, name="my_encodec", norm="layer_norm",
+        ratios=[5, 2, 1], sample_rate=10, segment="None",
+        target_bandwidths=[0.1])}), device=dev)
+    check(model.params["encoder"]["lstm"]["layers"][0]["w_hh"].shape
+          == (1024, 256) and model.cfg.seanet.hop_length == 10,
+          "not the hires_tokens configuration")
+    n = 4 * 36_000
+    wav = breathing_signal(n, 900)[None]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    frames = model.encode(wav[None])
+    audio = model.decode(frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(kernels)
+    check(counts["lstm_scan"] == 4 and counts["lstm_grid"] == 0,
+          f"hires_tokens launches {counts}")
+    check(tuple(frames[0][0].shape) == (1, model.n_q_active, n // 10)
+          and tuple(audio.shape) == (1, 1, n)
+          and bool(torch.isfinite(audio).all()),
+          "hires_tokens codes or audio shape, or audio not finite")
+    k3_ms = device_ms(torch, lambda: model.encode(wav[None]), 1,
+                      "lstm_scan_kernel") / 2
+    print(f"hires_tokens night (4 h, T={n // 10} LSTM steps at H=256): "
+          f"encode+decode {wall * 1e3:.1f} ms (first call); K3 per layer in "
+          f"the encode {k3_ms:.4f} ms ({k3_ms / (n // 10) * 1e3:.3f} us/step)")
+    # the same layer alone, against its twin and cuDNN's LSTM
+    w_hh = model.params["encoder"]["lstm"]["layers"][0]["w_hh"]
+    H, T = w_hh.shape[1], n // 10
+    xp = gauss(torch, (1, T, 4 * H), 58, dev, 1.0)
+    cudnn = lstm_yardstick(torch, w_hh, dev)
+    err = float((kernels.lstm_scan(xp, w_hh)
+                 - kernels.lstm_scan_plain(xp, w_hh)).abs().max())
+    check(err <= 1e-4, f"K3 B=1 T={T} H={H}: max|d| {err} > 1e-4")
+    ms = device_ms(torch, lambda: kernels.lstm_scan(xp, w_hh), 3)
+    plain_ms = device_ms(torch, lambda: kernels.lstm_scan_plain(xp, w_hh), 1)
+    with torch.no_grad():
+        lib_ms = device_ms(torch, lambda: cudnn(xp), 2)
+    b_ms, b_by = bound(2.0 * T * H * 4 * H, (T * 4 * H + 4 * H * H + T * H) * 4)
+    print(f"K3 lstm_scan B=1 T={T} H={H} (hires_tokens, gaussian inputs): "
+          f"max|d| vs plain {err:.3g}; per layer device ms: kernel={ms:.4f} "
+          f"({ms / T * 1e3:.3f} us/step) plain={plain_ms:.4f} library(cuDNN "
+          f"LSTM)={lib_ms:.4f} bound={b_ms:.5f} ({b_by})")
+    return counts
+
+
+def launch_counts(kernels) -> dict:
+    """The wrappers' launch counts, and the grid kernel's own."""
+    return dict(kernels.launch_counts(),
+                lstm_grid=kernels.lstm_scan.grid_launches)
+
+
 KERNEL_GROUPS = (("K2", "vq_rvq_kernel"), ("K1", "vq_nearest_kernel"),
-                 ("K3", "lstm_scan_kernel"))
+                 ("K3", "lstm_scan_kernel"), ("K3", "lstm_grid_kernel"))
 
 
 def kernel_group(name: str) -> str:
@@ -957,42 +1390,25 @@ def k2_in_request(torch, kernels, model, wav, request_ms, phase_ms):
 
 
 def profile_request(torch, fn, label: str) -> dict:
-    """Device time of one call of `fn` by kernel group (torch.profiler),
-    printed with the five largest kernels; returns ms per group. Wall time
-    includes the profiler's own overhead, so the idle share is an upper
-    bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    """Device time of one call of `fn` by kernel group, from a whole
+    profiler window (`kernel_window`), printed with the five largest
+    kernels; returns ms per group. Wall time includes the profiler's own
+    overhead, so the idle share is an upper bound."""
+    records, wall_ms = kernel_window(torch, fn, 1)
     groups: dict = {}
-    top = []
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = e.self_device_time_total
-        if us > 0:
-            g = kernel_group(e.key)
-            groups[g] = groups.get(g, 0.0) + us / 1e3
-            top.append((us / 1e3, e.count, e.key[:60]))
+    for key, (_, us) in records.items():
+        g = kernel_group(key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
     busy = sum(groups.values())
-    if busy == 0:
-        print(f"profile {label}: no device time recorded")
-        return groups
     split = ", ".join(f"{g} {ms:.3f} ms" for g, ms in
                       sorted(groups.items(), key=lambda kv: -kv[1]))
     print(f"profile {label}: wall {wall_ms:.2f} ms (profiled), device busy "
           f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.3f}; by group: "
           f"{split}")
-    for ms, n, key in sorted(top, reverse=True)[:5]:
-        print(f"    {ms:8.3f} ms  x{n:<4d} {key}")
+    top = sorted(((us / 1e3, n, key[:60]) for key, (n, us) in records.items()),
+                 reverse=True)
+    for ms, n, key in top[:5]:
+        print(f"    {ms:8.3f} ms  x{round(n):<4d} {key}")
     return groups
 
 
@@ -1082,21 +1498,35 @@ def main() -> int:
     phase_cli_48(model48)
     phase_k3_state(torch, kernels, dev)
     counts_stream = phase_stream(torch, kernels, model)
+    k3_grid = phase_k3_grid(torch, kernels, dev)
+    counts_breathing = phase_breathing(torch, kernels, dev)
+    counts_hires = phase_hires(torch, kernels, dev)
 
+    paths = {"24k": counts, "48k": counts48, "stream": counts_stream,
+             "breathing": counts_breathing, "hires_tokens": counts_hires}
+    for c in paths.values():   # lstm_scan counts both K3 kernels
+        c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
     rows = [
         ("K1 nearest_codebook", "vq_search.cu", "vq_pallas.py:43",
          "nearest_codebook", k1),
         ("K2 rvq_encode_fused", "vq_search.cu", "vq_pallas.py:124",
          "rvq_encode_fused", k2),
-        ("K3 lstm_scan", "lstm_scan.cu", "lstm_pallas.py:55", "lstm_scan", k3),
+        ("K3 lstm_scan (cluster kernel, H <= 512)", "lstm_scan.cu",
+         "lstm_pallas.py:55", "lstm_cluster", k3),
+        ("K3 lstm_scan (grid kernel, 512 < H <= 1024)", "lstm_grid.cu",
+         "lstm_pallas.py:55", "lstm_grid", k3_grid),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda",
          "source": f"encodec_tpu_torch/kernels/csrc/{src}",
          "replaces": f"encodec_tpu/kernels/{rep}",
-         "launches": {"24k": counts[fn], "48k": counts48[fn],
-                      "stream": counts_stream[fn]}, **m}
+         "launches": {p: c[fn] for p, c in paths.items()}, **m}
         for n, src, rep, fn, m in rows]}))
+    print(f"profiler windows: {profiler_stats['windows']}; "
+          f"{profiler_stats['short']} short of records, scaled up for "
+          f"{profiler_stats['restored']} launches in all; "
+          f"{profiler_stats['unmatched']} unusable or matching no earlier "
+          "window")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

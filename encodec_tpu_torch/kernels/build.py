@@ -44,6 +44,19 @@ SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
         "lstm_scan_threads": ([], _I),
         "lstm_scan_error_string": ([_I], ctypes.c_char_p),
     },
+    "lstm_grid": {
+        "lstm_grid_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P], _I),
+        "lstm_grid_max_ctas": ([_I, _I], _I),
+        "lstm_grid_attributes": ([_I, _P, _P], _I),
+        "lstm_grid_smem_bytes": ([_I, _I], _I),
+        "lstm_grid_threads": ([], _I),
+        "lstm_grid_max_units": ([], _I),
+        "lstm_grid_batch_tile": ([], _I),
+        "lstm_grid_max_batch": ([], _I),
+        "lstm_grid_max_h": ([], _I),
+        "lstm_grid_error_string": ([_I], ctypes.c_char_p),
+    },
     "vq_search": {
         "vq_nearest_launch": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
         "vq_nearest_smem_bytes": ([_I], _I),

@@ -1,4 +1,4 @@
-// LSTM recurrence for Hopper (sm_90a): K3 of the port.
+// LSTM recurrence for Hopper (sm_90a): K3's cluster kernel, H <= 512.
 //
 // Replaces encodec_tpu/kernels/lstm_pallas.py:55 lstm_scan_pallas (body
 // _scan_kernel): one LSTM layer's recurrence over gate inputs xp [B, T, 4H]
@@ -54,8 +54,11 @@
 //   k runs sequences k, k + n_clusters, ... (n_clusters = min(B, what the
 //   card can hold at once: 7 clusters of 16 on an H100), so B up to that
 //   costs about what B=1 costs.
-// - H > 512 is not taken (the k slice of a lane is at most 4 float4s);
-//   every configuration of the repo has H <= 512.
+// - H > 512 is not taken here (the k slice of a lane is at most 4
+//   float4s, and no cluster holds a larger W_hh: 16 MiB at H=1024).
+//   lstm_grid.cu takes 512 < H <= 1024, the breathing configurations,
+//   with W_hh spread over a cooperative grid of one CTA per SM and h
+//   exchanged through L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

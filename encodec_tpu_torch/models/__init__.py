@@ -12,6 +12,7 @@ from .model import (  # noqa: F401
     EncodecModel,
     encodec_model_24khz,
     encodec_model_48khz,
+    breathing_model,
     build_model,
     MODELS,
 )
@@ -20,4 +21,9 @@ from .streaming import (  # noqa: F401
     min_first_chunk,
     min_first_latent_chunk,
 )
-from .zoo import load_pretrained, load_state, model_params_from_state  # noqa: F401
+from .zoo import (  # noqa: F401
+    load_pretrained,
+    load_state,
+    model_params_from_state,
+    params_from_jax,
+)

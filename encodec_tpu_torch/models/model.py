@@ -3,8 +3,9 @@
 Port of `encodec_tpu/models/model.py`: `EncodecConfig`, `encode_frame`,
 `encode_frame_margins`, `decode_frame`, the PCM16 wire helpers,
 `EncodecModel` (`encode`, `encode_guarded`, `decode`,
-`set_target_bandwidth`, `n_q_active`), `build_model`,
-`encodec_model_24khz`, `encodec_model_48khz` and `MODELS`. `encode` returns
+`set_target_bandwidth`, `n_q_active`, `codebooks`), `build_model`,
+`encodec_model_24khz`, `encodec_model_48khz`, `breathing_model` and
+`MODELS`. `encode` returns
 a list of `(codes [B, K, T'], scale [B, 1] or None)` frames and `decode`
 consumes them, the contract the `.ecdc` pipeline depends on. Audio is
 `[B, C, T]` at these methods, like the JAX package.
@@ -133,11 +134,12 @@ def encode_frame_margins(params, qstate: RVQState, x: torch.Tensor,
 
 def decode_frame(params, qstate: RVQState, codes: torch.Tensor,
                  cfg: EncodecConfig,
-                 scale: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                 scale: tp.Optional[torch.Tensor] = None,
+                 plain: bool = False) -> torch.Tensor:
     """Decode codes `[B, K, T']` (and scale `[B, 1]`) → waveform `[B, T, C]`
-    (K3)."""
+    (K3; `plain=True` runs its plain twin, even on CUDA tensors)."""
     emb = rvq_decode(qstate, codes.permute(1, 0, 2), cfg.rvq)
-    out = seanet_decoder(params["decoder"], emb, cfg.seanet)
+    out = seanet_decoder(params["decoder"], emb, cfg.seanet, plain=plain)
     if scale is not None:
         out = out * scale.reshape(-1, 1, 1)
     return out
@@ -261,6 +263,12 @@ class EncodecModel:
     def n_q_active(self) -> int:
         return num_quantizers_for_bandwidth(self.cfg.rvq, self.frame_rate,
                                             self.bandwidth)
+
+    @property
+    def codebooks(self) -> torch.Tensor:
+        """Stacked RVQ codebooks `[n_books, bins, dim]` (one book for a
+        shared-codebook model)."""
+        return self.qstate.embed
 
     # -- public API -------------------------------------------------------
     def segment_groups(self, x) -> tp.Tuple[int, tp.List[tp.Tuple[
@@ -465,6 +473,27 @@ def encodec_model_48khz(pretrained: bool = False,
         from .zoo import load_pretrained
         load_pretrained(model, "encodec_48khz-7e698e3e.th", repository)
     return model
+
+
+def breathing_model(target_bandwidths: tp.Sequence[float] = (0.08,),
+                    sample_rate: int = 10, channels: int = 1,
+                    ratios: tp.Sequence[int] = (6, 5, 5, 2, 1),
+                    bins: int = 1024, dimension: int = 256,
+                    causal: bool = True, model_norm: str = "layer_norm", *,
+                    device: tp.Union[str, torch.device] = "cuda",
+                    kmeans_init: bool = True, **kw) -> EncodecModel:
+    """The fork's trainable breathing tokenizer: 10 Hz, hop 300, 1024 bins,
+    dimension 256, one shared codebook, 8 stages at 0.08 kbps, causal
+    `layer_norm` convs and no norm on the decoder's last conv; its LSTM has
+    H = 32·2⁵ = 1024 (K3's grid kernel on the card). `kw` goes to
+    `build_model` (`n_filters`, `seed`, ...)."""
+    return build_model(target_bandwidths=list(target_bandwidths),
+                       sample_rate=sample_rate, channels=channels,
+                       causal=causal, model_norm=model_norm,
+                       ratios=list(ratios), bins=bins, dimension=dimension,
+                       name="breathing_model", decoder_final_norm="none",
+                       shared_codebook=True, kmeans_init=kmeans_init,
+                       device=device, **kw)
 
 
 MODELS = {

@@ -189,13 +189,15 @@ def init_seanet_decoder(gen: torch.Generator, cfg: SEANetConfig,
     return p
 
 
-def seanet_decoder(p: Params, z: torch.Tensor, cfg: SEANetConfig
-                   ) -> torch.Tensor:
-    """Decode latents `[B, T, dimension]` → audio `[B, T*hop, channels]`."""
+def seanet_decoder(p: Params, z: torch.Tensor, cfg: SEANetConfig,
+                   plain: bool = False) -> torch.Tensor:
+    """Decode latents `[B, T, dimension]` → audio `[B, T*hop, channels]`.
+
+    `plain=True` runs the LSTM's plain twin even on CUDA tensors."""
     y = ops.sconv1d(p["init_conv"], z, kernel_size=cfg.kernel_size,
                     causal=cfg.causal, norm=cfg.norm, pad_mode=cfg.pad_mode)
     if cfg.lstm:
-        y = ops.lstm(p["lstm"], y, skip=True)
+        y = ops.lstm(p["lstm"], y, skip=True, plain=plain)
     for stage, ratio in zip(p["stages"], cfg.ratios):
         y = _act(y, cfg.activation_alpha)
         y = ops.sconv_transpose1d(stage["up"], y, kernel_size=ratio * 2,

@@ -284,19 +284,17 @@ class StreamingCodec:
     """Chunked encode/decode around a causal `EncodecModel`.
 
     Audio is `[B, C, L]` (float, or int16 PCM) and codes `[B, K, L']`, as
-    at `EncodecModel`. `n_q` defaults to the model's bandwidth setting,
-    read on every call."""
+    at `EncodecModel`. `n_q` is fixed when the codec is built (the model's
+    bandwidth setting then, unless given) and does not follow later
+    changes of the model's bandwidth; assigning `codec.n_q` takes effect
+    from the next chunk."""
 
     def __init__(self, model, n_q: tp.Optional[int] = None):
         self.model = model
         self.cfg = model.cfg
-        self._n_q = n_q
+        self.n_q = n_q or model.n_q_active
         self._enc_state: tp.Optional[State] = None
         self._dec_state: tp.Optional[State] = None
-
-    @property
-    def n_q(self) -> int:
-        return self._n_q or self.model.n_q_active
 
     @property
     def hop(self) -> int:

@@ -8,6 +8,11 @@ torch weight layout, so conv weights (or `weight_g`/`weight_v`, old or
 parametrization keys) are taken as they are.
 
 Only a local `repository` is read: the port never downloads checkpoints.
+
+`params_from_jax` takes the JAX package's own parameter tree (as a JAX-
+trained `.ckpt` holds it, numpy leaves) to the port's parameters, without
+JAX: the transposes of `encodec_tpu/models/torch_zoo.py`'s
+`torch_state_from_params`, copied here, then the loader above.
 """
 
 from __future__ import annotations
@@ -141,6 +146,100 @@ def model_params_from_state(state: State, cfg) -> tp.Tuple[dict, RVQState]:
     params = {"encoder": encoder_params_from_state(state, cfg.seanet),
               "decoder": decoder_params_from_state(state, cfg.seanet)}
     return params, quantizer_state_from_state(state, cfg.rvq)
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's parameter tree -> reference state dict (numpy), a copy
+# of `encodec_tpu/models/torch_zoo.py:201-306`: convs `[K, Cin, Cout]` ->
+# `[Cout, Cin, K]`, transposed convs `[K, Cout, Cin]` -> `[Cin, Cout, K]`,
+# weight-norm gains -> `[C, 1, 1]`, LSTM weights as they are.
+# ---------------------------------------------------------------------------
+
+def _conv_to_state(p: dict, prefix: str, out: dict, transposed: bool) -> None:
+    kind, axes = ("convtr", (1, 2, 0)) if transposed else ("conv", (2, 1, 0))
+    if "v" in p:
+        out[f"{prefix}{kind}.weight_v"] = np.asarray(p["v"]).transpose(axes)
+        out[f"{prefix}{kind}.weight_g"] = np.asarray(p["g"]).reshape(-1, 1, 1)
+    else:
+        out[f"{prefix}{kind}.weight"] = np.asarray(p["w"]).transpose(axes)
+    if p.get("b") is not None:
+        out[f"{prefix}{kind}.bias"] = np.asarray(p["b"])
+    if "norm" in p:
+        out[f"{prefix}norm.weight"] = np.asarray(p["norm"]["scale"])
+        out[f"{prefix}norm.bias"] = np.asarray(p["norm"]["bias"])
+
+
+def _lstm_to_state(p: dict, prefix: str, out: dict) -> None:
+    for i, layer in enumerate(p["layers"]):
+        for name in ("ih", "hh"):
+            out[f"{prefix}weight_{name}_l{i}"] = np.asarray(layer[f"w_{name}"])
+            out[f"{prefix}bias_{name}_l{i}"] = np.asarray(layer[f"b_{name}"])
+
+
+def _resblock_to_state(p: dict, prefix: str, out: dict) -> None:
+    for j, conv_p in enumerate(p["convs"]):
+        _conv_to_state(conv_p, f"{prefix}block.{2 * j + 1}.conv.", out, False)
+    if "shortcut" in p:
+        _conv_to_state(p["shortcut"], f"{prefix}shortcut.conv.", out, False)
+
+
+def state_from_jax(params: dict, qstate, cfg) -> tp.Dict[str, np.ndarray]:
+    """The JAX package's `params`/`qstate` (numpy or array leaves) ->
+    reference-layout state dict, walking the module indices the loaders
+    above walk (`cfg` is an EncodecConfig)."""
+    out: tp.Dict[str, np.ndarray] = {}
+    enc, root, idx = params["encoder"], "encoder.model.", 0
+    _conv_to_state(enc["init_conv"], f"{root}{idx}.conv.", out, False)
+    idx += 1
+    for stage in enc["stages"]:
+        for res_p in stage["res"]:
+            _resblock_to_state(res_p, f"{root}{idx}.", out)
+            idx += 1
+        idx += 1  # activation module
+        _conv_to_state(stage["down"], f"{root}{idx}.conv.", out, False)
+        idx += 1
+    if cfg.seanet.lstm:
+        _lstm_to_state(enc["lstm"], f"{root}{idx}.lstm.", out)
+        idx += 1
+    idx += 1  # activation
+    _conv_to_state(enc["final_conv"], f"{root}{idx}.conv.", out, False)
+
+    dec, root, idx = params["decoder"], "decoder.model.", 0
+    _conv_to_state(dec["init_conv"], f"{root}{idx}.conv.", out, False)
+    idx += 1
+    if cfg.seanet.lstm:
+        _lstm_to_state(dec["lstm"], f"{root}{idx}.lstm.", out)
+        idx += 1
+    for stage in dec["stages"]:
+        idx += 1  # activation
+        _conv_to_state(stage["up"], f"{root}{idx}.convtr.", out, True)
+        idx += 1
+        for res_p in stage["res"]:
+            _resblock_to_state(res_p, f"{root}{idx}.", out)
+            idx += 1
+    idx += 1  # activation
+    _conv_to_state(dec["final_conv"], f"{root}{idx}.conv.", out, False)
+
+    # a shared codebook repeats its one book in every stage's slot
+    embed, embed_avg, cluster = (np.asarray(qstate[i]) for i in range(3))
+    inited = float(bool(np.asarray(qstate[3])))
+    for k in range(cfg.rvq.n_q):
+        kk = min(k, embed.shape[0] - 1)
+        root = f"quantizer.vq.layers.{k}._codebook."
+        out[root + "embed"] = embed[kk]
+        out[root + "embed_avg"] = embed_avg[kk]
+        out[root + "cluster_size"] = cluster[kk]
+        out[root + "inited"] = np.asarray([inited], np.float32)
+    return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
+def params_from_jax(params: dict, qstate, cfg) -> tp.Tuple[dict, RVQState]:
+    """The JAX package's parameter tree and quantizer state (`RVQState`
+    fields in order: embed, embed_avg, cluster_size, inited), e.g. from a
+    JAX-trained checkpoint (`train.checkpoint.load_checkpoint`), -> the
+    port's `(params, qstate)` on the CPU, for `model.params` and
+    `model.qstate`."""
+    return model_params_from_state(state_from_jax(params, qstate, cfg), cfg)
 
 
 def load_state(model, state: State) -> None:

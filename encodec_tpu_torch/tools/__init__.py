@@ -1,3 +1,8 @@
-"""User tools: code extraction for dataset token dumps."""
+"""User tools: token extraction over datasets and codebook diagnostics."""
 
-from .inference import extract_codes  # noqa: F401
+from .inference import (  # noqa: F401
+    code_distribution,
+    decode_most_frequent,
+    extract_codes,
+    process_dataset,
+)

@@ -1,11 +1,24 @@
-"""Code extraction: offline, and through the streaming encoder in fixed chunks.
+"""Token extraction over a dataset, and codebook diagnostics.
 
-Port of `encodec_tpu/tools/inference.py:20-185` (`extract_codes` and
-`_StreamExtractor`). Signals are `[C, T]` numpy arrays and codes `[K, T']`
-int32 numpy arrays, as in the JAX package.
+Port of `encodec_tpu/tools/inference.py`: `extract_codes` (offline) and
+`_StreamExtractor` (the streaming encoder in fixed chunks), `process_dataset`
+(codes per night to `.npz`), `code_distribution`, `decode_most_frequent`
+and the command line
+
+    python -m encodec_tpu_torch.tools.inference --config CFG.yaml \
+        --checkpoint MODEL.ckpt --data_root DIR --dataset NAME --out DIR \
+        [--channel thorax] [--stream_chunk_hops N] [--device cuda]
+
+which reads a JAX-trained checkpoint (`train.checkpoint`) and writes the
+same `.npz` files as the JAX tool. Signals are `[C, T]` numpy arrays and
+codes `[K, T']` int32 numpy arrays, as in the JAX package.
 """
 
 from __future__ import annotations
+
+import functools
+import os
+import typing as tp
 
 import numpy as np
 import torch
@@ -113,3 +126,92 @@ class _StreamExtractor:
             outs.append(codes)
         codes = torch.cat(outs, dim=-1)[:, 0, :n_frames]
         return codes.cpu().numpy().astype(np.int32)
+
+
+def process_dataset(model, dataset, out_dir: str,
+                    channel_subdir: bool = True,
+                    stream_chunk_hops: tp.Optional[int] = None) -> int:
+    """Dump codes for every item of a (test-mode) dataset to
+    `{out_dir}/[{channel}/]{filename}.npz` with keys `codes` and `fs` (the
+    token rate). Returns the number written. `stream_chunk_hops` (causal
+    models): extract through `_StreamExtractor` in chunks of that many hops,
+    so every night meets the same few shapes."""
+    token_fs = model.sample_rate / int(np.prod(model.cfg.seanet.ratios))
+    if stream_chunk_hops is None:
+        extract = functools.partial(extract_codes, model)
+    else:
+        extract = _StreamExtractor(model, stream_chunk_hops)
+    count = 0
+    for i in range(len(dataset)):
+        item = dataset[i]
+        codes = extract(item["x"])
+        sub = os.path.join(out_dir, item["selected_channel"]) \
+            if channel_subdir else out_dir
+        os.makedirs(sub, exist_ok=True)
+        np.savez(os.path.join(sub, item["filename"]), codes=codes,
+                 fs=token_fs)
+        count += 1
+    return count
+
+
+def code_distribution(all_codes: np.ndarray, bins: int) -> dict:
+    """Per-codebook histogram and empirical entropy of `[K, N]` (or
+    `[K, B, T]`) codes: {"counts": [K, bins], "probs", "entropy": [K]}."""
+    codes = all_codes.reshape(all_codes.shape[0], -1)
+    K = codes.shape[0]
+    counts = np.stack([np.bincount(codes[k], minlength=bins)
+                       for k in range(K)])
+    probs = counts / np.maximum(1, counts.sum(axis=1, keepdims=True))
+    entropy = np.array([
+        float(-(p[p > 0] * np.log2(p[p > 0])).sum()) for p in probs])
+    return {"counts": counts, "probs": probs, "entropy": entropy}
+
+
+def decode_most_frequent(model, counts: np.ndarray, length: int) -> np.ndarray:
+    """Decode a constant stream of each codebook's most frequent token,
+    `length` frames long. Returns `[C, T]` audio."""
+    top = counts.argmax(axis=1)                           # [K]
+    codes = np.tile(top[None, :, None], (1, 1, length))  # [1, K, T]
+    out = model.decode([(torch.from_numpy(codes.astype(np.int32)), None)])
+    return out[0].cpu().numpy()
+
+
+def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
+    import argparse
+
+    from ..data import BreathingDataset
+    from ..models.zoo import params_from_jax
+    from ..train import load_checkpoint, load_config, model_from_config
+
+    parser = argparse.ArgumentParser("encodec_tpu_torch.tools.inference")
+    parser.add_argument("--config", required=True)
+    parser.add_argument("--checkpoint", required=True,
+                        help="a .ckpt written by the JAX trainer")
+    parser.add_argument("--data_root", required=True)
+    parser.add_argument("--dataset", required=True)
+    parser.add_argument("--channel", default="thorax")
+    parser.add_argument("--out", required=True)
+    parser.add_argument("--stream_chunk_hops", type=int, default=None,
+                        help="fixed-chunk streaming extraction (causal "
+                             "models): the same few shapes for every night "
+                             "length")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; cpu only when "
+                             "asked)")
+    args = parser.parse_args(argv)
+
+    model = model_from_config(load_config(args.config), device=args.device)
+    state, _, _ = load_checkpoint(args.checkpoint)
+    # TrainState's first two fields: the model's parameters and its
+    # quantizer state
+    model.params, model.qstate = params_from_jax(state[0], state[1],
+                                                 model.cfg)
+    ds = BreathingDataset(args.data_root, args.dataset, mode="test",
+                          channels={args.channel: 1.0})
+    n = process_dataset(model, ds, args.out,
+                        stream_chunk_hops=args.stream_chunk_hops)
+    print(f"wrote {n} code files to {args.out}")
+
+
+if __name__ == "__main__":
+    main()

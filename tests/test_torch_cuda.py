@@ -1,9 +1,10 @@
 """Kernel checks that need the GPU: each hand-written CUDA kernel against its
 plain PyTorch twin on the card, at the 24 kHz and 48 kHz main-path shapes
 (a 10 s 48 kHz request: K1 and K2 at N=1500 rows, n_q up to 16; K3 at
-B=10, T=150 for the ten full segments and B=1, T=15 or 1 for the tail) and
+B=10, T=150 for the ten full segments and B=1, T=15 or 1 for the tail),
 the stream's (K2 at N=6 and 7; K3 from a carried state, bit-equal to one
-launch over the whole sequence).
+launch over the whole sequence) and the breathing tokenizer's (K3's grid
+kernel at H=1024: a 4 h night is T=480, a training batch B=32).
 
 This file imports no JAX (the GPU machine has none). On a machine without
 a CUDA device every test skips. Run on the H100 with:
@@ -325,6 +326,98 @@ def test_lstm_scan_kernel_zero_state_equals_stateless(dev):
 
 
 def test_lstm_scan_kernel_refuses_large_hidden(dev):
-    xp = torch.zeros(1, 2, 4 * 520, device=dev)
+    H = lstm_cuda.GRID_MAX_H + 1
+    xp = torch.zeros(1, 2, 4 * H, device=dev)
+    before = lstm_scan.launches
     with pytest.raises(ValueError):
-        lstm_scan(xp, torch.zeros(4 * 520, 520, device=dev))
+        lstm_scan(xp, torch.zeros(4 * H, H, device=dev))
+    assert lstm_scan.launches == before
+
+
+# K3 above H=512: the grid kernel. A 4 h night of the breathing model is
+# T=480 steps at B=1, its training batch B=32; B=3, T=37 and H=1000 leave
+# ragged units, batch tiles and k slices; B=49 at H=1024 runs as two
+# launches (48 sequences fit one CTA's shared memory).
+GRID_SHAPES = [(1, 480, 1024), (32, 480, 1024), (1, 1, 1024), (3, 37, 1024),
+               (3, 37, 1000), (2, 20, 513), (5, 9, 640), (49, 12, 1024)]
+
+
+@pytest.mark.parametrize("B,T,H", GRID_SHAPES)
+def test_lstm_grid_kernel_matches_plain(dev, B, T, H):
+    xp, w, _, _ = _lstm_inputs(dev, B, T, H, 50)
+    plan = lstm_cuda.grid_plan(B, H, lstm_cuda.max_grid_ctas(H, dev))
+    before = (lstm_scan.launches, lstm_scan.grid_launches)
+    got = lstm_scan(xp, w)
+    ref = lstm_scan_plain(xp, w)
+    torch.cuda.synchronize()
+    assert (lstm_scan.launches, lstm_scan.grid_launches) == (
+        before[0] + plan.n_launches, before[1] + plan.n_launches)
+    # up to 480 recurrent steps sum in another order than cuBLAS
+    assert (got - ref).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("B,T,H", [(1, 64, 1024), (32, 64, 1024),
+                                   (3, 37, 1000), (1, 480, 1024)])
+def test_lstm_grid_kernel_from_state_matches_plain(dev, B, T, H):
+    xp, w, h0, c0 = _lstm_inputs(dev, B, T, H, 60)
+    before = lstm_scan.stateful_launches
+    out, hT, cT = lstm_scan(xp, w, h0, c0, return_state=True)
+    ref, ref_h, ref_c = lstm_scan_plain(xp, w, h0, c0, return_state=True)
+    torch.cuda.synchronize()
+    assert lstm_scan.stateful_launches == before + 1
+    assert torch.equal(hT, out[:, -1])
+    for got, want in ((out, ref), (hT, ref_h), (cT, ref_c)):
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("B,T,H,first", [(1, 480, 1024, 64), (32, 130, 1024, 64),
+                                         (3, 40, 1000, 0), (49, 20, 1024, 7)])
+def test_lstm_grid_kernel_chunks_bit_equal_to_one_launch(dev, B, T, H, first):
+    """One launch over T steps equals launches over a split of T (64-step
+    chunks, as the extractor streams a night; 7 then 6s; single steps)
+    with (h, c) carried."""
+    xp, w, h0, c0 = _lstm_inputs(dev, B, T, H, 70)
+    whole, hT, cT = lstm_scan(xp, w, h0, c0, return_state=True)
+    sizes = ([first] * (T // first) + [T % first] if first == 64
+             else _chunks(T, first))
+    outs, h, c, t = [], h0, c0, 0
+    for n in (n for n in sizes if n):
+        out, h, c = lstm_scan(xp[:, t:t + n].contiguous(), w, h.contiguous(),
+                              c, return_state=True)
+        outs.append(out)
+        t += n
+    torch.cuda.synchronize()
+    assert t == T
+    assert torch.equal(torch.cat(outs, dim=1), whole)
+    assert torch.equal(h, hT) and torch.equal(c, cT)
+
+
+@pytest.mark.parametrize("H", [1024, 1000])
+def test_lstm_grid_kernel_zero_state_equals_stateless(dev, H):
+    xp, w, _, _ = _lstm_inputs(dev, 3, 50, H, 80)
+    zero = torch.zeros(3, H, device=dev)
+    plain_launch = lstm_scan(xp, w)
+    out, _, cT = lstm_scan(xp, w, zero, zero, return_state=True)
+    out2, _, cT2 = lstm_scan(xp, w, return_state=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_launch) and torch.equal(out2, plain_launch)
+    assert torch.equal(cT, cT2)
+
+
+def test_lstm_grid_kernel_layout_matches_the_plan(dev):
+    lib = build.load_library("lstm_grid")
+    assert lib.lstm_grid_threads() == lstm_cuda.GRID_THREADS
+    assert lib.lstm_grid_max_units() == lstm_cuda.GRID_MAX_UNITS
+    assert lib.lstm_grid_batch_tile() == lstm_cuda.GRID_BATCH_TILE
+    assert lib.lstm_grid_max_batch() == lstm_cuda.GRID_MAX_BATCH
+    assert lib.lstm_grid_max_h() == lstm_cuda.GRID_MAX_H
+    for H in (513, 640, 1000, 1024):
+        for B in (1, 8, 9, lstm_cuda.grid_max_batch(H)):
+            assert lib.lstm_grid_smem_bytes(H, B) == lstm_cuda.grid_smem_bytes(
+                H, B)
+        assert lib.lstm_grid_smem_bytes(H, lstm_cuda.grid_max_batch(H) + 8) == -1
+        # one CTA per SM, and the plan's grid fits what the card holds
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        n = lstm_cuda.max_grid_ctas(H, dev)
+        assert n >= sms
+        assert lstm_cuda.grid_plan(32, H, n).ctas <= n

@@ -93,7 +93,7 @@ class _CudaStandIn:
 
 
 @pytest.mark.parametrize("which", ["nearest_codebook", "rvq_encode_fused",
-                                   "lstm_scan"])
+                                   "lstm_scan", "lstm_scan_grid"])
 def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
     from encodec_tpu_torch import kernels
     from encodec_tpu_torch.kernels import build, lstm_cuda, vq_cuda
@@ -114,8 +114,10 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
         "nearest_codebook": (_CudaStandIn(10, 8), _CudaStandIn(16, 8)),
         "rvq_encode_fused": (_CudaStandIn(10, 8), _CudaStandIn(2, 16, 8), 2),
         "lstm_scan": (_CudaStandIn(2, 5, 16), _CudaStandIn(16, 4)),
+        # H=1024: K3's grid kernel
+        "lstm_scan_grid": (_CudaStandIn(2, 5, 4096), _CudaStandIn(4096, 1024)),
     }[which]
-    fn = getattr(kernels, which)
+    fn = getattr(kernels, which.replace("_grid", ""))
     before = fn.launches
     with pytest.raises(build.KernelBuildError, match="simulated"):
         fn(*args)

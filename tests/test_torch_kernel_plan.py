@@ -5,10 +5,13 @@ layout constants these plans assume).
 
 K1 (`vq_cuda.nearest_plan`) and K2 (`vq_cuda.rvq_plan`): row tiles and
 the cluster's split of the bins, each from its kernel's shared memory.
-K3 (`lstm_cuda.lstm_plan`): units per CTA, the register/shared-memory split
-of W_hh, the h messages between the cluster's CTAs, and the batch spread
-over clusters. Every plan must fit one block's shared memory and cover
-every row, bin, gate row, unit and batch item exactly once.
+K3: for H ≤ 512 the cluster kernel (`lstm_cuda.lstm_plan`: units per
+CTA, the register/shared-memory split of W_hh, the h messages between the
+cluster's CTAs, and the batch spread over clusters); for 512 < H ≤ 1024
+the grid kernel (`lstm_cuda.grid_plan`: CTAs, units per CTA, the batch
+per launch). Every plan
+must fit one block's shared memory and cover every row, bin, gate row,
+unit and batch item exactly once.
 """
 
 import pytest
@@ -220,3 +223,89 @@ def test_lstm_plan_refuses_what_the_kernel_cannot_take():
         lstm_cuda.lstm_plan(1, 0, 7)
     with pytest.raises(RuntimeError):
         lstm_cuda.lstm_plan(1, 512, 0)
+    # the grid kernel: 512 < H <= 1024, and ceil(H / 8) co-resident CTAs
+    for H in (512, lstm_cuda.GRID_MAX_H + 1):
+        with pytest.raises(ValueError):
+            lstm_cuda.grid_plan(1, H, H100_SMS)
+    with pytest.raises(RuntimeError):
+        lstm_cuda.grid_plan(1, 1024, 127)
+    with pytest.raises(RuntimeError):
+        lstm_cuda.grid_plan(1, 513, 0)
+
+
+@pytest.mark.parametrize("H", [1, 256, 512, 513, 640, 1000, 1024, 1025])
+def test_k3_kernels_split_h_between_them(H):
+    """`lstm_scan` takes the cluster kernel for H <= 512 and the grid kernel
+    above it: exactly one plan takes each H up to 1024, none above."""
+    takes = []
+    for name, plan, n in (("cluster", lstm_cuda.lstm_plan, 7),
+                          ("grid", lstm_cuda.grid_plan, H100_SMS)):
+        try:
+            plan(1, H, n)
+            takes.append(name)
+        except ValueError:
+            pass
+    assert takes == (["cluster"] if H <= 512 else
+                     ["grid"] if H <= lstm_cuda.GRID_MAX_H else [])
+
+
+def _grid_rows(plan):
+    """The grid kernel's map from (CTA, warp, row r) to W_hh gate rows:
+    CTA row q = 2·warp + r is gate q // U of unit u0 + q % U."""
+    placed = []
+    U = plan.units_per_cta
+    for u0, u1 in plan.unit_ranges():
+        for w in range(lstm_cuda.GRID_WARPS):
+            for r in range(lstm_cuda.GRID_ROWS_PER_WARP):
+                q = lstm_cuda.GRID_ROWS_PER_WARP * w + r
+                if q < 4 * U and q % U < u1 - u0:
+                    placed.append((q // U) * plan.H + u0 + q % U)
+    return placed
+
+
+@pytest.mark.parametrize("H", [513, 640, 700, 1000, 1023, 1024])
+@pytest.mark.parametrize("B", [1, 3, 8, 32, 48, 49, 64, 200])
+def test_grid_plan_covers_units_rows_and_batch_once(H, B):
+    plan = lstm_cuda.grid_plan(B, H, H100_SMS)
+    assert 1 <= plan.units_per_cta <= lstm_cuda.GRID_MAX_UNITS
+    assert plan.ctas <= H100_SMS
+    _covers_once(plan.unit_ranges(), H)
+    # the launch's own check (lstm_grid_launch)
+    assert (plan.ctas - 1) * plan.units_per_cta < H <= (
+        plan.ctas * plan.units_per_cta)
+    # every gate row of W_hh [4H, H] lives in exactly one CTA's registers
+    assert sorted(_grid_rows(plan)) == list(range(4 * H))
+    # every sequence in exactly one launch, each launch within the kernel's
+    # limits: a cell (unit, sequence) per thread, h in shared memory
+    _covers_once(plan.batch_ranges(), B)
+    assert len(plan.batch_ranges()) == plan.n_launches
+    assert plan.n_launches == -(-B // lstm_cuda.grid_max_batch(H))
+    for b0, b1 in plan.batch_ranges():
+        assert b1 - b0 <= plan.batch_per_launch
+        assert plan.units_per_cta * (b1 - b0) <= lstm_cuda.GRID_THREADS
+    assert plan.smem_bytes == lstm_cuda.grid_smem_bytes(
+        H, plan.batch_per_launch) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("H,ctas,units,smem_b1", [
+    (513, 129, 4, 8 * (640 + 32) * 4), (640, 128, 5, 8 * (640 + 32) * 4),
+    (1000, 125, 8, 8 * (1024 + 32) * 4), (1024, 128, 8, 8 * (1024 + 32) * 4)])
+def test_grid_plan_at_breathing_shapes(H, ctas, units, smem_b1):
+    # H=1024 is the breathing tokenizer's LSTM (params/default.yaml): 128
+    # CTAs of 8 units, 32 gate rows each; a night at B=1, a batch at B=32
+    for B, launches in ((1, 1), (32, 1), (49, 2 if H > 768 else 1)):
+        plan = lstm_cuda.grid_plan(B, H, H100_SMS)
+        assert (plan.ctas, plan.units_per_cta, plan.k_chunks) == (
+            ctas, units, -(-H // 128))
+        assert plan.n_launches == launches
+    assert lstm_cuda.grid_plan(1, H, H100_SMS).smem_bytes == smem_b1
+    assert lstm_cuda.grid_max_batch(H) == (48 if H > 768 else 64)
+
+
+def test_grid_smem_layout():
+    # h [Bp][HP] and the row sums [32][Bp], Bp a multiple of 8
+    assert lstm_cuda.grid_smem_bytes(1024, 1) == 8 * (1024 + 32) * 4
+    assert lstm_cuda.grid_smem_bytes(1024, 9) == 16 * (1024 + 32) * 4
+    assert lstm_cuda.grid_smem_bytes(1024, 48) <= SMEM_PER_BLOCK
+    assert lstm_cuda.grid_smem_bytes(1024, 56) > SMEM_PER_BLOCK
+    assert lstm_cuda.GRID_MAX_H == 1024
