@@ -62,7 +62,17 @@ Phases, in order (any failure exits non-zero before the last line):
    share);
 12. `params/hires_tokens.yaml`'s model (H=256, T=14,400 steps per 4 h
    night) from a config dict: one night, K3 ms per layer;
-13. print the `kernels` JSON line (launches per path, the grid kernel in a
+13. LM entropy coding (lmv=3) with its own launch counts: the integer LMs
+   at the published widths (seeded random weights) code the 10 s 24 kHz
+   request at 6 and 24 kbps in 375-token blocks and at 6 kbps unblocked,
+   and the 10 s 48 kHz request at 24 kbps (11 segments), compressed and
+   decompressed on the card with the native range coder; decoded codes
+   against the written ones and the `cc` CRC, audio against the raw path's
+   decode, each file against the one the port's CPU LM writes, CUDA CDF
+   rows against the CPU's; teacher-forced encode and decode times, a
+   profiled decode step (launches) and 8 profiled decode steps (idle
+   share), bytes against the raw file;
+14. print the `kernels` JSON line (launches per path, the grid kernel in a
    row of its own), then the final `ok` JSON line.
 
 Imports no JAX. Exits non-zero without printing a result when no CUDA
@@ -71,6 +81,7 @@ device is present or the port's package is not next to this script.
 
 from __future__ import annotations
 
+import importlib
 import io
 import json
 import math
@@ -127,10 +138,11 @@ OWN_KERNELS = {"vq_nearest_kernel": "nearest_codebook",
                "vq_rvq_kernel": "rvq_encode_fused",
                "lstm_scan_kernel": "lstm_cluster",
                "lstm_grid_kernel": "lstm_grid"}
-PROFILE_WINDOWS = 10     # windows tried before a measurement fails
+PROFILE_WINDOWS = 20     # windows tried before a measurement fails
 PROFILE_EDGE_S = 0.05    # host time between a window's edges and its work
 PROFILE_AGREE = 0.05     # two windows agree within this device time
-profiler_stats = {"windows": 0, "short": 0, "restored": 0, "unmatched": 0}
+profiler_stats = {"windows": 0, "short": 0, "restored": 0, "unmatched": 0,
+                  "longer_than_span": 0}
 
 
 def own_launches() -> dict:
@@ -147,16 +159,21 @@ def kernel_window(torch, fn, iters: int, kernel: str = "") -> tuple:
     torch.profiler: {kernel name: (launches, device µs)} for the CUDA
     kernels whose name contains `kernel`, and the calls' wall ms.
 
-    Profiler windows on the H100 machine have come back wrong in two ways:
-    short of records (in some processes every window of ten K3 launches
-    kept nine), and with every record of a window stretched or shrunk
-    alike. So each window profiles one
-    discarded warm-up call and waits `PROFILE_EDGE_S` before its calls and
-    after them. Its launches are counted, not taken from the records: each
-    of the port's kernels launches `iters` times what its counter gives one
-    call, any other kernel a multiple of `iters`. A window that kept fewer
-    records (at most `iters` - 1 fewer of a kernel) is scaled up at its
-    records' mean time and counted in `profiler_stats`. It is used once an
+    Profiler windows on the H100 machine have come back wrong in three
+    ways: short of records (in some processes every window of ten K3
+    launches kept nine; late in a long process the first K3 of a window
+    of three 18.6 ms launches is often dropped, or all three), with no
+    record of a kernel, and with records longer than the calls took. So
+    each window profiles one discarded warm-up call and waits
+    `PROFILE_EDGE_S` before its calls and after them. Its launches are
+    counted, not taken from the records: each of the port's kernels
+    launches `iters` times what its counter gives one call, any other
+    kernel a multiple of `iters`. A window that kept fewer records (at most
+    `iters` - 1 fewer of a kernel) is scaled up at its records' mean time
+    and counted in `profiler_stats`. CUDA events on the stream span the
+    calls: the port's kernels run one after another on that stream, so a
+    window of only the port's kernels whose device time exceeds that span
+    (by more than 1% and 5 µs) is refused. A window is used once an
     earlier window had the same launches and a device time within
     `PROFILE_AGREE`. Fails after `PROFILE_WINDOWS` windows."""
     from torch.autograd import DeviceType
@@ -169,6 +186,8 @@ def kernel_window(torch, fn, iters: int, kernel: str = "") -> tuple:
     seen = []
     for _ in range(PROFILE_WINDOWS):
         traces = []
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
         with warnings.catch_warnings():
             # each profiled window is its own cycle; the notice says only that
             warnings.simplefilter("ignore", UserWarning)
@@ -181,8 +200,10 @@ def kernel_window(torch, fn, iters: int, kernel: str = "") -> tuple:
                 prof.step()
                 time.sleep(PROFILE_EDGE_S)
                 t0 = time.perf_counter()
+                start.record()
                 for _ in range(iters):
                     fn()
+                end.record()
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
                 time.sleep(PROFILE_EDGE_S)
@@ -219,16 +240,23 @@ def kernel_window(torch, fn, iters: int, kernel: str = "") -> tuple:
             f = made[g] / kept[g]
             scaled[key] = (n * f, us * f)
         busy = sum(us for _, us in scaled.values())
+        span_us = start.elapsed_time(end) * 1e3
+        if (all(g in OWN_KERNELS for g in kept)
+                and busy > span_us * 1.01 + 5.0):
+            profiler_stats["longer_than_span"] += 1
+            continue
         if any(m == made and abs(b - busy) <= PROFILE_AGREE * max(b, busy)
-               for m, b in seen):
+               for m, b, _ in seen):
             return scaled, wall_ms
         if seen:
             profiler_stats["unmatched"] += 1
-        seen.append((made, busy))
+        seen.append((made, busy, span_us))
     fail(f"torch.profiler gave no two windows that agree in "
          f"{PROFILE_WINDOWS} ({'kernels ' + kernel if kernel else 'all kernels'}"
-         f"; {iters} calls; device us of the usable windows: "
-         f"{[round(b, 1) for _, b in seen]})")
+         f"; {iters} calls; device us (CUDA-event span) of the usable "
+         f"windows: {[(round(b, 1), round(s, 1)) for _, b, s in seen]}; "
+         f"{profiler_stats['longer_than_span']} windows longer than their "
+         f"span in this run)")
 
 
 def device_ms(torch, fn, iters: int, kernel: str = "") -> float:
@@ -1326,6 +1354,237 @@ def phase_hires(torch, kernels, dev):
     return counts
 
 
+def raw_ecdc(model, frames, audio_length: int) -> bytes:
+    """The raw `.ecdc` of `frames` (the file `compress` writes without the
+    LM for the same codes and scales)."""
+    from encodec_tpu_torch.stream import binary
+
+    fo = io.BytesIO()
+    binary.write_ecdc_header(fo, {"m": model.name, "al": audio_length,
+                                  "nc": int(frames[0][0].shape[1]),
+                                  "lm": False})
+    for codes, scale in frames:
+        if scale is not None:
+            fo.write(struct.pack("!f", float(scale.reshape(-1)[0])))
+        fo.write(binary.pack_bits(codes[0].cpu().numpy().T,
+                                  model.bits_per_codebook))
+    return fo.getvalue()
+
+
+def lm_pair(torch, model, seed: int) -> tuple:
+    """The integer LM of `model`'s published LM configuration with seeded
+    random weights, on the card and on the CPU (the same weights)."""
+    from encodec_tpu_torch.models.ilm import IntLMModel
+    from encodec_tpu_torch.models.lm import LMModel, init_lm, lm_config_for
+
+    cfg = lm_config_for(model)
+    params = init_lm(torch.Generator().manual_seed(seed), cfg)
+    return (LMModel(cfg, params, device=model.device),
+            IntLMModel.from_lm(LMModel(cfg, params, device="cpu")))
+
+
+def lm_rows_equal(torch, gpu, cpu, codes_list, C: int = 32) -> str:
+    """A teacher-forced chunk of the writer's first C tokens and the step
+    after it, on the card and on the CPU: rows equal bit for bit."""
+    S, K = len(codes_list), codes_list[0].shape[0]
+    shifted = np.zeros((S, K, C + 1), np.int64)
+    for s, c in enumerate(codes_list):
+        n = min(c.shape[1], C + 1)
+        shifted[s, :, 1:n] = 1 + c[:, :n - 1]
+    rows = {}
+    for name, ilm in (("cuda", gpu), ("cpu", cpu)):
+        x = torch.from_numpy(shifted).to(ilm.device)
+        with torch.inference_mode():
+            chunk, state = ilm.chunk_forward(x[:, :, :C], ilm.init_stream(S))
+            step, _ = ilm.step(x[:, :, C], state)
+        rows[name] = (chunk.cpu().numpy(), step.cpu().numpy())
+    check(np.array_equal(rows["cuda"][0], rows["cpu"][0]),
+          f"LM chunk rows S={S} K={K}: CUDA differs from the CPU")
+    check(np.array_equal(rows["cuda"][1], rows["cpu"][1]),
+          f"LM step rows S={S} K={K}: CUDA differs from the CPU")
+    return (f"chunk [{S}, {C}, {K}, {gpu.card}] and the next step "
+            f"[{S}, {K}, {gpu.card}] equal")
+
+
+def phase_lm(torch, kernels, model, model48, wav24, wav48):
+    """LM entropy coding (lmv=3) on the card, counted as one path: the
+    integer LMs at the published widths (24 kHz: dim 200, 8 heads, 5
+    layers, card 1024, n_q 32, W=262; 48 kHz: n_q 16, W=525) with seeded
+    random weights; the 10 s 24 kHz request at 6 and 24 kbps with
+    `lm_restart="auto"` (2 lanes of 375 steps) and at 6 kbps unblocked (one
+    lane of 750), and the 10 s 48 kHz request at 24 kbps (11 segments in
+    lockstep, the `fl` index), each compressed and decompressed on the
+    card. Checks: decoded codes equal the writer's (tie-guarded) codes and
+    the `cc` CRC passes; the audio equals the raw path's decode of the same
+    codes; each file equals, byte for byte, the one the port's CPU LM
+    writes from the same codes; CUDA CDF rows equal the CPU's."""
+    from encodec_tpu_torch import native
+    from encodec_tpu_torch.models.ilm import IntLMModel
+    from encodec_tpu_torch.stream import binary, compress, decompress
+    from encodec_tpu_torch.stream.compress import write_lm_payload
+
+    t_phase = time.perf_counter()
+    check(native.available(), "the native range coder did not build")
+    lm24, cpu24 = lm_pair(torch, model, 70)
+    lm48, cpu48 = lm_pair(torch, model48, 71)
+    check((lm24.cfg.dim, lm24.cfg.num_heads, lm24.cfg.num_layers,
+           lm24.cfg.card, lm24.cfg.n_q, lm24.cfg.past_context)
+          == (200, 8, 5, 1024, 32, 262)
+          and (lm48.cfg.n_q, lm48.cfg.past_context) == (16, 525),
+          "not the published LM widths")
+    jobs = [("24 kHz 10 s @ 6 kbps, lm_restart auto", model, lm24, cpu24,
+             6.0, wav24, "auto"),
+            ("24 kHz 10 s @ 24 kbps, lm_restart auto", model, lm24, cpu24,
+             24.0, wav24, "auto"),
+            ("24 kHz 10 s @ 6 kbps, unblocked", model, lm24, cpu24, 6.0,
+             wav24, None),
+            ("48 kHz stereo 10 s @ 24 kbps, 11 segments", model48, lm48,
+             cpu48, 24.0, wav48, None)]
+
+    # -- the LM path, counted: nothing but user calls in here -----------
+    # `decompress` reads the code frames through `read_frames`; a spy keeps
+    # what it returned and its time (the range decode and the cc check),
+    # so each file is decoded once (the package's `compress` is the
+    # function, so the module comes from importlib)
+    compress_module = importlib.import_module(
+        "encodec_tpu_torch.stream.compress")
+    read_frames = compress_module.read_frames
+    decoded = []
+
+    def spy(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = read_frames(*args, **kwargs)
+        decoded.append((out[1], out[2], time.perf_counter() - t0))
+        return out
+
+    compress_module.read_frames = spy
+    kernels.reset_launch_counts()
+    served = []
+    for label, m, lm, cpu_ilm, bw, wav, restart in jobs:
+        reg = {m.name: lambda pretrained=True, m=m: m}
+        m.set_target_bandwidth(bw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        data = compress(m, wav, use_lm=True, lm=lm, models=reg,
+                        lm_restart=restart)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        back, sr = decompress(data, models=reg, lm=lm)
+        torch.cuda.synchronize()
+        served.append(dict(label=label, m=m, lm=lm, cpu=cpu_ilm, bw=bw,
+                           wav=wav, reg=reg, data=data, back=back, sr=sr,
+                           compress_s=t1 - t0,
+                           decompress_s=time.perf_counter() - t1))
+    counts = launch_counts(kernels)
+    compress_module.read_frames = read_frames
+    check(len(decoded) == len(served), "decompress did not read its frames "
+          "through read_frames")
+    print(f"lm path launches: {json.dumps(counts)}")
+    check(counts["nearest_codebook"] > 0 and counts["lstm_scan"] > 0
+          and counts["rvq_encode_fused"] == 0,
+          "the LM path did not launch K1 and K3 (and no K2)")
+
+    # -- verification, not counted --------------------------------------
+    for r, (frames, al, decode_s) in zip(served, decoded):
+        m, data, wav = r["m"], r["data"], r["wav"]
+        gpu = IntLMModel.from_lm(r["lm"])
+        m.set_target_bandwidth(r["bw"])
+        meta = binary.read_ecdc_header(io.BytesIO(data))
+        guarded, _ = m.encode_guarded(wav[None], TIE_THRESHOLD)
+        check(len(frames) == len(guarded) and all(
+            np.array_equal(f[0].numpy(), g[0].cpu().numpy())
+            for f, g in zip(frames, guarded)),
+            f"{r['label']}: decoded codes differ from the written ones")
+        t_check = time.perf_counter()
+        raw = raw_ecdc(m, frames, al)
+        raw_back, _ = decompress(raw, models=r["reg"])
+        check(r["sr"] == m.sample_rate and tuple(r["back"].shape)
+              == (m.channels, wav.shape[-1])
+              and bool(torch.equal(r["back"], raw_back)),
+              f"{r['label']}: audio differs from the raw path's decode")
+        # the port's CPU LM writes the same file from the same codes
+        codes_list = [f[0][0].numpy() for f in frames]
+        base = {k: meta[k] for k in ("m", "al", "nc", "lm")}
+        cpu_file = io.BytesIO()
+        restart = meta.get("lmb")
+        t0 = time.perf_counter()
+        write_lm_payload(cpu_file, base, frames, r["cpu"], restart)
+        cpu_s = time.perf_counter() - t0
+        check_s = time.perf_counter() - t_check - cpu_s
+        check(cpu_file.getvalue() == data,
+              f"{r['label']}: the card's file differs from the CPU writer's")
+        R = restart or max(c.shape[1] for c in codes_list)
+        blocks = ([c[:, i:i + R] for c in codes_list
+                   for i in range(0, c.shape[1], R)])
+        t0 = time.perf_counter()
+        gpu.codec_symbol_bounds_batched(blocks)
+        encode_s = time.perf_counter() - t0
+        Ts = [b.shape[1] for b in blocks]
+        steps = max(Ts)
+        seconds = wav.shape[-1] / m.sample_rate
+        r.update(Ts=Ts, blocks=blocks, meta=meta)
+        print(f"lm request {r['label']}: K={meta['nc']}, {len(Ts)} lanes x "
+              f"{steps} steps; {len(data)} B vs raw {len(raw)} B ("
+              f"{len(data) / len(raw):.4f}); compress {r['compress_s'] * 1e3:.1f}"
+              f" ms, decompress {r['decompress_s'] * 1e3:.1f} ms; teacher-"
+              f"forced LM encode {encode_s * 1e3:.1f} ms; range decode "
+              f"{decode_s * 1e3:.1f} ms = {decode_s / steps * 1e3:.3f} ms per "
+              f"step, {decode_s / seconds * 1e3:.1f} ms per s of audio; "
+              f"codes = written, cc ok, audio = raw decode, file = CPU writer's"
+              f" (CPU writer {cpu_s * 1e3:.1f} ms, raw decode and checks "
+              f"{check_s * 1e3:.1f} ms)")
+    t0 = time.perf_counter()
+    print(f"lm portability: 24 kHz "
+          f"{lm_rows_equal(torch, IntLMModel.from_lm(lm24), cpu24, served[1]['blocks'])}"
+          f"; 48 kHz {lm_rows_equal(torch, IntLMModel.from_lm(lm48), cpu48, served[3]['blocks'])}"
+          f" ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
+    t0 = time.perf_counter()
+
+    # one profiled decode step and a profiled 8-step decode per layout
+    for r in (served[1], served[3]):
+        gpu = IntLMModel.from_lm(r["lm"])
+        S, K = len(r["Ts"]), r["meta"]["nc"]
+        feed = torch.ones((S, K), dtype=torch.int64, device=model.device)
+        with torch.inference_mode():
+            state = gpu.init_stream(S)
+            for _ in range(3):
+                _, state = gpu.step(feed, state)
+        records, wall = kernel_window(torch, lambda: gpu.step(feed, state), 5)
+        launches = sum(n for n, _ in records.values()) / 5
+        busy = sum(us for _, us in records.values()) / 5 / 1e3
+        datas = lm_streams(r["data"], r["meta"], r["m"])
+        n_steps = 8
+        records, wall_d = kernel_window(
+            torch, lambda: gpu.decode_lockstep(
+                datas, K, [min(n_steps, T) for T in r["Ts"]]), 1)
+        busy_d = sum(us for _, us in records.values()) / 1e3
+        print(f"lm decode profile, {r['label']} (S={S}, K={K}): one step "
+              f"{launches:.0f} kernel launches, device busy {busy:.4f} ms, "
+              f"wall {wall / 5:.3f} ms (profiled); {n_steps} lockstep decode "
+              f"steps: wall {wall_d:.2f} ms, device busy {busy_d:.3f} ms, idle "
+              f"share {1 - busy_d / wall_d:.3f}")
+    print(f"lm profiles {time.perf_counter() - t0:.1f} s; lm phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def lm_streams(data: bytes, meta: dict, model) -> list:
+    """The range-coded streams of an lmv=3 file with an `fl` index."""
+    from encodec_tpu_torch.stream import binary
+
+    fo = io.BytesIO(data)
+    binary.read_ecdc_header(fo)
+    segmented = "lmb" not in meta
+    if not segmented and model.normalize:
+        fo.read(4)
+    out = []
+    for n in meta["fl"]:
+        if segmented and model.normalize:
+            fo.read(4)
+        out.append(fo.read(n))
+    return out
+
+
 def launch_counts(kernels) -> dict:
     """The wrappers' launch counts, and the grid kernel's own."""
     return dict(kernels.launch_counts(),
@@ -1501,9 +1760,11 @@ def main() -> int:
     k3_grid = phase_k3_grid(torch, kernels, dev)
     counts_breathing = phase_breathing(torch, kernels, dev)
     counts_hires = phase_hires(torch, kernels, dev)
+    counts_lm = phase_lm(torch, kernels, model, model48, wav10, wav48)
 
     paths = {"24k": counts, "48k": counts48, "stream": counts_stream,
-             "breathing": counts_breathing, "hires_tokens": counts_hires}
+             "breathing": counts_breathing, "hires_tokens": counts_hires,
+             "lm": counts_lm}
     for c in paths.values():   # lstm_scan counts both K3 kernels
         c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
     rows = [
@@ -1526,7 +1787,8 @@ def main() -> int:
           f"{profiler_stats['short']} short of records, scaled up for "
           f"{profiler_stats['restored']} launches in all; "
           f"{profiler_stats['unmatched']} unusable or matching no earlier "
-          "window")
+          f"window; {profiler_stats['longer_than_span']} longer than their "
+          "CUDA-event span")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -6,10 +6,12 @@ Usage:
 
 .wav input → compression (or a full roundtrip when the output is also
 .wav); .ecdc input → decompression. Checkpoints are read from a local
-`--repository DIR`. `-q/--hq` selects the 48 kHz stereo model (which does
-not serve 1.5 kbps). `--device` (default `cuda`) picks where the codec runs;
-without a GPU pass `--device cpu`. Not ported yet: `--lm` (LM entropy
-coding).
+`--repository DIR`, the LM's too (`encodec_lm_24khz-1608e3c0.th`,
+`encodec_lm_48khz-7add9fc3.th`). `-q/--hq` selects the 48 kHz stereo model
+(which does not serve 1.5 kbps). `-l/--lm` entropy-codes with the integer
+LM (lmv=3), in blocks of `--lm-restart N` tokens on the 24 kHz model.
+`--device` (default `cuda`) picks where the codec and the LM run; without a
+GPU pass `--device cpu`. `--lm-pinned` (the JAX tool's lmv=2) is refused.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ def get_parser():
                              "1.5 is not supported with --hq.")
     parser.add_argument("-q", "--hq", action="store_true",
                         help="Use the 48 kHz stereo HQ model.")
+    parser.add_argument("-l", "--lm", action="store_true",
+                        help="Entropy-code with the language model "
+                             "(smaller files, slower).")
     parser.add_argument("-f", "--force", action="store_true",
                         help="Overwrite output file if it exists.")
     parser.add_argument("-s", "--decompress_suffix", type=str,
@@ -45,6 +50,16 @@ def get_parser():
                         help="Suffix for the decompressed output file.")
     parser.add_argument("-r", "--rescale", action="store_true",
                         help="Rescale the output to avoid clipping.")
+    parser.add_argument("--lm-pinned", action="store_true",
+                        help="the JAX tool's lmv=2 LM stream; refused by "
+                             "the port, which writes the portable lmv=3.")
+    parser.add_argument("--lm-restart", type=_lm_restart_arg,
+                        default="auto", metavar="N",
+                        help="with --lm: reset the LM every N tokens and "
+                             "entropy-code blocks independently — slightly "
+                             "larger files, block-parallel decoding. "
+                             "Default 'auto' (375 tokens, 5 s) on "
+                             "single-frame streams; 0 disables blocking.")
     parser.add_argument("--repository", type=Path, default=None,
                         help="Local directory with the pretrained .th "
                              "checkpoints.")
@@ -52,6 +67,18 @@ def get_parser():
                         help="Device to run the codec on (default cuda; "
                              "'cpu' runs the kernels' plain twins).")
     return parser
+
+
+def _lm_restart_arg(s: str):
+    """'auto' (default) | 0/none (disable) | positive int block length."""
+    if s.lower() == "auto":
+        return "auto"
+    if s.lower() in ("0", "none", "off"):
+        return None
+    n = int(s)
+    if n <= 0:
+        raise ValueError(s)
+    return n
 
 
 def fatal(*args):
@@ -81,6 +108,10 @@ def main():
     args = get_parser().parse_args()
     if not args.input.exists():
         fatal(f"Input file {args.input} does not exist.")
+    if args.lm_pinned:
+        fatal("--lm-pinned (lmv=2) streams are pinned to the JAX package's "
+              "compiled float-LM executable; the port writes only the "
+              "portable lmv=3 format (drop --lm-pinned).")
 
     # import lazily so `--help` stays instant
     from .models.model import MODELS, TARGET_BANDWIDTHS
@@ -104,7 +135,8 @@ def main():
         elif args.output.suffix.lower() != ".wav":
             fatal("Output extension must be .wav")
         check_output_exists(args)
-        write_wav(*decompress(args.input.read_bytes(), models=models))
+        write_wav(*decompress(args.input.read_bytes(), models=models,
+                              repository=rep))
         return
 
     if args.output is None:
@@ -121,12 +153,17 @@ def main():
     model.set_target_bandwidth(args.bandwidth)
     wav, sr = load_wav(args.input)
     wav = convert_audio(wav, sr, model.sample_rate, model.channels)
-    compressed = compress(model, wav, models=models)
+    lm = None
+    if args.lm:
+        from .models.lm import get_lm_model
+        lm = get_lm_model(model, repository=rep)
+    compressed = compress(model, wav, use_lm=args.lm, lm=lm, models=models,
+                          lm_restart=args.lm_restart)
     if args.output.suffix.lower() == SUFFIX:
         args.output.write_bytes(compressed)
     else:
-        # the roundtrip decodes with the model that encoded (loaded once)
-        write_wav(*decompress(compressed,
+        # the roundtrip decodes with the model and LM that encoded
+        write_wav(*decompress(compressed, lm=lm,
                               models={model.name: lambda pretrained=True: model}))
 
 

@@ -22,8 +22,12 @@ from .streaming import (  # noqa: F401
     min_first_latent_chunk,
 )
 from .zoo import (  # noqa: F401
+    lm_params_from_jax,
+    lm_params_from_state,
     load_pretrained,
     load_state,
     model_params_from_state,
     params_from_jax,
 )
+from .lm import LMConfig, LMModel, get_lm_model, init_lm  # noqa: F401
+from .ilm import IntLMModel  # noqa: F401

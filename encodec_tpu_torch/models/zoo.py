@@ -13,6 +13,11 @@ Only a local `repository` is read: the port never downloads checkpoints.
 trained `.ckpt` holds it, numpy leaves) to the port's parameters, without
 JAX: the transposes of `encodec_tpu/models/torch_zoo.py`'s
 `torch_state_from_params`, copied here, then the loader above.
+
+The entropy-coding LM: `lm_params_from_state` reads the reference
+`LMModel` state dict (`torch_zoo.py::lm_params_from_torch`), and
+`lm_params_from_jax` takes the JAX package's LM tree (numpy leaves), which
+has the port's layout already.
 """
 
 from __future__ import annotations
@@ -240,6 +245,54 @@ def params_from_jax(params: dict, qstate, cfg) -> tp.Tuple[dict, RVQState]:
     port's `(params, qstate)` on the CPU, for `model.params` and
     `model.qstate`."""
     return model_params_from_state(state_from_jax(params, qstate, cfg), cfg)
+
+
+def lm_params_from_state(state: State, n_q: int, num_layers: int = 5) -> dict:
+    """The reference `LMModel` state dict (ref model.py:45-83) -> the LM
+    parameter tree of `models.lm` (float32, on the CPU)."""
+    def lin(prefix: str) -> dict:
+        return {"w": _get(state, f"{prefix}weight").T.contiguous(),
+                "b": _get(state, f"{prefix}bias")}
+
+    def norm(prefix: str) -> dict:
+        return {"scale": _get(state, f"{prefix}weight"),
+                "bias": _get(state, f"{prefix}bias")}
+
+    p: dict = {
+        "emb": torch.stack([_get(state, f"emb.{k}.weight")
+                            for k in range(n_q)]),
+        "linears": {
+            "w": torch.stack([_get(state, f"linears.{k}.weight").T
+                              for k in range(n_q)]),
+            "b": torch.stack([_get(state, f"linears.{k}.bias")
+                              for k in range(n_q)]),
+        },
+        "norm_in": norm("transformer.norm_in."),
+        "layers": [],
+    }
+    for i in range(num_layers):
+        root = f"transformer.layers.{i}."
+        in_w = _get(state, f"{root}self_attn.in_proj_weight")
+        in_b = _get(state, f"{root}self_attn.in_proj_bias")
+        d = in_w.shape[1]
+        layer = {name: {"w": in_w[j * d:(j + 1) * d].T.contiguous(),
+                        "b": in_b[j * d:(j + 1) * d].clone()}
+                 for j, name in enumerate(("q", "k", "v"))}
+        layer.update(out=lin(f"{root}self_attn.out_proj."),
+                     ff1=lin(f"{root}linear1."), ff2=lin(f"{root}linear2."),
+                     norm1=norm(f"{root}norm1."), norm2=norm(f"{root}norm2."))
+        p["layers"].append(layer)
+    return p
+
+
+def lm_params_from_jax(params: dict) -> dict:
+    """The JAX package's LM parameter tree (numpy or array leaves) -> the
+    port's (the same layout, float32 tensors on the CPU)."""
+    if isinstance(params, dict):
+        return {k: lm_params_from_jax(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [lm_params_from_jax(v) for v in params]
+    return torch.from_numpy(np.array(params, dtype=np.float32))
 
 
 def load_state(model, state: State) -> None:

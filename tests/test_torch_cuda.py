@@ -4,7 +4,8 @@ plain PyTorch twin on the card, at the 24 kHz and 48 kHz main-path shapes
 B=10, T=150 for the ten full segments and B=1, T=15 or 1 for the tail),
 the stream's (K2 at N=6 and 7; K3 from a carried state, bit-equal to one
 launch over the whole sequence) and the breathing tokenizer's (K3's grid
-kernel at H=1024: a 4 h night is T=480, a training batch B=32).
+kernel at H=1024: a 4 h night is T=480, a training batch B=32), and the
+lmv=3 integer LM's CDF rows on the card against the CPU's.
 
 This file imports no JAX (the GPU machine has none). On a machine without
 a CUDA device every test skips. Run on the H100 with:
@@ -421,3 +422,36 @@ def test_lstm_grid_kernel_layout_matches_the_plan(dev):
         n = lstm_cuda.max_grid_ctas(H, dev)
         assert n >= sms
         assert lstm_cuda.grid_plan(32, H, n).ctas <= n
+
+
+@pytest.mark.parametrize("n_q,W,S", [(32, 262, 2), (16, 525, 11)])
+def test_integer_lm_rows_on_the_card_equal_the_cpu(dev, n_q, W, S):
+    """The lmv=3 integer LM at the published widths (dim 200, 8 heads, 5
+    layers, card 1024; the 24 kHz and 48 kHz windows): a teacher-forced
+    chunk, a chunk split and the steps after it give the CPU's rows bit
+    for bit (float64 contractions of integers are exact on the card)."""
+    from encodec_tpu_torch.models.ilm import IntLMModel
+    from encodec_tpu_torch.models.lm import LMConfig, LMModel, init_lm
+
+    cfg = LMConfig(n_q=n_q, card=1024, past_context=W)
+    params = init_lm(torch.Generator().manual_seed(5), cfg)
+    ilms = [IntLMModel.from_lm(LMModel(cfg, params, device=d))
+            for d in (dev, "cpu")]
+    shifted = torch.from_numpy(np.random.RandomState(6).randint(
+        0, 1025, (S, n_q, 40)))
+    rows = []
+    for ilm in ilms:
+        x = shifted.to(ilm.device)
+        with torch.inference_mode():
+            full, state = ilm.chunk_forward(x[:, :, :32], ilm.init_stream(S))
+            a, s2 = ilm.chunk_forward(x[:, :, :13], ilm.init_stream(S))
+            b, _ = ilm.chunk_forward(x[:, :, 13:32], s2)
+            steps = []
+            for t in range(32, 40):
+                r, state = ilm.step(x[:, :, t], state)
+                steps.append(r)
+        rows.append([full.cpu(), torch.cat([a, b], 1).cpu(),
+                     torch.stack(steps, 1).cpu()])
+    for got, want in zip(rows[0], rows[1]):
+        assert torch.equal(got, want)
+    assert torch.equal(rows[0][0], rows[0][1])

@@ -115,7 +115,8 @@ def test_ecdc_rejects_lm_and_unknown_models(pair):
     tm.set_target_bandwidth(6.0)
     wav = _audio(B=1, T=2000)[0]
     treg = {"unset": lambda pretrained=True: tm}
-    with pytest.raises(NotImplementedError):
+    # no LM is published for this model, and none was passed
+    with pytest.raises(RuntimeError, match="No LM pre-trained"):
         compress(tm, wav, use_lm=True, models=treg)
     with pytest.raises(ValueError):
         compress(tm, wav, models={"other": None})
