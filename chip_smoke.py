@@ -62,7 +62,28 @@ Phases, in order (any failure exits non-zero before the last line):
    share);
 12. `params/hires_tokens.yaml`'s model (H=256, T=14,400 steps per 4 h
    night) from a config dict: one night, K3 ms per layer;
-13. LM entropy coding (lmv=3) with its own launch counts: the integer LMs
+13. K3's backward kernel (`csrc/lstm_bwd.cu`) and the saving forward per
+   layer, from a given state, at H=1024 with B=1 and 32 (T=480), H=512
+   (B=4, T=750) and H=256 (B=1, T=14,400): the saving forward's `out`
+   bit-equal to the plain launch's, dxp, dh0 and dc0 within 1e-4 and
+   dW_hh within 1e-3 of the largest |value| of the plain twin's
+   `torch.autograd.grad`; device ms of the saving forward, the backward
+   kernel, its two matmuls, the plain backward and cuDNN's LSTM forward +
+   backward, beside the bound;
+14. training `params/default.yaml`'s model (as a dict; B=32 nights of 4 h):
+   the largest batch of the config as it is that fits the card (its peak
+   memory); the first step from a fresh state with every leaf's gradient
+   finite and non-zero; with its own launch counts, `python -m
+   encodec_tpu_torch.train`'s `main` at B=32 with `model.remat: true` on
+   synthetic npz nights through `build_dataloaders`, 2 epochs of 3 steps
+   with k-means init, eval and save; a fresh `Trainer` resuming the run
+   bit for bit and stepping on; ms per step, peak memory and one profiled
+   step by kernel group (idle share); one B=4 step from epoch 1's state on
+   the kernels against the plain twins (codes outside tie-flagged
+   positions, loss within 1e-4, gradient leaves within 1e-3); K1 at the
+   training shape (N=15,360, D=256, 1024 bins) against its twin and
+   cdist+argmin;
+15. LM entropy coding (lmv=3) with its own launch counts: the integer LMs
    at the published widths (seeded random weights) code the 10 s 24 kHz
    request at 6 and 24 kbps in 375-token blocks and at 6 kbps unblocked,
    and the 10 s 48 kHz request at 24 kbps (11 segments), compressed and
@@ -72,8 +93,9 @@ Phases, in order (any failure exits non-zero before the last line):
    rows against the CPU's; teacher-forced encode and decode times, a
    profiled decode step (launches) and 8 profiled decode steps (idle
    share), bytes against the raw file;
-14. print the `kernels` JSON line (launches per path, the grid kernel in a
-   row of its own), then the final `ok` JSON line.
+16. print the `kernels` JSON line (launches per path, the grid kernel and
+   the backward kernel in rows of their own), then the final `ok` JSON
+   line.
 
 Imports no JAX. Exits non-zero without printing a result when no CUDA
 device is present or the port's package is not next to this script.
@@ -89,6 +111,7 @@ import struct
 import subprocess
 import sys
 import time
+import typing as tp
 import warnings
 from pathlib import Path
 
@@ -137,7 +160,8 @@ def time_ms(torch, fn, iters: int) -> float:
 OWN_KERNELS = {"vq_nearest_kernel": "nearest_codebook",
                "vq_rvq_kernel": "rvq_encode_fused",
                "lstm_scan_kernel": "lstm_cluster",
-               "lstm_grid_kernel": "lstm_grid"}
+               "lstm_grid_kernel": "lstm_grid",
+               "lstm_bwd_kernel": "lstm_scan_backward"}
 PROFILE_WINDOWS = 20     # windows tried before a measurement fails
 PROFILE_EDGE_S = 0.05    # host time between a window's edges and its work
 PROFILE_AGREE = 0.05     # two windows agree within this device time
@@ -154,7 +178,8 @@ def own_launches() -> dict:
     return {name: c[counter] for name, counter in OWN_KERNELS.items()}
 
 
-def kernel_window(torch, fn, iters: int, kernel: str = "") -> tuple:
+def kernel_window(torch, fn, iters: int, kernel: str = "",
+                  required: bool = True) -> tp.Optional[tuple]:
     """Device records of `iters` back-to-back calls of `fn` under
     torch.profiler: {kernel name: (launches, device µs)} for the CUDA
     kernels whose name contains `kernel`, and the calls' wall ms.
@@ -175,7 +200,8 @@ def kernel_window(torch, fn, iters: int, kernel: str = "") -> tuple:
     window of only the port's kernels whose device time exceeds that span
     (by more than 1% and 5 µs) is refused. A window is used once an
     earlier window had the same launches and a device time within
-    `PROFILE_AGREE`. Fails after `PROFILE_WINDOWS` windows."""
+    `PROFILE_AGREE`. Fails after `PROFILE_WINDOWS` windows, or returns None
+    when not `required`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -251,6 +277,8 @@ def kernel_window(torch, fn, iters: int, kernel: str = "") -> tuple:
         if seen:
             profiler_stats["unmatched"] += 1
         seen.append((made, busy, span_us))
+    if not required:
+        return None
     fail(f"torch.profiler gave no two windows that agree in "
          f"{PROFILE_WINDOWS} ({'kernels ' + kernel if kernel else 'all kernels'}"
          f"; {iters} calls; device us (CUDA-event span) of the usable "
@@ -266,6 +294,18 @@ def device_ms(torch, fn, iters: int, kernel: str = "") -> float:
     contains it."""
     records, _ = kernel_window(torch, fn, iters, kernel)
     return sum(us for _, us in records.values()) / iters / 1e3
+
+
+def device_or_event_ms(torch, fn, iters: int, kernel: str = "") -> tuple:
+    """`device_ms`, or, when no two profiler windows agree (late in a long
+    process the profiler loses records: PERF.md §7), the CUDA-event time
+    per call of `iters` back-to-back calls (`time_ms`: device time where
+    the host keeps ahead, else the host's cost). Returns (ms, method)."""
+    window = kernel_window(torch, fn, iters, kernel, required=False)
+    if window is not None:
+        return sum(us for _, us in window[0].values()) / iters / 1e3, \
+            "profiler"
+    return time_ms(torch, fn, iters), "CUDA events"
 
 
 def plain_stage_margins(torch, kernels, x, embed, n_q, shared):
@@ -444,7 +484,7 @@ def k3_plan_line(torch, dev, H):
     n_max = lstm_cuda.max_active_clusters(H, dev)
     plan = lstm_cuda.lstm_plan(1, H, n_max)
     attrs = []
-    for state in (0, 1):
+    for state in (0, 1, 2):
         regs, local = ctypes.c_int(), ctypes.c_int()
         build.check(lib, "lstm_scan", lib.lstm_scan_attributes(
             H, state, ctypes.addressof(regs), ctypes.addressof(local)))
@@ -454,7 +494,8 @@ def k3_plan_line(torch, dev, H):
     return (f"K3 plan H={H}: clusters of {plan.cluster} CTAs x "
             f"{plan.units_per_cta} units, max active clusters {n_max}, "
             f"{lstm_cuda.K3_THREADS} threads/CTA, zero state {attrs[0]}, "
-            f"from a state {attrs[1]}, {plan.smem_bytes} B shared "
+            f"from a state {attrs[1]}, saving every c (training) "
+            f"{attrs[2]}, {plan.smem_bytes} B shared "
             f"memory/CTA; W_hh rows per CTA: {plan.reg_rows} in registers, "
             f"{plan.smem_rows} in shared memory")
 
@@ -635,8 +676,8 @@ def phase_main_path(torch, kernels, dev):
                                codec_s=t1 - t0, ecdc_s=t2 - t1))
     counts = launch_counts(kernels)
     print(f"main path launches: {json.dumps(counts)}")
-    for name, n in counts.items():
-        check(n > 0 or name == "lstm_grid",
+    for name, n in counts.items():   # serving runs no backward kernel
+        check(n > 0 or name in ("lstm_grid", "lstm_scan_backward"),
               f"kernel {name} was never launched on the main path")
 
     # -- verification, not counted --------------------------------------
@@ -822,7 +863,7 @@ def phase_main_path_48(torch, kernels, dev):
     counts = launch_counts(kernels)
     print(f"48 kHz path launches: {json.dumps(counts)}")
     for name, k in counts.items():
-        check(k > 0 or name == "lstm_grid",
+        check(k > 0 or name in ("lstm_grid", "lstm_scan_backward"),
               f"kernel {name} was never launched on the 48 kHz path")
 
     # -- verification, not counted --------------------------------------
@@ -1051,7 +1092,10 @@ def k3_grid_plan_line(torch, dev, H):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     regs, local = ctypes.c_int(), ctypes.c_int()
     build.check(lib, "lstm_grid", lib.lstm_grid_attributes(
-        H, ctypes.addressof(regs), ctypes.addressof(local)))
+        H, 0, ctypes.addressof(regs), ctypes.addressof(local)))
+    save_regs, save_local = ctypes.c_int(), ctypes.c_int()
+    build.check(lib, "lstm_grid", lib.lstm_grid_attributes(
+        H, 1, ctypes.addressof(save_regs), ctypes.addressof(save_local)))
     plans = {B: lstm_cuda.grid_plan(B, H, n_max) for B in (1, 32)}
     for B, plan in plans.items():
         check(plan.ctas <= n_max, f"K3 grid plan at B={B}: {plan}")
@@ -1063,7 +1107,8 @@ def k3_grid_plan_line(torch, dev, H):
             f"({4 * p.units_per_cta} W_hh rows in registers per CTA) on {sms} "
             f"SMs, max co-resident CTAs {n_max} (occupancy API), "
             f"{lstm_cuda.GRID_THREADS} threads/CTA, {regs.value} "
-            f"registers/thread ({local.value} B local), shared memory "
+            f"registers/thread ({local.value} B local; saving every c "
+            f"{save_regs.value}, {save_local.value} B), shared memory "
             f"{p.smem_bytes} B/CTA at B=1 and {plans[32].smem_bytes} at B=32 "
             f"({plans[32].n_launches} launch), at most "
             f"{lstm_cuda.grid_max_batch(H)} sequences per launch")
@@ -1354,6 +1399,464 @@ def phase_hires(torch, kernels, dev):
     return counts
 
 
+def phase_k3_bwd(torch, kernels, dev):
+    """K3's backward kernel (`csrc/lstm_bwd.cu`) and the saving forward per
+    layer, from a given (h0, c0): H=1024 at B=1 and B=32 with T=480 (a 4 h
+    night of the breathing model; the training batch of 32 nights), H=512
+    at B=4, T=750 and H=256 at B=1, T=14,400 (hires_tokens). The saving
+    forward must give the plain launch's `out` bits; dxp, dh0 and dc0 must
+    be within 1e-4 of the largest |value| of the plain twin's
+    `torch.autograd.grad`, dW_hh within 1e-3 (a sum over B·T rows in
+    another order). Device ms (torch.profiler, or CUDA events where no two
+    windows agree): the saving forward, the backward kernel, its two
+    matmuls (pre-activations and dW_hh), the plain twin's backward; by CUDA
+    events: cuDNN's LSTM forward + backward at the same shape (the
+    yardstick, its backward alone the `library_ms`). The bound
+    counts the recurrent
+    product and the two matmuls, and the bytes of xp, c, dy, dgates and
+    W_hh. The JSON row is H=1024, B=32, T=480."""
+    import ctypes
+
+    from encodec_tpu_torch.kernels import build, lstm_cuda
+    from encodec_tpu_torch.ops.lstm import LstmLayer
+
+    bwd = build.load_library("lstm_bwd")
+    rows = {}
+    for B, T, H in ((1, 480, 1024), (32, 480, 1024), (4, 750, 512),
+                    (1, 14_400, 256)):
+        t_shape = time.perf_counter()
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        build.check(bwd, "lstm_bwd", bwd.lstm_bwd_attributes(
+            H, ctypes.addressof(regs), ctypes.addressof(local)))
+        plan = lstm_cuda.bwd_plan(B, H, lstm_cuda.max_bwd_ctas(H, dev))
+        w_hh = books(torch, (4 * H, H), 61, dev) / math.sqrt(6.0)  # ±1/√H
+        xp = gauss(torch, (B, T, 4 * H), 62, dev, 1.0)
+        h0 = torch.tanh(gauss(torch, (B, H), 63, dev, 1.0))
+        c0 = gauss(torch, (B, H), 64, dev, 1.0)
+        dy = gauss(torch, (B, T, H), 65, dev, 1.0)
+        # the saving forward: the plain launch's bits, and every step's c
+        before = kernels.lstm_scan.save_launches
+        out, c_seq = kernels.lstm_scan(xp, w_hh, h0, c0, save_c=True)
+        plain_launch = kernels.lstm_scan(xp, w_hh, h0, c0)
+        torch.cuda.synchronize()
+        check(kernels.lstm_scan.save_launches > before
+              and torch.equal(out, plain_launch),
+              f"K3 saving forward B={B} T={T} H={H}: out differs from the "
+              "plain launch's bits")
+        # the gradient through the autograd route, against the twin's
+        leaves = [t.clone().requires_grad_(True) for t in (xp, w_hh, h0, c0)]
+        before = kernels.lstm_scan_backward.launches
+        y, _ = LstmLayer.apply(*leaves, False)
+        got = torch.autograd.grad(y, leaves, dy)
+        check(kernels.lstm_scan_backward.launches == before + plan.n_launches,
+              f"K3 backward B={B} T={T} H={H} did not launch its plan")
+        ref_leaves = [t.clone().requires_grad_(True)
+                      for t in (xp, w_hh, h0, c0)]
+        want = torch.autograd.grad(kernels.lstm_scan_plain(*ref_leaves),
+                                   ref_leaves, dy)
+        torch.cuda.synchronize()
+        errs = {}
+        abs_err = float((got[0] - want[0]).abs().max())
+        for name, g, r, tol in zip(("dxp", "dW_hh", "dh0", "dc0"), got, want,
+                                   (1e-4, 1e-3, 1e-4, 1e-4)):
+            errs[name] = float((g - r).abs().max()) / float(r.abs().max())
+            check(bool(torch.isfinite(g).all()) and errs[name] <= tol,
+                  f"K3 backward B={B} T={T} H={H}: {name} max|d| "
+                  f"{errs[name]:.3g} of its largest |value| > {tol}")
+        del got, want, y, leaves, ref_leaves
+        # the pieces of the layer's backward, timed alone
+        h_prev = torch.cat([h0[:, None], out[:, :-1]], 1)
+        pre = torch.addmm(xp.reshape(B * T, 4 * H), h_prev.reshape(B * T, H),
+                          w_hh.t()).reshape(B, T, 4 * H)
+        dgates = kernels.lstm_scan_backward(pre, c_seq, dy, w_hh, c0)[0]
+        timed = {}
+        timed["fwd"] = device_or_event_ms(torch, lambda: kernels.lstm_scan(
+            xp, w_hh, h0, c0, save_c=True), 3, "lstm_")
+        timed["bwd"] = device_or_event_ms(
+            torch, lambda: kernels.lstm_scan_backward(pre, c_seq, dy, w_hh,
+                                                      c0), 3, "lstm_bwd")
+        timed["mm"] = device_or_event_ms(torch, lambda: (
+            torch.addmm(xp.reshape(B * T, 4 * H), h_prev.reshape(B * T, H),
+                        w_hh.t()),
+            dgates.reshape(B * T, 4 * H).t() @ h_prev.reshape(B * T, H)), 3)
+        # the twin launches 25 or so small kernels per step: not profiled
+        # over hires_tokens' 14,400 steps
+        if T <= 750:
+            timed["plain"] = device_or_event_ms(
+                torch, lambda: kernels.lstm_scan_backward_plain(
+                    pre, c_seq, dy, w_hh, c0), 1)
+        cudnn = lstm_yardstick(torch, w_hh, dev)
+        x_req = xp.clone().requires_grad_(True)
+        lib_out = cudnn(x_req, (h0[None], c0[None]))[0]
+        lib_params = [x_req, *cudnn.parameters()]
+        # cuDNN's LSTM launches kernels per step: a profiler window of it
+        # at T=14,400 takes minutes to read, so CUDA events time it
+        timed["lib_bwd"] = (time_ms(torch, lambda: torch.autograd.grad(
+            lib_out, lib_params, dy, retain_graph=True), 3), "CUDA events")
+        timed["lib"] = (time_ms(torch, lambda: torch.autograd.grad(
+            cudnn(x_req, (h0[None], c0[None]))[0], lib_params, dy), 3),
+            "CUDA events")
+        fwd_ms, ms, mm_ms, lib_bwd_ms, lib_ms = (
+            timed[k][0] for k in ("fwd", "bwd", "mm", "lib_bwd", "lib"))
+        plain_ms = timed["plain"][0] if "plain" in timed else None
+        events = sorted(k for k, (_, how) in timed.items()
+                        if how != "profiler" and k not in ("lib", "lib_bwd"))
+        del lib_out, x_req, lib_params, cudnn
+        flops = 3 * 2.0 * B * T * 4 * H * H
+        nbytes = (2 * B * T * 4 * H + 2 * B * T * H + 4 * H * H) * 4
+        b_ms, b_by = bound(flops, nbytes)
+        print(f"K3 backward B={B} T={T} H={H} from (h0, c0): plan {plan.ctas} "
+              f"CTAs x {plan.units_per_cta} units ({plan.j_chunks} row "
+              f"passes), {plan.n_launches} launch, {regs.value} registers/"
+              f"thread ({local.value} B local); saving forward out == plain "
+              f"launch bit for bit; vs the twin's autograd: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" of the largest |value|; per layer device ms: saving "
+              f"forward={fwd_ms:.4f} backward kernel={ms:.4f} "
+              f"({ms / T * 1e3:.3f} us/step) its two matmuls={mm_ms:.4f} "
+              f"plain backward="
+              f"{'not measured' if plain_ms is None else f'{plain_ms:.4f}'} "
+              f"library(cuDNN LSTM fwd+bwd, CUDA events)="
+              f"{lib_ms:.4f} (its backward alone {lib_bwd_ms:.4f}) "
+              f"bound={b_ms:.5f} ({b_by})"
+              + (f"; by CUDA events (no two profiler windows agreed): "
+                 f"{', '.join(events)}" if events else "")
+              + f" [{time.perf_counter() - t_shape:.1f} s]")
+        rows[B, T, H] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_bwd_ms,
+                             bound_ms=b_ms, bound_by=b_by,
+                             max_abs_err=abs_err)
+        del xp, out, c_seq, plain_launch, pre, dgates, h_prev, dy
+        torch.cuda.empty_cache()
+    return rows[32, 480, 1024]
+
+
+# params/default.yaml's model and loss sections (the card has no PyYAML)
+DEFAULT_MODEL = {
+    "ratios": [6, 5, 5, 2, 1], "bins": 1024, "dimension": 256,
+    "target_bandwidths": [0.08], "train_discriminator": False,
+    "train_discriminator_start_epoch": 60, "train_discriminator_prob": 0.5,
+    "disc_hop_lengths": [20, 128], "disc_win_lengths": [100, 512],
+    "disc_n_ffts": [1024, 1024], "filters": 32, "audio_normalize": False,
+    "causal": True, "norm": "layer_norm", "segment": "None",
+    "name": "my_encodec", "sample_rate": 10, "channels": 1}
+DEFAULT_LOSS = {
+    "weight_l1": 1.0, "weight_l2": 0.01, "weight_commit": 0.25,
+    "weight_freq": 0.25, "weight_g": 3.0, "weight_feat": 3.0, "alpha": 0.01,
+    "bandwidth": None, "n_fft": 512, "commit_start_epoch": 30}
+TRAIN_NIGHT = 4 * 36_000 + 600   # a 4 h crop with room to move
+
+
+def train_config(root: str) -> dict:
+    """default.yaml with its model and loss sections as they are, logging
+    and saving every epoch, one device, and synthetic nights under `root`:
+    a virtual epoch of 96 training crops (3 batches of 32) and 19
+    validation crops (one batch)."""
+    return {
+        "exp_details": {"name": "default", "description": "4 hours at 10 Hz"},
+        "common": {"log_interval": 1, "max_epoch": 2000, "seed": 42,
+                   "gradient_clipping": True},
+        "dataset": {"root": root, "batch_size": 32, "num_workers": 8,
+                    "max_length": 144_000, "debug": False, "cv": 0,
+                    "epoch_size": 96, "datasets": {"synth": 1.0},
+                    "thorax": 0.5, "abdominal": 0.5},
+        "checkpoint": {"save_every": 1},
+        "optimization": {"lr": 1e-3, "disc_lr": 3e-4},
+        "loss": dict(DEFAULT_LOSS),
+        "lr_scheduler": {"warmup_epoch": 10},
+        "model": dict(DEFAULT_MODEL),
+        "distributed": {"data_parallel": False},
+    }
+
+
+def train_group(name: str) -> str:
+    """Kernel groups of a training step."""
+    for group, key in (("K3 backward", "lstm_bwd_kernel"),
+                       ("K3 forward", "lstm_grid_kernel"),
+                       ("K3 forward", "lstm_scan_kernel"),
+                       ("K1", "vq_nearest_kernel"), ("K2", "vq_rvq_kernel")):
+        if key in name:
+            return group
+    low = name.lower()
+    if any(k in low for k in ("conv", "cudnn", "xmma", "implicit", "fprop",
+                              "dgrad", "wgrad")):
+        back = any(k in low for k in ("dgrad", "wgrad", "bwd", "backward"))
+        return "cuDNN conv backward" if back else "cuDNN conv forward"
+    return "other"
+
+
+def states_equal(torch, a, b) -> bool:
+    from encodec_tpu_torch.train.optim import tree_leaves
+
+    pairs = list(zip(tree_leaves((a.params, a.opt_state.mu, a.opt_state.nu)),
+                     tree_leaves((b.params, b.opt_state.mu, b.opt_state.nu))))
+    pairs += list(zip(a.qstate[:3], b.qstate[:3]))
+    pairs += [(a.opt_state.count, b.opt_state.count), (a.rng, b.rng)]
+    return (a.qstate.inited == b.qstate.inited
+            and all(torch.equal(x.cpu(), y.cpu()) for x, y in pairs))
+
+
+def one_window(torch, fn) -> tuple:
+    """Device records of one call of `fn` (after a warm-up call) under
+    torch.profiler, and the call's wall ms: {kernel: (launches, µs)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    records: dict = {}
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) == DeviceType.CUDA:
+            n, us = records.get(e.key, (0, 0.0))
+            records[e.key] = (n + e.count, us + e.self_device_time_total)
+    return records, wall_ms
+
+
+def phase_train(torch, kernels, dev):
+    """Training default.yaml's model (the breathing tokenizer, H=1024, D=256,
+    8 stages of one shared book of 1024, 32 nights of 4 h per batch) on
+    the card. First the config as it is: the largest batch of 32, 24, 16,
+    12 and 8 nights whose step fits the card, its peak memory and step
+    time; the first step from a fresh state (B=4) with every leaf's
+    gradient finite and non-zero. Then, counted as one path, `python -m
+    encodec_tpu_torch.train`'s `main` on a JSON config over synthetic npz
+    nights (through `build_dataloaders`) at B=32 with `model.remat: true`
+    (the JAX package's memory option: each SEANet stage recomputed in the
+    backward, the same arithmetic): 2 epochs of 3 steps with the k-means
+    init, eval and save each epoch. Then: a fresh Trainer resumes the run
+    directory bit for bit and steps on; ms per step at B=32 and the peak
+    memory; one profiled step by kernel group; one step (B=4) from the
+    state after epoch 1 on the kernels against the plain twins; K1 at the
+    training shape (N=15,360, D=256, 1024 bins)."""
+    import tempfile
+
+    from encodec_tpu_torch.train import (ConfigNamespace, Trainer,
+                                         load_checkpoint, make_train_steps)
+    from encodec_tpu_torch.train.__main__ import build_dataloaders
+    from encodec_tpu_torch.train.__main__ import main as train_main
+    from encodec_tpu_torch.train.optim import tree_leaves
+    from encodec_tpu_torch.train.trainer import state_to_device
+
+    tmp = tempfile.TemporaryDirectory()
+    base = Path(tmp.name)
+    for c, chan in enumerate(("thorax", "abdominal")):
+        (base / "data" / "synth" / chan).mkdir(parents=True)
+        for i in range(8):
+            np.savez(base / "data" / "synth" / chan / f"night{i}.npz",
+                     data=breathing_signal(TRAIN_NIGHT, 1000 + 10 * i + c),
+                     fs=10)
+    cfg = train_config(str(base / "data"))
+    config = ConfigNamespace(cfg)
+    cfg_fit = json.loads(json.dumps(cfg))
+    cfg_fit["model"]["remat"] = True
+    cfg_path = base / "default_remat.json"
+    cfg_path.write_text(json.dumps(cfg_fit))
+    config_fit = ConfigNamespace(cfg_fit)
+    run = base / "run"
+
+    # -- the first step from a fresh state (B=4): k-means, every gradient
+    t0 = time.perf_counter()
+    loader, _, _ = build_dataloaders(config)
+    x32 = torch.from_numpy(next(iter(loader))[0]["x"]).to(dev)
+    batch_s = time.perf_counter() - t0
+    check(tuple(x32.shape) == (32, 144_000, 1), f"batch {tuple(x32.shape)}")
+    x4 = x32[:4].contiguous()
+    first = Trainer(config, [], [], str(base / "fresh"), device=dev)
+    w1 = first.weights_for_epoch(1)
+    for B in (32, 24, 16, 12, 8):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            first.gen_step(first.state, x32[:B].contiguous(), w1)
+            torch.cuda.synchronize()
+        except torch.OutOfMemoryError:
+            print(f"train memory, default.yaml as it is: B={B} x 4 h does "
+                  "not fit the card (out of memory)")
+            continue
+        step_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"train memory, default.yaml as it is: the largest batch that "
+              f"fits is B={B} x 4 h: peak {peak:.2f} GiB "
+              f"(max_memory_allocated), first step (k-means init) "
+              f"{step_ms:.1f} ms" + ("" if B == 32 else
+                                    "; B=32 does not fit in 80 GB"))
+        break
+    else:
+        fail("default.yaml's step fits the card at none of B=32-8")
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    s1, m1 = first.gen_step(first.state, x4, w1, keep_grads=True)
+    torch.cuda.synchronize()
+    c1 = launch_counts(kernels)
+    grads = tree_leaves(m1["grads"])
+    bad = [i for i, g in enumerate(grads)
+           if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0]
+    enc_first = m1["grads"]["encoder"]["init_conv"]["w"]
+    check(s1.qstate.inited and not bad and c1["lstm_scan_backward"] == 4,
+          f"first step: k-means {s1.qstate.inited}, {len(bad)} of "
+          f"{len(grads)} gradient leaves zero or not finite, launches {c1}")
+    print(f"train first step (fresh state, B=4 x 4 h, k-means init on "
+          f"{4 * 480} rows): loss {float(m1['loss']):.5f}; all {len(grads)} "
+          f"gradient leaves finite and non-zero (the encoder's first conv: "
+          f"max |g| {float(enc_first.abs().max()):.3g}); launches {c1}; one "
+          f"batch of 32 crops loaded and preprocessed in {batch_s:.2f} s")
+    del first, s1, m1, grads, enc_first
+
+    # -- the train path, counted: the entry point a user runs -------------
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer = train_main(["--config", str(cfg_path), "--log_dir", str(run),
+                          "--max_epochs", "2", "--device", "cuda"])
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = launch_counts(kernels)
+    counts["lstm_save"] = kernels.lstm_scan.save_launches
+    steps = int(trainer.state.opt_state.count)
+    check(steps == 6, f"2 epochs ran {steps} steps, not 6")
+    check(counts["nearest_codebook"] > 0 and counts["rvq_encode_fused"] > 0
+          and counts["lstm_save"] == 4 * steps
+          and counts["lstm_scan_backward"] == 4 * steps
+          and counts["lstm_grid"] == counts["lstm_scan"],
+          f"the train path did not launch K1, K2, the saving K3 and K3's "
+          f"backward as planned: {counts}")
+    k1_kmeans = counts["nearest_codebook"] - 8 * steps
+    print(f"train path launches (B=32 with remat, 2 epochs, {steps} steps, 2 "
+          f"evals): "
+          f"{json.dumps(counts)}; per step K1 8 (+{k1_kmeans} for the "
+          f"k-means init on the first), K3 saving forward "
+          f"{counts['lstm_save'] // steps}, K3 backward "
+          f"{counts['lstm_scan_backward'] // steps}; per eval batch K2 1, K3 "
+          f"{(counts['lstm_scan'] - counts['lstm_save']) // 2}")
+    print(f"train fit: 2 epochs in {fit_s:.1f} s (seconds per epoch of 3 "
+          f"batches, data loading included: "
+          + ", ".join(f"{s:.1f}" for s in trainer.epoch_seconds.values())
+          + ")")
+
+    # -- resume bit for bit, and a step on -----------------------------
+    fresh = Trainer(config_fit, [], [], str(run), device=dev)
+    fresh.resume()
+    check(fresh.start_epoch == 3 and states_equal(torch, fresh.state,
+                                                  trainer.state),
+          "resume did not restore params, qstate, Adam state and generator "
+          "state bit for bit")
+    w3 = fresh.weights_for_epoch(3)
+    state, m = fresh.gen_step(fresh.state, x32, w3)
+    check(bool(torch.isfinite(m["loss"])), "the resumed step's loss")
+    print(f"train resume: epoch 3 from {run.name}/model.ckpt; params, "
+          f"qstate, Adam (count {int(fresh.state.opt_state.count)}, mu, nu) "
+          f"and the generator state equal the saved ones bit for bit; one "
+          f"more step: loss {float(m['loss']):.5f}")
+
+    # -- ms per step at B=32, peak memory, one profiled step --------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        fresh.gen_step(state, x32, w3)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    window = kernel_window(torch, lambda: fresh.gen_step(state, x32, w3), 1,
+                           required=False)
+    note = ""
+    if window is None:   # one window, not held against a second one
+        window = one_window(torch, lambda: fresh.gen_step(state, x32, w3))
+        note = " (one profiler window: no two agreed)"
+    records, wall_ms = window
+    groups: dict = {}
+    for key, (_, us) in records.items():
+        g = train_group(key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    busy = sum(groups.values())
+    print(f"train step B=32 x 4 h with remat: {times[0]:.1f} / {times[1]:.1f} "
+          f"ms per step (host clock, synchronized); peak memory "
+          f"{peak:.2f} GiB (max_memory_allocated)")
+    print(f"profile train step B=32 (remat){note}: wall {wall_ms:.1f} ms "
+          f"(profiled), device "
+          f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; by group: "
+          + ", ".join(f"{g} {ms:.2f} ms" for g, ms in
+                      sorted(groups.items(), key=lambda kv: -kv[1])))
+    for ms, n, key in sorted(((us / 1e3, n, key[:70]) for key, (n, us)
+                              in records.items()), reverse=True)[:6]:
+        print(f"    {ms:9.3f} ms  x{round(n):<4d} {key}")
+    del state, m
+
+    # -- the kernels against the plain twins, one step at B=4 ------------
+    raw, epoch, _ = load_checkpoint(run / "model.ckpt.prev")
+    check(epoch == 1, f"model.ckpt.prev holds epoch {epoch}")
+    s_e1 = state_to_device(raw, dev)
+    gen_plain = make_train_steps(fresh.model.cfg,
+                                 freq_loss_kwargs=fresh.freq_kwargs,
+                                 clip=fresh.clip, plain=True)[0]
+    w2 = fresh.weights_for_epoch(2)
+    _, mk = fresh.gen_step(s_e1, x4, w2, keep_grads=True)
+    _, mp = gen_plain(s_e1, x4, w2, keep_grads=True)
+    torch.cuda.synchronize()
+    flagged = ((mk["margins"] < TIE_THRESHOLD)
+               | (mp["margins"] < TIE_THRESHOLD)).any(0)
+    diff = (mk["codes"] != mp["codes"]).any(1).reshape(-1)
+    loss_err = abs(float(mk["loss"]) - float(mp["loss"])) / abs(
+        float(mp["loss"]))
+    grad_err = max(float((g - r).abs().max()) / float(r.abs().max())
+                   for g, r in zip(tree_leaves(mk["grads"]),
+                                   tree_leaves(mp["grads"])))
+    check(int((diff & ~flagged).sum()) == 0,
+          "train step B=4: codes differ from the plain twins' outside the "
+          "tie guard")
+    check(loss_err <= 1e-4, f"train step B=4: loss {loss_err:.3g} from the "
+                            "plain twins' > 1e-4 relative")
+    check(grad_err <= 1e-3, f"train step B=4: a gradient leaf {grad_err:.3g} "
+                            "of its largest |value| from the plain twins'")
+    print(f"train step B=4 from epoch 1's state, kernels vs plain twins: "
+          f"{int(diff.sum())} of {diff.numel()} positions' codes differ, "
+          f"{int(flagged.sum())} tie-flagged; loss {loss_err:.3g} relative; "
+          f"gradient leaves within {grad_err:.3g} of their largest |value|")
+    del mk, mp, s_e1, trainer, fresh
+    tmp.cleanup()
+
+    # -- K1 at the training shape ----------------------------------------
+    from encodec_tpu_torch.kernels import vq_cuda
+
+    N, D, bins = 32 * 480, 256, 1024
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = vq_cuda.nearest_plan(N, bins, D, sms)
+    e = books(torch, (bins, D), 66, dev)
+    x = gauss(torch, (N, D), 67, dev, 0.3)
+    idx, margin = kernels.nearest_codebook(x, e)
+    ref_idx, ref_margin = kernels.nearest_codebook_plain(x, e)
+    torch.cuda.synchronize()
+    safe = ref_margin >= TIE_THRESHOLD
+    n_bad = int((idx[safe] != ref_idx[safe]).sum())
+    err = float((margin - ref_margin).abs().max())
+    check(n_bad == 0 and err <= 1e-4,
+          f"K1 N={N} D={D}: {n_bad} indices differ outside the tie guard, "
+          f"margin max|d| {err}")
+    ms, how = device_or_event_ms(
+        torch, lambda: kernels.nearest_codebook(x, e), 20, "vq_nearest")
+    plain_ms, how_p = device_or_event_ms(
+        torch, lambda: kernels.nearest_codebook_plain(x, e), 5)
+    lib_ms, how_l = device_or_event_ms(
+        torch, lambda: torch.cdist(x, e).argmin(1), 5)
+    b_ms, b_by = bound(2.0 * N * bins * D, (N * D + bins * D + 2 * N) * 4)
+    print(f"K1 nearest_codebook at the training shape N={N} D={D} "
+          f"bins={bins}: plan {plan.row_tiles} tiles x cluster "
+          f"{plan.cluster} = {plan.ctas} CTAs ({plan.smem_bytes} B shared "
+          f"memory/CTA); idx equal outside margins < {TIE_THRESHOLD} "
+          f"({int((~safe).sum())} rows flagged), margin max|d|={err:.3g}; "
+          f"device ms: kernel={ms:.4f} plain={plain_ms:.4f} "
+          f"library(cdist+argmin)={lib_ms:.4f} bound={b_ms:.5f} ({b_by}); "
+          f"timed by {how} / {how_p} / {how_l}")
+    return counts
+
+
 def raw_ecdc(model, frames, audio_length: int) -> bytes:
     """The raw `.ecdc` of `frames` (the file `compress` writes without the
     LM for the same codes and scales)."""
@@ -1592,7 +2095,8 @@ def launch_counts(kernels) -> dict:
 
 
 KERNEL_GROUPS = (("K2", "vq_rvq_kernel"), ("K1", "vq_nearest_kernel"),
-                 ("K3", "lstm_scan_kernel"), ("K3", "lstm_grid_kernel"))
+                 ("K3", "lstm_scan_kernel"), ("K3", "lstm_grid_kernel"),
+                 ("K3 backward", "lstm_bwd_kernel"))
 
 
 def kernel_group(name: str) -> str:
@@ -1760,27 +2264,36 @@ def main() -> int:
     k3_grid = phase_k3_grid(torch, kernels, dev)
     counts_breathing = phase_breathing(torch, kernels, dev)
     counts_hires = phase_hires(torch, kernels, dev)
+    t0 = time.perf_counter()
+    k3_bwd = phase_k3_bwd(torch, kernels, dev)
+    t1 = time.perf_counter()
+    counts_train = phase_train(torch, kernels, dev)
+    print(f"phases: K3 backward {t1 - t0:.1f} s, train "
+          f"{time.perf_counter() - t1:.1f} s (at {t0 - t_start:.1f} s)")
     counts_lm = phase_lm(torch, kernels, model, model48, wav10, wav48)
 
     paths = {"24k": counts, "48k": counts48, "stream": counts_stream,
              "breathing": counts_breathing, "hires_tokens": counts_hires,
-             "lm": counts_lm}
+             "train": counts_train, "lm": counts_lm}
     for c in paths.values():   # lstm_scan counts both K3 kernels
         c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
     rows = [
-        ("K1 nearest_codebook", "vq_search.cu", "vq_pallas.py:43",
+        ("K1 nearest_codebook", "vq_search.cu", "kernels/vq_pallas.py:43",
          "nearest_codebook", k1),
-        ("K2 rvq_encode_fused", "vq_search.cu", "vq_pallas.py:124",
+        ("K2 rvq_encode_fused", "vq_search.cu", "kernels/vq_pallas.py:124",
          "rvq_encode_fused", k2),
         ("K3 lstm_scan (cluster kernel, H <= 512)", "lstm_scan.cu",
-         "lstm_pallas.py:55", "lstm_cluster", k3),
+         "kernels/lstm_pallas.py:55", "lstm_cluster", k3),
         ("K3 lstm_scan (grid kernel, 512 < H <= 1024)", "lstm_grid.cu",
-         "lstm_pallas.py:55", "lstm_grid", k3_grid),
+         "kernels/lstm_pallas.py:55", "lstm_grid", k3_grid),
+        # no TPU kernel: JAX's trainer differentiates the LSTM's lax.scan
+        ("K3 lstm_scan_backward (backward kernel, H <= 1024)", "lstm_bwd.cu",
+         "ops/lstm.py:56-72", "lstm_scan_backward", k3_bwd),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda",
          "source": f"encodec_tpu_torch/kernels/csrc/{src}",
-         "replaces": f"encodec_tpu/kernels/{rep}",
+         "replaces": f"encodec_tpu/{rep}",
          "launches": {p: c[fn] for p, c in paths.items()}, **m}
         for n, src, rep, fn, m in rows]}))
     print(f"profiler windows: {profiler_stats['windows']}; "

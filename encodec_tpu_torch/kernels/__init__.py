@@ -6,14 +6,24 @@
 | `rvq_encode_fused` (K2) | `vq_pallas.py::rvq_encode_pallas` | `csrc/vq_search.cu` |
 | `lstm_scan` (K3) | `lstm_pallas.py::lstm_scan_pallas` | `csrc/lstm_scan.cu` (H ≤ 512), |
 | | | `csrc/lstm_grid.cu` (512 < H ≤ 1024) |
+| `lstm_scan_backward` (K3's gradient) | none (see below) | `csrc/lstm_bwd.cu` (H ≤ 1024) |
+
+K3's backward has no TPU kernel to replace: the JAX trainer differentiates
+the `lax.scan` of `encodec_tpu/ops/lstm.py:56-72`, and XLA runs the VJP.
 
 Each wrapper runs its plain twin for CPU tensors and launches its kernel
 for CUDA tensors (or raises); each counts its launches in `.launches`,
-`lstm_scan.stateful_launches` counts K3's launches from a given `(h0, c0)`
-and `lstm_scan.grid_launches` those of K3's grid kernel.
+`lstm_scan.stateful_launches` counts K3's launches from a given `(h0, c0)`,
+`lstm_scan.grid_launches` those of K3's grid kernel and
+`lstm_scan.save_launches` those that saved every step's c for the backward.
 """
 
-from .lstm_cuda import lstm_scan, lstm_scan_plain  # noqa: F401
+from .lstm_cuda import (  # noqa: F401
+    lstm_scan,
+    lstm_scan_backward,
+    lstm_scan_backward_plain,
+    lstm_scan_plain,
+)
 from .vq_cuda import (  # noqa: F401
     nearest_codebook,
     nearest_codebook_plain,
@@ -21,7 +31,7 @@ from .vq_cuda import (  # noqa: F401
     rvq_encode_fused_plain,
 )
 
-WRAPPERS = (nearest_codebook, rvq_encode_fused, lstm_scan)
+WRAPPERS = (nearest_codebook, rvq_encode_fused, lstm_scan, lstm_scan_backward)
 
 
 def reset_launch_counts() -> None:
@@ -29,6 +39,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0  # type: ignore[attr-defined]
     lstm_scan.stateful_launches = 0  # type: ignore[attr-defined]
     lstm_scan.grid_launches = 0  # type: ignore[attr-defined]
+    lstm_scan.save_launches = 0  # type: ignore[attr-defined]
 
 
 def launch_counts() -> dict:

@@ -33,8 +33,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointer and the stream go as c_void_p, or ctypes would cut them to 32 bits.
 SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
     "lstm_scan": {
-        "lstm_scan_launch": ([_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _P], _I),
+        "lstm_scan_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _P], _I),
         "lstm_scan_max_clusters": ([_I, _I], _I),
         "lstm_scan_attributes": ([_I, _I, _P, _P], _I),
         "lstm_scan_smem_bytes": ([_I], _I),
@@ -45,10 +45,10 @@ SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
         "lstm_scan_error_string": ([_I], ctypes.c_char_p),
     },
     "lstm_grid": {
-        "lstm_grid_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _P], _I),
+        "lstm_grid_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _P], _I),
         "lstm_grid_max_ctas": ([_I, _I], _I),
-        "lstm_grid_attributes": ([_I, _P, _P], _I),
+        "lstm_grid_attributes": ([_I, _I, _P, _P], _I),
         "lstm_grid_smem_bytes": ([_I, _I], _I),
         "lstm_grid_threads": ([], _I),
         "lstm_grid_max_units": ([], _I),
@@ -56,6 +56,19 @@ SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
         "lstm_grid_max_batch": ([], _I),
         "lstm_grid_max_h": ([], _I),
         "lstm_grid_error_string": ([_I], ctypes.c_char_p),
+    },
+    "lstm_bwd": {
+        "lstm_bwd_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _P], _I),
+        "lstm_bwd_max_ctas": ([_I, _I], _I),
+        "lstm_bwd_attributes": ([_I, _P, _P], _I),
+        "lstm_bwd_smem_bytes": ([_I], _I),
+        "lstm_bwd_threads": ([], _I),
+        "lstm_bwd_max_units": ([], _I),
+        "lstm_bwd_batch_tile": ([], _I),
+        "lstm_bwd_max_batch": ([], _I),
+        "lstm_bwd_max_h": ([], _I),
+        "lstm_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "vq_search": {
         "vq_nearest_launch": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),

@@ -43,6 +43,9 @@
 //   grid sync does. A bounded spin turns a lost arrival into a kernel fault.
 // - Gate inputs of step t+1 are loaded before the barrier of step t, so
 //   their latency hides behind it.
+// - Training needs every step's c for the backward (lstm_bwd.cu): the
+//   SAVE instantiation also stores c_t into c_seq [B, T, H]. Its
+//   arithmetic is the plain instantiation's, so `out` has the same bits.
 // - The batch per launch is bounded by shared memory (h of every sequence)
 //   and by one cell per thread: at most 64, 48 at H=1024; the caller
 //   splits a larger batch over launches (sequences are independent, and a
@@ -125,12 +128,13 @@ __device__ __forceinline__ void grid_barrier(unsigned* counter,
   __syncthreads();
 }
 
-template <int KM>
+template <int KM, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1)
 lstm_grid_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
                  const float* __restrict__ h0, const float* __restrict__ c0,
-                 float* out, float* __restrict__ c_out, unsigned* counter,
-                 int B, int T, int H, int U, int vec) {
+                 float* out, float* __restrict__ c_out,
+                 float* __restrict__ c_seq, unsigned* counter, int B, int T,
+                 int H, int U, int vec) {
   constexpr int HP = KM * KCHUNK;
   extern __shared__ __align__(16) float smem[];
   const int Bp = padded_batch(B);
@@ -249,6 +253,7 @@ lstm_grid_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
       c = sigmoidf(gate[1]) * c + sigmoidf(gate[0]) * tanhf(gate[2]);
       const float h = sigmoidf(gate[3]) * tanhf(c);
       out[((size_t)cb * T + t) * H + u0 + cj] = h;
+      if (SAVE) c_seq[((size_t)cb * T + t) * H + u0 + cj] = c;
       if (t == T - 1 && c_out != nullptr) c_out[(size_t)cb * H + u0 + cj] = c;
       if (t + 1 < T) {
 #pragma unroll
@@ -260,31 +265,34 @@ lstm_grid_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
   }
 }
 
-template <int KM>
+template <int KM, bool SAVE>
 cudaError_t prepare(int H, int B) {
-  return cudaFuncSetAttribute(lstm_grid_kernel<KM>,
+  return cudaFuncSetAttribute(lstm_grid_kernel<KM, SAVE>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem_bytes(H, B)));
 }
 
+// (both instantiations take the same shared memory and threads, and run at
+// the launch bound's one CTA per SM)
 template <int KM>
 int max_ctas(int H, int B) {
-  cudaError_t err = prepare<KM>(H, B);
+  cudaError_t err = prepare<KM, false>(H, B);
   if (err != cudaSuccess) return -static_cast<int>(err);
   int per_sm = 0, dev = 0, sms = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, lstm_grid_kernel<KM>, THREADS, smem_bytes(H, B));
+      &per_sm, lstm_grid_kernel<KM, false>, THREADS, smem_bytes(H, B));
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return err == cudaSuccess ? per_sm * sms : -static_cast<int>(err);
 }
 
-template <int KM>
-int launch(const float* xp, const float* w_hh, const float* h0,
-           const float* c0, float* out, float* c_out, unsigned* counter,
-           int B, int T, int H, int U, int G, cudaStream_t stream) {
-  cudaError_t err = prepare<KM>(H, B);
+template <int KM, bool SAVE>
+int launch_as(const float* xp, const float* w_hh, const float* h0,
+              const float* c0, float* out, float* c_out, float* c_seq,
+              unsigned* counter, int B, int T, int H, int U, int G,
+              cudaStream_t stream) {
+  cudaError_t err = prepare<KM, SAVE>(H, B);
   if (err != cudaSuccess) return err;
   // float4 h loads need 16-byte rows
   const int vec = H % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
@@ -299,16 +307,31 @@ int launch(const float* xp, const float* w_hh, const float* h0,
   attr.val.cooperative = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, lstm_grid_kernel<KM>, xp, w_hh, h0, c0, out,
-                           c_out, counter, B, T, H, U, vec);
+  err = cudaLaunchKernelEx(&cfg, lstm_grid_kernel<KM, SAVE>, xp, w_hh, h0, c0,
+                           out, c_out, c_seq, counter, B, T, H, U, vec);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+// the saving instantiation when every step's c is stored
 template <int KM>
-int attributes(int* regs, int* local_bytes) {
+int launch(const float* xp, const float* w_hh, const float* h0,
+           const float* c0, float* out, float* c_out, float* c_seq,
+           unsigned* counter, int B, int T, int H, int U, int G,
+           cudaStream_t stream) {
+  if (c_seq != nullptr)
+    return launch_as<KM, true>(xp, w_hh, h0, c0, out, c_out, c_seq, counter,
+                               B, T, H, U, G, stream);
+  return launch_as<KM, false>(xp, w_hh, h0, c0, out, c_out, c_seq, counter, B,
+                              T, H, U, G, stream);
+}
+
+template <int KM>
+int attributes(int save, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, lstm_grid_kernel<KM>);
+  const cudaError_t err =
+      save ? cudaFuncGetAttributes(&a, lstm_grid_kernel<KM, true>)
+           : cudaFuncGetAttributes(&a, lstm_grid_kernel<KM, false>);
   if (err != cudaSuccess) return err;
   *regs = a.numRegs;
   *local_bytes = static_cast<int>(a.localSizeBytes);
@@ -355,24 +378,26 @@ int lstm_grid_max_ctas(int H, int B) {
   }
 }
 
-// Registers per thread and local (spill) bytes of the kernel for H.
-int lstm_grid_attributes(int H, int* regs, int* local_bytes) {
+// Registers per thread and local (spill) bytes of the kernel for H, the
+// plain instantiation (save = 0) or the saving one (1).
+int lstm_grid_attributes(int H, int save, int* regs, int* local_bytes) {
   if (!valid_h(H)) return cudaErrorInvalidValue;
   switch (k_chunks(H)) {
-    case 5: return attributes<5>(regs, local_bytes);
-    case 6: return attributes<6>(regs, local_bytes);
-    case 7: return attributes<7>(regs, local_bytes);
-    default: return attributes<8>(regs, local_bytes);
+    case 5: return attributes<5>(save, regs, local_bytes);
+    case 6: return attributes<6>(save, regs, local_bytes);
+    case 7: return attributes<7>(save, regs, local_bytes);
+    default: return attributes<8>(save, regs, local_bytes);
   }
 }
 
 // xp [B, T, 4H], w_hh [4H, H], out [B, T, H] (all contiguous f32); h0 and
-// c0 [B, H], the initial state (both null: zero state), and c_out [B, H],
-// the final cell state (null: not written); counter: one zeroed uint32 on
-// the device, used by this launch only. The plan: G CTAs, CTA g owning
-// units [g*U, g*U+U).
+// c0 [B, H], the initial state (both null: zero state), c_out [B, H], the
+// final cell state (null: not written), and c_seq [B, T, H], every step's
+// cell state (null: not written); counter: one zeroed uint32 on the
+// device, used by this launch only. The plan: G CTAs, CTA g owning units
+// [g*U, g*U+U).
 int lstm_grid_launch(const float* xp, const float* w_hh, const float* h0,
-                     const float* c0, float* out, float* c_out,
+                     const float* c0, float* out, float* c_out, float* c_seq,
                      unsigned* counter, int B, int T, int H, int U, int G,
                      void* stream) {
   if (T == 0) return 0;
@@ -383,17 +408,17 @@ int lstm_grid_launch(const float* xp, const float* w_hh, const float* h0,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (k_chunks(H)) {
     case 5:
-      return launch<5>(xp, w_hh, h0, c0, out, c_out, counter, B, T, H, U, G,
-                       st);
+      return launch<5>(xp, w_hh, h0, c0, out, c_out, c_seq, counter, B, T,
+                       H, U, G, st);
     case 6:
-      return launch<6>(xp, w_hh, h0, c0, out, c_out, counter, B, T, H, U, G,
-                       st);
+      return launch<6>(xp, w_hh, h0, c0, out, c_out, c_seq, counter, B, T,
+                       H, U, G, st);
     case 7:
-      return launch<7>(xp, w_hh, h0, c0, out, c_out, counter, B, T, H, U, G,
-                       st);
+      return launch<7>(xp, w_hh, h0, c0, out, c_out, c_seq, counter, B, T,
+                       H, U, G, st);
     default:
-      return launch<8>(xp, w_hh, h0, c0, out, c_out, counter, B, T, H, U, G,
-                       st);
+      return launch<8>(xp, w_hh, h0, c0, out, c_out, c_seq, counter, B, T,
+                       H, U, G, st);
   }
 }
 

@@ -17,7 +17,10 @@
 // second instantiation (STATE = true), so the zero-state kernel of the
 // offline path compiles as it did without it: at 255 registers per thread
 // the state code doubles the local spill (16 -> 32 B per thread at
-// H=512).
+// H=512). Training needs every step's c for the backward (lstm_bwd.cu):
+// a third instantiation (STATE = true, SAVE = true) also stores c_t into
+// c_seq [B, T, H]; its arithmetic is the state kernel's, so `out` has the
+// same bits, and the two inference instantiations do not change.
 //
 // What bounds it: the T-step dependency chain, not FLOPs or bytes (at the
 // 24 kHz shapes 2*B*T*H*4H FLOPs and ~12 MB run in tens of microseconds at
@@ -187,12 +190,12 @@ __device__ __forceinline__ void fold(float (&acc)[ROWS_PER_WARP], int lane) {
   }
 }
 
-template <int KM, bool STATE>
+template <int KM, bool STATE, bool SAVE>
 __global__ void __launch_bounds__(THREADS, 1)
 lstm_scan_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
                  const float* __restrict__ h0, const float* __restrict__ c0,
-                 float* __restrict__ out, float* __restrict__ c_out, int B,
-                 int T, int H, int U) {
+                 float* __restrict__ out, float* __restrict__ c_out,
+                 float* __restrict__ c_seq, int B, int T, int H, int U) {
   constexpr int HP = KM * KCHUNK;
   extern __shared__ __align__(16) float smem[];
   float* w_s = smem;                          // [WARPS][SMEM_ROWS][HP]
@@ -352,6 +355,8 @@ lstm_scan_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
         }
       }
       if (lane < warp_nu) out[((size_t)b * T + t) * H + warp_u + lane] = h;
+      if (SAVE && lane < warp_nu)
+        c_seq[((size_t)b * T + t) * H + warp_u + lane] = c;
       if (STATE && c_out != nullptr && t == T - 1 && lane < warp_nu)
         c_out[(size_t)b * H + warp_u + lane] = c;
       xv = xv1;
@@ -360,14 +365,15 @@ lstm_scan_kernel(const float* __restrict__ xp, const float* __restrict__ w_hh,
   }
 }
 
-template <int KM, bool STATE>
+template <int KM, bool STATE, bool SAVE>
 cudaError_t prepare(int H, int cluster) {
   cudaError_t err = cudaFuncSetAttribute(
-      lstm_scan_kernel<KM, STATE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      lstm_scan_kernel<KM, STATE, SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes(H)));
   if (err != cudaSuccess) return err;
   if (cluster > 8)
-    err = cudaFuncSetAttribute(lstm_scan_kernel<KM, STATE>,
+    err = cudaFuncSetAttribute(lstm_scan_kernel<KM, STATE, SAVE>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
   return err;
@@ -389,51 +395,60 @@ cudaLaunchConfig_t config(int H, int cluster, int n_clusters,
   return cfg;
 }
 
-// (both instantiations take the same shared memory and threads, and run at
+// (all instantiations take the same shared memory and threads, and run at
 // the launch bound's one CTA per SM)
 template <int KM>
 int max_clusters(int H, int cluster) {
-  cudaError_t err = prepare<KM, false>(H, cluster);
+  cudaError_t err = prepare<KM, false, false>(H, cluster);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(H, cluster, 1, &attr, nullptr);
   int n = 0;
-  err = cudaOccupancyMaxActiveClusters(&n, lstm_scan_kernel<KM, false>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&n, lstm_scan_kernel<KM, false, false>,
+                                       &cfg);
   return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
-template <int KM, bool STATE>
+template <int KM, bool STATE, bool SAVE>
 int launch_as(const float* xp, const float* w_hh, const float* h0,
-              const float* c0, float* out, float* c_out, int B, int T, int H,
-              int cluster, int U, int n_clusters, cudaStream_t stream) {
-  cudaError_t err = prepare<KM, STATE>(H, cluster);
+              const float* c0, float* out, float* c_out, float* c_seq, int B,
+              int T, int H, int cluster, int U, int n_clusters,
+              cudaStream_t stream) {
+  cudaError_t err = prepare<KM, STATE, SAVE>(H, cluster);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config(H, cluster, n_clusters, &attr, stream);
-  err = cudaLaunchKernelEx(&cfg, lstm_scan_kernel<KM, STATE>, xp, w_hh, h0,
-                           c0, out, c_out, B, T, H, U);
+  err = cudaLaunchKernelEx(&cfg, lstm_scan_kernel<KM, STATE, SAVE>, xp, w_hh,
+                           h0, c0, out, c_out, c_seq, B, T, H, U);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// the state instantiation when a state is read or written
+// the saving instantiation when every step's c is stored, else the state
+// instantiation when a state is read or written
 template <int KM>
 int launch(const float* xp, const float* w_hh, const float* h0,
-           const float* c0, float* out, float* c_out, int B, int T, int H,
-           int cluster, int U, int n_clusters, cudaStream_t stream) {
+           const float* c0, float* out, float* c_out, float* c_seq, int B,
+           int T, int H, int cluster, int U, int n_clusters,
+           cudaStream_t stream) {
+  if (c_seq != nullptr)
+    return launch_as<KM, true, true>(xp, w_hh, h0, c0, out, c_out, c_seq, B,
+                                     T, H, cluster, U, n_clusters, stream);
   if (h0 != nullptr || c_out != nullptr)
-    return launch_as<KM, true>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster,
-                               U, n_clusters, stream);
-  return launch_as<KM, false>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster,
-                              U, n_clusters, stream);
+    return launch_as<KM, true, false>(xp, w_hh, h0, c0, out, c_out, c_seq, B,
+                                      T, H, cluster, U, n_clusters, stream);
+  return launch_as<KM, false, false>(xp, w_hh, h0, c0, out, c_out, c_seq, B,
+                                     T, H, cluster, U, n_clusters, stream);
 }
 
 template <int KM>
-int attributes(bool state, int* regs, int* local_bytes) {
+int attributes(int variant, int* regs, int* local_bytes) {
   cudaFuncAttributes a;
-  const void* fn = state
-      ? reinterpret_cast<const void*>(lstm_scan_kernel<KM, true>)
-      : reinterpret_cast<const void*>(lstm_scan_kernel<KM, false>);
+  const void* fn =
+      variant == 2 ? reinterpret_cast<const void*>(lstm_scan_kernel<KM, true, true>)
+      : variant == 1
+          ? reinterpret_cast<const void*>(lstm_scan_kernel<KM, true, false>)
+          : reinterpret_cast<const void*>(lstm_scan_kernel<KM, false, false>);
   const cudaError_t err = cudaFuncGetAttributes(&a, fn);
   if (err != cudaSuccess) return err;
   *regs = a.numRegs;
@@ -474,25 +489,28 @@ int lstm_scan_max_clusters(int H, int cluster) {
 }
 
 // Registers per thread and local (spill) bytes of the kernel for H, the
-// zero-state instantiation (state = 0) or the one with a state (1).
+// zero-state instantiation (state = 0), the one with a state (1) or the
+// saving one (2).
 int lstm_scan_attributes(int H, int state, int* regs, int* local_bytes) {
-  if (!valid_h(H)) return cudaErrorInvalidValue;
+  if (!valid_h(H) || state < 0 || state > 2) return cudaErrorInvalidValue;
   switch (k_chunks(H)) {
-    case 1: return attributes<1>(state != 0, regs, local_bytes);
-    case 2: return attributes<2>(state != 0, regs, local_bytes);
-    case 3: return attributes<3>(state != 0, regs, local_bytes);
-    default: return attributes<4>(state != 0, regs, local_bytes);
+    case 1: return attributes<1>(state, regs, local_bytes);
+    case 2: return attributes<2>(state, regs, local_bytes);
+    case 3: return attributes<3>(state, regs, local_bytes);
+    default: return attributes<4>(state, regs, local_bytes);
   }
 }
 
 // xp [B, T, 4H], w_hh [4H, H], out [B, T, H] (all contiguous f32); h0 and
 // c0 [B, H], the initial state (both null: zero state), and c_out [B, H],
-// the final cell state (null: not written). The plan: clusters of
-// `cluster` CTAs, CTA r owning units [r*U, r*U+U), and `n_clusters`
-// clusters sharing the batch.
+// the final cell state (null: not written), and c_seq [B, T, H], every
+// step's cell state (null: not written). The plan: clusters of `cluster`
+// CTAs, CTA r owning units [r*U, r*U+U), and `n_clusters` clusters sharing
+// the batch.
 int lstm_scan_launch(const float* xp, const float* w_hh, const float* h0,
-                     const float* c0, float* out, float* c_out, int B, int T,
-                     int H, int cluster, int U, int n_clusters, void* stream) {
+                     const float* c0, float* out, float* c_out, float* c_seq,
+                     int B, int T, int H, int cluster, int U, int n_clusters,
+                     void* stream) {
   if (B == 0 || T == 0) return 0;
   if (!valid_h(H) || cluster < 1 || cluster > MAX_CLUSTER || U < 1 ||
       U > MAX_UNITS || cluster * U < H || (cluster - 1) * U >= H ||
@@ -501,17 +519,17 @@ int lstm_scan_launch(const float* xp, const float* w_hh, const float* h0,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (k_chunks(H)) {
     case 1:
-      return launch<1>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster, U,
-                       n_clusters, st);
+      return launch<1>(xp, w_hh, h0, c0, out, c_out, c_seq, B, T, H,
+                       cluster, U, n_clusters, st);
     case 2:
-      return launch<2>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster, U,
-                       n_clusters, st);
+      return launch<2>(xp, w_hh, h0, c0, out, c_out, c_seq, B, T, H,
+                       cluster, U, n_clusters, st);
     case 3:
-      return launch<3>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster, U,
-                       n_clusters, st);
+      return launch<3>(xp, w_hh, h0, c0, out, c_out, c_seq, B, T, H,
+                       cluster, U, n_clusters, st);
     default:
-      return launch<4>(xp, w_hh, h0, c0, out, c_out, B, T, H, cluster, U,
-                       n_clusters, st);
+      return launch<4>(xp, w_hh, h0, c0, out, c_out, c_seq, B, T, H,
+                       cluster, U, n_clusters, st);
   }
 }
 

@@ -27,11 +27,27 @@ unlike the TPU kernel, from a given `(h0, c0)`, and can return the final
 state: a chunked stream carries `(h, c)` from one launch to the next, and
 the split gives the same bits as one launch over the whole sequence.
 
-`lstm_scan` is the entry point: for CPU tensors it runs the plain PyTorch
-twin `lstm_scan_plain`; for CUDA tensors it launches a kernel or raises —
-there is no fallback. `lstm_scan.launches` counts kernel launches of both
-kernels, `lstm_scan.stateful_launches` those that started from a given
-state, and `lstm_scan.grid_launches` those of the grid kernel.
+Training (`save_c=True`) runs a third compile-time variant of either
+kernel that also stores every step's c `[B, T, H]` for the backward; its
+`out` has the plain launch's bits.
+
+The backward, `lstm_scan_backward`, is a kernel of its own
+(`csrc/lstm_bwd.cu`, laid out by `bwd_plan`): the JAX package has no TPU
+kernel for it (its trainer differentiates the `lax.scan` of
+`encodec_tpu/ops/lstm.py:56-72`, and XLA runs the VJP). One cooperative
+grid of one CTA per SM runs the reverse recurrence for 1 ≤ H ≤ 1024, each
+CTA holding the columns of W_hh of its hidden units; its plain twin is
+`lstm_scan_backward_plain`. `ops.lstm` ties the two directions together in
+a `torch.autograd.Function`.
+
+`lstm_scan` and `lstm_scan_backward` are the entry points: for CPU tensors
+they run the plain PyTorch twins; for CUDA tensors they launch a kernel or
+raise — there is no fallback. `lstm_scan.launches` counts forward launches
+of both kernels, `lstm_scan.stateful_launches` those that started from a
+given state, `lstm_scan.grid_launches` those of the grid kernel and
+`lstm_scan.save_launches` the saving ones; `lstm_scan_backward.launches`
+counts backward launches. A CUDA call of `lstm_scan` whose inputs need a
+gradient raises: the kernel's output carries none.
 """
 
 from __future__ import annotations
@@ -68,6 +84,17 @@ GRID_BATCH_TILE = 8                          # sequences per matvec pass
 GRID_MAX_BATCH = GRID_THREADS // GRID_MAX_UNITS         # a cell per thread
 GRID_MAX_H = 8 * K3_KCHUNK                   # k slice: 8 float4s per lane
 
+# The backward kernel's layout; `csrc/lstm_bwd.cu` reports the same numbers
+# (lstm_bwd_threads, _max_units, _batch_tile, _max_batch, _max_h,
+# _smem_bytes).
+BWD_WARPS = 16
+BWD_THREADS = 32 * BWD_WARPS
+BWD_MAX_UNITS = 8                            # W_hh columns per CTA
+BWD_JCHUNK = BWD_THREADS                     # gate rows per pass, one each
+BWD_BATCH_TILE = 2                           # sequences per pass
+BWD_MAX_BATCH = BWD_THREADS // BWD_MAX_UNITS  # a cell per thread
+BWD_MAX_H = 8 * BWD_JCHUNK // 4              # 4H in 8 passes of 512 rows
+
 
 def lstm_cell(h: torch.Tensor, c: torch.Tensor, gates: torch.Tensor
               ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
@@ -79,31 +106,77 @@ def lstm_cell(h: torch.Tensor, c: torch.Tensor, gates: torch.Tensor
 
 
 def lstm_recurrence(xp: torch.Tensor, w_hh: torch.Tensor, h: torch.Tensor,
-                    c: torch.Tensor
-                    ) -> tp.Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain recurrence from state (h, c) [B, H]: returns (ys [B, T, H], hT, cT).
+                    c: torch.Tensor, save_c: bool = False):
+    """Plain recurrence from state (h, c) [B, H]: returns (ys [B, T, H], hT,
+    cT), and with `save_c` also every step's c [B, T, H].
 
     `gates = xp_t + h W_hhᵀ`, the reference's association order."""
     w_hh_t = w_hh.t()
-    ys = []
+    ys, cs = [], []
     for t in range(xp.shape[1]):
         h, c = lstm_cell(h, c, xp[:, t] + h @ w_hh_t)
         ys.append(h)
+        cs.append(c)
     if not ys:
-        return xp.new_zeros(xp.shape[0], 0, w_hh.shape[1]), h, c
-    return torch.stack(ys, dim=1), h, c
+        empty = xp.new_zeros(xp.shape[0], 0, w_hh.shape[1])
+        return (empty, h, c, empty) if save_c else (empty, h, c)
+    out = torch.stack(ys, dim=1)
+    return (out, h, c, torch.stack(cs, dim=1)) if save_c else (out, h, c)
 
 
 def lstm_scan_plain(xp: torch.Tensor, w_hh: torch.Tensor,
                     h0: tp.Optional[torch.Tensor] = None,
                     c0: tp.Optional[torch.Tensor] = None,
-                    return_state: bool = False):
+                    return_state: bool = False, save_c: bool = False):
     """The plain PyTorch twin of the kernel, with `lstm_scan`'s signature:
     the recurrence from `(h0, c0)` (zeros when not given)."""
+    _check_modes(return_state, save_c)
     if h0 is None:
         h0 = c0 = xp.new_zeros(xp.shape[0], w_hh.shape[1])
-    out, hT, cT = lstm_recurrence(xp, w_hh, h0, c0)
-    return (out, hT, cT) if return_state else out
+    res = lstm_recurrence(xp, w_hh, h0, c0, save_c)
+    if save_c:
+        return res[0], res[3]
+    return res if return_state else res[0]
+
+
+def _check_modes(return_state: bool, save_c: bool) -> None:
+    if return_state and save_c:
+        raise ValueError("save_c returns every step's c; the final state is "
+                         "(out[:, -1], c[:, -1]): pass one of return_state "
+                         "and save_c")
+
+
+def lstm_scan_backward_plain(pre: torch.Tensor, c_seq: torch.Tensor,
+                             dy: torch.Tensor, w_hh: torch.Tensor,
+                             c0: tp.Optional[torch.Tensor] = None,
+                             dc_last: tp.Optional[torch.Tensor] = None):
+    """The plain PyTorch twin of the backward kernel, with
+    `lstm_scan_backward`'s signature: the reverse recurrence over the
+    forward's pre-activations `pre` [B, T, 4H] and cell states `c_seq`
+    [B, T, H], given `dy` [B, T, H] (the gradient of h) and `dc_last`
+    (of the final c). Returns (dgates [B, T, 4H], dh0 [B, H], dc0 [B, H])."""
+    B, T, H4 = pre.shape
+    H = H4 // 4
+    dgates = torch.empty_like(pre)
+    dc = pre.new_zeros(B, H) if dc_last is None else dc_last
+    c_prev0 = pre.new_zeros(B, H) if c0 is None else c0
+    d_next = None
+    for t in reversed(range(T)):
+        dh = dy[:, t] if d_next is None else dy[:, t] + d_next @ w_hh
+        a_i, a_f, a_g, a_o = pre[:, t].chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(a_i), torch.sigmoid(a_f), torch.sigmoid(a_o)
+        g = torch.tanh(a_g)
+        c_prev = c_seq[:, t - 1] if t > 0 else c_prev0
+        tc = torch.tanh(c_seq[:, t])
+        dc = dc + dh * o * (1.0 - tc * tc)
+        d_next = torch.cat([dc * g * (i * (1.0 - i)),
+                            dc * c_prev * (f * (1.0 - f)),
+                            dc * i * (1.0 - g * g),
+                            dh * tc * (o * (1.0 - o))], dim=-1)
+        dgates[:, t] = d_next
+        dc = dc * f
+    dh0 = pre.new_zeros(B, H) if d_next is None else d_next @ w_hh
+    return dgates, dh0, dc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,7 +340,7 @@ def max_grid_ctas(H: int, device: torch.device) -> int:
     return _MAX_ACTIVE[key]
 
 
-def _launch_grid(plan: GridPlan, xp, w_hh, h0, c0, out, c_out) -> None:
+def _launch_grid(plan: GridPlan, xp, w_hh, h0, c0, out, c_out, c_seq) -> None:
     """The grid kernel over the plan's batch ranges, one launch each, each
     with its own zeroed arrival counter."""
     lib = build.load_library("lstm_grid")
@@ -281,28 +354,44 @@ def _launch_grid(plan: GridPlan, xp, w_hh, h0, c0, out, c_out) -> None:
     for i, (b0, b1) in enumerate(plan.batch_ranges()):
         rc = lib.lstm_grid_launch(
             ptr(xp, b0), w_hh.data_ptr(), ptr(h0, b0), ptr(c0, b0),
-            ptr(out, b0), ptr(c_out, b0), counters[i:].data_ptr(), b1 - b0,
-            xp.shape[1], plan.H, plan.units_per_cta, plan.ctas, stream)
+            ptr(out, b0), ptr(c_out, b0), ptr(c_seq, b0),
+            counters[i:].data_ptr(), b1 - b0, xp.shape[1], plan.H,
+            plan.units_per_cta, plan.ctas, stream)
         build.check(lib, "lstm_grid", rc)
-        lstm_scan.launches += 1
+        _count_forward(h0, c_seq)
         lstm_scan.grid_launches += 1
-        if h0 is not None:
-            lstm_scan.stateful_launches += 1
+
+
+def _count_forward(h0, c_seq) -> None:
+    lstm_scan.launches += 1
+    if h0 is not None:
+        lstm_scan.stateful_launches += 1
+    if c_seq is not None:
+        lstm_scan.save_launches += 1
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        getattr(t, "requires_grad", False) for t in tensors)
 
 
 def lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor,
               h0: tp.Optional[torch.Tensor] = None,
               c0: tp.Optional[torch.Tensor] = None,
-              return_state: bool = False):
+              return_state: bool = False, save_c: bool = False):
     """One LSTM layer's recurrence.
 
     xp: `[B, T, 4H]` f32 gate inputs (x W_ihᵀ + b_ih + b_hh); w_hh: `[4H, H]`
     f32 (torch layout); h0, c0: `[B, H]` f32 initial state, both or neither
     (zero state). Returns h `[B, T, H]` f32 or, with `return_state`,
-    `(h, hT, cT)` (`hT` is the view `h[:, -1]`). All contiguous, on one
-    device. On CUDA, H ≤ 512 runs one launch of the cluster kernel
-    (`lstm_plan`), 512 < H ≤ 1024 the grid kernel (`grid_plan`: one launch
-    per batch range)."""
+    `(h, hT, cT)` (`hT` is the view `h[:, -1]`), or, with `save_c`,
+    `(h, c)` with every step's c `[B, T, H]` (for the backward). All
+    contiguous, on one device. On CUDA, H ≤ 512 runs one launch of the
+    cluster kernel (`lstm_plan`), 512 < H ≤ 1024 the grid kernel
+    (`grid_plan`: one launch per batch range). The result carries no
+    gradient: a CUDA call whose inputs need one raises (train through
+    `ops.lstm`)."""
+    _check_modes(return_state, save_c)
     check_tensor("xp", xp, ndim=3)
     check_tensor("w_hh", w_hh, ndim=2)
     if (h0 is None) != (c0 is None):
@@ -320,7 +409,13 @@ def lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor,
         raise ValueError(f"h0/c0 must be [B, H] = [{B}, {H}], got "
                          f"{[tuple(t.shape) for t in state]}")
     if xp.device.type == "cpu":
-        return lstm_scan_plain(xp, w_hh, h0, c0, return_state)
+        return lstm_scan_plain(xp, w_hh, h0, c0, return_state, save_c)
+    if _needs_grad(xp, w_hh, *state):
+        raise RuntimeError(
+            "lstm_scan: the K3 kernel's output carries no gradient, and an "
+            "input requires one; train through ops.lstm (its autograd "
+            "function runs the backward kernel), or call under "
+            "torch.no_grad()")
     if not 1 <= H <= GRID_MAX_H:
         raise ValueError(f"the K3 kernels take 1 <= H <= {GRID_MAX_H}, "
                          f"got {H}")
@@ -328,32 +423,191 @@ def lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor,
     plan = (grid_plan(B, H, max_grid_ctas(H, xp.device)) if grid
             else lstm_plan(B, H, max_active_clusters(H, xp.device)))
     out = torch.empty(B, T, H, device=xp.device, dtype=torch.float32)
+    c_seq = torch.empty_like(out) if save_c else None
     if B == 0 or T == 0:
+        if save_c:
+            return out, c_seq
         if not return_state:
             return out
         zero = xp.new_zeros(B, H)
         return (out, zero, zero) if h0 is None else (out, h0, c0)
     c_out = (torch.empty(B, H, device=xp.device, dtype=torch.float32)
              if return_state else None)
+
+    def result():
+        if save_c:
+            return out, c_seq
+        return (out, out[:, -1], c_out) if return_state else out
+
     with torch.cuda.device(xp.device):
         if grid:
-            _launch_grid(plan, xp, w_hh, h0, c0, out, c_out)
-            return (out, out[:, -1], c_out) if return_state else out
+            _launch_grid(plan, xp, w_hh, h0, c0, out, c_out, c_seq)
+            return result()
         lib = build.load_library("lstm_scan")
         rc = lib.lstm_scan_launch(
             xp.data_ptr(), w_hh.data_ptr(),
             None if h0 is None else h0.data_ptr(),
             None if c0 is None else c0.data_ptr(), out.data_ptr(),
-            None if c_out is None else c_out.data_ptr(), B, T, H,
+            None if c_out is None else c_out.data_ptr(),
+            None if c_seq is None else c_seq.data_ptr(), B, T, H,
             plan.cluster, plan.units_per_cta, plan.n_clusters,
             torch.cuda.current_stream(xp.device).cuda_stream)
     build.check(lib, "lstm_scan", rc)
-    lstm_scan.launches += 1
-    if h0 is not None:
-        lstm_scan.stateful_launches += 1
-    return (out, out[:, -1], c_out) if return_state else out
+    _count_forward(h0, c_seq)
+    return result()
 
 
 lstm_scan.launches = 0  # type: ignore[attr-defined]
 lstm_scan.stateful_launches = 0  # type: ignore[attr-defined]
 lstm_scan.grid_launches = 0  # type: ignore[attr-defined]
+lstm_scan.save_launches = 0  # type: ignore[attr-defined]
+
+
+# ---------------------------------------------------------------------------
+# The backward kernel
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """The backward kernel's launches: `ctas` CTAs, CTA g owning hidden
+    units `[g·units_per_cta, (g+1)·units_per_cta)` ∩ `[0, H)` (their
+    columns of W_hh) for every sequence; each thread holds gate rows
+    `j = m·512 + thread` for `m < j_chunks`; the batch runs as `n_launches`
+    launches of at most `batch_per_launch` sequences (`batch_ranges`), each
+    with `smem_bytes` of shared memory."""
+    B: int
+    H: int
+    ctas: int
+    units_per_cta: int
+    j_chunks: int
+    batch_per_launch: int
+    n_launches: int
+    smem_bytes: int
+
+    def unit_ranges(self) -> tp.List[tp.Tuple[int, int]]:
+        u = self.units_per_cta
+        return [(g * u, min(self.H, (g + 1) * u)) for g in range(self.ctas)]
+
+    def batch_ranges(self) -> tp.List[tp.Tuple[int, int]]:
+        n = self.batch_per_launch
+        return [(b, min(self.B, b + n)) for b in range(0, self.B, n)]
+
+
+def bwd_smem_bytes(B: int) -> int:
+    """Dynamic shared memory of one backward CTA for a launch of B
+    sequences: the 16 warps' 16 sums of every tile of 2 sequences."""
+    return -(-B // BWD_BATCH_TILE) * BWD_WARPS * BWD_MAX_UNITS * \
+        BWD_BATCH_TILE * 4
+
+
+def bwd_plan(B: int, H: int, max_ctas: int) -> BwdPlan:
+    """Units per CTA = ceil(H / max_ctas) (≤ 8), so the grid is one CTA per
+    SM or fewer (H=1024 on 132 SMs: 128 CTAs of 8 units; H=512: 128 of 4;
+    H=32: 32 of 1); the batch is split evenly over the fewest launches of
+    at most 64 sequences (a cell per thread)."""
+    if not 1 <= H <= BWD_MAX_H:
+        raise ValueError(f"the K3 backward kernel takes 1 <= H <= "
+                         f"{BWD_MAX_H}, got {H}")
+    if max_ctas < 1:
+        raise RuntimeError(f"the card cannot hold one K3 backward CTA "
+                           f"(max co-resident CTAs {max_ctas})")
+    units = -(-H // max_ctas)
+    if units > BWD_MAX_UNITS:
+        raise RuntimeError(
+            f"the K3 backward kernel needs {-(-H // BWD_MAX_UNITS)} "
+            f"co-resident CTAs at H={H}; the card holds {max_ctas}")
+    n_launches = max(1, -(-B // BWD_MAX_BATCH))
+    per_launch = max(1, -(-B // n_launches))
+    return BwdPlan(B=B, H=H, ctas=-(-H // units), units_per_cta=units,
+                   j_chunks=-(-4 * H // BWD_JCHUNK),
+                   batch_per_launch=per_launch, n_launches=n_launches,
+                   smem_bytes=bwd_smem_bytes(per_launch))
+
+
+def max_bwd_ctas(H: int, device: torch.device) -> int:
+    """How many backward CTAs for H the card holds at once, at the most
+    shared memory a launch uses (cached): SMs × CTAs per SM, from
+    `cudaOccupancyMaxActiveBlocksPerMultiprocessor`."""
+    key = (torch.cuda.current_device() if device.index is None
+           else device.index, H, -2)
+    if key not in _MAX_ACTIVE:
+        lib = build.load_library("lstm_bwd")
+        with torch.cuda.device(device):
+            n = lib.lstm_bwd_max_ctas(H, BWD_MAX_BATCH)
+        if n < 0:
+            build.check(lib, "lstm_bwd", -n)
+        _MAX_ACTIVE[key] = n
+    return _MAX_ACTIVE[key]
+
+
+def lstm_scan_backward(pre: torch.Tensor, c_seq: torch.Tensor,
+                       dy: torch.Tensor, w_hh: torch.Tensor,
+                       c0: tp.Optional[torch.Tensor] = None,
+                       dc_last: tp.Optional[torch.Tensor] = None,
+                       state_grad: bool = True):
+    """The gradient of one LSTM layer's recurrence (the backward kernel).
+
+    pre: `[B, T, 4H]` the forward's pre-activations `xp + [h0; h_{<T-1}]
+    W_hhᵀ`; c_seq: `[B, T, H]` its cell states (`lstm_scan(save_c=True)`);
+    dy: `[B, T, H]` the gradient of its h outputs; w_hh: `[4H, H]`; c0:
+    `[B, H]` its initial c (None: zero state); dc_last: `[B, H]` the
+    gradient of its final c (None: zero). All f32, contiguous, on one
+    device. Returns (dgates `[B, T, 4H]` — the gradient of xp —, dh0, dc0
+    `[B, H]`, both None when not `state_grad`); dW_hh is `dgatesᵀ [h0;
+    h_{<T-1}]`, one matmul outside. On CUDA one launch per batch range of
+    `bwd_plan`."""
+    check_tensor("pre", pre, ndim=3)
+    check_tensor("w_hh", w_hh, ndim=2)
+    B, T, H4 = pre.shape
+    H = w_hh.shape[1]
+    if H4 != 4 * H or tuple(w_hh.shape) != (H4, H):
+        raise ValueError(f"shape mismatch: pre {tuple(pre.shape)}, "
+                         f"w_hh {tuple(w_hh.shape)} (want [B,T,4H], [4H,H])")
+    for name, t in (("c_seq", c_seq), ("dy", dy)):
+        check_tensor(name, t, ndim=3)
+        if tuple(t.shape) != (B, T, H):
+            raise ValueError(f"{name} must be [B, T, H] = [{B}, {T}, {H}], "
+                             f"got {tuple(t.shape)}")
+    state = [t for t in (c0, dc_last) if t is not None]
+    for t in state:
+        check_tensor("c0/dc_last", t, ndim=2)
+        if tuple(t.shape) != (B, H):
+            raise ValueError(f"c0/dc_last must be [B, H] = [{B}, {H}], got "
+                             f"{tuple(t.shape)}")
+    require_same_device(pre, c_seq, dy, w_hh, *state)
+    if pre.device.type == "cpu":
+        dgates, dh0, dc0 = lstm_scan_backward_plain(pre, c_seq, dy, w_hh, c0,
+                                                    dc_last)
+        return (dgates, dh0, dc0) if state_grad else (dgates, None, None)
+    if not 1 <= H <= BWD_MAX_H:
+        raise ValueError(f"the K3 backward kernel takes 1 <= H <= "
+                         f"{BWD_MAX_H}, got {H}")
+    plan = bwd_plan(B, H, max_bwd_ctas(H, pre.device))
+    lib = build.load_library("lstm_bwd")
+    dgates = torch.empty_like(pre)
+    dh0 = pre.new_zeros(B, H) if state_grad else None
+    dc0 = None
+    if state_grad:
+        dc0 = pre.new_zeros(B, H) if dc_last is None else dc_last.clone()
+    if B == 0 or T == 0:
+        return dgates, dh0, dc0
+    counters = torch.zeros(plan.n_launches, device=pre.device,
+                           dtype=torch.int32)
+
+    def ptr(t, b0):
+        return None if t is None else t[b0:].data_ptr()
+
+    with torch.cuda.device(pre.device):
+        stream = torch.cuda.current_stream(pre.device).cuda_stream
+        for i, (b0, b1) in enumerate(plan.batch_ranges()):
+            rc = lib.lstm_bwd_launch(
+                ptr(pre, b0), ptr(c_seq, b0), ptr(c0, b0), ptr(dy, b0),
+                ptr(dc_last, b0), w_hh.data_ptr(), ptr(dgates, b0),
+                ptr(dh0, b0), ptr(dc0, b0), counters[i:].data_ptr(), b1 - b0,
+                T, H, plan.units_per_cta, plan.ctas, stream)
+            build.check(lib, "lstm_bwd", rc)
+            lstm_scan_backward.launches += 1
+    return dgates, dh0, dc0
+
+
+lstm_scan_backward.launches = 0  # type: ignore[attr-defined]

@@ -28,6 +28,7 @@ from .zoo import (  # noqa: F401
     load_state,
     model_params_from_state,
     params_from_jax,
+    train_state_from_jax,
 )
 from .lm import LMConfig, LMModel, get_lm_model, init_lm  # noqa: F401
 from .ilm import IntLMModel  # noqa: F401

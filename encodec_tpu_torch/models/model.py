@@ -17,8 +17,12 @@ as one batch, at row `s·B + b` for segment s and item b, so the LSTM kernel
 sees all of them at once; the frames `encode` returns are views into that
 batch.
 
-Not ported yet: the training forward and the reduced-precision modes (only
-the 'highest' float32 path exists).
+`forward_train` is the training forward (float32 only): encoder, the
+training RVQ (EMA codebooks, k-means init, straight-through) and decoder,
+on the unfolded weight-norm parameters `(v, g)`, outside inference mode,
+so autograd can differentiate it (the LSTM through K3's backward kernel).
+`EncodecModel.forward` / `__call__` is the fork's eval forward. Not ported:
+the reduced-precision modes (only the 'highest' float32 path exists).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from .. import ops
 from ..device import resolve_device
 from ..quant import (RVQConfig, RVQState, init_rvq, num_quantizers_for_bandwidth,
                      resolve_ties_f64, rvq_decode, rvq_encode,
-                     rvq_encode_margins)
+                     rvq_encode_margins, rvq_forward)
 from ..utils.overlap import linear_overlap_add
 from .seanet import (SEANetConfig, init_seanet_decoder, init_seanet_encoder,
                      seanet_decoder, seanet_encoder)
@@ -143,6 +147,28 @@ def decode_frame(params, qstate: RVQState, codes: torch.Tensor,
     if scale is not None:
         out = out * scale.reshape(-1, 1, 1)
     return out
+
+
+def forward_train(params, qstate: RVQState, x: torch.Tensor,
+                  cfg: EncodecConfig, n_q: int,
+                  generator: tp.Optional[torch.Generator] = None,
+                  training: bool = True, plain: bool = False, **draws):
+    """Fork-style training forward on one (unsegmented) batch `[B, T, C]`.
+
+    Returns (x_hat [B, T, C], codes [B, K, T'], commit_losses [K],
+    new_qstate). `params` is the unfolded tree (weight norm as (v, g)), so
+    gradients reach v and g; the same commit quantity doubles as commit and
+    codebook loss in the reference (vq.py:114), and callers weight them
+    separately. `training=False` is the eval forward: K2 codes and the
+    quantizer state unchanged. `draws` (`init_idx`, `sample_idx`,
+    `margins`) go to `rvq_forward`; `plain=True` runs every kernel's plain
+    twin."""
+    emb = seanet_encoder(params["encoder"], x, cfg.seanet, plain=plain)
+    quantized, codes, commit, new_qstate = rvq_forward(
+        qstate, emb, cfg.rvq, n_q=n_q, training=training, generator=generator,
+        plain=plain, **draws)
+    out = seanet_decoder(params["decoder"], quantized, cfg.seanet, plain=plain)
+    return out[:, :x.shape[1]], codes.permute(1, 0, 2), commit, new_qstate
 
 
 # ---------------------------------------------------------------------------
@@ -388,6 +414,30 @@ class EncodecModel:
             out = linear_overlap_add(outs, self.segment_stride)
         out = out.transpose(1, 2)
         return _pcm16_from_float(out) if pcm16 else out
+
+    def forward(self, x):
+        """Fork-parity forward: returns (x_hat [B, C, T], codes [B, K, T'],
+        commit, codebook) without updating the quantizer state (eval
+        semantics).
+
+        Unsegmented, unnormalized models (the trainable configuration) run
+        the training graph with `training=False`; segmented or normalized
+        models (48 kHz) go through encode → decode, so per-segment scaling
+        and overlap-add apply, as in the reference forward (model.py:
+        248-257)."""
+        x = _float_from_pcm16(torch.as_tensor(x).to(self.device))
+        if self.cfg.segment is None and not self.cfg.normalize:
+            out, codes, commit, _ = forward_train(
+                self.params, self.qstate, x.transpose(1, 2), self.cfg,
+                self.n_q_active, training=False)
+            return out.transpose(1, 2), codes, commit, commit
+        frames = self.encode(x)
+        codes = torch.cat([f[0] for f in frames], dim=-1)
+        out = self.decode(frames)[:, :, :x.shape[-1]]
+        commit = x.new_zeros(codes.shape[1])
+        return out, codes, commit, commit
+
+    __call__ = forward
 
 
 # ---------------------------------------------------------------------------

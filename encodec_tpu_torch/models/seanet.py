@@ -5,6 +5,9 @@ the resblocks with shortcut, the ELU alpha, `decoder_final_norm` and
 `final_activation`). Activations are `[B, T, C]` at these functions, like
 the JAX package. Parameters are nested dicts mirroring the reference module
 tree (the same tree the JAX package uses), in torch weight layout.
+`remat=True` recomputes each up/down stage in the backward instead of
+keeping its activations (`torch.utils.checkpoint`, as the JAX package's
+`jax.checkpoint`): the same arithmetic for less memory.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import typing as tp
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from .. import ops
 
@@ -44,6 +48,9 @@ class SEANetConfig:
     # the fork hard-codes the decoder's final conv to norm='none';
     # upstream checkpoints need it normed like the rest
     decoder_final_norm: tp.Optional[str] = None  # None → use `norm`
+    # recompute each up/down stage in the backward instead of keeping its
+    # activations: 4 h signals at batch 32 need it on one card
+    remat: bool = False
 
     @property
     def encoder_ratios(self) -> tp.Tuple[int, ...]:
@@ -68,6 +75,14 @@ def resolve_activation(name: str):
 
 def _act(x: torch.Tensor, alpha: float) -> torch.Tensor:
     return F.elu(x, alpha=alpha)
+
+
+def _run_stage(fn, y: torch.Tensor, remat: bool) -> torch.Tensor:
+    """`fn(y)`, recomputed in the backward when `remat` and autograd
+    records (`jax.checkpoint`'s counterpart)."""
+    if remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, y, use_reentrant=False)
+    return fn(y)
 
 
 # ---------------------------------------------------------------------------
@@ -146,11 +161,14 @@ def seanet_encoder(p: Params, x: torch.Tensor, cfg: SEANetConfig,
     y = ops.sconv1d(p["init_conv"], x, kernel_size=cfg.kernel_size,
                     causal=cfg.causal, norm=cfg.norm, pad_mode=cfg.pad_mode)
     for stage, ratio in zip(p["stages"], cfg.encoder_ratios):
-        for j, res_p in enumerate(stage["res"]):
-            y = apply_resblock(res_p, y, cfg, [cfg.dilation_base ** j, 1])
-        y = _act(y, cfg.activation_alpha)
-        y = ops.sconv1d(stage["down"], y, kernel_size=ratio * 2, stride=ratio,
-                        causal=cfg.causal, norm=cfg.norm, pad_mode=cfg.pad_mode)
+        def stage_fn(y, stage=stage, ratio=ratio):
+            for j, res_p in enumerate(stage["res"]):
+                y = apply_resblock(res_p, y, cfg, [cfg.dilation_base ** j, 1])
+            y = _act(y, cfg.activation_alpha)
+            return ops.sconv1d(stage["down"], y, kernel_size=ratio * 2,
+                               stride=ratio, causal=cfg.causal, norm=cfg.norm,
+                               pad_mode=cfg.pad_mode)
+        y = _run_stage(stage_fn, y, cfg.remat)
     if cfg.lstm:
         y = ops.lstm(p["lstm"], y, skip=True, plain=plain)
     y = _act(y, cfg.activation_alpha)
@@ -199,13 +217,16 @@ def seanet_decoder(p: Params, z: torch.Tensor, cfg: SEANetConfig,
     if cfg.lstm:
         y = ops.lstm(p["lstm"], y, skip=True, plain=plain)
     for stage, ratio in zip(p["stages"], cfg.ratios):
-        y = _act(y, cfg.activation_alpha)
-        y = ops.sconv_transpose1d(stage["up"], y, kernel_size=ratio * 2,
-                                  stride=ratio, causal=cfg.causal,
-                                  norm=cfg.norm,
-                                  trim_right_ratio=cfg.trim_right_ratio)
-        for j, res_p in enumerate(stage["res"]):
-            y = apply_resblock(res_p, y, cfg, [cfg.dilation_base ** j, 1])
+        def stage_fn(y, stage=stage, ratio=ratio):
+            y = _act(y, cfg.activation_alpha)
+            y = ops.sconv_transpose1d(stage["up"], y, kernel_size=ratio * 2,
+                                      stride=ratio, causal=cfg.causal,
+                                      norm=cfg.norm,
+                                      trim_right_ratio=cfg.trim_right_ratio)
+            for j, res_p in enumerate(stage["res"]):
+                y = apply_resblock(res_p, y, cfg, [cfg.dilation_base ** j, 1])
+            return y
+        y = _run_stage(stage_fn, y, cfg.remat)
     y = _act(y, cfg.activation_alpha)
     y = ops.sconv1d(p["final_conv"], y, kernel_size=cfg.last_kernel_size,
                     causal=cfg.causal, norm=cfg.resolved_decoder_final_norm(),

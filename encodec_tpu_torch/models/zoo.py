@@ -13,6 +13,9 @@ Only a local `repository` is read: the port never downloads checkpoints.
 trained `.ckpt` holds it, numpy leaves) to the port's parameters, without
 JAX: the transposes of `encodec_tpu/models/torch_zoo.py`'s
 `torch_state_from_params`, copied here, then the loader above.
+`train_state_from_jax` carries a whole JAX `TrainState` across (params,
+quantizer state and the Adam moments, the moments through the same
+layout mapping), so the port's trainer resumes a JAX run.
 
 The entropy-coding LM: `lm_params_from_state` reads the reference
 `LMModel` state dict (`torch_zoo.py::lm_params_from_torch`), and
@@ -245,6 +248,58 @@ def params_from_jax(params: dict, qstate, cfg) -> tp.Tuple[dict, RVQState]:
     port's `(params, qstate)` on the CPU, for `model.params` and
     `model.qstate`."""
     return model_params_from_state(state_from_jax(params, qstate, cfg), cfg)
+
+
+def _find_adam(node) -> tp.Optional[tuple]:
+    """The first (count, mu, nu) namedtuple node of an optimizer state tree
+    (optax's `ScaleByAdamState` inside `inject_hyperparams`' chain)."""
+    if isinstance(node, tuple) and getattr(node, "_fields", None) == (
+            "count", "mu", "nu"):
+        return node
+    children = (node.values() if isinstance(node, dict) else
+                node if isinstance(node, (list, tuple)) else ())
+    for child in children:
+        found = _find_adam(child)
+        if found is not None:
+            return found
+    return None
+
+
+def train_state_from_jax(raw, cfg):
+    """A JAX `TrainState` (fields in order: params, qstate, opt_state,
+    disc_params, disc_opt_state, balancer_state, rng), as the port's
+    `train.load_checkpoint` reads it from a JAX-written `.ckpt` or as numpy
+    arrays, → the port's `train.TrainState` on the CPU (`cfg` is an
+    EncodecConfig).
+
+    The Adam `count`, `mu` and `nu` come from the optimizer tree's
+    (count, mu, nu) node and go through `params_from_jax`'s layout mapping
+    like the parameters. JAX's PRNG key cannot become a torch generator
+    state: the generator is seeded from the key's bits, so a resumed run is
+    deterministic but draws other indices than JAX would. A GAN run's
+    discriminator state is refused (ROADMAP 11a)."""
+    from ..train.optim import AdamState
+    from ..train.steps import TrainState, refuse_gan
+
+    params, qstate, opt_state, disc_params = raw[0], raw[1], raw[2], raw[3]
+    if disc_params is not None:
+        refuse_gan("a checkpoint with discriminator parameters")
+    qstate = tuple(qstate)
+    port_params, port_q = params_from_jax(params, qstate, cfg)
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("the checkpoint's optimizer state has no Adam "
+                         "(count, mu, nu) node")
+    mu, _ = params_from_jax(adam[1], qstate, cfg)
+    nu, _ = params_from_jax(adam[2], qstate, cfg)
+    count = torch.tensor(int(np.asarray(adam[0])), dtype=torch.int32)
+    key = np.asarray(raw[6]).astype(np.uint64).reshape(-1)
+    seed = int(sum(int(k) << (32 * i) for i, k in enumerate(key[::-1])))
+    rng = torch.Generator().manual_seed(seed % (1 << 63)).get_state()
+    return TrainState(params=port_params, qstate=port_q,
+                      opt_state=AdamState(count=count, mu=mu, nu=nu),
+                      disc_params=None, disc_opt_state=None,
+                      balancer_state=None, rng=rng)
 
 
 def lm_params_from_state(state: State, n_q: int, num_layers: int = 5) -> dict:

@@ -1,4 +1,4 @@
-"""Primitive ops (layer L0): padding, streamable convs, norms, LSTM.
+"""Primitive ops (layer L0): padding, streamable convs, norms, LSTM, STFT.
 
 Public functions take channels-last `[B, T, C]` tensors, like
 `encodec_tpu.ops`, so each has a direct JAX counterpart.
@@ -21,3 +21,4 @@ from .conv import (  # noqa: F401
     time_group_norm,
 )
 from .lstm import lstm, init_lstm, lstm_step  # noqa: F401
+from .stft import hann_window, stft  # noqa: F401

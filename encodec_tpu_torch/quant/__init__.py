@@ -1,4 +1,4 @@
-"""Residual vector quantization (layer L2), inference half."""
+"""Residual vector quantization (layer L2): inference and training."""
 
 from .rvq import (  # noqa: F401
     RVQConfig,
@@ -7,6 +7,7 @@ from .rvq import (  # noqa: F401
     rvq_encode,
     rvq_encode_margins,
     rvq_decode,
+    rvq_forward,
     resolve_ties_f64,
     num_quantizers_for_bandwidth,
     bandwidth_per_quantizer,

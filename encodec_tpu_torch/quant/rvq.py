@@ -1,16 +1,27 @@
-"""Residual vector quantization, inference half.
+"""Residual vector quantization: inference and training.
 
 Port of `encodec_tpu/quant/rvq.py`: `RVQConfig`/`RVQState`, `rvq_encode`,
-`rvq_encode_margins`, `resolve_ties_f64`, `rvq_decode` and the bandwidth
-bookkeeping, with shared and independent codebooks. Distances keep the
-reference association order `‖x‖² − 2·x·Eᵀ + ‖E‖²` with the first-index
-argmax, so codes equal the JAX package's.
+`rvq_encode_margins`, `resolve_ties_f64`, `rvq_decode`, the bandwidth
+bookkeeping and the training half (`_kmeans`, `_sample_vectors`,
+`_stage_train`, `rvq_forward`: EMA codebooks, lazy k-means init on the
+first batch's residuals, dead-code expiry, the straight-through estimator
+and the commit loss), with shared and independent codebooks. Distances
+keep the reference association order `‖x‖² − 2·x·Eᵀ + ‖E‖²` with the
+first-index argmax, so codes equal the JAX package's.
 
 The searches go through the kernel wrappers: `rvq_encode` is K2
 (`kernels.rvq_encode_fused`, all stages in one launch) and
 `rvq_encode_margins` is K1 per stage (`kernels.nearest_codebook`) with the
-residual update `r −= E[idx]` in torch. `plain=True` runs the plain twins
+residual update `r −= E[idx]` in torch. In training every search (each
+stage and each k-means iteration) is K1. `plain=True` runs the plain twins
 even on CUDA tensors, to hold the kernel path against them on the card.
+
+Training draws (k-means seeds, expiry replacements) come from an explicit
+CPU `torch.Generator`, so a run on the card and one on the CPU draw the
+same indices; the indices can also be passed in (`init_idx`, `sample_idx`),
+which is how the tests feed JAX's draws to the port. The EMA statistics
+are one-hot matmuls (no atomics), so a step gives the same bits run to
+run.
 """
 
 from __future__ import annotations
@@ -31,7 +42,11 @@ class RVQConfig:
     dimension: int = 256
     n_q: int = 8
     bins: int = 1024
+    decay: float = 0.99
     kmeans_init: bool = True
+    kmeans_iters: int = 50
+    threshold_ema_dead_code: float = 2.0
+    epsilon: float = 1e-5
     shared_codebook: bool = False  # fork quirk: one VQ reused for all stages
 
     @property
@@ -140,6 +155,183 @@ def rvq_decode(state: RVQState, codes: torch.Tensor, cfg: RVQConfig
         stages = torch.arange(n_q, device=codes.device)[:, None, None]
         quantized = state.embed[stages, codes]                 # [K, B, T, D]
     return quantized.sum(dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Training path (ref core_vq.py:65-98, 101-255, 316-346, 364-445)
+# ---------------------------------------------------------------------------
+
+Draws = tp.Optional[tp.Sequence[tp.Optional[torch.Tensor]]]
+
+
+def _search(x: torch.Tensor, embed: torch.Tensor, plain: bool,
+            margins: tp.Optional[list] = None) -> torch.Tensor:
+    """Nearest codebook row of each row of x (K1, or its twin), int64;
+    K1's top-2 margins are appended to `margins` when given."""
+    fn = nearest_codebook_plain if plain else nearest_codebook
+    idx, margin = fn(x.contiguous(), embed.contiguous())
+    if margins is not None:
+        margins.append(margin)
+    return idx.long()
+
+
+def _draw(n: int, num: int, generator: tp.Optional[torch.Generator],
+          device: torch.device) -> torch.Tensor:
+    """`num` row indices of n: the first `num` of a permutation when n ≥ num,
+    else `num` uniform draws (JAX's `permutation` / `randint` choice). Drawn
+    on the CPU, so the card and the CPU draw alike."""
+    if n >= num:
+        idx = torch.randperm(n, generator=generator)[:num]
+    else:
+        idx = torch.randint(0, n, (num,), generator=generator)
+    return idx.to(device)
+
+
+def _one_hot(idx: torch.Tensor, bins: int, dtype: torch.dtype) -> torch.Tensor:
+    return torch.zeros(idx.shape[0], bins, dtype=dtype, device=idx.device
+                       ).scatter_(1, idx[:, None], 1.0)
+
+
+def _kmeans(samples: torch.Tensor, num_clusters: int, num_iters: int,
+            generator: tp.Optional[torch.Generator] = None,
+            init_idx: tp.Optional[torch.Tensor] = None, plain: bool = False
+            ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+    """Plain k-means (ref core_vq.py:76-98). samples: [N, D].
+
+    Seeds from the rows `init_idx` (drawn from `generator` when not given);
+    returns (means [clusters, D], counts [clusters]). Like the reference,
+    the counts are the LAST iteration's assignment, against the means
+    before their final update: they seed the cluster-size EMA."""
+    if init_idx is None:
+        init_idx = _draw(samples.shape[0], num_clusters, generator,
+                         samples.device)
+    means = samples[init_idx.to(samples.device)]
+    counts = samples.new_zeros(num_clusters)
+    for _ in range(num_iters):
+        one_hot = _one_hot(_search(samples, means, plain), num_clusters,
+                           samples.dtype)
+        counts = one_hot.sum(0)
+        sums = one_hot.t() @ samples
+        new_means = sums / counts.clamp(min=1.0)[:, None]
+        means = torch.where((counts == 0)[:, None], means, new_means)
+    return means, counts
+
+
+def _sample_vectors(samples: torch.Tensor, num: int,
+                    generator: tp.Optional[torch.Generator] = None,
+                    idx: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Random batch vectors for init and expiry (ref core_vq.py:65-73): the
+    rows `idx`, drawn from `generator` when not given."""
+    if idx is None:
+        idx = _draw(samples.shape[0], num, generator, samples.device)
+    return samples[idx.to(samples.device)]
+
+
+def _stage_train(cfg: RVQConfig, residual: torch.Tensor, embed: torch.Tensor,
+                 embed_avg: torch.Tensor, cluster_size: torch.Tensor,
+                 generator: tp.Optional[torch.Generator] = None,
+                 sample_idx: tp.Optional[torch.Tensor] = None,
+                 plain: bool = False, margins: tp.Optional[list] = None):
+    """One RVQ stage in training mode (residual: [N, D]).
+
+    Returns (quantized_st [N, D], codes [N] int64, commit_loss [], new
+    (embed, embed_avg, cluster_size)). The codebook statistics carry no
+    gradient; quantized_st passes the gradient straight through to the
+    residual, and the commit loss pulls the residual to its code. The
+    search's top-2 margins [N] are appended to `margins` when given."""
+    x = residual
+    xd = x.detach()
+    idx = _search(xd, embed, plain, margins)
+    one_hot = _one_hot(idx, cfg.bins, x.dtype)
+    quantized = embed[idx]
+
+    # EMA codebook update (ref core_vq.py:240-252)
+    cluster_size_new = (cluster_size * cfg.decay
+                        + one_hot.sum(0) * (1 - cfg.decay))
+    embed_sum = one_hot.t() @ xd
+    embed_avg_new = embed_avg * cfg.decay + embed_sum * (1 - cfg.decay)
+    n = cluster_size_new.sum()
+    smoothed = ((cluster_size_new + cfg.epsilon)
+                / (n + cfg.bins * cfg.epsilon) * n)
+    embed_out = embed_avg_new / smoothed[:, None]
+
+    # Dead-code expiry. Deliberate deviation from the reference, as in the
+    # JAX package: its expiry write to `embed` is clobbered by the EMA copy
+    # at the end of the same forward. Here under-used codes are replaced by
+    # random batch vectors and the EMA average is kept consistent, so the
+    # replacement survives the next normalization.
+    if cfg.threshold_ema_dead_code > 0:
+        expired = (cluster_size_new < cfg.threshold_ema_dead_code)[:, None]
+        replacement = _sample_vectors(xd, cfg.bins, generator, sample_idx)
+        embed_out = torch.where(expired, replacement, embed_out)
+        embed_avg_new = torch.where(expired, replacement * smoothed[:, None],
+                                    embed_avg_new)
+
+    # straight-through + commit loss (ref core_vq.py:316-346)
+    quantized_st = x + (quantized - x).detach()
+    commit_loss = (quantized_st.detach() - x).square().mean()
+    return (quantized_st, idx, commit_loss,
+            (embed_out, embed_avg_new, cluster_size_new))
+
+
+def rvq_forward(state: RVQState, x: torch.Tensor, cfg: RVQConfig, *,
+                n_q: tp.Optional[int] = None, training: bool = True,
+                generator: tp.Optional[torch.Generator] = None,
+                plain: bool = False, init_idx: Draws = None,
+                sample_idx: Draws = None,
+                margins: tp.Optional[list] = None):
+    """Full RVQ forward (the training semantics of the reference's
+    `vq(x, n_q)`). x: [B, T, D] latents.
+
+    Returns (quantized [B, T, D], codes [K, B, T] int32, commit_losses [K],
+    new_state). `training=False` encodes with K2 and decodes, leaving the
+    state as it is. Training draws from `generator`; `init_idx` (per book,
+    the k-means seeds) and `sample_idx` (per stage, the expiry
+    replacements) give the draws instead. With `margins` (a list), each
+    training stage's top-2 search margins [B·T] are appended to it, for a
+    near-tie guard when two routes are compared."""
+    n_q = _active_n_q(cfg, n_q)
+    B, T, D = x.shape
+    if not training:
+        codes = rvq_encode(state, x.detach(), cfg, n_q=n_q, plain=plain)
+        quantized = rvq_decode(state, codes, cfg)
+        return quantized, codes, x.new_zeros(n_q), state
+    flat = x.reshape(B * T, D)
+
+    # Lazy k-means init on the first training batch (ref core_vq.py:142-153):
+    # book k's k-means sees the RESIDUAL after the books before it quantize
+    # with their fresh means, not the raw latents.
+    if cfg.kmeans_init and not state.inited:
+        residual = flat.detach()
+        means, counts = [], []
+        for k in range(cfg.num_books):
+            m, c = _kmeans(residual, cfg.bins, cfg.kmeans_iters, generator,
+                           None if init_idx is None else init_idx[k], plain)
+            residual = residual - m[_search(residual, m, plain)]
+            means.append(m)
+            counts.append(c)
+        embed = torch.stack(means)
+        state = RVQState(embed, embed.clone(), torch.stack(counts), True)
+
+    embed, embed_avg, csize = state.embed, state.embed_avg, state.cluster_size
+    new_e, new_ea, new_cs = list(embed), list(embed_avg), list(csize)
+    residual = flat
+    qs, codes, commits = [], [], []
+    for k in range(n_q):
+        b = 0 if cfg.shared_codebook else k
+        q, idx, commit, (new_e[b], new_ea[b], new_cs[b]) = _stage_train(
+            cfg, residual, new_e[b], new_ea[b], new_cs[b], generator,
+            None if sample_idx is None else sample_idx[k], plain, margins)
+        residual = residual - q
+        qs.append(q)
+        codes.append(idx)
+        commits.append(commit)
+    # stages beyond n_q keep their previous state
+    new_state = RVQState(torch.stack(new_e), torch.stack(new_ea),
+                         torch.stack(new_cs), state.inited)
+    quantized = torch.stack(qs).sum(0).reshape(B, T, D)
+    return (quantized, torch.stack(codes).to(torch.int32).reshape(n_q, B, T),
+            torch.stack(commits), new_state)
 
 
 # ---------------------------------------------------------------------------

@@ -3,11 +3,12 @@
 Copy of `encodec_tpu/train/config.py` (`ConfigNamespace`, `config_to_dict`,
 `load_config`, `parse_segment`). PyYAML is imported inside `load_config`
 only: a machine without it can still build a model from a config given as
-a dict (`ConfigNamespace(d)`).
+a dict (`ConfigNamespace(d)`) or load a `.json` config.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import typing as tp
 
@@ -35,7 +36,17 @@ def config_to_dict(cfg) -> dict:
 
 
 def load_config(filepath: str, log_dir: tp.Optional[str] = None) -> ConfigNamespace:
-    """Load a YAML config; optionally snapshot it into `log_dir` for resume."""
+    """Load a YAML config (or JSON, by the `.json` suffix, which needs no
+    PyYAML); optionally snapshot it into `log_dir` for resume, in the same
+    format."""
+    if filepath.endswith(".json"):
+        with open(filepath, "r") as fh:
+            config_dict = json.load(fh)
+        if log_dir:
+            os.makedirs(log_dir, exist_ok=True)
+            with open(os.path.join(log_dir, "config.json"), "w") as fh:
+                json.dump(config_dict, fh)
+        return ConfigNamespace(config_dict)
     import yaml
 
     with open(filepath, "r") as fh:

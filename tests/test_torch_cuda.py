@@ -5,7 +5,11 @@ B=10, T=150 for the ten full segments and B=1, T=15 or 1 for the tail),
 the stream's (K2 at N=6 and 7; K3 from a carried state, bit-equal to one
 launch over the whole sequence) and the breathing tokenizer's (K3's grid
 kernel at H=1024: a 4 h night is T=480, a training batch B=32), and the
-lmv=3 integer LM's CDF rows on the card against the CPU's.
+lmv=3 integer LM's CDF rows on the card against the CPU's. Training:
+K3's saving forward (the same `out` bits as the plain launch), the K3
+backward kernel against its plain twin and against autograd through the
+plain recurrence, and one generator step of a tiny breathing model on the
+kernels against the same step on the plain twins.
 
 This file imports no JAX (the GPU machine has none). On a machine without
 a CUDA device every test skips. Run on the H100 with:
@@ -18,6 +22,8 @@ import pytest
 import torch
 
 from encodec_tpu_torch.kernels import (build, lstm_cuda, lstm_scan,
+                                       lstm_scan_backward,
+                                       lstm_scan_backward_plain,
                                        lstm_scan_plain, nearest_codebook,
                                        nearest_codebook_plain, rvq_encode_fused,
                                        rvq_encode_fused_plain, vq_cuda)
@@ -455,3 +461,152 @@ def test_integer_lm_rows_on_the_card_equal_the_cpu(dev, n_q, W, S):
     for got, want in zip(rows[0], rows[1]):
         assert torch.equal(got, want)
     assert torch.equal(rows[0][0], rows[0][1])
+
+
+# -- training: K3's saving forward and its backward kernel ------------------
+
+@pytest.mark.parametrize("B,T,H,stateful", [(2, 37, 32, False),
+                                            (4, 50, 512, True),
+                                            (3, 40, 256, False),
+                                            (3, 40, 1024, False),
+                                            (32, 30, 1024, True),
+                                            (50, 9, 1024, False)])
+def test_lstm_scan_save_keeps_the_plain_launch_bits(dev, B, T, H, stateful):
+    xp, w, h0, c0 = _lstm_inputs(dev, B, T, H, 90)
+    st = (h0, c0) if stateful else (None, None)
+    before = lstm_scan.save_launches
+    out, c_seq = lstm_scan(xp, w, *st, save_c=True)
+    ref, _, cT = lstm_scan(xp, w, *st, return_state=True)
+    plain_out, plain_c = lstm_scan_plain(xp, w, *st, save_c=True)
+    torch.cuda.synchronize()
+    assert lstm_scan.save_launches > before
+    assert torch.equal(out, ref) and torch.equal(c_seq[:, -1], cT)
+    assert (c_seq - plain_c).abs().max().item() <= 1e-4
+    assert (out - plain_out).abs().max().item() <= 1e-4
+
+
+def _bwd_inputs(dev, B, T, H, seed, stateful):
+    xp, w, h0, c0 = _lstm_inputs(dev, B, T, H, seed)
+    if not stateful:
+        h0 = c0 = None
+    out, c_seq = lstm_scan_plain(xp, w, h0, c0, save_c=True)
+    first = torch.zeros(B, 1, H, device=dev) if h0 is None else h0[:, None]
+    pre = xp + torch.cat([first, out[:, :-1]], 1) @ w.t()
+    dy = _rand((B, T, H), seed + 7, dev)
+    dc_last = _rand((B, H), seed + 8, dev, 0.5)
+    return xp, w, h0, c0, pre.contiguous(), c_seq, dy, dc_last
+
+
+@pytest.mark.parametrize("B,T,H,stateful", [(2, 37, 32, False),
+                                            (4, 50, 512, True),
+                                            (1, 30, 1024, False),
+                                            (32, 25, 1024, True),
+                                            (65, 9, 256, True),
+                                            (3, 1, 1000, False),
+                                            (2, 12, 7, True)])
+def test_lstm_backward_kernel_matches_twin(dev, B, T, H, stateful):
+    _, w, _, c0, pre, c_seq, dy, dc_last = _bwd_inputs(dev, B, T, H, 95,
+                                                       stateful)
+    before = lstm_scan_backward.launches
+    got = lstm_scan_backward(pre, c_seq, dy, w, c0, dc_last)
+    want = lstm_scan_backward_plain(pre, c_seq, dy, w, c0, dc_last)
+    torch.cuda.synchronize()
+    assert lstm_scan_backward.launches == before + lstm_cuda.bwd_plan(
+        B, H, lstm_cuda.max_bwd_ctas(H, dev)).n_launches
+    for g, r in zip(got, want):
+        # T recurrent products summed in another order than cuBLAS
+        assert (g - r).abs().max().item() <= 1e-4 * max(
+            1.0, r.abs().max().item())
+    # without the state's gradient: the same dgates bits, no dh0/dc0
+    d2, dh0, dc0 = lstm_scan_backward(pre, c_seq, dy, w, c0, dc_last,
+                                      state_grad=False)
+    assert dh0 is None and dc0 is None and torch.equal(d2, got[0])
+
+
+@pytest.mark.parametrize("B,T,H", [(2, 37, 32), (4, 40, 512), (3, 30, 1024)])
+def test_lstm_layer_gradient_on_the_card_matches_autograd_of_the_twin(
+        dev, B, T, H):
+    from encodec_tpu_torch.ops.lstm import LstmLayer
+    xp, w, h0, c0 = _lstm_inputs(dev, B, T, H, 97)
+    dy = _rand((B, T, H), 98, dev)
+    leaves = [t.clone().requires_grad_(True) for t in (xp, w, h0, c0)]
+    before = (lstm_scan.save_launches, lstm_scan_backward.launches)
+    out, _ = LstmLayer.apply(*leaves, False)
+    got = torch.autograd.grad(out, leaves, dy)
+    assert (lstm_scan.save_launches > before[0]
+            and lstm_scan_backward.launches > before[1])
+    ref_leaves = [t.clone().requires_grad_(True) for t in (xp, w, h0, c0)]
+    ref = lstm_scan_plain(*ref_leaves)
+    want = torch.autograd.grad(ref, ref_leaves, dy)
+    torch.cuda.synchronize()
+    for name, g, r, tol in zip(("dxp", "dW_hh", "dh0", "dc0"), got, want,
+                               (1e-4, 1e-3, 1e-4, 1e-4)):
+        err = (g - r).abs().max().item() / r.abs().max().item()
+        assert err <= tol, (name, err)
+
+
+def test_lstm_scan_refuses_inputs_that_need_a_gradient(dev):
+    xp, w, _, _ = _lstm_inputs(dev, 1, 4, 32, 99)
+    with pytest.raises(RuntimeError, match="carries no gradient"):
+        lstm_scan(xp, w.requires_grad_(True))
+    with torch.no_grad():
+        lstm_scan(xp, w)
+
+
+def test_lstm_backward_kernel_layout_matches_the_plan(dev):
+    lib = build.load_library("lstm_bwd")
+    assert lib.lstm_bwd_threads() == lstm_cuda.BWD_THREADS
+    assert lib.lstm_bwd_max_units() == lstm_cuda.BWD_MAX_UNITS
+    assert lib.lstm_bwd_batch_tile() == lstm_cuda.BWD_BATCH_TILE
+    assert lib.lstm_bwd_max_batch() == lstm_cuda.BWD_MAX_BATCH
+    assert lib.lstm_bwd_max_h() == lstm_cuda.BWD_MAX_H
+    for B in (1, 2, 3, 32, 64):
+        assert lib.lstm_bwd_smem_bytes(B) == lstm_cuda.bwd_smem_bytes(B)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for H in (32, 512, 1024):
+        n = lstm_cuda.max_bwd_ctas(H, dev)
+        assert n >= sms
+        assert lstm_cuda.bwd_plan(32, H, n).ctas <= n
+
+
+def test_gen_step_on_the_kernels_matches_the_plain_twins(dev):
+    """One generator step of a tiny breathing model (H=32 LSTM, 8 stages
+    of a shared book, B=2) from the same state on the kernels and on the
+    plain twins: codes, loss, gradients and the new state; every leaf,
+    the encoder's convs before the LSTM included, gets a gradient."""
+    from encodec_tpu_torch import kernels
+    from encodec_tpu_torch.models import build_model
+    from encodec_tpu_torch.train import (LossWeights, create_train_state,
+                                         make_train_steps)
+    from encodec_tpu_torch.train.optim import tree_leaves
+
+    model = build_model([0.08], sample_rate=10, channels=1, causal=True,
+                        model_norm="layer_norm", name="breathing_model",
+                        ratios=[5, 2, 1], bins=32, dimension=16, n_filters=4,
+                        decoder_final_norm="none", shared_codebook=True,
+                        kmeans_init=False, seed=3, device=dev)
+    fl = dict(n_fft=64, win_length=64, hop_length=16, sampling_rate=10)
+    t = np.arange(600) / 10.0
+    x = torch.from_numpy((np.sin(2 * np.pi * 0.3 * t)[None, :, None]
+                          + 0.05 * np.random.RandomState(0).randn(2, 600, 1))
+                         .astype(np.float32)).to(dev)
+    w = LossWeights.make(lr=1e-3, freq=0.25, l2=0.01, commit=0.25,
+                         codebook=1.0)
+    state = create_train_state(model, seed=0)
+    kernels.reset_launch_counts()
+    gen, _ = make_train_steps(model.cfg, freq_loss_kwargs=fl)
+    s_k, m_k = gen(state, x, w, keep_grads=True)
+    counts = kernels.launch_counts()
+    assert counts["nearest_codebook"] == 8 and counts["lstm_scan"] == 4
+    assert lstm_scan.save_launches == 4 and counts["lstm_scan_backward"] == 4
+    gen_p, _ = make_train_steps(model.cfg, freq_loss_kwargs=fl, plain=True)
+    s_p, m_p = gen_p(state, x, w, keep_grads=True)
+    torch.cuda.synchronize()
+    assert abs(m_k["loss"].item() - m_p["loss"].item()) <= 1e-4 * abs(
+        m_p["loss"].item())
+    for g, r in zip(tree_leaves(m_k["grads"]), tree_leaves(m_p["grads"])):
+        assert bool(torch.isfinite(g).all()) and g.abs().max().item() > 0
+        assert (g - r).abs().max().item() <= 1e-3 * r.abs().max().item()
+    for a, b in zip(s_k.qstate[:3], s_p.qstate[:3]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(
+            1.0, b.abs().max().item())

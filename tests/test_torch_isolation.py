@@ -93,7 +93,8 @@ class _CudaStandIn:
 
 
 @pytest.mark.parametrize("which", ["nearest_codebook", "rvq_encode_fused",
-                                   "lstm_scan", "lstm_scan_grid"])
+                                   "lstm_scan", "lstm_scan_grid",
+                                   "lstm_scan_backward"])
 def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
     from encodec_tpu_torch import kernels
     from encodec_tpu_torch.kernels import build, lstm_cuda, vq_cuda
@@ -107,7 +108,7 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
     monkeypatch.setattr(build, "load_library", no_build)
     for mod in (lstm_cuda, vq_cuda):
         for name in ("lstm_scan_plain", "nearest_codebook_plain",
-                     "rvq_encode_fused_plain"):
+                     "rvq_encode_fused_plain", "lstm_scan_backward_plain"):
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, no_twin)
     args = {
@@ -116,6 +117,9 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
         "lstm_scan": (_CudaStandIn(2, 5, 16), _CudaStandIn(16, 4)),
         # H=1024: K3's grid kernel
         "lstm_scan_grid": (_CudaStandIn(2, 5, 4096), _CudaStandIn(4096, 1024)),
+        # K3's backward kernel: pre-activations, c, dy, W_hh
+        "lstm_scan_backward": (_CudaStandIn(2, 5, 16), _CudaStandIn(2, 5, 4),
+                               _CudaStandIn(2, 5, 4), _CudaStandIn(16, 4)),
     }[which]
     fn = getattr(kernels, which.replace("_grid", ""))
     before = fn.launches
@@ -155,7 +159,8 @@ def test_wrapper_launch_counters_exist():
     from encodec_tpu_torch import kernels
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {"nearest_codebook": 0,
-                                       "rvq_encode_fused": 0, "lstm_scan": 0}
+                                       "rvq_encode_fused": 0, "lstm_scan": 0,
+                                       "lstm_scan_backward": 0}
     # CPU tensors run the plain twins and count no launch
     kernels.nearest_codebook(torch.randn(4, 8), torch.randn(5, 8))
     assert kernels.launch_counts()["nearest_codebook"] == 0

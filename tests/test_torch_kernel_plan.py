@@ -9,7 +9,9 @@ K3: for H ≤ 512 the cluster kernel (`lstm_cuda.lstm_plan`: units per
 CTA, the register/shared-memory split of W_hh, the h messages between the
 cluster's CTAs, and the batch spread over clusters); for 512 < H ≤ 1024
 the grid kernel (`lstm_cuda.grid_plan`: CTAs, units per CTA, the batch
-per launch). Every plan
+per launch); K3's backward kernel (`lstm_cuda.bwd_plan`: CTAs, the
+columns of W_hh each holds, the gate rows of each thread, the batch per
+launch). Every plan
 must fit one block's shared memory and cover every row, bin, gate row,
 unit and batch item exactly once.
 """
@@ -309,3 +311,64 @@ def test_grid_smem_layout():
     assert lstm_cuda.grid_smem_bytes(1024, 48) <= SMEM_PER_BLOCK
     assert lstm_cuda.grid_smem_bytes(1024, 56) > SMEM_PER_BLOCK
     assert lstm_cuda.GRID_MAX_H == 1024
+
+
+def _bwd_columns(plan):
+    """The backward kernel's map: CTA g holds the columns of its units,
+    thread x the gate rows j = m·512 + x (m < j_chunks) of each column;
+    returns every (gate row, unit) held."""
+    held = []
+    for u0, u1 in plan.unit_ranges():
+        for m in range(plan.j_chunks):
+            for x in range(lstm_cuda.BWD_THREADS):
+                j = m * lstm_cuda.BWD_JCHUNK + x
+                if j < 4 * plan.H:
+                    held.extend((j, u) for u in range(u0, u1))
+    return held
+
+
+@pytest.mark.parametrize("H", [1, 7, 32, 256, 512, 513, 1000, 1024])
+@pytest.mark.parametrize("B", [1, 2, 3, 32, 64, 65, 200])
+def test_bwd_plan_covers_columns_rows_and_batch_once(H, B):
+    plan = lstm_cuda.bwd_plan(B, H, H100_SMS)
+    assert 1 <= plan.units_per_cta <= lstm_cuda.BWD_MAX_UNITS
+    assert plan.ctas <= H100_SMS
+    _covers_once(plan.unit_ranges(), H)
+    # the launch's own check (lstm_bwd_launch)
+    assert (plan.ctas - 1) * plan.units_per_cta < H <= (
+        plan.ctas * plan.units_per_cta)
+    assert plan.j_chunks <= 8 and plan.j_chunks * lstm_cuda.BWD_JCHUNK >= 4 * H
+    if H <= 64:   # every element of W_hh [4H, H] held exactly once
+        held = _bwd_columns(plan)
+        assert sorted(held) == [(j, u) for j in range(4 * H)
+                                for u in range(H)]
+    # every sequence in exactly one launch; a cell (unit, sequence) per
+    # thread; the warps' sums of every pair of sequences in shared memory
+    _covers_once(plan.batch_ranges(), B)
+    assert len(plan.batch_ranges()) == plan.n_launches == -(
+        -B // lstm_cuda.BWD_MAX_BATCH)
+    for b0, b1 in plan.batch_ranges():
+        assert plan.units_per_cta * (b1 - b0) <= lstm_cuda.BWD_THREADS
+    assert plan.smem_bytes == lstm_cuda.bwd_smem_bytes(
+        plan.batch_per_launch) <= 48 * 1024
+
+
+@pytest.mark.parametrize("H,ctas,units,j_chunks", [
+    (1024, 128, 8, 8), (512, 128, 4, 4), (256, 128, 2, 2), (32, 32, 1, 1)])
+def test_bwd_plan_at_training_shapes(H, ctas, units, j_chunks):
+    # H=1024: default.yaml's LSTM (B=32 nights: one launch); 512 and 256:
+    # the 24 kHz codec's and hires_tokens.yaml's; 32: the tests' tiny model
+    plan = lstm_cuda.bwd_plan(32, H, H100_SMS)
+    assert (plan.ctas, plan.units_per_cta, plan.j_chunks,
+            plan.n_launches) == (ctas, units, j_chunks, 1)
+    assert lstm_cuda.bwd_smem_bytes(32) == 16 * 16 * 16 * 4
+    assert lstm_cuda.BWD_MAX_H == 1024 and lstm_cuda.BWD_MAX_BATCH == 64
+
+
+def test_bwd_plan_refuses_what_the_kernel_cannot_take():
+    with pytest.raises(ValueError):
+        lstm_cuda.bwd_plan(1, 1025, H100_SMS)
+    with pytest.raises(RuntimeError):
+        lstm_cuda.bwd_plan(1, 1024, 100)   # 11 units per CTA: more than 8
+    with pytest.raises(RuntimeError):
+        lstm_cuda.bwd_plan(1, 32, 0)
