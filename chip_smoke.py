@@ -68,14 +68,18 @@ Phases, in order (any failure exits non-zero before the last line):
    bit-equal to the plain launch's, dxp, dh0 and dc0 within 1e-4 and
    dW_hh within 1e-3 of the largest |value| of the plain twin's
    `torch.autograd.grad`; device ms of the saving forward, the backward
-   kernel, its two matmuls, the plain backward and cuDNN's LSTM forward +
-   backward, beside the bound;
+   kernel beside its own bound (the recurrent product), the plain
+   backward, and the layer's backward (the kernel and its two matmuls)
+   beside the bound of its three products and cuDNN's LSTM backward and
+   forward + backward;
 14. training `params/default.yaml`'s model (as a dict; B=32 nights of 4 h):
    the largest batch of the config as it is that fits the card (its peak
-   memory); the first step from a fresh state with every leaf's gradient
-   finite and non-zero; with its own launch counts, `python -m
-   encodec_tpu_torch.train`'s `main` at B=32 with `model.remat: true` on
-   synthetic npz nights through `build_dataloaders`, 2 epochs of 3 steps
+   memory, ms per step and one profiled step by kernel group); the first
+   step from a fresh state with every leaf's gradient finite and non-zero;
+   then, as a stand-in for the config (its B=32 does not fit), with
+   its own launch counts, `python -m encodec_tpu_torch.train`'s `main` at
+   B=32 with `model.remat: true` on synthetic npz nights through
+   `build_dataloaders` (epochs cut to 3 batches), 2 epochs of 3 steps
    with k-means init, eval and save; a fresh `Trainer` resuming the run
    bit for bit and stepping on; ms per step, peak memory and one profiled
    step by kernel group (idle share); one B=4 step from epoch 1's state on
@@ -1411,10 +1415,14 @@ def phase_k3_bwd(torch, kernels, dev):
     windows agree): the saving forward, the backward kernel, its two
     matmuls (pre-activations and dW_hh), the plain twin's backward; by CUDA
     events: cuDNN's LSTM forward + backward at the same shape (the
-    yardstick, its backward alone the `library_ms`). The bound
-    counts the recurrent
-    product and the two matmuls, and the bytes of xp, c, dy, dgates and
-    W_hh. The JSON row is H=1024, B=32, T=480."""
+    yardstick). The kernel's bound counts its own work: the recurrent
+    product (2·B·T·4H·H FLOPs) and the bytes of pre, c, dy, dgates, W_hh,
+    c0, dh0 and dc0. The layer's backward (the kernel and its two matmuls)
+    is bounded apart, by the three products and the bytes of xp, h, c, dy,
+    W_hh, dxp and dW_hh, and held against cuDNN's backward, which also
+    computes dx and dW_ih. No library call computes the kernel's function
+    alone, so its row has no `library_ms`. The JSON row is H=1024, B=32,
+    T=480."""
     import ctypes
 
     from encodec_tpu_torch.kernels import build, lstm_cuda
@@ -1502,9 +1510,16 @@ def phase_k3_bwd(torch, kernels, dev):
         events = sorted(k for k, (_, how) in timed.items()
                         if how != "profiler" and k not in ("lib", "lib_bwd"))
         del lib_out, x_req, lib_params, cudnn
-        flops = 3 * 2.0 * B * T * 4 * H * H
-        nbytes = (2 * B * T * 4 * H + 2 * B * T * H + 4 * H * H) * 4
-        b_ms, b_by = bound(flops, nbytes)
+        # the kernel: the recurrent product; pre, c, dy, W_hh and c0 in,
+        # dgates, dh0 and dc0 out
+        b_ms, b_by = bound(2.0 * B * T * 4 * H * H,
+                           (2 * B * T * 4 * H + 2 * B * T * H + 4 * H * H
+                            + 3 * B * H) * 4)
+        # the layer's backward: the kernel and its two matmuls; xp, h, c,
+        # dy and W_hh in, dxp and dW_hh out
+        layer_ms, layer_by = bound(3 * 2.0 * B * T * 4 * H * H,
+                                   (2 * B * T * 4 * H + 3 * B * T * H
+                                    + 2 * 4 * H * H) * 4)
         print(f"K3 backward B={B} T={T} H={H} from (h0, c0): plan {plan.ctas} "
               f"CTAs x {plan.units_per_cta} units ({plan.j_chunks} row "
               f"passes), {plan.n_launches} launch, {regs.value} registers/"
@@ -1513,16 +1528,18 @@ def phase_k3_bwd(torch, kernels, dev):
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
               + f" of the largest |value|; per layer device ms: saving "
               f"forward={fwd_ms:.4f} backward kernel={ms:.4f} "
-              f"({ms / T * 1e3:.3f} us/step) its two matmuls={mm_ms:.4f} "
-              f"plain backward="
-              f"{'not measured' if plain_ms is None else f'{plain_ms:.4f}'} "
-              f"library(cuDNN LSTM fwd+bwd, CUDA events)="
-              f"{lib_ms:.4f} (its backward alone {lib_bwd_ms:.4f}) "
-              f"bound={b_ms:.5f} ({b_by})"
+              f"({ms / T * 1e3:.3f} us/step, bound={b_ms:.5f} ({b_by}): "
+              f"the recurrent product) plain backward="
+              f"{'not measured' if plain_ms is None else f'{plain_ms:.4f}'}"
+              f"; the layer's backward: kernel + its two matmuls="
+              f"{ms + mm_ms:.4f} (matmuls {mm_ms:.4f}), bound={layer_ms:.5f} "
+              f"({layer_by}: three products), cuDNN LSTM backward (also dx "
+              f"and dW_ih, CUDA events)={lib_bwd_ms:.4f}, cuDNN fwd+bwd="
+              f"{lib_ms:.4f}"
               + (f"; by CUDA events (no two profiler windows agreed): "
                  f"{', '.join(events)}" if events else "")
               + f" [{time.perf_counter() - t_shape:.1f} s]")
-        rows[B, T, H] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_bwd_ms,
+        rows[B, T, H] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                              bound_ms=b_ms, bound_by=b_by,
                              max_abs_err=abs_err)
         del xp, out, c_seq, plain_launch, pre, dgates, h_prev, dy
@@ -1548,16 +1565,15 @@ TRAIN_NIGHT = 4 * 36_000 + 600   # a 4 h crop with room to move
 
 def train_config(root: str) -> dict:
     """default.yaml with its model and loss sections as they are, logging
-    and saving every epoch, one device, and synthetic nights under `root`:
-    a virtual epoch of 96 training crops (3 batches of 32) and 19
-    validation crops (one batch)."""
+    and saving every epoch, one device, and synthetic nights under `root`
+    (`cut_epochs` cuts the virtual epochs)."""
     return {
         "exp_details": {"name": "default", "description": "4 hours at 10 Hz"},
         "common": {"log_interval": 1, "max_epoch": 2000, "seed": 42,
                    "gradient_clipping": True},
         "dataset": {"root": root, "batch_size": 32, "num_workers": 8,
                     "max_length": 144_000, "debug": False, "cv": 0,
-                    "epoch_size": 96, "datasets": {"synth": 1.0},
+                    "datasets": {"synth": 1.0},
                     "thorax": 0.5, "abdominal": 0.5},
         "checkpoint": {"save_every": 1},
         "optimization": {"lr": 1e-3, "disc_lr": 3e-4},
@@ -1566,6 +1582,19 @@ def train_config(root: str) -> dict:
         "model": dict(DEFAULT_MODEL),
         "distributed": {"data_parallel": False},
     }
+
+
+TRAIN_ITEMS, VAL_ITEMS = 96, 19   # 3 training batches of 32, one for eval
+
+
+def cut_epochs(build):
+    """`build_dataloaders` with its virtual epochs cut to `TRAIN_ITEMS`
+    training and `VAL_ITEMS` validation crops."""
+    def cut(config):
+        train, val, mapping = build(config)
+        train.dataset.size, val.dataset.size = TRAIN_ITEMS, VAL_ITEMS
+        return train, val, mapping
+    return cut
 
 
 def train_group(name: str) -> str:
@@ -1618,28 +1647,55 @@ def one_window(torch, fn) -> tuple:
     return records, wall_ms
 
 
+def profile_step(torch, label: str, fn):
+    """One profiled training step (`fn`) by kernel group: device busy time
+    and idle share, then its six longest kernels."""
+    window = kernel_window(torch, fn, 1, required=False)
+    note = ""
+    if window is None:   # one window, not held against a second one
+        window = one_window(torch, fn)
+        note = " (one profiler window: no two agreed)"
+    records, wall_ms = window
+    groups: dict = {}
+    for key, (_, us) in records.items():
+        g = train_group(key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    busy = sum(groups.values())
+    print(f"profile train step {label}{note}: wall {wall_ms:.1f} ms "
+          f"(profiled), device busy {busy:.1f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f}; by group: "
+          + ", ".join(f"{g} {ms:.2f} ms" for g, ms in
+                      sorted(groups.items(), key=lambda kv: -kv[1])))
+    for ms, n, key in sorted(((us / 1e3, n, key[:70]) for key, (n, us)
+                              in records.items()), reverse=True)[:6]:
+        print(f"    {ms:9.3f} ms  x{round(n):<4d} {key}")
+
+
 def phase_train(torch, kernels, dev):
     """Training default.yaml's model (the breathing tokenizer, H=1024, D=256,
     8 stages of one shared book of 1024, 32 nights of 4 h per batch) on
     the card. First the config as it is: the largest batch of 32, 24, 16,
-    12 and 8 nights whose step fits the card, its peak memory and step
-    time; the first step from a fresh state (B=4) with every leaf's
-    gradient finite and non-zero. Then, counted as one path, `python -m
-    encodec_tpu_torch.train`'s `main` on a JSON config over synthetic npz
-    nights (through `build_dataloaders`) at B=32 with `model.remat: true`
-    (the JAX package's memory option: each SEANet stage recomputed in the
-    backward, the same arithmetic): 2 epochs of 3 steps with the k-means
-    init, eval and save each epoch. Then: a fresh Trainer resumes the run
-    directory bit for bit and steps on; ms per step at B=32 and the peak
-    memory; one profiled step by kernel group; one step (B=4) from the
-    state after epoch 1 on the kernels against the plain twins; K1 at the
-    training shape (N=15,360, D=256, 1024 bins)."""
+    12 and 8 nights whose step fits the card, its peak memory, ms per step
+    and one profiled step by kernel group (idle share); the first step
+    from a fresh state (B=4) with every leaf's gradient finite and
+    non-zero. default.yaml's own batch of 32 does not fit the card, so the
+    B=32 runs that follow are a stand-in that departs from the config:
+    they add `model.remat: true` (the JAX package's memory option: each
+    SEANet stage recomputed in the backward, the same arithmetic).
+    Counted as one path, `python -m encodec_tpu_torch.train`'s `main` on
+    that JSON config over synthetic npz nights (through
+    `build_dataloaders`, its epochs cut by `cut_epochs`) at B=32: 2 epochs
+    of 3 steps with the k-means init, eval and save each epoch. Then: a
+    fresh Trainer resumes the run directory bit for bit and steps on; ms
+    per step at B=32 and the peak memory; one profiled step by kernel
+    group; one step (B=4) from the state after epoch 1 on the kernels
+    against the plain twins; K1 at the training shape (N=15,360, D=256,
+    1024 bins)."""
     import tempfile
 
     from encodec_tpu_torch.train import (ConfigNamespace, Trainer,
                                          load_checkpoint, make_train_steps)
-    from encodec_tpu_torch.train.__main__ import build_dataloaders
-    from encodec_tpu_torch.train.__main__ import main as train_main
+    from encodec_tpu_torch.train import __main__ as train_entry
     from encodec_tpu_torch.train.optim import tree_leaves
     from encodec_tpu_torch.train.trainer import state_to_device
 
@@ -1662,7 +1718,7 @@ def phase_train(torch, kernels, dev):
 
     # -- the first step from a fresh state (B=4): k-means, every gradient
     t0 = time.perf_counter()
-    loader, _, _ = build_dataloaders(config)
+    loader, _, _ = cut_epochs(train_entry.build_dataloaders)(config)
     x32 = torch.from_numpy(next(iter(loader))[0]["x"]).to(dev)
     batch_s = time.perf_counter() - t0
     check(tuple(x32.shape) == (32, 144_000, 1), f"batch {tuple(x32.shape)}")
@@ -1672,21 +1728,32 @@ def phase_train(torch, kernels, dev):
     for B in (32, 24, 16, 12, 8):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        xb = x32[:B].contiguous()
         try:
             t0 = time.perf_counter()
-            first.gen_step(first.state, x32[:B].contiguous(), w1)
+            s_b, _ = first.gen_step(first.state, xb, w1)
             torch.cuda.synchronize()
         except torch.OutOfMemoryError:
             print(f"train memory, default.yaml as it is: B={B} x 4 h does "
                   "not fit the card (out of memory)")
             continue
         step_ms = (time.perf_counter() - t0) * 1e3
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            first.gen_step(s_b, xb, w1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"train memory, default.yaml as it is: the largest batch that "
               f"fits is B={B} x 4 h: peak {peak:.2f} GiB "
-              f"(max_memory_allocated), first step (k-means init) "
-              f"{step_ms:.1f} ms" + ("" if B == 32 else
-                                    "; B=32 does not fit in 80 GB"))
+              f"(max_memory_allocated); first step (k-means init) "
+              f"{step_ms:.1f} ms, then {times[0]:.1f} / {times[1]:.1f} ms "
+              f"per step (host clock, synchronized)"
+              + ("" if B == 32 else "; B=32 does not fit in 80 GB"))
+        profile_step(torch, f"B={B} (default.yaml as it is)",
+                     lambda: first.gen_step(s_b, xb, w1))
+        del s_b, xb
         break
     else:
         fail("default.yaml's step fits the card at none of B=32-8")
@@ -1710,12 +1777,18 @@ def phase_train(torch, kernels, dev):
     del first, s1, m1, grads, enc_first
 
     # -- the train path, counted: the entry point a user runs -------------
-    kernels.reset_launch_counts()
-    t0 = time.perf_counter()
-    trainer = train_main(["--config", str(cfg_path), "--log_dir", str(run),
-                          "--max_epochs", "2", "--device", "cuda"])
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    build = train_entry.build_dataloaders
+    train_entry.build_dataloaders = cut_epochs(build)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_entry.main(["--config", str(cfg_path), "--log_dir",
+                                    str(run), "--max_epochs", "2",
+                                    "--device", "cuda"])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        train_entry.build_dataloaders = build
     counts = launch_counts(kernels)
     counts["lstm_save"] = kernels.lstm_scan.save_launches
     steps = int(trainer.state.opt_state.count)
@@ -1727,8 +1800,8 @@ def phase_train(torch, kernels, dev):
           f"the train path did not launch K1, K2, the saving K3 and K3's "
           f"backward as planned: {counts}")
     k1_kmeans = counts["nearest_codebook"] - 8 * steps
-    print(f"train path launches (B=32 with remat, 2 epochs, {steps} steps, 2 "
-          f"evals): "
+    print(f"train path launches (B=32 with remat, a stand-in for default.yaml, "
+          f"2 epochs, {steps} steps, 2 evals): "
           f"{json.dumps(counts)}; per step K1 8 (+{k1_kmeans} for the "
           f"k-means init on the first), K3 saving forward "
           f"{counts['lstm_save'] // steps}, K3 backward "
@@ -1764,29 +1837,12 @@ def phase_train(torch, kernels, dev):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    window = kernel_window(torch, lambda: fresh.gen_step(state, x32, w3), 1,
-                           required=False)
-    note = ""
-    if window is None:   # one window, not held against a second one
-        window = one_window(torch, lambda: fresh.gen_step(state, x32, w3))
-        note = " (one profiler window: no two agreed)"
-    records, wall_ms = window
-    groups: dict = {}
-    for key, (_, us) in records.items():
-        g = train_group(key)
-        groups[g] = groups.get(g, 0.0) + us / 1e3
-    busy = sum(groups.values())
-    print(f"train step B=32 x 4 h with remat: {times[0]:.1f} / {times[1]:.1f} "
-          f"ms per step (host clock, synchronized); peak memory "
-          f"{peak:.2f} GiB (max_memory_allocated)")
-    print(f"profile train step B=32 (remat){note}: wall {wall_ms:.1f} ms "
-          f"(profiled), device "
-          f"busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; by group: "
-          + ", ".join(f"{g} {ms:.2f} ms" for g, ms in
-                      sorted(groups.items(), key=lambda kv: -kv[1])))
-    for ms, n, key in sorted(((us / 1e3, n, key[:70]) for key, (n, us)
-                              in records.items()), reverse=True)[:6]:
-        print(f"    {ms:9.3f} ms  x{round(n):<4d} {key}")
+    print(f"train step B=32 x 4 h with remat (a stand-in for default.yaml, "
+          f"which does not fit B=32): {times[0]:.1f} / {times[1]:.1f} ms per "
+          f"step (host clock, synchronized); peak memory {peak:.2f} GiB "
+          f"(max_memory_allocated)")
+    profile_step(torch, "B=32 (remat, a stand-in for default.yaml)",
+                 lambda: fresh.gen_step(state, x32, w3))
     del state, m
 
     # -- the kernels against the plain twins, one step at B=4 ------------

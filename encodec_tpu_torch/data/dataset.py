@@ -123,21 +123,18 @@ class BreathingDataset:
 
 class MergedDataset:
     """Weighted multi-dataset sampler with a fixed virtual epoch
-    (ref data/__init__.py:7-30) of `sfreq` × 4096 items (512 with `debug`,
-    `epoch_size` when given)."""
+    (ref data/__init__.py:7-30)."""
 
     supports_item_rng = True
 
     def __init__(self, ds_list, weight_list, sfreq: float = 1.0,
                  debug: bool = False,
-                 rng: tp.Optional[np.random.RandomState] = None,
-                 epoch_size: tp.Optional[int] = None):
+                 rng: tp.Optional[np.random.RandomState] = None):
         self.ds = list(ds_list)
         self.weight = np.asarray(weight_list, np.float64)
         self.weight /= self.weight.sum()
         assert self.weight[0] > 0
-        base = epoch_size or (512 if debug else 4096)
-        self.size = round(base * sfreq)
+        self.size = round((512 if debug else 4096) * sfreq)
         self.mapping = {i: ds.dataset for i, ds in enumerate(self.ds)}
         self.rng = rng or np.random.RandomState()
 

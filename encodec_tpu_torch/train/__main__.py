@@ -7,9 +7,7 @@ Port of `encodec_tpu/train/__main__.py` (`build_dataloaders`, `main`),
 over the port's `data/` loader. Loads and snapshots the config (YAML, or
 JSON by the `.json` suffix, which needs no PyYAML), builds the breathing
 datasets and the model, and runs the epoch loop with checkpoint and resume
-on one device (default the GPU). `dataset.epoch_size` (optional) sets the
-virtual epoch of the merged training set (the validation set is a fifth of
-it); without it the reference's 4096 items (512 with `dataset.debug`).
+on one device (default the GPU).
 """
 
 from __future__ import annotations
@@ -48,13 +46,10 @@ def build_dataloaders(config):
         train_sets.append(BreathingDataset(mode="train", **kw))
         val_sets.append(BreathingDataset(mode="val", **kw))
         weight_list.append(w)
-    size = getattr(config.dataset, "epoch_size", None)
     train_ds = MergedDataset(train_sets, weight_list, 1.0,
-                             debug=config.dataset.debug, rng=rng,
-                             epoch_size=size)
+                             debug=config.dataset.debug, rng=rng)
     val_ds = MergedDataset(val_sets, weight_list, 0.2,
-                           debug=config.dataset.debug, rng=rng,
-                           epoch_size=size)
+                           debug=config.dataset.debug, rng=rng)
     bs = config.dataset.batch_size
     workers = int(getattr(config.dataset, "num_workers", 0) or 0)
     # eval sees every item (drop_last=False), as torch's DataLoader does by

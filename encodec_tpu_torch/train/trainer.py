@@ -100,11 +100,9 @@ def state_to_device(raw, device: torch.device) -> TrainState:
 class Trainer:
     def __init__(self, config: ConfigNamespace, train_loader, val_loader,
                  log_dir: str, label_mapping: tp.Optional[dict] = None,
-                 writer=None, device: tp.Union[str, torch.device] = "cuda",
-                 plain: bool = False):
+                 writer=None, device: tp.Union[str, torch.device] = "cuda"):
         """`train_loader` and `val_loader` yield `(batch, ds_ids)` with
-        `batch["x"]` a `[B, T, C]` float32 array (the port's `DataLoader`).
-        `plain=True` runs every plain twin, even on the card."""
+        `batch["x"]` a `[B, T, C]` float32 array (the port's `DataLoader`)."""
         self.config = config
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -141,7 +139,7 @@ class Trainer:
 
         def make_steps(n_q=None):
             return make_train_steps(self.model.cfg, freq_loss_kwargs=freq_kwargs,
-                                    clip=self.clip, n_q=n_q, plain=plain)
+                                    clip=self.clip, n_q=n_q)
 
         self.gen_step, self.eval_step = make_steps()
         # `model.sample_bandwidths: true`: one n_q per step, drawn from the

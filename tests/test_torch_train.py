@@ -65,6 +65,7 @@ from encodec_tpu_torch.train import (AsyncCheckpointer, ConfigNamespace,
                                      create_train_state, init_adam,
                                      load_checkpoint, make_train_steps,
                                      save_checkpoint)
+from encodec_tpu_torch.train import __main__ as train_entry
 from encodec_tpu_torch.train.__main__ import main as train_main
 from encodec_tpu_torch.train.optim import tree_leaves
 from encodec_tpu_torch.train.trainer import state_to_device
@@ -98,7 +99,7 @@ CONFIG = {
               "name": "my_encodec", "sample_rate": 10, "channels": 1},
     "dataset": {"root": None, "batch_size": 2, "num_workers": 0,
                 "max_length": 600, "debug": False, "cv": 0,
-                "epoch_size": 4, "datasets": {"synth": 1.0}, "thorax": 1.0,
+                "datasets": {"synth": 1.0}, "thorax": 1.0,
                 "abdominal": 0.0},
     "distributed": {"data_parallel": False},
 }
@@ -539,10 +540,19 @@ def _assert_states_equal(a, b):
     assert torch.equal(a.rng, b.rng)
 
 
-def test_train_main_fits_saves_and_resumes_bit_for_bit(tmp_path):
+def test_train_main_fits_saves_and_resumes_bit_for_bit(tmp_path, monkeypatch):
     """`python -m encodec_tpu_torch.train` on a JSON config: two epochs of
     two steps with k-means init, eval and save; a fresh Trainer resumes the
-    saved state bit for bit and trains on; `--resume_from` continues."""
+    saved state bit for bit and trains on; `--resume_from` continues. The
+    loaders' virtual epochs are cut to 4 training items and 1 for eval."""
+    build = train_entry.build_dataloaders
+
+    def cut(config):
+        train, val, mapping = build(config)
+        train.dataset.size, val.dataset.size = 4, 1
+        return train, val, mapping
+
+    monkeypatch.setattr(train_entry, "build_dataloaders", cut)
     _nights(tmp_path / "data")
     cfg = _config(tmp_path / "data")
     cfg["model"]["target_bandwidths"] = [0.08]
