@@ -47,10 +47,12 @@ Phases, in order (any failure exits non-zero before the last line):
    outside tie-flagged positions, streamed audio against the offline decode
    of the same codes, per-chunk latency, and one profiled chunk;
 10. K3's grid kernel at H=1024 (the breathing model's LSTM): its plan
-   (CTAs, units, shared memory, registers and spill); B=1 and 32 with
-   T=480 and B=1 with T=64, each from zero state and from a carried state,
-   against its twin and cuDNN's LSTM, with the bound; one launch against a
-   carried 64 + 64 + ... split, bit for bit;
+   (CTAs, units, rows x k per lane, batch tile, shared memory, registers;
+   no spill); B=1 and 32 with T=480 and B=1 with T=64, each from zero
+   state and from a carried state, against its twin and cuDNN's LSTM, with
+   the bound; one launch against a carried 64 + 64 + ... split, bit for
+   bit; every row of the B=32 launch against its sequence launched alone,
+   bit for bit;
 11. serve the breathing tokenizer (`breathing_model`, full width) with its
    own launch counts: two 4 h nights encoded and decoded, 32 nights of 4 h
    through `encode` (the training batch), and `process_dataset` over a
@@ -64,14 +66,17 @@ Phases, in order (any failure exits non-zero before the last line):
    night) from a config dict: one night, K3 ms per layer;
 13. K3's backward kernel (`csrc/lstm_bwd.cu`) and the saving forward per
    layer, from a given state, at H=1024 with B=1 and 32 (T=480), H=512
-   (B=4, T=750) and H=256 (B=1, T=14,400): the saving forward's `out`
-   bit-equal to the plain launch's, dxp, dh0 and dc0 within 1e-4 and
-   dW_hh within 1e-3 of the largest |value| of the plain twin's
-   `torch.autograd.grad`; device ms of the saving forward, the backward
-   kernel beside its own bound (the recurrent product), the plain
-   backward, and the layer's backward (the kernel and its two matmuls)
-   beside the bound of its three products and cuDNN's LSTM backward and
-   forward + backward;
+   (B=4, T=750) and H=256 (B=1, T=14,400), each with its plan (rows and
+   columns per thread, the partial sums' buffer, registers; no spill):
+   the saving forward's `out` bit-equal to the plain launch's, dxp, dh0
+   and dc0 within 1e-4 and dW_hh within 1e-3 of the largest |value| of the
+   plain twin's `torch.autograd.grad`, and at B=32 every sequence's
+   gradients alone equal to its row of the batch, bit for bit; device ms
+   of the saving forward beside cuDNN's LSTM forward with gradients on,
+   the backward kernel beside its own bound (the recurrent product), the
+   plain backward, and the layer's backward (the kernel and its two
+   matmuls) beside the bound of its three products and cuDNN's LSTM
+   backward and forward + backward;
 14. training `params/default.yaml`'s model (as a dict; B=32 nights of 4 h):
    the largest batch of the config as it is that fits the card (its peak
    memory, ms per step and one profiled step by kernel group); the first
@@ -1094,12 +1099,16 @@ def k3_grid_plan_line(torch, dev, H):
     lib = build.load_library("lstm_grid")
     n_max = lstm_cuda.max_grid_ctas(H, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    regs, local = ctypes.c_int(), ctypes.c_int()
-    build.check(lib, "lstm_grid", lib.lstm_grid_attributes(
-        H, 0, ctypes.addressof(regs), ctypes.addressof(local)))
-    save_regs, save_local = ctypes.c_int(), ctypes.c_int()
-    build.check(lib, "lstm_grid", lib.lstm_grid_attributes(
-        H, 1, ctypes.addressof(save_regs), ctypes.addressof(save_local)))
+    attrs = []
+    for save in (0, 1):
+        for fenced in (0, 1):
+            regs, local = ctypes.c_int(), ctypes.c_int()
+            build.check(lib, "lstm_grid", lib.lstm_grid_attributes(
+                save, fenced, ctypes.addressof(regs), ctypes.addressof(local)))
+            check(local.value == 0, f"K3 grid kernel (save={save}, fenced="
+                                    f"{fenced}) spills {local.value} B")
+            attrs.append(f"{regs.value} registers/thread ({local.value} B "
+                         "local)")
     plans = {B: lstm_cuda.grid_plan(B, H, n_max) for B in (1, 32)}
     for B, plan in plans.items():
         check(plan.ctas <= n_max, f"K3 grid plan at B={B}: {plan}")
@@ -1110,12 +1119,42 @@ def k3_grid_plan_line(torch, dev, H):
     return (f"K3 grid plan H={H}: {p.ctas} CTAs x {p.units_per_cta} units "
             f"({4 * p.units_per_cta} W_hh rows in registers per CTA) on {sms} "
             f"SMs, max co-resident CTAs {n_max} (occupancy API), "
-            f"{lstm_cuda.GRID_THREADS} threads/CTA, {regs.value} "
-            f"registers/thread ({local.value} B local; saving every c "
-            f"{save_regs.value}, {save_local.value} B), shared memory "
+            f"{lstm_cuda.GRID_THREADS} threads/CTA as "
+            f"{lstm_cuda.GRID_ROW_GROUPS} row groups x {p.k_slices} k slices "
+            f"of {lstm_cuda.GRID_K_SLICE}, {lstm_cuda.GRID_LANE_ROWS} rows x "
+            f"{lstm_cuda.GRID_LANE_K} k per lane, batch tile "
+            f"{lstm_cuda.GRID_BATCH_TILE} (a lone last sequence alone), "
+            f"polling / barrier per step (B >= 10): plain {attrs[0]} / "
+            f"{attrs[1]}, saving every c {attrs[2]} / {attrs[3]}, shared memory "
             f"{p.smem_bytes} B/CTA at B=1 and {plans[32].smem_bytes} at B=32 "
             f"({plans[32].n_launches} launch), at most "
             f"{lstm_cuda.grid_max_batch(H)} sequences per launch")
+
+
+def k3_bwd_plan_line(torch, dev, B, H):
+    import ctypes
+
+    from encodec_tpu_torch.kernels import build, lstm_cuda
+
+    lib = build.load_library("lstm_bwd")
+    plan = lstm_cuda.bwd_plan(B, H, lstm_cuda.max_bwd_ctas(H, dev))
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    build.check(lib, "lstm_bwd", lib.lstm_bwd_attributes(
+        plan.units_per_cta, ctypes.addressof(regs), ctypes.addressof(local)))
+    check(local.value == 0, f"K3 backward kernel (U={plan.units_per_cta}) "
+                            f"spills {local.value} B to local memory")
+    check(lib.lstm_bwd_smem_bytes(plan.batch_per_launch, plan.ctas,
+                                  plan.units_per_cta) == plan.smem_bytes,
+          "K3 backward shared memory differs between the kernel and its plan")
+    return plan, (
+        f"plan {plan.ctas} CTAs x {plan.units_per_cta} units "
+        f"({4 * plan.units_per_cta} W_hh rows x {lstm_cuda.BWD_COLS} columns "
+        f"per thread), product batch tile {lstm_cuda.BWD_BATCH_TILE}, "
+        f"{plan.n_launches} launch, {plan.smem_bytes} B shared memory/CTA, "
+        f"partial sums {plan.partial_bytes} B (each CTA's block read "
+        f"whole, {plan.ctas} sources per unit in {len(plan.sum_chains())} "
+        f"chains, {'16 threads' if plan.spread() else 'one thread'} a "
+        f"cell), {regs.value} registers/thread ({local.value} B local)")
 
 
 def phase_k3_grid(torch, kernels, dev):
@@ -1190,6 +1229,19 @@ def phase_k3_grid(torch, kernels, dev):
         print(f"K3 grid from state B={B} T={T} H={H}: one launch == "
               f"{len(outs)} launches of 64, ..., {T % 64 or 64} steps with "
               "(h, c) carried, bit for bit (out, hT, cT)")
+        if B == 32:
+            # a sequence's bits do not depend on its slot or on B
+            for b in range(B):
+                one = slice(b, b + 1)
+                alone, _, c1 = kernels.lstm_scan(xp[one], w_hh, h0[one],
+                                                 c0[one], return_state=True)
+                check(torch.equal(alone, whole[one])
+                      and torch.equal(c1, cT[one]),
+                      f"K3 grid: sequence {b} alone differs from row {b} of "
+                      "the B=32 launch")
+            print(f"K3 grid B={B} T={T} H={H}: row b of the B=32 launch == "
+                  "the B=1 launch of sequence b, bit for bit (out, cT), "
+                  "for every b")
     return rows[1, 480, False]
 
 
@@ -1411,32 +1463,27 @@ def phase_k3_bwd(torch, kernels, dev):
     forward must give the plain launch's `out` bits; dxp, dh0 and dc0 must
     be within 1e-4 of the largest |value| of the plain twin's
     `torch.autograd.grad`, dW_hh within 1e-3 (a sum over B·T rows in
-    another order). Device ms (torch.profiler, or CUDA events where no two
+    another order); at B=32 each sequence's backward alone must give its
+    row's bits. Device ms (torch.profiler, or CUDA events where no two
     windows agree): the saving forward, the backward kernel, its two
     matmuls (pre-activations and dW_hh), the plain twin's backward; by CUDA
-    events: cuDNN's LSTM forward + backward at the same shape (the
-    yardstick). The kernel's bound counts its own work: the recurrent
-    product (2·B·T·4H·H FLOPs) and the bytes of pre, c, dy, dgates, W_hh,
-    c0, dh0 and dc0. The layer's backward (the kernel and its two matmuls)
+    events: cuDNN's LSTM forward with gradients on (beside the saving
+    forward) and forward + backward at the same shape (the yardsticks).
+    The kernel's bound counts its own work: the recurrent product
+    (2·B·T·4H·H FLOPs) and the bytes of pre, c, dy, dgates, W_hh, c0, dh0
+    and dc0. The layer's backward (the kernel and its two matmuls)
     is bounded apart, by the three products and the bytes of xp, h, c, dy,
     W_hh, dxp and dW_hh, and held against cuDNN's backward, which also
     computes dx and dW_ih. No library call computes the kernel's function
     alone, so its row has no `library_ms`. The JSON row is H=1024, B=32,
     T=480."""
-    import ctypes
-
-    from encodec_tpu_torch.kernels import build, lstm_cuda
     from encodec_tpu_torch.ops.lstm import LstmLayer
 
-    bwd = build.load_library("lstm_bwd")
     rows = {}
     for B, T, H in ((1, 480, 1024), (32, 480, 1024), (4, 750, 512),
                     (1, 14_400, 256)):
         t_shape = time.perf_counter()
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        build.check(bwd, "lstm_bwd", bwd.lstm_bwd_attributes(
-            H, ctypes.addressof(regs), ctypes.addressof(local)))
-        plan = lstm_cuda.bwd_plan(B, H, lstm_cuda.max_bwd_ctas(H, dev))
+        plan, plan_text = k3_bwd_plan_line(torch, dev, B, H)
         w_hh = books(torch, (4 * H, H), 61, dev) / math.sqrt(6.0)  # ±1/√H
         xp = gauss(torch, (B, T, 4 * H), 62, dev, 1.0)
         h0 = torch.tanh(gauss(torch, (B, H), 63, dev, 1.0))
@@ -1476,7 +1523,22 @@ def phase_k3_bwd(torch, kernels, dev):
         h_prev = torch.cat([h0[:, None], out[:, :-1]], 1)
         pre = torch.addmm(xp.reshape(B * T, 4 * H), h_prev.reshape(B * T, H),
                           w_hh.t()).reshape(B, T, 4 * H)
-        dgates = kernels.lstm_scan_backward(pre, c_seq, dy, w_hh, c0)[0]
+        dgates, dh0, dc0 = kernels.lstm_scan_backward(pre, c_seq, dy, w_hh,
+                                                      c0)
+        slot_note = ""
+        if B > 1 and H == 1024:
+            # a sequence's bits do not depend on its slot or on B
+            for b in range(B):
+                one = slice(b, b + 1)
+                alone = kernels.lstm_scan_backward(pre[one], c_seq[one],
+                                                   dy[one], w_hh, c0[one])
+                check(all(torch.equal(a, r[one]) for a, r in
+                          zip(alone, (dgates, dh0, dc0))),
+                      f"K3 backward: sequence {b} alone differs from row {b} "
+                      f"of the B={B} launch")
+            slot_note = (f"; row b of the B={B} backward == the B=1 backward "
+                         "of sequence b, bit for bit (dgates, dh0, dc0), for "
+                         "every b")
         timed = {}
         timed["fwd"] = device_or_event_ms(torch, lambda: kernels.lstm_scan(
             xp, w_hh, h0, c0, save_c=True), 3, "lstm_")
@@ -1504,11 +1566,17 @@ def phase_k3_bwd(torch, kernels, dev):
         timed["lib"] = (time_ms(torch, lambda: torch.autograd.grad(
             cudnn(x_req, (h0[None], c0[None]))[0], lib_params, dy), 3),
             "CUDA events")
-        fwd_ms, ms, mm_ms, lib_bwd_ms, lib_ms = (
-            timed[k][0] for k in ("fwd", "bwd", "mm", "lib_bwd", "lib"))
+        # cuDNN's forward with gradients on (it keeps its reserve for the
+        # backward), beside the saving launch
+        timed["lib_fwd"] = (time_ms(torch, lambda: cudnn(
+            x_req, (h0[None], c0[None]))[0], 3), "CUDA events")
+        fwd_ms, ms, mm_ms, lib_bwd_ms, lib_ms, lib_fwd_ms = (
+            timed[k][0] for k in ("fwd", "bwd", "mm", "lib_bwd", "lib",
+                                  "lib_fwd"))
         plain_ms = timed["plain"][0] if "plain" in timed else None
         events = sorted(k for k, (_, how) in timed.items()
-                        if how != "profiler" and k not in ("lib", "lib_bwd"))
+                        if how != "profiler"
+                        and k not in ("lib", "lib_bwd", "lib_fwd"))
         del lib_out, x_req, lib_params, cudnn
         # the kernel: the recurrent product; pre, c, dy, W_hh and c0 in,
         # dgates, dh0 and dc0 out
@@ -1520,14 +1588,14 @@ def phase_k3_bwd(torch, kernels, dev):
         layer_ms, layer_by = bound(3 * 2.0 * B * T * 4 * H * H,
                                    (2 * B * T * 4 * H + 3 * B * T * H
                                     + 2 * 4 * H * H) * 4)
-        print(f"K3 backward B={B} T={T} H={H} from (h0, c0): plan {plan.ctas} "
-              f"CTAs x {plan.units_per_cta} units ({plan.j_chunks} row "
-              f"passes), {plan.n_launches} launch, {regs.value} registers/"
-              f"thread ({local.value} B local); saving forward out == plain "
-              f"launch bit for bit; vs the twin's autograd: "
+        print(f"K3 backward B={B} T={T} H={H} from (h0, c0): {plan_text}; "
+              f"saving forward out == plain launch bit for bit; vs the "
+              f"twin's autograd: "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
-              + f" of the largest |value|; per layer device ms: saving "
-              f"forward={fwd_ms:.4f} backward kernel={ms:.4f} "
+              + f" of the largest |value|{slot_note}; per layer device ms: "
+              f"saving forward={fwd_ms:.4f} (cuDNN LSTM forward with "
+              f"gradients on, CUDA events: {lib_fwd_ms:.4f}) backward "
+              f"kernel={ms:.4f} "
               f"({ms / T * 1e3:.3f} us/step, bound={b_ms:.5f} ({b_by}): "
               f"the recurrent product) plain backward="
               f"{'not measured' if plain_ms is None else f'{plain_ms:.4f}'}"
@@ -1542,7 +1610,7 @@ def phase_k3_bwd(torch, kernels, dev):
         rows[B, T, H] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                              bound_ms=b_ms, bound_by=b_by,
                              max_abs_err=abs_err)
-        del xp, out, c_seq, plain_launch, pre, dgates, h_prev, dy
+        del xp, out, c_seq, plain_launch, pre, dgates, dh0, dc0, h_prev, dy
         torch.cuda.empty_cache()
     return rows[32, 480, 1024]
 

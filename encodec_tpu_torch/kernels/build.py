@@ -52,22 +52,26 @@ SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
         "lstm_grid_smem_bytes": ([_I, _I], _I),
         "lstm_grid_threads": ([], _I),
         "lstm_grid_max_units": ([], _I),
+        "lstm_grid_lane_rows": ([], _I),
+        "lstm_grid_lane_k": ([], _I),
         "lstm_grid_batch_tile": ([], _I),
         "lstm_grid_max_batch": ([], _I),
         "lstm_grid_max_h": ([], _I),
+        "lstm_grid_fenced": ([_I], _I),
         "lstm_grid_error_string": ([_I], ctypes.c_char_p),
     },
     "lstm_bwd": {
-        "lstm_bwd_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _P], _I),
-        "lstm_bwd_max_ctas": ([_I, _I], _I),
+        "lstm_bwd_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _P], _I),
+        "lstm_bwd_max_ctas": ([_I, _I, _I], _I),
         "lstm_bwd_attributes": ([_I, _P, _P], _I),
-        "lstm_bwd_smem_bytes": ([_I], _I),
+        "lstm_bwd_smem_bytes": ([_I, _I, _I], _I),
         "lstm_bwd_threads": ([], _I),
         "lstm_bwd_max_units": ([], _I),
+        "lstm_bwd_cols": ([], _I),
         "lstm_bwd_batch_tile": ([], _I),
-        "lstm_bwd_max_batch": ([], _I),
         "lstm_bwd_max_h": ([], _I),
+        "lstm_bwd_max_ctas_limit": ([], _I),
         "lstm_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "vq_search": {

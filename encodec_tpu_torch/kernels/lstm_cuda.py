@@ -17,10 +17,12 @@ picks one by the hidden size:
   laid out by `grid_plan`): W_hh (16 MiB at H=1024) is more than any
   cluster holds, so one cooperative grid of one CTA per SM splits the
   hidden units (H=1024: 128 CTAs of 8 units, their 32 gate rows in
-  registers), computes its rows for every sequence each step, and
-  exchanges h through L2 with one grid barrier per step. This is the
-  breathing tokenizer's H (32·2⁵). A batch larger than the kernel's
-  shared memory holds runs as several launches.
+  registers, 8 rows x 8 k per lane), computes its rows for every sequence
+  each step, and exchanges h through `out` in L2: launches of fewer than
+  10 sequences poll `out` (filled with an empty mark first) for the words
+  of h_{t-1}, larger ones wait on a barrier per step. This is the
+  breathing tokenizer's H (32·2⁵). A batch larger than the kernel's shared
+  memory holds runs as several launches.
 
 A CUDA call with H > 1024 raises. Both kernels start from zero state or,
 unlike the TPU kernel, from a given `(h0, c0)`, and can return the final
@@ -36,7 +38,9 @@ The backward, `lstm_scan_backward`, is a kernel of its own
 kernel for it (its trainer differentiates the `lax.scan` of
 `encodec_tpu/ops/lstm.py:56-72`, and XLA runs the VJP). One cooperative
 grid of one CTA per SM runs the reverse recurrence for 1 ≤ H ≤ 1024, each
-CTA holding the columns of W_hh of its hidden units; its plain twin is
+CTA holding the gate rows of W_hh of its hidden units, writing its rows'
+products with dgates_t as partial sums to L2 and adding the partials of
+its own units after one grid barrier per step; its plain twin is
 `lstm_scan_backward_plain`. `ops.lstm` ties the two directions together in
 a `torch.autograd.Function`.
 
@@ -74,26 +78,38 @@ K3_MAX_H = 4 * K3_KCHUNK
 K3_MAX_CLUSTER = 16                          # non-portable above 8
 
 # The grid kernel's layout; `csrc/lstm_grid.cu` reports the same numbers
-# (lstm_grid_threads, _max_units, _batch_tile, _max_batch, _max_h,
-# _smem_bytes).
+# (lstm_grid_threads, _max_units, _lane_rows, _lane_k, _batch_tile,
+# _max_batch, _max_h, _smem_bytes). Its 16 warps are 4 row groups x 4 k
+# slices; a lane holds 8 gate rows x 8 k of W_hh in registers.
 GRID_WARPS = 16
 GRID_THREADS = 32 * GRID_WARPS
-GRID_ROWS_PER_WARP = 2                       # W_hh rows per warp, registers
-GRID_MAX_UNITS = GRID_WARPS * GRID_ROWS_PER_WARP // 4   # 8 units per CTA
-GRID_BATCH_TILE = 8                          # sequences per matvec pass
+GRID_ROW_GROUPS = 4                          # warp w: rows of group w % 4
+GRID_LANE_ROWS = 8                           # W_hh rows per lane and warp
+GRID_LANE_K = 8                              # k per lane: two float4s
+GRID_HALF_SLICE = 128                        # the gap between them
+GRID_K_SLICE = 32 * GRID_LANE_K              # 256 k per warp (w // 4)
+GRID_MAX_UNITS = GRID_ROW_GROUPS * GRID_LANE_ROWS // 4  # 8 units per CTA
+GRID_BATCH_TILE = 2                          # sequences per matvec pass
 GRID_MAX_BATCH = GRID_THREADS // GRID_MAX_UNITS         # a cell per thread
-GRID_MAX_H = 8 * K3_KCHUNK                   # k slice: 8 float4s per lane
+GRID_SLICE_STRIDE = 40                       # floats per (k slice, sequence)
+GRID_MAX_H = 4 * GRID_K_SLICE                # 1024
+GRID_FENCED_BATCH = 10                       # from here: a barrier per step
+# lanes are paired in this order whatever the batch tile
+BUTTERFLY = (16, 8, 4, 2, 1)
 
 # The backward kernel's layout; `csrc/lstm_bwd.cu` reports the same numbers
-# (lstm_bwd_threads, _max_units, _batch_tile, _max_batch, _max_h,
-# _smem_bytes).
+# (lstm_bwd_threads, _max_units, _cols, _batch_tile, _max_h,
+# _max_ctas_limit, _smem_bytes). Thread x holds the CTA's
+# 4U gate rows of W_hh at columns x and x + 512.
 BWD_WARPS = 16
 BWD_THREADS = 32 * BWD_WARPS
-BWD_MAX_UNITS = 8                            # W_hh columns per CTA
-BWD_JCHUNK = BWD_THREADS                     # gate rows per pass, one each
-BWD_BATCH_TILE = 2                           # sequences per pass
-BWD_MAX_BATCH = BWD_THREADS // BWD_MAX_UNITS  # a cell per thread
-BWD_MAX_H = 8 * BWD_JCHUNK // 4              # 4H in 8 passes of 512 rows
+BWD_MAX_UNITS = 8                            # units (4U rows) per CTA
+BWD_COLS = 2                                 # W_hh columns per thread
+BWD_BATCH_TILE = 4                           # sequences per product pass
+BWD_MAX_H = BWD_COLS * BWD_THREADS           # 1024
+BWD_MAX_CTAS = 128                           # CTAs of one launch
+BWD_CELL_INPUTS = 8                          # a cell's pre (4), c, c_prev, dy, dh
+BWD_CHAINS = 16                              # of a cell's sum of partials
 
 
 def lstm_cell(h: torch.Tensor, c: torch.Tensor, gates: torch.Tensor
@@ -217,12 +233,15 @@ class GridPlan:
     """The grid kernel's launches: `ctas` CTAs, CTA g owning hidden units
     `[g·units_per_cta, (g+1)·units_per_cta)` ∩ `[0, H)` for every sequence;
     the batch runs as `n_launches` launches of at most `batch_per_launch`
-    sequences (`batch_ranges`), each with `smem_bytes` of shared memory."""
+    sequences (`batch_ranges`), each with `smem_bytes` of shared memory.
+    Inside a CTA, warp w holds rows `lane_rows(w)` over k slice w // 4
+    (`k_slices` of them busy) and lane l the k of `lane_k(w, l)`; a launch
+    of n sequences runs them in `batch_tiles(n)`."""
     B: int
     H: int
     ctas: int
     units_per_cta: int
-    k_chunks: int
+    k_slices: int
     batch_per_launch: int
     n_launches: int
     smem_bytes: int
@@ -235,21 +254,55 @@ class GridPlan:
         n = self.batch_per_launch
         return [(b, min(self.B, b + n)) for b in range(0, self.B, n)]
 
+    def lane_rows(self, warp: int) -> tp.List[int]:
+        """CTA rows q of warp `warp` (row q is gate q // U of the CTA's unit
+        q % U; rows at or past 4U hold zeros)."""
+        g = warp % GRID_ROW_GROUPS
+        return list(range(g * GRID_LANE_ROWS, (g + 1) * GRID_LANE_ROWS))
+
+    def lane_k(self, warp: int, lane: int) -> tp.List[int]:
+        """The k of W_hh (and h) lane `lane` of warp `warp` holds: two
+        float4s 128 apart in the warp's 256-k slice (zeros at k ≥ H)."""
+        k = (warp // GRID_ROW_GROUPS) * GRID_K_SLICE + 4 * lane
+        return [k + m * GRID_HALF_SLICE + e for m in range(2)
+                for e in range(4)]
+
+    def busy(self, warp: int) -> bool:
+        """Whether warp `warp` has a valid row and k: idle warps skip the
+        matvec."""
+        return (warp % GRID_ROW_GROUPS) * GRID_LANE_ROWS < 4 * (
+            self.units_per_cta) and warp // GRID_ROW_GROUPS < self.k_slices
+
+    @staticmethod
+    def fenced(n: int) -> bool:
+        """Whether a launch of n copies h once after a barrier per step
+        (n ≥ 10) rather than polling `out` for it."""
+        return n >= GRID_FENCED_BATCH
+
+    @staticmethod
+    def batch_tiles(n: int) -> tp.List[int]:
+        """Sequences per matvec pass for a launch of n: tiles of 2, a lone
+        last sequence alone. The lanes' sums pair lanes in `BUTTERFLY`
+        order and the k slices add in slice order whatever the tile, so a
+        sequence's bits depend neither on its slot nor on n."""
+        return [GRID_BATCH_TILE] * (n // GRID_BATCH_TILE) + [1] * (
+            n % GRID_BATCH_TILE)
+
 
 def grid_smem_bytes(H: int, B: int) -> int:
     """Dynamic shared memory of one grid-kernel CTA for a launch of B
-    sequences: h of every sequence, zero-padded to a multiple of 128 floats,
-    and the 32 rows' recurrent sums, both for B rounded up to a multiple of
-    the batch tile."""
+    sequences: h of every sequence, zero-padded to whole 256-k slices, and
+    the 4 k slices' row sums (40 floats per sequence each), both for B
+    rounded up to the batch tile."""
     bp = -(-B // GRID_BATCH_TILE) * GRID_BATCH_TILE
-    hp = -(-H // K3_KCHUNK) * K3_KCHUNK
-    return bp * (hp + GRID_WARPS * GRID_ROWS_PER_WARP) * 4
+    hp = -(-H // GRID_K_SLICE) * GRID_K_SLICE
+    return bp * (hp + 4 * GRID_SLICE_STRIDE) * 4
 
 
 def grid_max_batch(H: int) -> int:
     """The most sequences one grid launch takes at H: a multiple of the
     batch tile whose h fits one block's shared memory, at most one cell
-    (unit, sequence) per thread (H=1024: 48; H ≤ 768: 64)."""
+    (unit, sequence) per thread (H > 768: 48; H ≤ 768: 64)."""
     b = GRID_MAX_BATCH
     while grid_smem_bytes(H, b) > SMEM_PER_BLOCK:
         b -= GRID_BATCH_TILE
@@ -274,8 +327,8 @@ def grid_plan(B: int, H: int, max_ctas: int) -> GridPlan:
     n_launches = max(1, -(-B // grid_max_batch(H)))
     per_launch = max(1, -(-B // n_launches))
     return GridPlan(B=B, H=H, ctas=-(-H // units), units_per_cta=units,
-                    k_chunks=-(-H // K3_KCHUNK), batch_per_launch=per_launch,
-                    n_launches=n_launches,
+                    k_slices=-(-H // GRID_K_SLICE),
+                    batch_per_launch=per_launch, n_launches=n_launches,
                     smem_bytes=grid_smem_bytes(H, per_launch))
 
 
@@ -341,8 +394,9 @@ def max_grid_ctas(H: int, device: torch.device) -> int:
 
 
 def _launch_grid(plan: GridPlan, xp, w_hh, h0, c0, out, c_out, c_seq) -> None:
-    """The grid kernel over the plan's batch ranges, one launch each, each
-    with its own zeroed arrival counter."""
+    """The grid kernel over the plan's batch ranges, one launch each with
+    its own zeroed arrival counter (a launch that polls first fills its rows
+    of `out` with the kernel's empty mark)."""
     lib = build.load_library("lstm_grid")
     counters = torch.zeros(plan.n_launches, device=xp.device,
                            dtype=torch.int32)
@@ -470,19 +524,23 @@ lstm_scan.save_launches = 0  # type: ignore[attr-defined]
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
     """The backward kernel's launches: `ctas` CTAs, CTA g owning hidden
-    units `[g·units_per_cta, (g+1)·units_per_cta)` ∩ `[0, H)` (their
-    columns of W_hh) for every sequence; each thread holds gate rows
-    `j = m·512 + thread` for `m < j_chunks`; the batch runs as `n_launches`
-    launches of at most `batch_per_launch` sequences (`batch_ranges`), each
-    with `smem_bytes` of shared memory."""
+    units `[g·units_per_cta, (g+1)·units_per_cta)` ∩ `[0, H)` (their 4U
+    gate rows of W_hh, row q = gate q // U of unit q % U) for every
+    sequence; thread x holds those rows at `thread_columns(x)`. Each step
+    a CTA writes its rows' products with dgates_t, `[B, H]`, into one
+    parity of a `partial_bytes` buffer laid out `[2][owner CTA][B][block]`
+    (`partial_offset`), and adds the `ctas` partials of each of its units
+    in `sum_chains` and `sum_tree` order. The batch runs as `n_launches` launches of at
+    most `batch_per_launch` sequences (`batch_ranges`), each with
+    `smem_bytes` of shared memory."""
     B: int
     H: int
     ctas: int
     units_per_cta: int
-    j_chunks: int
     batch_per_launch: int
     n_launches: int
     smem_bytes: int
+    partial_bytes: int
 
     def unit_ranges(self) -> tp.List[tp.Tuple[int, int]]:
         u = self.units_per_cta
@@ -492,48 +550,115 @@ class BwdPlan:
         n = self.batch_per_launch
         return [(b, min(self.B, b + n)) for b in range(0, self.B, n)]
 
+    def thread_columns(self, x: int) -> tp.List[int]:
+        return [k for k in (x + c * BWD_THREADS for c in range(BWD_COLS))
+                if k < self.H]
 
-def bwd_smem_bytes(B: int) -> int:
+    def partial_offset(self, b: int, source: int, k: int) -> int:
+        """Where CTA `source` writes its partial for sequence b, column k
+        (a float index into one parity): in the block of k's owner, which
+        reads `[b][source][unit]` contiguously."""
+        U = self.units_per_cta
+        sb = bwd_block_floats(self.ctas, U)
+        owner = k // U
+        return ((owner * self.batch_per_launch + b) * sb + source * U
+                + k - owner * U)
+
+    def sum_chains(self) -> tp.List[tp.List[int]]:
+        """The order a unit's partials are added: 16 chains of sources in
+        source order (`sum_tree` combines them), then added to dy."""
+        return [list(range(j, self.ctas, BWD_CHAINS))
+                for j in range(BWD_CHAINS)]
+
+    @staticmethod
+    def sum_tree() -> tp.Tuple:
+        """How the 16 chains are combined: in pairs, pairs of pairs, ...
+        (nested tuples of chain indices), whether 16 threads add them by
+        shuffles xor 1, 2, 4, 8 (B·U ≤ 32) or one thread does."""
+        level: tp.List[tp.Any] = list(range(BWD_CHAINS))
+        while len(level) > 1:
+            level = [(level[i], level[i + 1]) for i in range(0, len(level), 2)]
+        return level[0]
+
+    def spread(self) -> bool:
+        """Whether 16 threads take each cell's sum (few cells)."""
+        return (self.batch_per_launch * self.units_per_cta * BWD_CHAINS
+                <= BWD_THREADS)
+
+    @staticmethod
+    def batch_tiles(n: int) -> tp.List[int]:
+        """Sequences per product pass for a launch of n: tiles of 4, then
+        one at a time; each sequence's products sum the rows in q order
+        whatever its tile."""
+        return [BWD_BATCH_TILE] * (n // BWD_BATCH_TILE) + [1] * (
+            n % BWD_BATCH_TILE)
+
+
+def bwd_block_floats(ctas: int, units: int) -> int:
+    """One (owner CTA, sequence) block of partials: every source's units,
+    padded to whole float4s."""
+    return -(-ctas * units // 4) * 4
+
+
+def bwd_smem_bytes(B: int, ctas: int, units: int) -> int:
     """Dynamic shared memory of one backward CTA for a launch of B
-    sequences: the 16 warps' 16 sums of every tile of 2 sequences."""
-    return -(-B // BWD_BATCH_TILE) * BWD_WARPS * BWD_MAX_UNITS * \
-        BWD_BATCH_TILE * 4
+    sequences: dgates_t of its 32 rows and its block of partials per
+    sequence (its row padded by the units rounded up to 4, so a warp's
+    cells read distinct banks), and 8 inputs of the coming step per cell."""
+    stride = bwd_block_floats(ctas, units) + -(-units // 4) * 4
+    return B * (4 * BWD_MAX_UNITS + stride + BWD_CELL_INPUTS * units) * 4
+
+
+def bwd_max_batch(ctas: int, units: int) -> int:
+    """The most sequences one backward launch takes: a cell (unit,
+    sequence) per thread, and the partials in shared memory (H=1024: 51)."""
+    b = BWD_THREADS // units
+    while bwd_smem_bytes(b, ctas, units) > SMEM_PER_BLOCK:
+        b -= 1
+    return b
 
 
 def bwd_plan(B: int, H: int, max_ctas: int) -> BwdPlan:
-    """Units per CTA = ceil(H / max_ctas) (≤ 8), so the grid is one CTA per
-    SM or fewer (H=1024 on 132 SMs: 128 CTAs of 8 units; H=512: 128 of 4;
-    H=32: 32 of 1); the batch is split evenly over the fewest launches of
-    at most 64 sequences (a cell per thread)."""
+    """Units per CTA = ceil(H / min(max_ctas, 128)) (≤ 8), so the grid is
+    one CTA per SM or fewer (H=1024 on 132 SMs: 128 CTAs of 8 units;
+    H=512: 128 of 4; H=32: 32 of 1); the batch is split evenly over the
+    fewest launches that fit (`bwd_max_batch`)."""
     if not 1 <= H <= BWD_MAX_H:
         raise ValueError(f"the K3 backward kernel takes 1 <= H <= "
                          f"{BWD_MAX_H}, got {H}")
     if max_ctas < 1:
         raise RuntimeError(f"the card cannot hold one K3 backward CTA "
                            f"(max co-resident CTAs {max_ctas})")
-    units = -(-H // max_ctas)
+    units = -(-H // min(max_ctas, BWD_MAX_CTAS))
     if units > BWD_MAX_UNITS:
         raise RuntimeError(
             f"the K3 backward kernel needs {-(-H // BWD_MAX_UNITS)} "
             f"co-resident CTAs at H={H}; the card holds {max_ctas}")
-    n_launches = max(1, -(-B // BWD_MAX_BATCH))
+    ctas = -(-H // units)
+    n_launches = max(1, -(-B // bwd_max_batch(ctas, units)))
     per_launch = max(1, -(-B // n_launches))
-    return BwdPlan(B=B, H=H, ctas=-(-H // units), units_per_cta=units,
-                   j_chunks=-(-4 * H // BWD_JCHUNK),
+    return BwdPlan(B=B, H=H, ctas=ctas, units_per_cta=units,
                    batch_per_launch=per_launch, n_launches=n_launches,
-                   smem_bytes=bwd_smem_bytes(per_launch))
+                   smem_bytes=bwd_smem_bytes(per_launch, ctas, units),
+                   partial_bytes=2 * ctas * per_launch
+                   * bwd_block_floats(ctas, units) * 4)
 
 
 def max_bwd_ctas(H: int, device: torch.device) -> int:
     """How many backward CTAs for H the card holds at once, at the most
-    shared memory a launch uses (cached): SMs × CTAs per SM, from
+    shared memory a launch uses (cached): SMs × CTAs per SM of the
+    instance for ceil(H / min(SMs, 128)) units, from
     `cudaOccupancyMaxActiveBlocksPerMultiprocessor`."""
     key = (torch.cuda.current_device() if device.index is None
            else device.index, H, -2)
     if key not in _MAX_ACTIVE:
         lib = build.load_library("lstm_bwd")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        units = min(BWD_MAX_UNITS, -(-H // min(sms, BWD_MAX_CTAS)))
+        ctas = -(-H // units)
         with torch.cuda.device(device):
-            n = lib.lstm_bwd_max_ctas(H, BWD_MAX_BATCH)
+            n = lib.lstm_bwd_max_ctas(units, bwd_max_batch(ctas, units),
+                                      ctas)
         if n < 0:
             build.check(lib, "lstm_bwd", -n)
         _MAX_ACTIVE[key] = n
@@ -555,7 +680,7 @@ def lstm_scan_backward(pre: torch.Tensor, c_seq: torch.Tensor,
     device. Returns (dgates `[B, T, 4H]` — the gradient of xp —, dh0, dc0
     `[B, H]`, both None when not `state_grad`); dW_hh is `dgatesᵀ [h0;
     h_{<T-1}]`, one matmul outside. On CUDA one launch per batch range of
-    `bwd_plan`."""
+    `bwd_plan`, with `plan.partial_bytes` of scratch."""
     check_tensor("pre", pre, ndim=3)
     check_tensor("w_hh", w_hh, ndim=2)
     B, T, H4 = pre.shape
@@ -593,6 +718,8 @@ def lstm_scan_backward(pre: torch.Tensor, c_seq: torch.Tensor,
         return dgates, dh0, dc0
     counters = torch.zeros(plan.n_launches, device=pre.device,
                            dtype=torch.int32)
+    part = torch.empty(plan.partial_bytes // 4, device=pre.device,
+                       dtype=torch.float32)   # 16-byte aligned
 
     def ptr(t, b0):
         return None if t is None else t[b0:].data_ptr()
@@ -603,8 +730,9 @@ def lstm_scan_backward(pre: torch.Tensor, c_seq: torch.Tensor,
             rc = lib.lstm_bwd_launch(
                 ptr(pre, b0), ptr(c_seq, b0), ptr(c0, b0), ptr(dy, b0),
                 ptr(dc_last, b0), w_hh.data_ptr(), ptr(dgates, b0),
-                ptr(dh0, b0), ptr(dc0, b0), counters[i:].data_ptr(), b1 - b0,
-                T, H, plan.units_per_cta, plan.ctas, stream)
+                ptr(dh0, b0), ptr(dc0, b0), part.data_ptr(),
+                counters[i:].data_ptr(), b1 - b0, T, H, plan.units_per_cta,
+                plan.ctas, stream)
             build.check(lib, "lstm_bwd", rc)
             lstm_scan_backward.launches += 1
     return dgates, dh0, dc0

@@ -412,22 +412,56 @@ def test_lstm_grid_kernel_zero_state_equals_stateless(dev, H):
 
 
 def test_lstm_grid_kernel_layout_matches_the_plan(dev):
+    import ctypes
     lib = build.load_library("lstm_grid")
     assert lib.lstm_grid_threads() == lstm_cuda.GRID_THREADS
     assert lib.lstm_grid_max_units() == lstm_cuda.GRID_MAX_UNITS
+    assert lib.lstm_grid_lane_rows() == lstm_cuda.GRID_LANE_ROWS
+    assert lib.lstm_grid_lane_k() == lstm_cuda.GRID_LANE_K
     assert lib.lstm_grid_batch_tile() == lstm_cuda.GRID_BATCH_TILE
     assert lib.lstm_grid_max_batch() == lstm_cuda.GRID_MAX_BATCH
     assert lib.lstm_grid_max_h() == lstm_cuda.GRID_MAX_H
+    for B in range(1, 65):
+        assert bool(lib.lstm_grid_fenced(B)) == lstm_cuda.GridPlan.fenced(B)
     for H in (513, 640, 1000, 1024):
-        for B in (1, 8, 9, lstm_cuda.grid_max_batch(H)):
+        for B in (1, 2, 3, 8, 9, lstm_cuda.grid_max_batch(H)):
             assert lib.lstm_grid_smem_bytes(H, B) == lstm_cuda.grid_smem_bytes(
                 H, B)
-        assert lib.lstm_grid_smem_bytes(H, lstm_cuda.grid_max_batch(H) + 8) == -1
+        assert lib.lstm_grid_smem_bytes(H, lstm_cuda.grid_max_batch(H) + 2) == -1
         # one CTA per SM, and the plan's grid fits what the card holds
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         n = lstm_cuda.max_grid_ctas(H, dev)
         assert n >= sms
         assert lstm_cuda.grid_plan(32, H, n).ctas <= n
+    # W_hh stays in registers: no spill in any instantiation
+    for save in (0, 1):
+        for fenced in (0, 1):
+            regs, local = ctypes.c_int(), ctypes.c_int()
+            build.check(lib, "lstm_grid", lib.lstm_grid_attributes(
+                save, fenced, ctypes.addressof(regs), ctypes.addressof(local)))
+            assert local.value == 0 and regs.value <= 128
+
+
+@pytest.mark.parametrize("H", [1000, 1024])
+@pytest.mark.parametrize("B", [1, 3, 32, 49])
+def test_lstm_grid_kernel_batch_slot_bits(dev, B, H):
+    """A sequence's bits do not depend on its slot or on B: row b of a
+    B-sequence launch (two launches at B=49) equals the launch of
+    sequence b alone, from zero state and from a state, saving or not."""
+    T = 40
+    xp, w, h0, c0 = _lstm_inputs(dev, B, T, H, 85)
+    whole, _, cT = lstm_scan(xp, w, h0, c0, return_state=True)
+    zero = lstm_scan(xp, w)
+    saved, c_seq = lstm_scan(xp, w, h0, c0, save_c=True)
+    assert torch.equal(saved, whole)
+    for b in range(B):
+        one = slice(b, b + 1)
+        out1, _, c1 = lstm_scan(xp[one], w, h0[one], c0[one],
+                                return_state=True)
+        assert torch.equal(out1, whole[one]) and torch.equal(c1, cT[one])
+        assert torch.equal(lstm_scan(xp[one], w), zero[one])
+        assert torch.equal(lstm_scan(xp[one], w, h0[one], c0[one],
+                                     save_c=True)[1], c_seq[one])
 
 
 @pytest.mark.parametrize("n_q,W,S", [(32, 262, 2), (16, 525, 11)])
@@ -554,19 +588,49 @@ def test_lstm_scan_refuses_inputs_that_need_a_gradient(dev):
 
 
 def test_lstm_backward_kernel_layout_matches_the_plan(dev):
+    import ctypes
     lib = build.load_library("lstm_bwd")
     assert lib.lstm_bwd_threads() == lstm_cuda.BWD_THREADS
     assert lib.lstm_bwd_max_units() == lstm_cuda.BWD_MAX_UNITS
+    assert lib.lstm_bwd_cols() == lstm_cuda.BWD_COLS
     assert lib.lstm_bwd_batch_tile() == lstm_cuda.BWD_BATCH_TILE
-    assert lib.lstm_bwd_max_batch() == lstm_cuda.BWD_MAX_BATCH
     assert lib.lstm_bwd_max_h() == lstm_cuda.BWD_MAX_H
-    for B in (1, 2, 3, 32, 64):
-        assert lib.lstm_bwd_smem_bytes(B) == lstm_cuda.bwd_smem_bytes(B)
+    assert lib.lstm_bwd_max_ctas_limit() == lstm_cuda.BWD_MAX_CTAS
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for H in (32, 512, 1024):
+    for H in (32, 256, 512, 1000, 1024):
         n = lstm_cuda.max_bwd_ctas(H, dev)
         assert n >= sms
-        assert lstm_cuda.bwd_plan(32, H, n).ctas <= n
+        plan = lstm_cuda.bwd_plan(32, H, n)
+        assert plan.ctas <= n
+        U, G = plan.units_per_cta, plan.ctas
+        for B in (1, 2, 3, 32, lstm_cuda.bwd_max_batch(G, U)):
+            assert lib.lstm_bwd_smem_bytes(B, G, U) == lstm_cuda.bwd_smem_bytes(
+                B, G, U)
+        assert lib.lstm_bwd_smem_bytes(lstm_cuda.bwd_max_batch(G, U) + 1, G,
+                                       U) == -1
+    # W_hh stays in registers: no spill for any units per CTA
+    for U in range(1, lstm_cuda.BWD_MAX_UNITS + 1):
+        regs, local = ctypes.c_int(), ctypes.c_int()
+        build.check(lib, "lstm_bwd", lib.lstm_bwd_attributes(
+            U, ctypes.addressof(regs), ctypes.addressof(local)))
+        assert local.value == 0 and regs.value <= 128
+
+
+@pytest.mark.parametrize("H", [1000, 1024])
+@pytest.mark.parametrize("B", [1, 3, 32, 49])
+def test_lstm_backward_kernel_batch_slot_bits(dev, B, H):
+    """A sequence's gradient bits do not depend on its slot or on B: row b
+    of a B-sequence backward equals the backward of sequence b alone
+    (dgates, dh0, dc0)."""
+    _, w, _, c0, pre, c_seq, dy, dc_last = _bwd_inputs(dev, B, 30, H, 96,
+                                                       True)
+    whole = lstm_scan_backward(pre, c_seq, dy, w, c0, dc_last)
+    for b in range(B):
+        one = slice(b, b + 1)
+        alone = lstm_scan_backward(pre[one], c_seq[one], dy[one], w, c0[one],
+                                   dc_last[one])
+        for g, r in zip(alone, whole):
+            assert torch.equal(g, r[one])
 
 
 def test_gen_step_on_the_kernels_matches_the_plain_twins(dev):

@@ -16,6 +16,7 @@ must fit one block's shared memory and cover every row, bin, gate row,
 unit and batch item exactly once.
 """
 
+import numpy as np
 import pytest
 
 from encodec_tpu_torch.kernels import lstm_cuda, vq_cuda
@@ -252,15 +253,16 @@ def test_k3_kernels_split_h_between_them(H):
 
 
 def _grid_rows(plan):
-    """The grid kernel's map from (CTA, warp, row r) to W_hh gate rows:
-    CTA row q = 2·warp + r is gate q // U of unit u0 + q % U."""
+    """The grid kernel's map from (CTA, busy warp, lane row) to W_hh gate
+    rows: CTA row q is gate q // U of unit u0 + q % U; each k slice's warps
+    hold the same rows, so slice 0's are counted."""
     placed = []
     U = plan.units_per_cta
     for u0, u1 in plan.unit_ranges():
-        for w in range(lstm_cuda.GRID_WARPS):
-            for r in range(lstm_cuda.GRID_ROWS_PER_WARP):
-                q = lstm_cuda.GRID_ROWS_PER_WARP * w + r
+        for w in range(lstm_cuda.GRID_ROW_GROUPS):
+            for q in plan.lane_rows(w):
                 if q < 4 * U and q % U < u1 - u0:
+                    assert plan.busy(w)
                     placed.append((q // U) * plan.H + u0 + q % U)
     return placed
 
@@ -277,6 +279,12 @@ def test_grid_plan_covers_units_rows_and_batch_once(H, B):
         plan.ctas * plan.units_per_cta)
     # every gate row of W_hh [4H, H] lives in exactly one CTA's registers
     assert sorted(_grid_rows(plan)) == list(range(4 * H))
+    # every k < H in exactly one (busy k slice, lane)
+    ks = sorted(k for w in range(0, lstm_cuda.GRID_WARPS,
+                                 lstm_cuda.GRID_ROW_GROUPS)
+                if w // lstm_cuda.GRID_ROW_GROUPS < plan.k_slices
+                for lane in range(32) for k in plan.lane_k(w, lane) if k < H)
+    assert ks == list(range(H))
     # every sequence in exactly one launch, each launch within the kernel's
     # limits: a cell (unit, sequence) per thread, h in shared memory
     _covers_once(plan.batch_ranges(), B)
@@ -285,84 +293,201 @@ def test_grid_plan_covers_units_rows_and_batch_once(H, B):
     for b0, b1 in plan.batch_ranges():
         assert b1 - b0 <= plan.batch_per_launch
         assert plan.units_per_cta * (b1 - b0) <= lstm_cuda.GRID_THREADS
+        assert sum(plan.batch_tiles(b1 - b0)) == b1 - b0
     assert plan.smem_bytes == lstm_cuda.grid_smem_bytes(
         H, plan.batch_per_launch) <= SMEM_PER_BLOCK
 
 
-@pytest.mark.parametrize("H,ctas,units,smem_b1", [
-    (513, 129, 4, 8 * (640 + 32) * 4), (640, 128, 5, 8 * (640 + 32) * 4),
-    (1000, 125, 8, 8 * (1024 + 32) * 4), (1024, 128, 8, 8 * (1024 + 32) * 4)])
-def test_grid_plan_at_breathing_shapes(H, ctas, units, smem_b1):
+def _grid_smem(H, B):
+    """h [Bp][HP] and the 4 slices' row sums [4][Bp][40], Bp even."""
+    bp = B + B % 2
+    return bp * (-(-H // 256) * 256 + 4 * 40) * 4
+
+
+@pytest.mark.parametrize("H,ctas,units,slices", [
+    (513, 129, 4, 3), (640, 128, 5, 3), (1000, 125, 8, 4), (1024, 128, 8, 4)])
+def test_grid_plan_at_breathing_shapes(H, ctas, units, slices):
     # H=1024 is the breathing tokenizer's LSTM (params/default.yaml): 128
     # CTAs of 8 units, 32 gate rows each; a night at B=1, a batch at B=32
     for B, launches in ((1, 1), (32, 1), (49, 2 if H > 768 else 1)):
         plan = lstm_cuda.grid_plan(B, H, H100_SMS)
-        assert (plan.ctas, plan.units_per_cta, plan.k_chunks) == (
-            ctas, units, -(-H // 128))
+        assert (plan.ctas, plan.units_per_cta, plan.k_slices) == (
+            ctas, units, slices)
         assert plan.n_launches == launches
-    assert lstm_cuda.grid_plan(1, H, H100_SMS).smem_bytes == smem_b1
-    assert lstm_cuda.grid_max_batch(H) == (48 if H > 768 else 64)
+    assert lstm_cuda.grid_plan(1, H, H100_SMS).smem_bytes == _grid_smem(H, 1)
+    assert lstm_cuda.grid_plan(32, H, H100_SMS).smem_bytes == _grid_smem(
+        H, 32)
+    assert lstm_cuda.grid_max_batch(H) == (48 if H > 768 else 62)
 
 
 def test_grid_smem_layout():
-    # h [Bp][HP] and the row sums [32][Bp], Bp a multiple of 8
-    assert lstm_cuda.grid_smem_bytes(1024, 1) == 8 * (1024 + 32) * 4
-    assert lstm_cuda.grid_smem_bytes(1024, 9) == 16 * (1024 + 32) * 4
+    # h [Bp][HP] and the row sums [4][Bp][40], Bp a multiple of 2
+    assert lstm_cuda.grid_smem_bytes(1024, 1) == 2 * (1024 + 160) * 4
+    assert lstm_cuda.grid_smem_bytes(1024, 3) == 4 * (1024 + 160) * 4
+    assert lstm_cuda.grid_smem_bytes(1024, 32) == 32 * (1024 + 160) * 4
     assert lstm_cuda.grid_smem_bytes(1024, 48) <= SMEM_PER_BLOCK
-    assert lstm_cuda.grid_smem_bytes(1024, 56) > SMEM_PER_BLOCK
+    assert lstm_cuda.grid_smem_bytes(1024, 50) > SMEM_PER_BLOCK
+    assert lstm_cuda.grid_smem_bytes(640, 62) <= SMEM_PER_BLOCK
+    assert lstm_cuda.grid_smem_bytes(640, 64) > SMEM_PER_BLOCK
     assert lstm_cuda.GRID_MAX_H == 1024
 
 
-def _bwd_columns(plan):
-    """The backward kernel's map: CTA g holds the columns of its units,
-    thread x the gate rows j = m·512 + x (m < j_chunks) of each column;
-    returns every (gate row, unit) held."""
-    held = []
+@pytest.mark.parametrize("H", [513, 640, 1000, 1024])
+def test_grid_lanes_hold_every_row_and_k_of_a_cta_once(H):
+    """Inside every CTA the 16 warps (4 row groups x 4 k slices) and their
+    lanes (8 rows x 8 k each) hold each (valid row, k < H) of the CTA's W_hh
+    block exactly once, and only busy warps hold any."""
+    plan = lstm_cuda.grid_plan(1, H, H100_SMS)
+    U = plan.units_per_cta
+    for u0, u1 in {plan.unit_ranges()[0], plan.unit_ranges()[-1]}:
+        held = np.zeros((4 * U, H), dtype=np.int64)
+        for w in range(lstm_cuda.GRID_WARPS):
+            for lane in range(32):
+                rows = [q for q in plan.lane_rows(w)
+                        if q < 4 * U and q % U < u1 - u0]
+                ks = [k for k in plan.lane_k(w, lane) if k < H]
+                assert len(plan.lane_rows(w)) == lstm_cuda.GRID_LANE_ROWS
+                assert len(plan.lane_k(w, lane)) == lstm_cuda.GRID_LANE_K
+                if rows and ks:
+                    assert plan.busy(w)
+                for q in rows:
+                    held[q, ks] += 1
+        valid = np.array([q % U < u1 - u0 for q in range(4 * U)])
+        assert (held[valid] == 1).all() and (held[~valid] == 0).all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 32, 48, 49])
+def test_grid_batch_tiles(n):
+    # tiles of 2 in slot order, a lone last sequence alone: B=1 computes
+    # one sequence, not a padded tile
+    tiles = lstm_cuda.GridPlan.batch_tiles(n)
+    assert sum(tiles) == n
+    assert tiles == [2] * (n // 2) + [1] * (n % 2)
+    assert lstm_cuda.GRID_BATCH_TILE == 2
+    # launches of 10 sequences and more wait on a barrier before one copy
+    # of h, smaller ones poll `out`
+    assert lstm_cuda.GridPlan.fenced(n) == (n >= 10)
+
+
+def _fold(acc, lane_bit, half):
+    """One butterfly level as the kernel runs it (`fold<HALF, DIST>`): slot
+    i adds the partner's slot i + HALF. Sums are kept as sorted pairs,
+    since a + b and b + a have the same bits."""
+    return [[tuple(sorted((vals[i], acc[lane ^ lane_bit][i + half])))
+             for i in range(half)] for lane, vals in enumerate(acc)]
+
+
+def _pair(acc, lane_bit):
+    return [[tuple(sorted((v[0], acc[lane ^ lane_bit][0])))]
+            for lane, v in enumerate(acc)]
+
+
+def _grid_row_sums(bt):
+    """The tree of each (sequence, row) sum of a matvec pass of tile `bt`,
+    by simulating row_sums: slot r*bt + i of lane l starts as the leaf
+    (l, sequence i ^ ((l >> 1) & 1) at bt = 2, row r ^ ((l >> 2) & 7)).
+    Returns {(sequence, row): tree} from the lanes that write."""
+    acc = [[(lane, (v % bt) ^ ((lane >> 1) & 1 if bt == 2 else 0),
+             (v // bt) ^ ((lane >> 2) & 7)) for v in range(8 * bt)]
+           for lane in range(32)]
+    if bt == 2:
+        for bit, half in ((16, 8), (8, 4), (4, 2), (2, 1)):
+            acc = _fold(acc, bit, half)
+        acc = _pair(acc, 1)
+        return {((lane >> 1) & 1, lane >> 2): acc[lane][0]
+                for lane in range(0, 32, 2)}
+    for bit, half in ((16, 4), (8, 2), (4, 1)):
+        acc = _fold(acc, bit, half)
+    acc = _pair(_pair(acc, 2), 1)
+    return {(0, lane >> 2): acc[lane][0] for lane in range(0, 32, 4)}
+
+
+def _leaves(tree):
+    if isinstance(tree[0], int):
+        return [tree]
+    return [leaf for t in tree for leaf in _leaves(t)]
+
+
+def _relabel(tree, seq):
+    if isinstance(tree[0], int):
+        return (tree[0], seq, tree[2])
+    return tuple(sorted(_relabel(t, seq) for t in tree))
+
+
+def test_grid_butterfly_sums_a_sequence_alike_in_every_tile():
+    """The fixed reduction order: a tile of 2 and a tile of 1 sum each
+    (sequence, row) over the 32 lanes as the same tree (pairs xor 16, 8,
+    4, 2, 1), so a sequence's bits do not depend on its slot or on B; and
+    the select-free folds of permuted slots add only one (sequence, row)'s
+    partial sums, every lane's exactly once."""
+    two, one = _grid_row_sums(2), _grid_row_sums(1)
+    assert set(two) == {(i, r) for i in range(2) for r in range(8)}
+    assert set(one) == {(0, r) for r in range(8)}
+    for (i, r), tree in two.items():
+        leaves = _leaves(tree)
+        assert sorted(leaves) == [(lane, i, r) for lane in range(32)]
+        assert _relabel(tree, 0) == _relabel(one[0, r], 0)
+    assert lstm_cuda.BUTTERFLY == (16, 8, 4, 2, 1)
+
+
+def _bwd_rows(plan):
+    """The backward kernel's rows: CTA g holds row q = gate q // U of unit
+    u0 + q % U for q % U < nu."""
+    placed = []
+    U = plan.units_per_cta
     for u0, u1 in plan.unit_ranges():
-        for m in range(plan.j_chunks):
-            for x in range(lstm_cuda.BWD_THREADS):
-                j = m * lstm_cuda.BWD_JCHUNK + x
-                if j < 4 * plan.H:
-                    held.extend((j, u) for u in range(u0, u1))
-    return held
+        placed += [(q // U) * plan.H + u0 + q % U for q in range(4 * U)
+                   if q % U < u1 - u0]
+    return placed
 
 
 @pytest.mark.parametrize("H", [1, 7, 32, 256, 512, 513, 1000, 1024])
 @pytest.mark.parametrize("B", [1, 2, 3, 32, 64, 65, 200])
 def test_bwd_plan_covers_columns_rows_and_batch_once(H, B):
     plan = lstm_cuda.bwd_plan(B, H, H100_SMS)
-    assert 1 <= plan.units_per_cta <= lstm_cuda.BWD_MAX_UNITS
-    assert plan.ctas <= H100_SMS
+    U = plan.units_per_cta
+    assert 1 <= U <= lstm_cuda.BWD_MAX_UNITS
+    assert plan.ctas <= min(H100_SMS, lstm_cuda.BWD_MAX_CTAS)
     _covers_once(plan.unit_ranges(), H)
     # the launch's own check (lstm_bwd_launch)
-    assert (plan.ctas - 1) * plan.units_per_cta < H <= (
-        plan.ctas * plan.units_per_cta)
-    assert plan.j_chunks <= 8 and plan.j_chunks * lstm_cuda.BWD_JCHUNK >= 4 * H
-    if H <= 64:   # every element of W_hh [4H, H] held exactly once
-        held = _bwd_columns(plan)
-        assert sorted(held) == [(j, u) for j in range(4 * H)
-                                for u in range(H)]
+    assert (plan.ctas - 1) * U < H <= plan.ctas * U
+    # every gate row of W_hh [4H, H] in exactly one CTA, every column at
+    # exactly one thread of it
+    assert sorted(_bwd_rows(plan)) == list(range(4 * H))
+    cols = sorted(k for x in range(lstm_cuda.BWD_THREADS)
+                  for k in plan.thread_columns(x))
+    assert cols == list(range(H))
     # every sequence in exactly one launch; a cell (unit, sequence) per
-    # thread; the warps' sums of every pair of sequences in shared memory
+    # thread; dgates and the CTA's partials of every sequence in shared
+    # memory
     _covers_once(plan.batch_ranges(), B)
     assert len(plan.batch_ranges()) == plan.n_launches == -(
-        -B // lstm_cuda.BWD_MAX_BATCH)
+        -B // lstm_cuda.bwd_max_batch(plan.ctas, U))
     for b0, b1 in plan.batch_ranges():
-        assert plan.units_per_cta * (b1 - b0) <= lstm_cuda.BWD_THREADS
+        assert U * (b1 - b0) <= lstm_cuda.BWD_THREADS
+        assert sum(plan.batch_tiles(b1 - b0)) == b1 - b0
     assert plan.smem_bytes == lstm_cuda.bwd_smem_bytes(
-        plan.batch_per_launch) <= 48 * 1024
+        plan.batch_per_launch, plan.ctas, U) <= SMEM_PER_BLOCK
+    assert plan.partial_bytes == 2 * plan.ctas * plan.batch_per_launch * (
+        -(-plan.ctas * U // 4) * 4) * 4
 
 
-@pytest.mark.parametrize("H,ctas,units,j_chunks", [
-    (1024, 128, 8, 8), (512, 128, 4, 4), (256, 128, 2, 2), (32, 32, 1, 1)])
-def test_bwd_plan_at_training_shapes(H, ctas, units, j_chunks):
+@pytest.mark.parametrize("H,ctas,units,max_batch", [
+    (1024, 128, 8, 51), (512, 128, 4, 100), (256, 128, 2, 188),
+    (32, 32, 1, 512)])
+def test_bwd_plan_at_training_shapes(H, ctas, units, max_batch):
     # H=1024: default.yaml's LSTM (B=32 nights: one launch); 512 and 256:
     # the 24 kHz codec's and hires_tokens.yaml's; 32: the tests' tiny model
     plan = lstm_cuda.bwd_plan(32, H, H100_SMS)
-    assert (plan.ctas, plan.units_per_cta, plan.j_chunks,
-            plan.n_launches) == (ctas, units, j_chunks, 1)
-    assert lstm_cuda.bwd_smem_bytes(32) == 16 * 16 * 16 * 4
-    assert lstm_cuda.BWD_MAX_H == 1024 and lstm_cuda.BWD_MAX_BATCH == 64
+    assert (plan.ctas, plan.units_per_cta, plan.n_launches) == (
+        ctas, units, 1)
+    assert lstm_cuda.bwd_max_batch(ctas, units) == max_batch
+    # dgates of 32 rows and the block of partials (+ the bank pad) per
+    # sequence, 8 inputs of the coming step per cell
+    sb = -(-ctas * units // 4) * 4
+    assert plan.smem_bytes == 32 * (32 + sb + -(-units // 4) * 4
+                                    + 8 * units) * 4
+    assert lstm_cuda.BWD_MAX_H == 1024
 
 
 def test_bwd_plan_refuses_what_the_kernel_cannot_take():
@@ -372,3 +497,61 @@ def test_bwd_plan_refuses_what_the_kernel_cannot_take():
         lstm_cuda.bwd_plan(1, 1024, 100)   # 11 units per CTA: more than 8
     with pytest.raises(RuntimeError):
         lstm_cuda.bwd_plan(1, 32, 0)
+
+
+@pytest.mark.parametrize("H", [7, 32, 256, 512, 1000, 1024])
+def test_bwd_partials_cover_every_source_and_column_once(H):
+    """One parity of the partials: CTA g's partial for (sequence b, column
+    k) has a slot of its own, inside the block of k's owner, and the owner
+    finds each of its units' G partials there, once each, summed in four
+    chains of sources in source order."""
+    B = 3
+    plan = lstm_cuda.bwd_plan(B, H, H100_SMS)
+    U, G = plan.units_per_cta, plan.ctas
+    sb = -(-G * U // 4) * 4
+    offsets = np.array([[[plan.partial_offset(b, g, k) for k in range(H)]
+                         for g in range(G)] for b in range(B)])
+    assert len(np.unique(offsets)) == offsets.size
+    assert offsets.max() < plan.partial_bytes // 8
+    for b in range(B):
+        for k in range(H):
+            owner = k // U
+            block = (owner * B + b) * sb
+            # the owner's contiguous block [source][unit]
+            assert list(offsets[b, :, k]) == [block + g * U + k % U
+                                              for g in range(G)]
+    chains = plan.sum_chains()
+    assert len(chains) == 16
+    assert sorted(s for c in chains for s in c) == list(range(G))
+    assert all(c == sorted(c) for c in chains)
+    # the chains' tree is the xor 1, 2, 4, 8 shuffles' tree: lanes j and
+    # j ^ d meet at level d
+    tree = plan.sum_tree()
+
+    def meet(node, depth=0):
+        if isinstance(node, int):
+            return {node: []}
+        a, b = meet(node[0], depth + 1), meet(node[1], depth + 1)
+        out = {}
+        for x, path in a.items():
+            out[x] = path + [min(b) ^ min(a)]
+        for x, path in b.items():
+            out[x] = path + [min(b) ^ min(a)]
+        return out
+
+    assert all(path == [1, 2, 4, 8] for path in meet(tree).values())
+    assert plan.spread() == (B * U <= 32)
+
+
+@pytest.mark.parametrize("B,H,mib", [(32, 1024, 32), (1, 1024, 1),
+                                     (4, 512, 2), (1, 256, 0.25),
+                                     (64, 1024, 32)])
+def test_bwd_partial_buffer_at_training_shapes(B, H, mib):
+    # B=32, H=1024 (default.yaml's batch): 32 MiB of partial sums per
+    # launch, two parities of 128 CTAs x 32 x 1024 floats; B=64 runs as two
+    # launches of 32 that share it
+    plan = lstm_cuda.bwd_plan(B, H, H100_SMS)
+    assert plan.partial_bytes == mib * 2 ** 20
+    # a step moves one parity: written once, read once
+    assert plan.partial_bytes // 2 == plan.ctas * plan.batch_per_launch * (
+        H * 4)
