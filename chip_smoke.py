@@ -92,7 +92,21 @@ Phases, in order (any failure exits non-zero before the last line):
    positions, loss within 1e-4, gradient leaves within 1e-3); K1 at the
    training shape (N=15,360, D=256, 1024 bins) against its twin and
    cdist+argmin;
-15. LM entropy coding (lmv=3) with its own launch counts: the integer LMs
+15. the GAN phase of training (`params/gan.yaml` as a dict: default.yaml's
+   generator with the MS-STFT discriminator in 512-frame chunks), with its
+   own launch counts: the largest batch of gan.yaml as written at which a
+   GAN generator step and a discriminator step both fit (peak memory, ms
+   per step, one profiled step of each by kernel group: cuDNN conv2d
+   forward and backward, conv1d, K1, K3 forward and backward, other; idle
+   share); the B=32 stand-in with `model.remat: true`; gan_disc512.yaml as
+   written (B=8, the whole-signal route); `train.__main__.main` at B=32
+   with remat, the discriminator from epoch 1, 2 epochs of 3 steps (at
+   least one GAN step and one discriminator step), resumed bit for bit
+   with the discriminator's state; a GAN step and a discriminator step at
+   B=4 on the kernels against the plain twins; the chunked discriminator
+   against the whole-signal forward and `disc_remat` against the plain
+   route (B=2, 1 h nights);
+16. LM entropy coding (lmv=3) with its own launch counts: the integer LMs
    at the published widths (seeded random weights) code the 10 s 24 kHz
    request at 6 and 24 kbps in 375-token blocks and at 6 kbps unblocked,
    and the 10 s 48 kHz request at 24 kbps (11 segments), compressed and
@@ -102,7 +116,7 @@ Phases, in order (any failure exits non-zero before the last line):
    rows against the CPU's; teacher-forced encode and decode times, a
    profiled decode step (launches) and 8 profiled decode steps (idle
    share), bytes against the raw file;
-16. print the `kernels` JSON line (launches per path, the grid kernel and
+17. print the `kernels` JSON line (launches per path, the grid kernel and
    the backward kernel in rows of their own), then the final `ok` JSON
    line.
 
@@ -1682,13 +1696,26 @@ def train_group(name: str) -> str:
 
 
 def states_equal(torch, a, b) -> bool:
+    """Two train states equal bit for bit: params, Adam, quantizer and
+    generator state, and a GAN run's discriminator, its Adam state and the
+    balancer's EMA state."""
     from encodec_tpu_torch.train.optim import tree_leaves
 
-    pairs = list(zip(tree_leaves((a.params, a.opt_state.mu, a.opt_state.nu)),
-                     tree_leaves((b.params, b.opt_state.mu, b.opt_state.nu))))
-    pairs += list(zip(a.qstate[:3], b.qstate[:3]))
-    pairs += [(a.opt_state.count, b.opt_state.count), (a.rng, b.rng)]
-    return (a.qstate.inited == b.qstate.inited
+    def trees(s):
+        out = (s.params, s.opt_state.mu, s.opt_state.nu, s.opt_state.count,
+               s.disc_params, s.balancer_state)
+        if s.disc_opt_state is not None:
+            out += tuple(s.disc_opt_state)
+        return out
+
+    if (a.disc_params is None) != (b.disc_params is None) or (
+            a.balancer_state is None) != (b.balancer_state is None):
+        return False
+    la = [x for x in tree_leaves(trees(a)) if x is not None]
+    lb = [x for x in tree_leaves(trees(b)) if x is not None]
+    pairs = list(zip(la, lb)) + list(zip(a.qstate[:3], b.qstate[:3]))
+    pairs.append((a.rng, b.rng))
+    return (a.qstate.inited == b.qstate.inited and len(la) == len(lb)
             and all(torch.equal(x.cpu(), y.cpu()) for x, y in pairs))
 
 
@@ -1978,6 +2005,395 @@ def phase_train(torch, kernels, dev):
           f"device ms: kernel={ms:.4f} plain={plain_ms:.4f} "
           f"library(cdist+argmin)={lib_ms:.4f} bound={b_ms:.5f} ({b_by}); "
           f"timed by {how} / {how_p} / {how_l}")
+    return counts
+
+
+# gan.yaml's discriminator, and the night length of the chunked-vs-whole
+# check (1 h)
+GAN_DISC = dict(filters=32, n_ffts=(1024, 1024), hop_lengths=(20, 128),
+                win_lengths=(100, 512))
+CHECK_NIGHT = 36_000
+
+
+def gan_config(root: str) -> dict:
+    """params/gan.yaml as written (its model, loss and optimization
+    sections: default.yaml's with the discriminator on, 512-frame chunks),
+    logging and saving every epoch, one device, synthetic nights under
+    `root`."""
+    cfg = train_config(root)
+    cfg["exp_details"] = {"name": "gan",
+                          "description": "adversarial fine-tuning phase"}
+    cfg["model"].update(train_discriminator=True, disc_time_chunk=512)
+    return cfg
+
+
+def gan_disc512_config(root: str) -> dict:
+    """params/gan_disc512.yaml as written: B=8, ratios [5, 5, 2, 1] (H=512),
+    512 bins, one 512-FFT discriminator (hop 50, window 300), no
+    `disc_time_chunk` (the whole-signal route), no L2 or commit loss."""
+    cfg = train_config(root)
+    cfg["exp_details"] = {"name": "gan_disc512",
+                          "description": "adversarial, single 512-FFT "
+                                         "discriminator (ref 271224_l1)"}
+    cfg["dataset"]["batch_size"] = 8
+    cfg["loss"].update(weight_l2=0.0, weight_commit=0.0)
+    cfg["model"].update(ratios=[5, 5, 2, 1], bins=512,
+                        train_discriminator=True,
+                        train_discriminator_start_epoch=100,
+                        disc_hop_lengths=[50], disc_win_lengths=[300],
+                        disc_n_ffts=[512])
+    return cfg
+
+
+def conv_split(torch, fn) -> dict:
+    """Device ms of the cuDNN convolutions in one call of `fn` (after a
+    warm-up call), from one profiler window with CPU ops and their input
+    shapes: a kernel belongs to the aten op that launched it, and that op
+    is a 2-D conv (the discriminator's) when one of its 4-D operands spans
+    both spatial dims, else a 1-D conv (the SEANet's, which cuDNN runs as
+    [B, C, 1, T])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            fn()
+            torch.cuda.synchronize()
+    out = {"cuDNN conv2d forward": 0.0, "cuDNN conv2d backward": 0.0,
+           "conv1d": 0.0}
+    for e in prof.events():
+        kern = getattr(e, "kernels", None)
+        if not kern or "conv" not in e.name:
+            continue
+        shapes = [sh for sh in (e.input_shapes or [])
+                  if isinstance(sh, (list, tuple)) and len(sh) == 4]
+        if any(sh[2] > 1 and sh[3] > 1 for sh in shapes):
+            key = ("cuDNN conv2d backward" if "backward" in e.name
+                   else "cuDNN conv2d forward")
+        else:
+            key = "conv1d"
+        out[key] += sum(k.duration for k in kern) / 1e3
+    return out
+
+
+def profile_gan_step(torch, label: str, fn) -> None:
+    """One profiled GAN-phase step by kernel group: device busy time and
+    idle share from one CUDA window (`one_window`), the convolutions split
+    into the discriminator's 2-D and the generator's 1-D ones from a second
+    window with CPU ops (`conv_split`)."""
+    records, wall_ms = one_window(torch, fn)
+    groups: dict = {}
+    for key, (_, us) in records.items():
+        g = train_group(key)
+        groups[g] = groups.get(g, 0.0) + us / 1e3
+    busy = sum(groups.values())
+    conv_total = (groups.pop("cuDNN conv forward", 0.0)
+                  + groups.pop("cuDNN conv backward", 0.0))
+    split = conv_split(torch, fn)
+    split_total = sum(split.values())
+    # the split window's shares of this window's convolution time
+    for k, ms in split.items():
+        groups[k] = conv_total * ms / split_total if split_total else 0.0
+    print(f"profile gan step {label}: wall {wall_ms:.1f} ms (profiled), "
+          f"device busy {busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}; "
+          "by group: " + ", ".join(
+              f"{g} {ms:.2f} ms" for g, ms in
+              sorted(groups.items(), key=lambda kv: -kv[1]))
+          + f" (convolutions {conv_total:.2f} ms, split by a second window "
+          f"that read {split_total:.2f})")
+    for ms, n, key in sorted(((us / 1e3, n, key[:70]) for key, (n, us)
+                              in records.items()), reverse=True)[:5]:
+        print(f"    {ms:9.3f} ms  x{round(n):<4d} {key}")
+
+
+def gan_steps_fit(torch, tr, x, w) -> tp.Optional[tuple]:
+    """A GAN generator step and a discriminator step of trainer `tr` on
+    batch `x` from its fresh state (the k-means init included); None when
+    either runs out of memory. Returns (state after the generator step,
+    first step ms, first disc ms)."""
+    try:
+        t0 = time.perf_counter()
+        s_g, _ = tr.gen_step(tr.state, x, w, use_gan=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tr.disc_step(s_g, x, w)
+        torch.cuda.synchronize()
+        return s_g, (t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3
+    except torch.OutOfMemoryError:
+        return None
+
+
+def step_ms(torch, fn, n: int = 2) -> list:
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def phase_gan(torch, kernels, dev):
+    """The GAN phase of training (params/gan.yaml: default.yaml's
+    generator, H=1024, D=256, 8 stages of one shared book of 1024, with
+    the MS-STFT discriminator: n_fft 1024/1024, hop 20/128, window
+    100/512, 32 filters, 512-frame chunks; 4 h nights). First gan.yaml as
+    written: the largest batch of 32, 24, 16, 12 and 8 nights at which a
+    GAN generator step and a discriminator step both fit, their peak
+    memory, ms per step and one profiled step of each by kernel group;
+    then the B=32 stand-in with `model.remat: true` (departing from the
+    config) and gan_disc512.yaml as written (B=8, the whole-signal
+    route). Counted as one path, `python -m encodec_tpu_torch.train`'s
+    `main` on that JSON config at B=32 over synthetic npz nights (epochs
+    cut by `cut_epochs`), 2 epochs of 3 steps with the discriminator from
+    epoch 1 (the config says 60: a departure, so the phase reaches it),
+    eval and save; a fresh Trainer resumes the run bit for bit, the
+    discriminator, its Adam state and the balancer's included. Then a GAN
+    generator step and a discriminator step at B=4 from epoch 1's state
+    on the kernels against the plain twins; the chunked discriminator
+    against the whole-signal forward and `disc_remat` against the plain
+    route on the card (B=2, 1 h nights)."""
+    import tempfile
+
+    from encodec_tpu_torch.models import msstftd
+    from encodec_tpu_torch.train import (ConfigNamespace, Trainer,
+                                         load_checkpoint, make_train_steps)
+    from encodec_tpu_torch.train import __main__ as train_entry
+    from encodec_tpu_torch.train.steps import gan_terms
+    from encodec_tpu_torch.train.trainer import state_to_device
+
+    tmp = tempfile.TemporaryDirectory()
+    base = Path(tmp.name)
+    for c, chan in enumerate(("thorax", "abdominal")):
+        (base / "data" / "synth" / chan).mkdir(parents=True)
+        for i in range(8):
+            np.savez(base / "data" / "synth" / chan / f"night{i}.npz",
+                     data=breathing_signal(TRAIN_NIGHT, 2000 + 10 * i + c),
+                     fs=10)
+    cfg = gan_config(str(base / "data"))
+    config = ConfigNamespace(cfg)
+    loader, _, _ = cut_epochs(train_entry.build_dataloaders)(config)
+    x32 = torch.from_numpy(next(iter(loader))[0]["x"]).to(dev)
+    check(tuple(x32.shape) == (32, cfg["dataset"]["max_length"], 1),
+          f"batch {tuple(x32.shape)}")
+
+    # -- gan.yaml as written: the largest batch that fits -----------------
+    tr = Trainer(config, [], [], str(base / "asis"), device=dev)
+    w = tr.weights_for_epoch(61)        # GAN on (epoch >= 60), commit on
+    for B in (32, 24, 16, 12, 8):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        xb = x32[:B].contiguous()
+        got = gan_steps_fit(torch, tr, xb, w)
+        if got is None:
+            print(f"gan memory, gan.yaml as written: B={B} x 4 h does not "
+                  "fit the card (out of memory in the GAN generator step "
+                  "or the discriminator step)")
+            continue
+        s_g, first_ms, first_d_ms = got
+        gen_ms = step_ms(torch, lambda: tr.gen_step(s_g, xb, w,
+                                                    use_gan=True))
+        disc_ms = step_ms(torch, lambda: tr.disc_step(s_g, xb, w))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"gan memory, gan.yaml as written: the largest batch that fits "
+              f"is B={B} x 4 h: peak {peak:.2f} GiB (max_memory_allocated, "
+              f"both steps); GAN generator step (chunked discriminator) "
+              f"{gen_ms[0]:.1f} / {gen_ms[1]:.1f} ms, discriminator step "
+              f"{disc_ms[0]:.1f} / {disc_ms[1]:.1f} ms (host clock, "
+              f"synchronized; the first, with the k-means init: "
+              f"{first_ms:.1f} and {first_d_ms:.1f} ms)"
+              + ("" if B == 32 else "; B=32 does not fit in 80 GB"))
+        profile_gan_step(torch, f"B={B} GAN generator step (gan.yaml as "
+                         "written)",
+                         lambda: tr.gen_step(s_g, xb, w, use_gan=True))
+        profile_gan_step(torch, f"B={B} discriminator step (gan.yaml as "
+                         "written)", lambda: tr.disc_step(s_g, xb, w))
+        del s_g, xb
+        break
+    else:
+        fail("gan.yaml's steps fit the card at none of B=32-8")
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- the B=32 stand-in with remat -------------------------------------
+    cfg_r = json.loads(json.dumps(cfg))
+    cfg_r["model"]["remat"] = True
+    cfg_r["model"]["train_discriminator_start_epoch"] = 1
+    tr = Trainer(ConfigNamespace(cfg_r), [], [], str(base / "remat"),
+                 device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    got = gan_steps_fit(torch, tr, x32, w)
+    check(got is not None, "the B=32 stand-in (remat) ran out of memory")
+    s_g = got[0]
+    gen_ms = step_ms(torch, lambda: tr.gen_step(s_g, x32, w, use_gan=True))
+    disc_ms = step_ms(torch, lambda: tr.disc_step(s_g, x32, w))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"gan step B=32 x 4 h with remat (a stand-in departing from "
+          f"gan.yaml, which does not fit B=32): GAN generator step "
+          f"{gen_ms[0]:.1f} / {gen_ms[1]:.1f} ms, discriminator step "
+          f"{disc_ms[0]:.1f} / {disc_ms[1]:.1f} ms (host clock, "
+          f"synchronized); peak memory {peak:.2f} GiB")
+    del tr, s_g
+    torch.cuda.empty_cache()
+
+    # -- gan_disc512.yaml as written: the whole-signal route, B=8 ---------
+    cfg5 = gan_disc512_config(str(base / "data"))
+    tr = Trainer(ConfigNamespace(cfg5), [], [], str(base / "d512"),
+                 device=dev)
+    check(tr.disc_cfg.time_chunk is None and tr.model.cfg.seanet.lstm,
+          "gan_disc512's discriminator is not the whole-signal route")
+    x8 = x32[:8].contiguous()
+    w5 = tr.weights_for_epoch(101)
+    torch.cuda.reset_peak_memory_stats()
+    got = gan_steps_fit(torch, tr, x8, w5)
+    check(got is not None, "gan_disc512.yaml at B=8 ran out of memory")
+    s_g = got[0]
+    gen_ms = step_ms(torch, lambda: tr.gen_step(s_g, x8, w5, use_gan=True))
+    disc_ms = step_ms(torch, lambda: tr.disc_step(s_g, x8, w5))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"gan_disc512.yaml as written (B=8 x 4 h, H=512, one 512-FFT "
+          f"discriminator, whole signal): GAN generator step "
+          f"{gen_ms[0]:.1f} / {gen_ms[1]:.1f} ms, discriminator step "
+          f"{disc_ms[0]:.1f} / {disc_ms[1]:.1f} ms; peak {peak:.2f} GiB")
+    del tr, s_g, x8
+    torch.cuda.empty_cache()
+
+    # -- the GAN path, counted: the entry point a user runs ---------------
+    cfg_path = base / "gan_remat.json"
+    cfg_path.write_text(json.dumps(cfg_r))
+    run = base / "run"
+    build = train_entry.build_dataloaders
+    train_entry.build_dataloaders = cut_epochs(build)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_entry.main(["--config", str(cfg_path), "--log_dir",
+                                    str(run), "--max_epochs", "2",
+                                    "--device", dev.type])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        train_entry.build_dataloaders = build
+    counts = launch_counts(kernels)
+    counts["lstm_save"] = kernels.lstm_scan.save_launches
+    steps = int(trainer.state.opt_state.count)
+    n_disc = int(trainer.state.disc_opt_state.count)
+    check(steps == 6 and 0 < n_disc < steps,
+          f"2 epochs ran {steps} generator steps and {n_disc} "
+          "discriminator steps; wanted 6 and at least one of each kind")
+    evals = 2          # one batch of VAL_ITEMS per eval
+    check(counts["nearest_codebook"] > 0 and counts["rvq_encode_fused"] > 0
+          and counts["lstm_save"] == 4 * steps
+          and counts["lstm_scan_backward"] == 4 * steps
+          and counts["lstm_scan"] == 4 * (steps + n_disc + evals)
+          and counts["lstm_grid"] == counts["lstm_scan"],
+          f"the GAN path did not launch K1, K2, the saving K3, K3's "
+          f"backward and the plain K3 as planned: {counts}")
+    print(f"gan path launches (B=32 with remat, a stand-in for gan.yaml; the "
+          f"discriminator from epoch 1; 2 epochs, {steps} generator steps, "
+          f"{steps - n_disc} of them with the GAN terms, {n_disc} "
+          f"discriminator steps, 2 evals): {json.dumps(counts)}; per "
+          f"discriminator step K3 4 (the generator's forward, plain launch), "
+          f"K1 8")
+    print(f"gan fit: 2 epochs in {fit_s:.1f} s (seconds per epoch of 3 "
+          f"batches, data loading included: "
+          + ", ".join(f"{v:.1f}" for v in trainer.epoch_seconds.values())
+          + ")")
+
+    # -- resume bit for bit ----------------------------------------------
+    fresh = Trainer(ConfigNamespace(cfg_r), [], [], str(run), device=dev)
+    fresh.resume()
+    check(fresh.start_epoch == 3 and states_equal(torch, fresh.state,
+                                                  trainer.state),
+          "resume did not restore the generator, the discriminator, both "
+          "Adam states and the generator state bit for bit")
+    print(f"gan resume: epoch 3 from {run.name}/model.ckpt; params, qstate, "
+          f"Adam (count {int(fresh.state.opt_state.count)}), the "
+          f"discriminator and its Adam (count "
+          f"{int(fresh.state.disc_opt_state.count)}) and the generator state "
+          f"equal the saved ones bit for bit")
+    del trainer
+
+    # -- the kernels against the plain twins, B=4 -------------------------
+    raw, epoch, _ = load_checkpoint(run / "model.ckpt.prev")
+    check(epoch == 1, f"model.ckpt.prev holds epoch {epoch}")
+    s_e1 = state_to_device(raw, dev)
+    gen_p, disc_p = make_train_steps(fresh.model.cfg, fresh.disc_cfg,
+                                     freq_loss_kwargs=fresh.freq_kwargs,
+                                     clip=fresh.clip, plain=True)[:2]
+    x4 = x32[:4].contiguous()
+    w2 = fresh.weights_for_epoch(2)
+    _, mk = fresh.gen_step(s_e1, x4, w2, use_gan=True, keep_grads=True)
+    _, mp = gen_p(s_e1, x4, w2, use_gan=True, keep_grads=True)
+    sk, dk = fresh.disc_step(s_e1, x4, w2)
+    sp, dp = disc_p(s_e1, x4, w2)
+    torch.cuda.synchronize()
+    flagged = ((mk["margins"] < TIE_THRESHOLD)
+               | (mp["margins"] < TIE_THRESHOLD)).any(0)
+    diff = (mk["codes"] != mp["codes"]).any(1).reshape(-1)
+    errs = {k: abs(float(mk[k]) - float(mp[k])) / abs(float(mp[k]))
+            for k in ("loss", "loss_gen", "loss_feat")}
+    errs.update({k: abs(float(dk[k]) - float(dp[k])) / abs(float(dp[k]))
+                 for k in ("loss_disc", "logits_real", "logits_fake")})
+    check(int((diff & ~flagged).sum()) == 0,
+          "gan step B=4: codes differ from the plain twins' outside the "
+          "tie guard")
+    check(max(errs.values()) <= 1e-4,
+          f"gan steps B=4: losses from the plain twins' beyond 1e-4: {errs}")
+    print(f"gan steps B=4 from epoch 1's state, kernels vs plain twins: "
+          f"{int(diff.sum())} of {diff.numel()} positions' codes differ "
+          f"({int(flagged.sum())} tie-flagged); relative differences "
+          "(bound 1e-4): " + ", ".join(f"{k} {v:.3g}"
+                                       for k, v in errs.items()))
+    del mk, mp, sk, sp, s_e1, fresh
+
+    # -- the chunked discriminator against the whole signal; remat -------
+    x2 = torch.from_numpy(np.stack([
+        breathing_signal(CHECK_NIGHT, 3000 + i) for i in range(2)])[..., None]
+    ).to(dev)
+    x2_hat = x2 + 0.2 * torch.from_numpy(np.random.RandomState(3001).randn(
+        2, CHECK_NIGHT, 1).astype(np.float32)).to(dev)
+    dcfg = msstftd.MSSTFTConfig(**GAN_DISC)
+    disc = msstftd.init_msstftd(torch.Generator().manual_seed(5), dcfg,
+                                dev)
+    worst = 0.0
+    with torch.no_grad():
+        for i, sub in enumerate(disc["discs"]):
+            sums = msstftd.msstftd_gan_sums_chunked(sub, x2, x2_hat, dcfg, i,
+                                                    chunk=512)
+            lr, fr = msstftd.msstftd_sub_forward(sub, x2, dcfg, i)
+            lf, ff = msstftd.msstftd_sub_forward(sub, x2_hat, dcfg, i)
+            whole = {"lg_real": (1 - lr).square().sum(),
+                     "sum_real": lr.sum(), "lg_fake": (1 - lf).square().sum(),
+                     "sq_fake": lf.square().sum(), "sum_fake": lf.sum(),
+                     "feat_diff": torch.stack([(a - b).abs().sum()
+                                               for a, b in zip(fr, ff)]),
+                     "feat_real": torch.stack([a.abs().sum() for a in fr])}
+            check(int(sums["n_logit"]) == lr.numel(), "n_logit")
+            for k, v in whole.items():
+                e = float(((sums[k] - v).abs() / v.abs()).max())
+                worst = max(worst, e)
+    check(worst <= 1e-5, f"chunked sums {worst:.3g} from the whole-signal "
+                         "forward (relative) > 1e-5")
+    routes = {}
+    for remat in (False, True):
+        y = x2_hat.clone().requires_grad_(True)
+        l_g, l_feat = gan_terms(disc, dcfg, x2, y, disc_remat=remat)
+        g, = torch.autograd.grad(3 * l_g + 3 * l_feat, y)
+        routes[remat] = (l_g.detach(), l_feat.detach(), g)
+    rerr = max(float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(routes[True], routes[False]))
+    check(rerr <= 1e-5, f"disc_remat {rerr:.3g} from the plain route")
+    print(f"gan discriminator on the card (B=2 x 1 h, gan.yaml's widths): "
+          f"chunked sums (512 frames, ragged tails) vs the whole-signal "
+          f"forward, worst relative {worst:.3g} (bound 1e-5); disc_remat vs "
+          f"the plain route (l_g, l_feat and their gradient in x_hat) "
+          f"{rerr:.3g} (bound 1e-5)")
+    tmp.cleanup()
     return counts
 
 
@@ -2392,13 +2808,15 @@ def main() -> int:
     k3_bwd = phase_k3_bwd(torch, kernels, dev)
     t1 = time.perf_counter()
     counts_train = phase_train(torch, kernels, dev)
-    print(f"phases: K3 backward {t1 - t0:.1f} s, train "
-          f"{time.perf_counter() - t1:.1f} s (at {t0 - t_start:.1f} s)")
+    t2 = time.perf_counter()
+    counts_gan = phase_gan(torch, kernels, dev)
+    print(f"phases: K3 backward {t1 - t0:.1f} s, train {t2 - t1:.1f} s, "
+          f"gan {time.perf_counter() - t2:.1f} s (at {t0 - t_start:.1f} s)")
     counts_lm = phase_lm(torch, kernels, model, model48, wav10, wav48)
 
     paths = {"24k": counts, "48k": counts48, "stream": counts_stream,
              "breathing": counts_breathing, "hires_tokens": counts_hires,
-             "train": counts_train, "lm": counts_lm}
+             "train": counts_train, "gan": counts_gan, "lm": counts_lm}
     for c in paths.values():   # lstm_scan counts both K3 kernels
         c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
     rows = [

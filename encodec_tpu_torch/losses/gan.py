@@ -6,7 +6,7 @@ uses them:
   feature match: l_feat = mean_{k,l} ‖D_k^l(x) - D_k^l(x̂)‖₁ / mean|D_k^l(x)|
   discriminator: l_d    = mean_k [mean(D_k(x̂)²) + mean((1 - D_k(x))²)]
 plus plain time-domain L1/L2 terms (per batch item and scalar). The
-discriminator itself waits for the GAN slice (ROADMAP 11a).
+discriminator is `models/msstftd.py`.
 """
 
 from __future__ import annotations

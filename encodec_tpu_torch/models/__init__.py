@@ -27,8 +27,17 @@ from .zoo import (  # noqa: F401
     load_pretrained,
     load_state,
     model_params_from_state,
+    msstftd_params_from_jax,
+    msstftd_params_from_torch,
     params_from_jax,
     train_state_from_jax,
+)
+from .msstftd import (  # noqa: F401
+    MSSTFTConfig,
+    init_msstftd,
+    msstftd_forward,
+    msstftd_gan_sums_chunked,
+    msstftd_sub_forward,
 )
 from .lm import LMConfig, LMModel, get_lm_model, init_lm  # noqa: F401
 from .ilm import IntLMModel  # noqa: F401

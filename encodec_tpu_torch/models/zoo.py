@@ -15,7 +15,12 @@ JAX: the transposes of `encodec_tpu/models/torch_zoo.py`'s
 `torch_state_from_params`, copied here, then the loader above.
 `train_state_from_jax` carries a whole JAX `TrainState` across (params,
 quantizer state and the Adam moments, the moments through the same
-layout mapping), so the port's trainer resumes a JAX run.
+layout mapping; a GAN run's discriminator, its Adam moments and the
+balancer's state too), so the port's trainer resumes a JAX run. The MS-STFT
+discriminator: `msstftd_params_from_jax` (JAX's HWIO tree → the port's
+OIHW) and `msstftd_params_from_torch` (the reference `.th` layout).
+Spectral-norm convs travel as the reference's `weight_orig`, `weight_u`,
+`weight_v` (torch's spectral_norm) and land as `w_orig`, `u_sn`, `v_sn`.
 
 The entropy-coding LM: `lm_params_from_state` reads the reference
 `LMModel` state dict (`torch_zoo.py::lm_params_from_torch`), and
@@ -33,6 +38,7 @@ import numpy as np
 import torch
 
 from ..quant import RVQConfig, RVQState
+from .msstftd import msstftd_params_from_torch  # noqa: F401  (re-exported)
 from .seanet import SEANetConfig
 
 State = tp.Mapping[str, tp.Any]
@@ -53,7 +59,11 @@ def conv_params_from_state(state: State, prefix: str, norm: str = "none",
     old = (f"{prefix}{kind}.weight_g", f"{prefix}{kind}.weight_v")
     new = (f"{prefix}{kind}.parametrizations.weight.original0",
            f"{prefix}{kind}.parametrizations.weight.original1")
-    if norm == "weight_norm" or old[1] in state or new[1] in state:
+    if f"{prefix}{kind}.weight_orig" in state:      # spectral norm
+        p["w_orig"] = _get(state, f"{prefix}{kind}.weight_orig")
+        p["u_sn"] = _get(state, f"{prefix}{kind}.weight_u")
+        p["v_sn"] = _get(state, f"{prefix}{kind}.weight_v")
+    elif norm == "weight_norm" or old[1] in state or new[1] in state:
         g_key, v_key = old if old[1] in state else new
         p["v"] = _get(state, v_key)
         p["g"] = _get(state, g_key).reshape(-1)  # dim 0 of the torch weight
@@ -165,7 +175,13 @@ def model_params_from_state(state: State, cfg) -> tp.Tuple[dict, RVQState]:
 
 def _conv_to_state(p: dict, prefix: str, out: dict, transposed: bool) -> None:
     kind, axes = ("convtr", (1, 2, 0)) if transposed else ("conv", (2, 1, 0))
-    if "v" in p:
+    if "w_orig" in p:
+        # u and v index the `[Cout, rest]` view in both layouts
+        out[f"{prefix}{kind}.weight_orig"] = np.asarray(
+            p["w_orig"]).transpose(axes)
+        out[f"{prefix}{kind}.weight_u"] = np.asarray(p["u_sn"])
+        out[f"{prefix}{kind}.weight_v"] = np.asarray(p["v_sn"])
+    elif "v" in p:
         out[f"{prefix}{kind}.weight_v"] = np.asarray(p["v"]).transpose(axes)
         out[f"{prefix}{kind}.weight_g"] = np.asarray(p["g"]).reshape(-1, 1, 1)
     else:
@@ -265,6 +281,33 @@ def _find_adam(node) -> tp.Optional[tuple]:
     return None
 
 
+def msstftd_params_from_jax(tree) -> dict:
+    """The JAX package's MS-STFT discriminator tree (numpy or array leaves;
+    also an Adam moment tree shaped like it) → the port's: HWIO weights
+    (`w`, `v`, `w_orig`) to OIHW, the rest (`b`, `g`, `u_sn`, `v_sn`) as
+    they are, float32 tensors on the CPU."""
+    def conv(p: dict) -> dict:
+        return {k: torch.from_numpy(np.ascontiguousarray(
+            np.asarray(v, np.float32).transpose(3, 2, 0, 1)
+            if k in ("w", "v", "w_orig") else np.asarray(v, np.float32)))
+            for k, v in p.items()}
+
+    return {"discs": [{"convs": [conv(p) for p in sub["convs"]]}
+                      for sub in tree["discs"]]}
+
+
+def _adam_from_jax(opt_state, convert) -> "AdamState":
+    from ..train.optim import AdamState
+
+    adam = _find_adam(opt_state)
+    if adam is None:
+        raise ValueError("the checkpoint's optimizer state has no Adam "
+                         "(count, mu, nu) node")
+    return AdamState(count=torch.tensor(int(np.asarray(adam[0])),
+                                        dtype=torch.int32),
+                     mu=convert(adam[1]), nu=convert(adam[2]))
+
+
 def train_state_from_jax(raw, cfg):
     """A JAX `TrainState` (fields in order: params, qstate, opt_state,
     disc_params, disc_opt_state, balancer_state, rng), as the port's
@@ -274,32 +317,33 @@ def train_state_from_jax(raw, cfg):
 
     The Adam `count`, `mu` and `nu` come from the optimizer tree's
     (count, mu, nu) node and go through `params_from_jax`'s layout mapping
-    like the parameters. JAX's PRNG key cannot become a torch generator
-    state: the generator is seeded from the key's bits, so a resumed run is
-    deterministic but draws other indices than JAX would. A GAN run's
-    discriminator state is refused (ROADMAP 11a)."""
-    from ..train.optim import AdamState
-    from ..train.steps import TrainState, refuse_gan
+    like the parameters; a GAN run's discriminator parameters and moments
+    through `msstftd_params_from_jax`, the balancer's EMA state as it is.
+    JAX's PRNG key cannot become a torch generator state: the generator is
+    seeded from the key's bits, so a resumed run is deterministic but draws
+    other indices than JAX would."""
+    from ..train.steps import TrainState
 
-    params, qstate, opt_state, disc_params = raw[0], raw[1], raw[2], raw[3]
-    if disc_params is not None:
-        refuse_gan("a checkpoint with discriminator parameters")
-    qstate = tuple(qstate)
+    params, qstate, opt_state = raw[0], tuple(raw[1]), raw[2]
+    disc_params, disc_opt_state, balancer_state = raw[3], raw[4], raw[5]
     port_params, port_q = params_from_jax(params, qstate, cfg)
-    adam = _find_adam(opt_state)
-    if adam is None:
-        raise ValueError("the checkpoint's optimizer state has no Adam "
-                         "(count, mu, nu) node")
-    mu, _ = params_from_jax(adam[1], qstate, cfg)
-    nu, _ = params_from_jax(adam[2], qstate, cfg)
-    count = torch.tensor(int(np.asarray(adam[0])), dtype=torch.int32)
+    opt = _adam_from_jax(
+        opt_state, lambda tree: params_from_jax(tree, qstate, cfg)[0])
+    disc = disc_opt = bal = None
+    if disc_params is not None:
+        disc = msstftd_params_from_jax(disc_params)
+        disc_opt = _adam_from_jax(disc_opt_state, msstftd_params_from_jax)
+    if balancer_state is not None:
+        bal = {part: {k: torch.tensor(float(np.asarray(v)),
+                                      dtype=torch.float32)
+                      for k, v in balancer_state[part].items()}
+               for part in ("total", "fix")}
     key = np.asarray(raw[6]).astype(np.uint64).reshape(-1)
     seed = int(sum(int(k) << (32 * i) for i, k in enumerate(key[::-1])))
     rng = torch.Generator().manual_seed(seed % (1 << 63)).get_state()
-    return TrainState(params=port_params, qstate=port_q,
-                      opt_state=AdamState(count=count, mu=mu, nu=nu),
-                      disc_params=None, disc_opt_state=None,
-                      balancer_state=None, rng=rng)
+    return TrainState(params=port_params, qstate=port_q, opt_state=opt,
+                      disc_params=disc, disc_opt_state=disc_opt,
+                      balancer_state=bal, rng=rng)
 
 
 def lm_params_from_state(state: State, n_q: int, num_layers: int = 5) -> dict:

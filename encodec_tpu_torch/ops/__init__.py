@@ -1,4 +1,5 @@
-"""Primitive ops (layer L0): padding, streamable convs, norms, LSTM, STFT.
+"""Primitive ops (layer L0): padding, streamable convs, norms, LSTM, STFT,
+the discriminator's 2-D convs (`ops.conv2d`).
 
 Public functions take channels-last `[B, T, C]` tensors, like
 `encodec_tpu.ops`, so each has a direct JAX counterpart.
@@ -19,6 +20,8 @@ from .conv import (  # noqa: F401
     fold_weight_norm_tree,
     layer_norm,
     time_group_norm,
+    spectral_norm_power_iterate,
+    spectral_norm_update_tree,
 )
 from .lstm import lstm, init_lstm, lstm_step  # noqa: F401
-from .stft import hann_window, stft  # noqa: F401
+from .stft import hann_window, spectrogram, stft  # noqa: F401

@@ -12,6 +12,10 @@ transposed-conv weights `[Cin, Cout, K]`. Weight norm is the reference's
 `weight_norm(dim=0)` of the torch weight: per-Cout for a conv but per-*Cin*
 for a transposed conv (an upstream quirk the published checkpoints carry).
 In torch layout both reduce over dims (1, 2), with `g` indexed by dim 0.
+Spectral norm (`torch.nn.utils.spectral_norm`) keeps `w_orig` and the
+power-iteration vectors `u_sn` / `v_sn` as leaves of the parameter tree:
+`u`/`v` are buffers (no gradient reaches them), refreshed once per training
+step by `spectral_norm_update_tree`, as the JAX package does.
 
 Public functions take and return channels-last `[B, T, C]`; internally
 they run channels-first `[B, C, T]` for `F.conv1d`.
@@ -29,8 +33,8 @@ from .pad import get_extra_padding_for_conv1d, pad_time, unpad1d
 
 Params = tp.Dict[str, tp.Any]
 
-CONV_NORMALIZATIONS = frozenset(["none", "weight_norm", "layer_norm",
-                                 "time_group_norm"])
+CONV_NORMALIZATIONS = frozenset(["none", "weight_norm", "spectral_norm",
+                                 "layer_norm", "time_group_norm"])
 
 
 # ---------------------------------------------------------------------------
@@ -45,11 +49,14 @@ def _uniform(shape, bound: float, generator: torch.Generator,
 
 
 def _with_norm_params(params: Params, norm: str, out_ch: int,
-                      device: torch.device) -> Params:
+                      generator: torch.Generator, device: torch.device,
+                      transposed: bool = False) -> Params:
     if norm == "weight_norm":
         v = params.pop("w")
         params["v"] = v
         params["g"] = v.square().sum(dim=(1, 2)).sqrt()
+    elif norm == "spectral_norm":
+        params = init_spectral(params, generator, transposed)
     elif norm in ("layer_norm", "time_group_norm"):
         params["norm"] = {
             "scale": torch.ones(out_ch, device=device),
@@ -68,7 +75,7 @@ def init_sconv1d(generator: torch.Generator, in_ch: int, out_ch: int,
     params: Params = {
         "w": _uniform((out_ch, in_ch, kernel_size), bound, generator, device),
         "b": _uniform((out_ch,), 1.0 / math.sqrt(fan_in), generator, device)}
-    return _with_norm_params(params, norm, out_ch, device)
+    return _with_norm_params(params, norm, out_ch, generator, device)
 
 
 def init_sconv_transpose1d(generator: torch.Generator, in_ch: int,
@@ -84,19 +91,96 @@ def init_sconv_transpose1d(generator: torch.Generator, in_ch: int,
     params: Params = {
         "w": _uniform((in_ch, out_ch, kernel_size), bound, generator, device),
         "b": _uniform((out_ch,), 1.0 / math.sqrt(fan_in), generator, device)}
-    return _with_norm_params(params, norm, out_ch, device)
+    return _with_norm_params(params, norm, out_ch, generator, device,
+                             transposed=True)
+
+
+# ---------------------------------------------------------------------------
+# Spectral norm (JAX: `encodec_tpu/ops/conv.py:69-160`)
+# ---------------------------------------------------------------------------
+
+def _sn_matrix(w: torch.Tensor, transposed: bool = False) -> torch.Tensor:
+    """The `[Cout, rest]` matrix view torch's spectral_norm takes: dim 0 of
+    a conv weight (`[Cout, Cin, K...]`), dim 1 of a transposed conv's
+    (`[Cin, Cout, K]`), the other dims flattened in order."""
+    if transposed:
+        w = w.transpose(0, 1)
+    return w.reshape(w.shape[0], -1)
+
+
+def _sn_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return x / torch.clamp(torch.linalg.vector_norm(x), min=eps)
+
+
+def spectral_norm_power_iterate(params: Params, n_power_iterations: int = 1,
+                                eps: float = 1e-12,
+                                transposed: bool = False) -> Params:
+    """`n` power-iteration updates of `u_sn`/`v_sn` (torch's training-mode
+    spectral-norm hook, as an explicit state update). Returns new params;
+    the new vectors carry no graph."""
+    with torch.no_grad():
+        w_mat = _sn_matrix(params["w_orig"], transposed)
+        u, v = params["u_sn"], params["v_sn"]
+        for _ in range(n_power_iterations):
+            v = _sn_normalize(w_mat.t() @ u, eps)
+            u = _sn_normalize(w_mat @ v, eps)
+    return dict(params, u_sn=u, v_sn=v)
+
+
+def spectral_weight(params: Params, transposed: bool = False) -> torch.Tensor:
+    """`w_orig / σ` with `σ = uᵀ W v` from the stored vectors; `u` and `v`
+    are detached (buffers), so only `w_orig` gets a gradient."""
+    w = params["w_orig"]
+    sigma = torch.dot(params["u_sn"].detach(),
+                      _sn_matrix(w, transposed) @ params["v_sn"].detach())
+    return w / sigma
+
+
+def spectral_norm_update_tree(tree, transposed: bool = False):
+    """One power iteration for every spectral-norm conv of a parameter tree
+    (the identity without any). The port's trees name their transposed
+    convs `up` (the SEANet decoder's upsampling stages): those take their
+    matrix view from dim 1."""
+    if isinstance(tree, dict):
+        if "w_orig" in tree and "u_sn" in tree:
+            return spectral_norm_power_iterate(tree, transposed=transposed)
+        return {k: spectral_norm_update_tree(v, transposed=k == "up")
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(spectral_norm_update_tree(v) for v in tree)
+    return tree
+
+
+def init_spectral(params: Params, generator: torch.Generator,
+                  transposed: bool = False, eps: float = 1e-12) -> Params:
+    """`w` → `w_orig` with normalized gaussian `u_sn` [Cout] and `v_sn`
+    [rest] drawn from `generator`."""
+    w = params.pop("w")
+    h, wd = _sn_matrix(w, transposed).shape
+    params["w_orig"] = w
+    params["u_sn"] = _sn_normalize(
+        torch.randn(h, generator=generator, dtype=torch.float32), eps).to(
+            w.device)
+    params["v_sn"] = _sn_normalize(
+        torch.randn(wd, generator=generator, dtype=torch.float32), eps).to(
+            w.device)
+    return params
 
 
 # ---------------------------------------------------------------------------
 # Weight norm
 # ---------------------------------------------------------------------------
 
-def effective_weight(params: Params) -> torch.Tensor:
-    """The conv weight, folding weight norm `g·v/‖v‖` when present."""
+def effective_weight(params: Params, transposed: bool = False
+                     ) -> torch.Tensor:
+    """The conv weight, folding weight norm `g·v/‖v‖` or spectral norm
+    `w_orig/σ` when present (`transposed`: a transposed conv's weight)."""
     if "v" in params:
         v = params["v"]
         norm = v.square().sum(dim=(1, 2), keepdim=True).sqrt()
         return params["g"][:, None, None] * v / norm
+    if "w_orig" in params:
+        return spectral_weight(params, transposed)
     return params["w"]
 
 
@@ -191,7 +275,8 @@ def sconv_transpose1d(params: Params, x: torch.Tensor, *, kernel_size: int,
     if causal and norm == "time_group_norm":
         raise ValueError("GroupNorm doesn't support causal evaluation.")
     padding_total = kernel_size - stride
-    y = F.conv_transpose1d(x.transpose(1, 2), effective_weight(params),
+    y = F.conv_transpose1d(x.transpose(1, 2),
+                           effective_weight(params, transposed=True),
                            params.get("b"), stride=stride)
     y = _apply_norm(y, params, norm).transpose(1, 2)
     if causal:

@@ -5,7 +5,9 @@ Port of `encodec_tpu/ops/stft.py`: frames of length `n_fft` taken every
 centered, one-sided rFFT. The framing is JAX's gather (`Tensor.unfold`
 takes the same frames) and one batched `torch.fft.rfft`; `torch.stft` is
 not used, since its padding and window placement are not the ones the
-losses are held to. Used by the spectrogram reconstruction loss.
+losses are held to. Used by the spectrogram reconstruction loss and, through
+`spectrogram` (torchaudio's `Spectrogram(center=False)`), by the MS-STFT
+discriminator.
 """
 
 from __future__ import annotations
@@ -44,3 +46,19 @@ def stft(x: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
                                          (left, n_fft - win_length - left))
     frames = frame_signal(x, n_fft, hop_length) * window
     return torch.fft.rfft(frames, n=n_fft, dim=-1).transpose(-1, -2)
+
+
+def spectrogram(x: torch.Tensor, n_fft: int, hop_length: int,
+                win_length: int, normalized: bool = True,
+                power: tp.Optional[float] = None) -> torch.Tensor:
+    """torchaudio.transforms.Spectrogram(center=False): `normalized` divides
+    by `sqrt(Σ window²)` (torchaudio's "window" normalization); `power=None`
+    returns the complex STFT, else `|STFT|**power`."""
+    window = hann_window(win_length, torch.float32, x.device)
+    spec = stft(x, n_fft, hop_length, win_length, window)
+    if normalized:
+        spec = spec / window.square().sum().sqrt()
+    if power is None:
+        return spec
+    mag = spec.abs()
+    return mag if power == 1.0 else mag ** power

@@ -1,5 +1,6 @@
 """Training the breathing tokenizer: experiment configs, checkpoints (the
-JAX trainer's and the port's), the optimizer, the steps and the Trainer.
+JAX trainer's and the port's), the optimizer, the steps (the GAN phase's
+discriminator step and the balanced step included) and the Trainer.
 
 `python -m encodec_tpu_torch.train --config C --log_dir D` runs it."""
 
@@ -26,4 +27,4 @@ from .steps import (  # noqa: F401
     create_train_state,
     make_train_steps,
 )
-from .trainer import Trainer, model_from_config  # noqa: F401
+from .trainer import Trainer, disc_from_config, model_from_config  # noqa: F401

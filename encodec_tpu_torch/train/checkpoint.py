@@ -43,6 +43,9 @@ import numpy as np
 import torch
 
 FORMAT_VERSION = 2
+ASYNC_ITEM = ("asynchronous checkpoint saving is not ported; saves are "
+              "synchronous (ROADMAP item 11e): set checkpoint.async_save: "
+              "false")
 
 log = logging.getLogger(__name__)
 
@@ -206,10 +209,7 @@ class AsyncCheckpointer:
     on a device snapshot; the port writes synchronously."""
 
     def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "asynchronous checkpoint saving (checkpoint.async_save) is not "
-            "ported; set checkpoint.async_save: false (saves are "
-            "synchronous)")
+        raise NotImplementedError(f"AsyncCheckpointer: {ASYNC_ITEM}")
 
 
 def load_checkpoint(path: tp.Union[str, Path]):

@@ -1,20 +1,32 @@
-"""Training steps: the generator step and the eval step.
+"""Training steps: the generator step (with or without the GAN terms), the
+balanced generator step, the discriminator step and the eval step.
 
 Port of `encodec_tpu/train/steps.py` (`LossWeights`, `TrainState`,
-`create_train_state`, `make_train_steps`' `gen_step` and `eval_step`).
-Behavioral reference: encodec/train.py:39-188 — generator loss = w_l1·L1
-+ w_freq·spectral + w_l2·L2 + (w_commit + w_codebook)·commit, Adam(β=0.8,
-0.9) with global-norm clip 0.1 (`train/optim.py`).
+`create_train_state`, `make_train_steps`). Behavioral reference:
+encodec/train.py:39-188 — generator loss = w_l1·L1 + w_freq·spectral +
+w_l2·L2 + (w_commit + w_codebook)·commit (+ w_g·l_g + w_feat·l_feat in the
+GAN phase), Adam(β=0.8, 0.9) with global-norm clip 0.1 for the generator
+and the discriminator alike (`train/optim.py`), the discriminator trained
+with the DAC LSGAN loss.
+
+The GAN terms take one of JAX's three routes: the chunked discriminator
+(`disc_cfg.time_chunk`: `models.msstftd.msstftd_gan_sums_chunked`, O(chunk)
+memory), `disc_remat` (each resolution under `torch.utils.checkpoint`), or
+the plain whole-signal forward. Gradients are taken for the generator's
+leaves only in the generator step (the real signal's branch builds no
+graph) and for the discriminator's only in the discriminator step, whose
+generator forward runs without a graph and whose quantizer update is
+dropped, as JAX's is.
 
 On the card every kernel of the path runs inside the step: K3's saving
 forward and its backward kernel for the four LSTM layers, K1 for every
-RVQ search (and every k-means iteration of the first batch), K2 in the
-eval step. `plain=True` runs every plain twin instead (the reference the
-kernels are held to on the card).
+RVQ search (and every k-means iteration of the first batch), the plain K3
+launch in the discriminator step's generator forward, K2 in the eval step.
+The discriminator's convs are cuDNN's. `plain=True` runs every plain twin
+instead (the reference the kernels are held to on the card).
 
-Not ported (ROADMAP 11a, the GAN slice): the discriminator and its step,
-the GAN loss terms, the gradient balancer and `compute_dtype=bfloat16`;
-asking for them raises `NotImplementedError`.
+Not ported: `compute_dtype=bfloat16` (ROADMAP item 11d: an H100 bf16 mode
+needs a margin audit first); asking for it raises `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -23,19 +35,28 @@ import typing as tp
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from ..losses.gan import total_loss
+from ..losses.balancer import Balancer, balance, init_balancer_state
+from ..losses.gan import disc_loss, total_loss
 from ..losses.spectrogram import reconstruction_loss
 from ..models.model import EncodecConfig, forward_train
+from ..models.msstftd import (MSSTFTConfig, init_msstftd, msstftd_forward,
+                              msstftd_gan_sums_chunked, msstftd_num_fmaps,
+                              msstftd_sub_forward)
+from ..ops.conv import spectral_norm_update_tree
 from ..quant import RVQState
 from .optim import AdamState, adam_update, init_adam, tree_leaves, tree_map
 
-GAN_SLICE = ("the GAN phase (MS-STFT discriminator, disc_step, the gradient "
-             "balancer, bfloat16 compute) is not ported yet: ROADMAP item 11a")
+BF16_ITEM = ("bfloat16 compute is not ported: an H100 bf16 mode needs a "
+             "margin audit first (ROADMAP item 11d)")
 
 
-def refuse_gan(what: str) -> tp.NoReturn:
-    raise NotImplementedError(f"{what}: {GAN_SLICE}")
+def refuse_bf16(what: str) -> tp.NoReturn:
+    raise NotImplementedError(f"{what}: {BF16_ITEM}")
+
+
+DISC_SEED_OFFSET = 1 << 20
 
 
 def _f32(v) -> float:
@@ -64,9 +85,10 @@ class LossWeights(tp.NamedTuple):
 
 class TrainState(tp.NamedTuple):
     """JAX's `TrainState` fields: `params` (unfolded weight norm),
-    `qstate`, `opt_state` (`AdamState`), the discriminator's and the
-    balancer's (None until the GAN slice), and `rng`, the state of the CPU
-    `torch.Generator` the step draws from (uint8)."""
+    `qstate`, `opt_state` (`AdamState`), the discriminator's parameters
+    and `AdamState` and the balancer's EMA state (None when unused), and
+    `rng`, the state of the CPU `torch.Generator` the steps draw from
+    (uint8)."""
     params: tp.Any
     qstate: RVQState
     opt_state: AdamState
@@ -76,45 +98,149 @@ class TrainState(tp.NamedTuple):
     rng: torch.Tensor
 
 
-def create_train_state(model, disc_cfg=None, seed: int = 0,
-                       clip: tp.Optional[float] = 0.1,
-                       balancer=None) -> TrainState:
+def create_train_state(model, disc_cfg: tp.Optional[MSSTFTConfig] = None,
+                       seed: int = 0, clip: tp.Optional[float] = 0.1,
+                       balancer: tp.Optional[Balancer] = None) -> TrainState:
     """A fresh `TrainState` for an `EncodecModel`: its parameters (copied)
-    and quantizer state, zero Adam moments, and a generator seeded with
-    `seed`. (`clip` shapes nothing here; it is taken for JAX's signature.)"""
-    if disc_cfg is not None:
-        refuse_gan("a discriminator config")
-    if balancer is not None:
-        refuse_gan("the gradient balancer")
+    and quantizer state, zero Adam moments, and the steps' generator seeded
+    with `seed`; with `disc_cfg`, a discriminator drawn from a generator of
+    its own (seeded with `seed + DISC_SEED_OFFSET`: JAX splits its key in
+    two) and its zero Adam moments; with `balancer`, its EMA state. (`clip`
+    shapes nothing here; it is taken for JAX's signature.)"""
     params = tree_map(lambda t: t.detach().clone(), model.params)
-    return TrainState(params=params, qstate=model.qstate,
-                      opt_state=init_adam(params), disc_params=None,
-                      disc_opt_state=None, balancer_state=None,
-                      rng=torch.Generator().manual_seed(seed).get_state())
+    device = model.qstate.embed.device
+    disc = disc_opt = None
+    if disc_cfg is not None:
+        disc = init_msstftd(
+            torch.Generator().manual_seed(seed + DISC_SEED_OFFSET), disc_cfg,
+            device)
+        disc_opt = init_adam(disc)
+    return TrainState(
+        params=params, qstate=model.qstate, opt_state=init_adam(params),
+        disc_params=disc, disc_opt_state=disc_opt,
+        balancer_state=(init_balancer_state(balancer, device)
+                        if balancer is not None else None),
+        rng=torch.Generator().manual_seed(seed).get_state())
 
 
-def make_train_steps(model_cfg: EncodecConfig, disc_cfg=None, *,
+def _grads(outputs, params, grad_outputs=None) -> tp.Any:
+    """The gradient of `outputs` (with cotangents `grad_outputs`) for every
+    leaf of `params` (zeros where they do not depend on it), as a tree
+    shaped like `params`."""
+    leaves = tree_leaves(params)
+    flat = torch.autograd.grad(outputs, leaves, grad_outputs=grad_outputs,
+                               allow_unused=True)
+    by_leaf = {id(p): torch.zeros_like(p) if g is None else g
+               for p, g in zip(leaves, flat)}
+    return tree_map(lambda p: by_leaf[id(p)], params)
+
+
+def _with_grad(tree):
+    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
+
+
+def gan_terms(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
+              x_hat: torch.Tensor, disc_remat: bool = False):
+    """The generator's GAN terms `(l_g, l_feat)` by JAX's route for the
+    config: the chunked discriminator (`disc_cfg.time_chunk`), each
+    resolution recomputed in the backward (`disc_remat`), or the whole
+    signal. The real signal's branch builds no graph."""
+    n_subs = len(disc_params["discs"])
+    n_feat = n_subs * msstftd_num_fmaps(disc_cfg)
+    l_g = l_feat = batch.new_zeros(())
+    if disc_cfg.time_chunk:
+        for i, sub in enumerate(disc_params["discs"]):
+            sums = msstftd_gan_sums_chunked(sub, batch, x_hat, disc_cfg, i,
+                                            chunk=disc_cfg.time_chunk)
+            l_g = l_g + sums["lg_fake"] / sums["n_logit"]
+            # mean|real - fake| / mean|real| per layer: the counts cancel
+            l_feat = l_feat + (sums["feat_diff"] / sums["feat_real"]).sum()
+        return l_g / n_subs, l_feat / n_feat
+    if disc_remat:
+        for i, sub in enumerate(disc_params["discs"]):
+            def one(x_hat, i=i, sub=sub):
+                logits_fake, fmap_fake = msstftd_sub_forward(sub, x_hat,
+                                                             disc_cfg, i)
+                with torch.no_grad():
+                    _, fmap_real = msstftd_sub_forward(sub, batch, disc_cfg,
+                                                       i)
+                lf = batch.new_zeros(())
+                for fr, ff in zip(fmap_real, fmap_fake):
+                    lf = lf + (fr - ff).abs().mean() / fr.abs().mean()
+                return (1.0 - logits_fake).square().mean(), lf
+            lg, lf = checkpoint(one, x_hat, use_reentrant=False)
+            l_g = l_g + lg
+            l_feat = l_feat + lf
+        return l_g / n_subs, l_feat / n_feat
+    with torch.no_grad():
+        _, fmap_real = msstftd_forward(disc_params, batch, disc_cfg)
+    logits_fake, fmap_fake = msstftd_forward(disc_params, x_hat, disc_cfg)
+    lg = total_loss(fmap_real, logits_fake, fmap_fake, batch, x_hat)
+    return lg["l_g"], lg["l_feat"]
+
+
+def disc_losses(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
+                x_hat: torch.Tensor, disc_remat: bool = False):
+    """The discriminator's LSGAN loss and its mean logits on the real and
+    the fake signal, `(loss, logits_real, logits_fake)`, by the same three
+    routes as `gan_terms`."""
+    subs = disc_params["discs"]
+    if disc_cfg.time_chunk or disc_remat:
+        loss = lr_mean = lf_mean = batch.new_zeros(())
+        for i, sub in enumerate(subs):
+            if disc_cfg.time_chunk:
+                sums = msstftd_gan_sums_chunked(sub, batch, x_hat, disc_cfg,
+                                                i, chunk=disc_cfg.time_chunk)
+                n = sums["n_logit"]
+                l_i = (sums["sq_fake"] + sums["lg_real"]) / n
+                lr_i, lf_i = sums["sum_real"] / n, sums["sum_fake"] / n
+            else:
+                def one(i=i, sub=sub):
+                    lr, _ = msstftd_sub_forward(sub, batch, disc_cfg, i)
+                    lf, _ = msstftd_sub_forward(sub, x_hat, disc_cfg, i)
+                    return (lf.square().mean() + (1.0 - lr).square().mean(),
+                            lr.mean(), lf.mean())
+                l_i, lr_i, lf_i = checkpoint(one, use_reentrant=False)
+            loss = loss + l_i
+            lr_mean = lr_mean + lr_i
+            lf_mean = lf_mean + lf_i
+        return loss / len(subs), lr_mean / len(subs), lf_mean / len(subs)
+    logits_real, _ = msstftd_forward(disc_params, batch, disc_cfg)
+    logits_fake, _ = msstftd_forward(disc_params, x_hat, disc_cfg)
+    return (disc_loss(logits_real, logits_fake),
+            sum(lg.mean() for lg in logits_real) / len(logits_real),
+            sum(lg.mean() for lg in logits_fake) / len(logits_fake))
+
+
+def make_train_steps(model_cfg: EncodecConfig,
+                     disc_cfg: tp.Optional[MSSTFTConfig] = None, *,
                      n_q: tp.Optional[int] = None,
                      freq_loss_kwargs: tp.Optional[dict] = None,
-                     balancer=None, clip: tp.Optional[float] = 0.1,
-                     compute_dtype=None, plain: bool = False):
-    """Build `(gen_step, eval_step)`.
+                     balancer: tp.Optional[Balancer] = None,
+                     clip: tp.Optional[float] = 0.1,
+                     compute_dtype=None, disc_remat: bool = False,
+                     plain: bool = False):
+    """Build `(gen_step, disc_step, eval_step, balanced_gen_step)`, as JAX's
+    `make_train_steps` (`balanced_gen_step` is None without a balancer).
 
-    gen_step(state, batch [B, T, C], weights, keep_grads=False) →
-        (new_state, metrics); with `keep_grads`, `metrics` also holds
-        "grads" (the gradient tree, before clipping), "codes" [B, K, T']
-        and "margins" [K, B·T'] (each stage's top-2 search margins).
+    gen_step(state, batch [B, T, C], weights, use_gan=False,
+             keep_grads=False) → (new_state, metrics); with `keep_grads`,
+        `metrics` also holds "grads" (the gradient tree, before clipping),
+        "codes" [B, K, T'] and "margins" [K, B·T'] (each stage's top-2
+        search margins).
+    disc_step(state, batch, weights, keep_grads=False) → (new_state,
+        metrics); with `keep_grads`, "grads" (the discriminator's).
     eval_step(state, batch, weights) → (metrics, codes [B, K, T'], x_hat)
+    balanced_gen_step(state, batch, weights, keep_grads=False) →
+        (new_state, metrics)
 
-    `batch` is a float32 tensor on the parameters' device. The step is
-    functional: `state` is not modified."""
-    if disc_cfg is not None:
-        refuse_gan("a discriminator config")
-    if balancer is not None:
-        refuse_gan("the gradient balancer")
+    `batch` is a float32 tensor on the parameters' device. The steps are
+    functional: `state` is not modified. `disc_remat=True` recomputes each
+    STFT resolution's GAN terms in the backward (less memory, the same
+    values); `disc_cfg.time_chunk` supersedes it."""
     if compute_dtype is not None and compute_dtype not in (torch.float32,
                                                           "float32", "f32"):
-        refuse_gan(f"compute_dtype={compute_dtype}")
+        refuse_bf16(f"compute_dtype={compute_dtype}")
     n_q = n_q or model_cfg.rvq.n_q
     fl_kwargs = dict(alpha=0.01, bandwidth=None, sampling_rate=10, n_fft=512)
     fl_kwargs.update(freq_loss_kwargs or {})
@@ -123,11 +249,16 @@ def make_train_steps(model_cfg: EncodecConfig, disc_cfg=None, *,
         return reconstruction_loss(x[..., 0], x_hat[..., 0], **fl_kwargs)
 
     def gen_step(state: TrainState, batch: torch.Tensor,
-                 weights: LossWeights, keep_grads: bool = False):
+                 weights: LossWeights, use_gan: bool = False,
+                 keep_grads: bool = False):
+        if use_gan and (disc_cfg is None or state.disc_params is None):
+            raise ValueError("use_gan needs a discriminator config and "
+                             "state")
         generator = torch.Generator()
         generator.set_state(state.rng)
-        params = tree_map(lambda t: t.detach().requires_grad_(True),
-                          state.params)
+        # the spectral-norm power iteration (the identity without it)
+        params_in = spectral_norm_update_tree(state.params)
+        params = _with_grad(params_in)
         margins: tp.Optional[list] = [] if keep_grads else None
         with torch.enable_grad():
             x_hat, codes, commit, new_qstate = forward_train(
@@ -141,13 +272,13 @@ def make_train_steps(model_cfg: EncodecConfig, disc_cfg=None, *,
                     + losses_g["l_2"] * weights.l2
                     + commit_mean * weights.commit
                     + commit_mean * weights.codebook)
-            leaves = tree_leaves(params)
-            flat = torch.autograd.grad(loss, leaves, allow_unused=True)
-        by_leaf = {id(p): torch.zeros_like(p) if g is None else g
-                   for p, g in zip(leaves, flat)}
-        grads = tree_map(lambda p: by_leaf[id(p)], params)
+            if use_gan:
+                l_g, l_feat = gan_terms(state.disc_params, disc_cfg, batch,
+                                        x_hat, disc_remat)
+                loss = loss + l_g * weights.gen + l_feat * weights.feat
+            grads = _grads(loss, params)
         new_params, new_opt, grad_norm = adam_update(
-            grads, state.opt_state, state.params, weights.lr, clip)
+            grads, state.opt_state, params_in, weights.lr, clip)
         metrics = {
             "loss": loss.detach(),
             "loss_l1": losses_g["l_1"].detach(),
@@ -159,11 +290,82 @@ def make_train_steps(model_cfg: EncodecConfig, disc_cfg=None, *,
             "loss_commit": commit_mean.detach(),
             "grad_norm": grad_norm,
         }
+        if use_gan:
+            metrics.update(loss_gen=l_g.detach(), loss_feat=l_feat.detach())
         if keep_grads:
             metrics.update(grads=grads, codes=codes,
                            margins=torch.stack(margins))
         return state._replace(params=new_params, qstate=new_qstate,
                               opt_state=new_opt,
+                              rng=generator.get_state()), metrics
+
+    def balanced_gen_step(state: TrainState, batch: torch.Tensor,
+                          weights: LossWeights, keep_grads: bool = False):
+        """Balanced waveform losses (l_t, l_f) through the balancer, the
+        commit loss's gradient plainly weighted; one backward carries both
+        cotangents (JAX: one vjp)."""
+        generator = torch.Generator()
+        generator.set_state(state.rng)
+        params = _with_grad(state.params)
+        with torch.enable_grad():
+            x_hat, _, commit, new_qstate = forward_train(
+                params, state.qstate, batch, model_cfg, n_q, generator,
+                training=True, plain=plain)
+            commit_mean = commit.mean()
+        loss_fns = {
+            "l_t": lambda y: (batch - y).abs().mean(),
+            "l_f": lambda y: freq_loss(batch, y)["total_loss"],
+        }
+        cot, losses, new_bal, bal_metrics = balance(
+            balancer, loss_fns, x_hat, state.balancer_state)
+        # the commit scalar feeds both the commit and the codebook weights
+        # (the reference passes one loss under both names, vq.py:114)
+        w_commit = commit_mean.new_tensor(weights.commit + weights.codebook)
+        grads = _grads((x_hat, commit_mean), params, (cot, w_commit))
+        new_params, new_opt, grad_norm = adam_update(
+            grads, state.opt_state, state.params, weights.lr, clip)
+        zero = commit_mean.new_zeros(())
+        metrics = {f"loss_{k}": v for k, v in losses.items()}
+        metrics.update(bal_metrics)
+        metrics.update(loss_commit=commit_mean.detach(),
+                       loss=losses["l_t"] + losses["l_f"],
+                       loss_l1=losses["l_t"], loss_l2=zero,
+                       loss_freq=losses["l_f"], freq_acc=zero,
+                       grad_norm=grad_norm)
+        if keep_grads:
+            metrics["grads"] = grads
+        return state._replace(params=new_params, qstate=new_qstate,
+                              opt_state=new_opt, rng=generator.get_state(),
+                              balancer_state=new_bal), metrics
+
+    def disc_step(state: TrainState, batch: torch.Tensor,
+                  weights: LossWeights, keep_grads: bool = False):
+        if disc_cfg is None or state.disc_params is None:
+            raise ValueError("disc_step needs a discriminator config and "
+                             "state")
+        generator = torch.Generator()
+        generator.set_state(state.rng)
+        disc_in = spectral_norm_update_tree(state.disc_params)
+        # the generator's forward as JAX runs it (training mode, its own
+        # draws), without a graph; its quantizer update is dropped
+        with torch.no_grad():
+            x_hat, _, _, _ = forward_train(
+                state.params, state.qstate, batch, model_cfg, n_q, generator,
+                training=True, plain=plain)
+        disc = _with_grad(disc_in)
+        with torch.enable_grad():
+            loss, lr_mean, lf_mean = disc_losses(disc, disc_cfg, batch,
+                                                 x_hat, disc_remat)
+            grads = _grads(loss, disc)
+        new_disc, new_opt, grad_norm = adam_update(
+            grads, state.disc_opt_state, disc_in, weights.disc_lr, clip)
+        metrics = {"loss_disc": loss.detach(),
+                   "logits_real": lr_mean.detach(),
+                   "logits_fake": lf_mean.detach(),
+                   "disc_grad_norm": grad_norm}
+        if keep_grads:
+            metrics["grads"] = grads
+        return state._replace(disc_params=new_disc, disc_opt_state=new_opt,
                               rng=generator.get_state()), metrics
 
     @torch.no_grad()
@@ -186,4 +388,7 @@ def make_train_steps(model_cfg: EncodecConfig, disc_cfg=None, *,
         }
         return metrics, codes, x_hat
 
-    return gen_step, eval_step
+    return (gen_step, disc_step, eval_step,
+            balanced_gen_step if balancer is not None else None)
+
+

@@ -2,17 +2,21 @@
 
 Port of `encodec_tpu/train/trainer.py` (`model_from_config`, `Trainer`:
 `weights_for_epoch`, `train_one_epoch`, `evaluate`, `code_stats`, `save`,
-`resume`, `fit`). Behavioral reference: encodec/train.py:551-653 (main)
-and 39-353 (train_one_step / test): per-epoch generator steps, the commit
-loss gated by `commit_start_epoch`, LinearWarmupCosineAnnealing per epoch,
-periodic eval and checkpoint, TensorBoard scalars when a writer is given,
-per-codebook code entropies.
+`resume`, `fit`; `disc_from_config`). Behavioral reference:
+encodec/train.py:551-653 (main) and 39-353 (train_one_step / test):
+per-epoch generator steps, from `train_discriminator_start_epoch` a coin
+flip per batch (probability `train_discriminator_prob`) between a GAN
+generator step and a plain generator step followed by a discriminator
+step, the commit loss gated by `commit_start_epoch`,
+LinearWarmupCosineAnnealing per epoch, periodic eval and checkpoint,
+TensorBoard scalars when a writer is given, per-codebook code entropies;
+the gradient balancer when `balancer.weights` is set and
+`loss.use_balancer` is true.
 
 The trainer runs on `device` (default "cuda"; it raises without a GPU;
 "cpu" runs every plain twin). Configs it cannot run yet are refused when
-the trainer is built, not epochs later: `train_discriminator: true`, a
-gradient balancer, a compute dtype other than float32 (all ROADMAP 11a)
-and `checkpoint.async_save: true`.
+the trainer is built, not epochs later: a compute dtype other than
+float32 (ROADMAP item 11d) and `checkpoint.async_save: true` (item 11e).
 """
 
 from __future__ import annotations
@@ -29,16 +33,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..losses.balancer import Balancer
 from ..models.model import EncodecModel, build_model
+from ..models.msstftd import MSSTFTConfig
 from ..quant import RVQState, num_quantizers_for_bandwidth
-from .checkpoint import (load_checkpoint_with_fallback, previous_path,
-                         save_checkpoint)
+from .checkpoint import (ASYNC_ITEM, load_checkpoint_with_fallback,
+                         previous_path, save_checkpoint)
 from .config import ConfigNamespace, config_to_dict, parse_segment
 from .metrics import Metrics
 from .optim import AdamState
 from .schedulers import linear_warmup_cosine
 from .steps import (LossWeights, TrainState, create_train_state,
-                    make_train_steps, refuse_gan)
+                    make_train_steps, refuse_bf16)
 
 # `extra` of the checkpoints this trainer writes: the parameters are in the
 # port's (torch) layout, unlike a JAX-written file's
@@ -70,6 +76,21 @@ def model_from_config(config: ConfigNamespace,
     return model
 
 
+def disc_from_config(config: ConfigNamespace
+                     ) -> tp.Optional[MSSTFTConfig]:
+    """The MS-STFT discriminator of a config's `model:` section, or None
+    without `train_discriminator`."""
+    m = config.model
+    if not getattr(m, "train_discriminator", False):
+        return None
+    return MSSTFTConfig(
+        filters=m.filters, in_channels=m.channels, out_channels=m.channels,
+        n_ffts=tuple(m.disc_n_ffts), hop_lengths=tuple(m.disc_hop_lengths),
+        win_lengths=tuple(m.disc_win_lengths),
+        conv_impl=str(getattr(m, "disc_conv_impl", "xla")),
+        time_chunk=getattr(m, "disc_time_chunk", None))
+
+
 def _tensors(tree, device: torch.device):
     """numpy leaves → tensors on `device` (the same bits)."""
     if isinstance(tree, np.ndarray):
@@ -90,10 +111,14 @@ def state_to_device(raw, device: torch.device) -> TrainState:
     params, qstate, opt_state, rng = raw[0], raw[1], raw[2], raw[6]
     q = RVQState(*(_tensors(t, device) for t in tuple(qstate)[:3]),
                  inited=bool(np.asarray(tuple(qstate)[3])))
+    disc_opt = raw[4]
     return TrainState(
         params=_tensors(params, device), qstate=q,
         opt_state=AdamState(*_tensors(tuple(opt_state), device)),
-        disc_params=None, disc_opt_state=None, balancer_state=None,
+        disc_params=_tensors(raw[3], device),
+        disc_opt_state=(None if disc_opt is None else
+                        AdamState(*_tensors(tuple(disc_opt), device))),
+        balancer_state=_tensors(raw[5], device),
         rng=torch.as_tensor(np.asarray(rng, np.uint8)).cpu())
 
 
@@ -108,25 +133,31 @@ class Trainer:
         self.val_loader = val_loader
         self.log_dir = log_dir
         self.label_mapping = label_mapping or {}
-        if getattr(config.model, "train_discriminator", False):
-            refuse_gan("model.train_discriminator: true")
-        bal_cfg = getattr(config, "balancer", None)
-        if bal_cfg is not None and getattr(bal_cfg, "weights", None):
-            refuse_gan("the gradient balancer (balancer.weights)")
         dtype_name = getattr(config.common, "compute_dtype", None)
         if dtype_name and str(dtype_name) not in ("float32", "f32"):
-            refuse_gan(f"common.compute_dtype: {dtype_name}")
+            refuse_bf16(f"common.compute_dtype: {dtype_name}")
         if getattr(getattr(config, "checkpoint", None), "async_save", False):
             raise NotImplementedError(
-                "checkpoint.async_save: true is not ported; saves are "
-                "synchronous (set it to false)")
+                f"checkpoint.async_save: true: {ASYNC_ITEM}")
         self.device = resolve_device(device)
         os.makedirs(log_dir, exist_ok=True)
 
         self.model = model_from_config(config, self.device)
+        self.disc_cfg = disc_from_config(config)
+        # the gradient balancer (the reference config-stubs it but never
+        # wires it, params/config.yaml:79-84)
+        self.balancer = None
+        bal_cfg = getattr(config, "balancer", None)
+        if bal_cfg is not None and getattr(bal_cfg, "weights", None):
+            weights = bal_cfg.weights
+            weights = getattr(weights, "__dict__", weights)
+            self.balancer = Balancer(weights={k: float(v)
+                                              for k, v in weights.items()})
         self.clip = 0.1 if config.common.gradient_clipping else None
-        self.state = create_train_state(self.model, seed=config.common.seed,
-                                        clip=self.clip)
+        self.state = create_train_state(self.model, self.disc_cfg,
+                                        seed=config.common.seed,
+                                        clip=self.clip,
+                                        balancer=self.balancer)
         loss_cfg = config.loss
         freq_kwargs = dict(alpha=loss_cfg.alpha, bandwidth=loss_cfg.bandwidth,
                            sampling_rate=10, n_fft=loss_cfg.n_fft)
@@ -136,12 +167,22 @@ class Trainer:
             freq_kwargs["hop_length"] = loss_cfg.hop_length
 
         self.freq_kwargs = freq_kwargs
+        disc_remat = bool(getattr(config.common, "disc_remat", False))
+        if disc_remat and self.disc_cfg is not None \
+                and self.disc_cfg.time_chunk:
+            logging.warning(
+                "common.disc_remat is ignored: model.disc_time_chunk=%d "
+                "supersedes it (the chunk loop already rematerializes)",
+                self.disc_cfg.time_chunk)
 
         def make_steps(n_q=None):
-            return make_train_steps(self.model.cfg, freq_loss_kwargs=freq_kwargs,
-                                    clip=self.clip, n_q=n_q)
+            return make_train_steps(
+                self.model.cfg, self.disc_cfg, freq_loss_kwargs=freq_kwargs,
+                balancer=self.balancer, clip=self.clip, n_q=n_q,
+                disc_remat=disc_remat)
 
-        self.gen_step, self.eval_step = make_steps()
+        (self.gen_step, self.disc_step, self.eval_step,
+         self.balanced_gen_step) = make_steps()
         # `model.sample_bandwidths: true`: one n_q per step, drawn from the
         # target bandwidths (stages >= n_q keep their state that step)
         self.sample_bandwidths = bool(
@@ -150,16 +191,20 @@ class Trainer:
             num_quantizers_for_bandwidth(
                 self.model.cfg.rvq, self.model.frame_rate, bw)
             for bw in self.model.cfg.target_bandwidths})
-        self._steps_by_nq: tp.Dict[int, tp.Callable] = {}
+        self._steps_by_nq: tp.Dict[int, tuple] = {}
 
-        def gen_step_for(n_q):
-            if n_q == self.model.cfg.rvq.n_q:
-                return self.gen_step
+        def steps_for(n_q):
+            """(gen_step, disc_step, balanced_gen_step) at `n_q`."""
+            if n_q is None or n_q == self.model.cfg.rvq.n_q:
+                return self.gen_step, self.disc_step, self.balanced_gen_step
             if n_q not in self._steps_by_nq:
-                self._steps_by_nq[n_q] = make_steps(n_q)[0]
+                gen, disc, _, balanced = make_steps(n_q)
+                self._steps_by_nq[n_q] = (gen, disc, balanced)
             return self._steps_by_nq[n_q]
 
-        self._gen_step_for = gen_step_for
+        self._steps_for = steps_for
+        self.use_balancer = bool(self.balancer) and \
+            bool(getattr(loss_cfg, "use_balancer", False))
         self.metrics = Metrics()
         self.writer = writer
         self.start_epoch = 1
@@ -213,16 +258,39 @@ class Trainer:
         return torch.as_tensor(np.asarray(batch["x"], np.float32)).to(
             self.device)
 
+    def _gan_active(self, epoch: int) -> bool:
+        c = self.config.model
+        return bool(getattr(c, "train_discriminator", False)) and \
+            epoch >= c.train_discriminator_start_epoch
+
     # -- loops ------------------------------------------------------------
     def train_one_epoch(self, epoch: int, guard=None) -> dict:
         weights = self.weights_for_epoch(epoch)
+        gan = self._gan_active(epoch)
+        prob = float(getattr(self.config.model, "train_discriminator_prob",
+                             0.5))
         log_this = epoch % self.config.common.log_interval == 0
         for batch, _ds_ids in self.train_loader:
             if guard is not None and guard.requested:
                 break  # stop at a step boundary; fit checkpoints
-            gen_step = (self._gen_step_for(random.choice(self._bandwidth_nqs))
-                        if self.sample_bandwidths else self.gen_step)
-            self.state, m = gen_step(self.state, self._batch(batch), weights)
+            x = self._batch(batch)
+            # the draws in JAX's order: the coin, then the bandwidth
+            train_disc = gan and random.random() < prob
+            gen_step, disc_step, balanced_step = self._steps_for(
+                random.choice(self._bandwidth_nqs)
+                if self.sample_bandwidths else None)
+            if self.use_balancer and not (gan and not train_disc):
+                self.state, m = balanced_step(self.state, x, weights)
+            else:
+                self.state, m = gen_step(self.state, x, weights,
+                                         use_gan=gan and not train_disc)
+            if train_disc:
+                self.state, dm = disc_step(self.state, x, weights)
+                if log_this:
+                    self.metrics.fill_metrics(
+                        {"Loss Discriminator": dm["loss_disc"],
+                         "Logits Real": dm["logits_real"],
+                         "Logits Fake": dm["logits_fake"]})
             if log_this:
                 self.metrics.fill_metrics({
                     "Loss": m["loss"], "Loss L1": m["loss_l1"],

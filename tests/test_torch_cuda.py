@@ -9,7 +9,10 @@ lmv=3 integer LM's CDF rows on the card against the CPU's. Training:
 K3's saving forward (the same `out` bits as the plain launch), the K3
 backward kernel against its plain twin and against autograd through the
 plain recurrence, and one generator step of a tiny breathing model on the
-kernels against the same step on the plain twins.
+kernels against the same step on the plain twins; the GAN phase: a GAN
+generator step and a discriminator step (chunked and whole-signal) on the
+kernels against the plain twins, the chunked discriminator against the
+whole-signal forward, and a spectral-norm generator step.
 
 This file imports no JAX (the GPU machine has none). On a machine without
 a CUDA device every test skips. Run on the H100 with:
@@ -658,12 +661,12 @@ def test_gen_step_on_the_kernels_matches_the_plain_twins(dev):
                          codebook=1.0)
     state = create_train_state(model, seed=0)
     kernels.reset_launch_counts()
-    gen, _ = make_train_steps(model.cfg, freq_loss_kwargs=fl)
+    gen = make_train_steps(model.cfg, freq_loss_kwargs=fl)[0]
     s_k, m_k = gen(state, x, w, keep_grads=True)
     counts = kernels.launch_counts()
     assert counts["nearest_codebook"] == 8 and counts["lstm_scan"] == 4
     assert lstm_scan.save_launches == 4 and counts["lstm_scan_backward"] == 4
-    gen_p, _ = make_train_steps(model.cfg, freq_loss_kwargs=fl, plain=True)
+    gen_p = make_train_steps(model.cfg, freq_loss_kwargs=fl, plain=True)[0]
     s_p, m_p = gen_p(state, x, w, keep_grads=True)
     torch.cuda.synchronize()
     assert abs(m_k["loss"].item() - m_p["loss"].item()) <= 1e-4 * abs(
@@ -674,3 +677,133 @@ def test_gen_step_on_the_kernels_matches_the_plain_twins(dev):
     for a, b in zip(s_k.qstate[:3], s_p.qstate[:3]):
         assert (a - b).abs().max().item() <= 1e-4 * max(
             1.0, b.abs().max().item())
+
+
+def _tiny_gan(dev, norm="layer_norm", chunk=7):
+    from encodec_tpu_torch.models import MSSTFTConfig, build_model
+
+    model = build_model([0.08], sample_rate=10, channels=1, causal=True,
+                        model_norm=norm, name="breathing_model",
+                        ratios=[5, 2, 1], bins=32, dimension=16, n_filters=4,
+                        decoder_final_norm="none", shared_codebook=True,
+                        kmeans_init=False, seed=3, device=dev)
+    disc = MSSTFTConfig(filters=2, n_ffts=(64, 32), hop_lengths=(16, 8),
+                        win_lengths=(64, 32), time_chunk=chunk)
+    t = np.arange(600) / 10.0
+    x = torch.from_numpy((np.sin(2 * np.pi * 0.3 * t)[None, :, None]
+                          + 0.05 * np.random.RandomState(0).randn(2, 600, 1))
+                         .astype(np.float32)).to(dev)
+    return model, disc, x
+
+
+@pytest.mark.parametrize("chunk", [7, None])
+def test_gan_and_disc_steps_on_the_kernels_match_the_plain_twins(dev, chunk):
+    """A GAN generator step and a discriminator step of a tiny breathing
+    model (tiny discriminator, chunked or whole-signal) from the same state
+    on the kernels and on the plain twins: codes at every position, losses
+    within 1e-4, gradient leaves within 5e-3 of their own and the whole
+    gradient's largest |value| (the feature-matching loss's L1 kinks flip
+    signs under rounding: tests/test_torch_gan.py); the launches."""
+    from encodec_tpu_torch import kernels
+    from encodec_tpu_torch.train import (LossWeights, create_train_state,
+                                         make_train_steps)
+    from encodec_tpu_torch.train.optim import tree_leaves
+
+    model, disc, x = _tiny_gan(dev, chunk=chunk)
+    fl = dict(n_fft=64, win_length=64, hop_length=16, sampling_rate=10)
+    w = LossWeights.make(lr=1e-3, freq=0.25, l2=0.01, commit=0.25,
+                         codebook=1.0, disc_lr=1e-3)
+    state = create_train_state(model, disc, seed=0)
+    gen, dstep = make_train_steps(model.cfg, disc, freq_loss_kwargs=fl)[:2]
+    gen_p, dstep_p = make_train_steps(model.cfg, disc, freq_loss_kwargs=fl,
+                                      plain=True)[:2]
+    kernels.reset_launch_counts()
+    saved = lstm_scan.save_launches
+    s_k, m_k = gen(state, x, w, use_gan=True, keep_grads=True)
+    counts = kernels.launch_counts()
+    assert counts["nearest_codebook"] == 8 and counts["lstm_scan"] == 4
+    assert lstm_scan.save_launches - saved == 4
+    assert counts["lstm_scan_backward"] == 4
+    d_k, dm_k = dstep(state, x, w, keep_grads=True)
+    counts = kernels.launch_counts()
+    assert counts["nearest_codebook"] == 16 and counts["lstm_scan"] == 8
+    assert lstm_scan.save_launches - saved == 4
+    s_p, m_p = gen_p(state, x, w, use_gan=True, keep_grads=True)
+    d_p, dm_p = dstep_p(state, x, w, keep_grads=True)
+    torch.cuda.synchronize()
+    assert torch.equal(m_k["codes"], m_p["codes"])
+    for k in ("loss", "loss_gen", "loss_feat"):
+        assert abs(m_k[k].item() - m_p[k].item()) <= 1e-4 * abs(m_p[k].item())
+    for k in ("loss_disc", "logits_real", "logits_fake"):
+        assert abs(dm_k[k].item() - dm_p[k].item()) <= 1e-4 * abs(
+            dm_p[k].item())
+    for got, ref, rel in ((m_k["grads"], m_p["grads"], 5e-3),
+                          (dm_k["grads"], dm_p["grads"], 1e-4)):
+        top = max(r.abs().max().item() for r in tree_leaves(ref))
+        for g, r in zip(tree_leaves(got), tree_leaves(ref)):
+            assert bool(torch.isfinite(g).all())
+            assert (g - r).abs().max().item() <= rel * (
+                r.abs().max().item() + top)
+    assert d_k.qstate is state.qstate and d_k.params is state.params
+
+
+def test_chunked_discriminator_matches_the_whole_signal_on_the_card(dev):
+    """The chunked GAN sums (chunk 37 over 370 and 741 frames: ragged
+    tails) against the whole-signal forward, relative 1e-5."""
+    from encodec_tpu_torch.models import msstftd
+
+    cfg = msstftd.MSSTFTConfig(filters=8, n_ffts=(64, 32),
+                               hop_lengths=(16, 8), win_lengths=(64, 32))
+    params = msstftd.init_msstftd(torch.Generator().manual_seed(1), cfg, dev)
+    x = _rand((2, 6000, 1), 1, dev)
+    x_hat = x + _rand((2, 6000, 1), 2, dev, 0.3)
+    with torch.no_grad():
+        for i, sub in enumerate(params["discs"]):
+            sums = msstftd.msstftd_gan_sums_chunked(sub, x, x_hat, cfg, i,
+                                                    chunk=37)
+            lr, fr = msstftd.msstftd_sub_forward(sub, x, cfg, i)
+            lf, ff = msstftd.msstftd_sub_forward(sub, x_hat, cfg, i)
+            assert lr.shape[2] % 37 and int(sums["n_logit"]) == lr.numel()
+            whole = {"lg_real": (1 - lr).square().sum(), "sum_real": lr.sum(),
+                     "lg_fake": (1 - lf).square().sum(),
+                     "sq_fake": lf.square().sum(), "sum_fake": lf.sum(),
+                     "feat_diff": torch.stack([(a - b).abs().sum()
+                                               for a, b in zip(fr, ff)]),
+                     "feat_real": torch.stack([a.abs().sum() for a in fr])}
+            for k, v in whole.items():
+                assert float(((sums[k] - v).abs() / v.abs()).max()) <= 1e-5, k
+
+
+def test_spectral_norm_gen_step_on_the_kernels(dev):
+    """`model_norm="spectral_norm"`: one step on the kernels against the
+    plain twins (loss within 1e-4; u and v refreshed alike within 1e-5)."""
+    from encodec_tpu_torch.train import (LossWeights, create_train_state,
+                                         make_train_steps)
+
+    def vectors(tree, path=""):
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                if k in ("u_sn", "v_sn"):
+                    yield path + k, v
+                else:
+                    yield from vectors(v, f"{path}{k}/")
+        elif isinstance(tree, (list, tuple)):
+            for i, v in enumerate(tree):
+                yield from vectors(v, f"{path}{i}/")
+
+    model, _, x = _tiny_gan(dev, norm="spectral_norm")
+    fl = dict(n_fft=64, win_length=64, hop_length=16, sampling_rate=10)
+    w = LossWeights.make(lr=1e-3, freq=0.25)
+    state = create_train_state(model, seed=0)
+    s_k, m_k = make_train_steps(model.cfg, freq_loss_kwargs=fl)[0](
+        state, x, w)
+    s_p, m_p = make_train_steps(model.cfg, freq_loss_kwargs=fl,
+                                plain=True)[0](state, x, w)
+    assert abs(m_k["loss"].item() - m_p["loss"].item()) <= 1e-4 * abs(
+        m_p["loss"].item())
+    got, ref = dict(vectors(s_k.params)), dict(vectors(s_p.params))
+    before = dict(vectors(state.params))
+    assert len(got) == len(ref) > 20
+    for k, a in got.items():
+        assert not torch.equal(a, before[k]), k
+        assert (a - ref[k]).abs().max().item() <= 1e-5, k
