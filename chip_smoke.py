@@ -116,7 +116,20 @@ Phases, in order (any failure exits non-zero before the last line):
    rows against the CPU's; teacher-forced encode and decode times, a
    profiled decode step (launches) and 8 profiled decode steps (idle
    share), bytes against the raw file;
-17. print the `kernels` JSON line (launches per path, the grid kernel and
+17. train an entropy prior on the port's own codes at the published LM
+   width (n_q 32, card 1024, dim 200, 8 heads, 5 layers), with its own
+   launch counts: 16 seeded 10 s requests encoded at 24 kbps (K2, K3), 20
+   steps of `make_lm_train_step` at B=16 x T=750 (ms per step, peak
+   memory, bits per code falling), the trained LM coding a 10 s request
+   (lmv=3, read back and decoded on the card), `tools.export` of phase
+   14's run directory, `tools.batch` over 4 wavs (one shorter than a
+   chunk) and `tools.benchmark.bench` once; checks: one step on the card
+   against the CPU port, `forward_batch` against `scan` and `__call__`
+   within 1e-5, the card's and the CPU's decoded codes against the
+   written ones and the file against the CPU writer's, the export and the
+   LM's state dict reloaded bit for bit, the batch files against per-file
+   compression and decompression;
+18. print the `kernels` JSON line (launches per path, the grid kernel and
    the backward kernel in rows of their own), then the final `ok` JSON
    line.
 
@@ -423,6 +436,8 @@ def k1_chain(x, e, n_q, shared):
 K2_CASES = {750: ((8, False), (32, False), (8, True)),
             1500: ((16, False),),
             3000: ((8, False), (32, False), (8, True)),
+            12000: ((32, False),),           # phase_lm_train's 16 x 10 s
+            256: ((8, False),),              # the batch tool's chunk
             7: ((8, False), (32, False)),    # a stream's first chunk
             6: ((8, False), (32, False))}    # and each 80 ms chunk after it
 
@@ -431,7 +446,9 @@ def phase_k2(torch, kernels, dev):
     """K2 at N=750 (every stage of a 10 s 24 kHz request, the main path's
     shape) and N=3000 (a 40 s request, or 4 x 10 s), n_q = 8, 32, and 8
     with one shared book, at N=1500, n_q=16 (a 10 s 48 kHz request at
-    24 kbps), and at N=7 and 6 (a streamed chunk's frames) for n_q 8 and
+    24 kbps), at N=12,000, n_q=32 (phase_lm_train's 16 x 10 s training
+    codes, one batch), at N=256, n_q=8 (the batch tool's 256-hop chunk at
+    6 kbps), and at N=7 and 6 (a streamed chunk's frames) for n_q 8 and
     32; the JSON row is N=750, n_q=32."""
     from encodec_tpu_torch.kernels import vq_cuda
 
@@ -540,8 +557,9 @@ def phase_k3(torch, kernels, dev):
     """K3 per layer at H=512: T=750 (a 10 s 24 kHz request's LSTM) at the
     served batch B=1 and at B=4; B=10, T=150 (a 10 s 48 kHz request's ten
     full segments, one batch: more sequences than the card's K3 clusters,
-    so some clusters run a second pass) and B=1, T=15 (its 0.1 s tail). The
-    JSON row is B=1, T=750."""
+    so some clusters run a second pass), B=1, T=15 (its 0.1 s tail) and
+    B=16, T=750 (phase_lm_train's training codes, one batch). The JSON row
+    is B=1, T=750."""
     H = 512
     lim = 1.0 / math.sqrt(H)
     rng = np.random.RandomState(31)
@@ -552,7 +570,7 @@ def phase_k3(torch, kernels, dev):
     w_hh = layers[0]["w_hh"]
     cudnn = lstm_yardstick(torch, w_hh, dev)
     rows = {}
-    for B, T in ((1, 750), (4, 750), (10, 150), (1, 15)):
+    for B, T in ((1, 750), (4, 750), (10, 150), (1, 15), (16, 750)):
         x = gauss(torch, (B, T, H), 30, dev, 0.5)
 
         def stack(scan):
@@ -589,8 +607,9 @@ def phase_k3(torch, kernels, dev):
 
 def phase_k3_state(torch, kernels, dev):
     """K3 from a carried (h0, c0) per layer at H=512: B=1, T=6 and T=7 (an
-    80 ms chunk of a stream and its 7-hop first chunk) and B=10, T=150
-    (distinct state rows; two waves of clusters), against the twin and
+    80 ms chunk of a stream and its 7-hop first chunk), B=1, T=256 (the
+    batch tool's extractor chunk) and B=10, T=150 (distinct state rows;
+    two waves of clusters), against the twin and
     cuDNN's LSTM from the same state; then one launch over T steps against
     launches over a 7 + 6 + ... split with the state carried, which must
     give the same bits."""
@@ -607,7 +626,7 @@ def phase_k3_state(torch, kernels, dev):
         c0 = gauss(torch, (B, H), seed + 2, dev, 1.0)
         return xp, h0, c0
 
-    for B, T in ((1, 6), (1, 7), (10, 150)):
+    for B, T in ((1, 6), (1, 7), (1, 256), (10, 150)):
         xp, h0, c0 = inputs(B, T, 42)
         out, hT, cT = kernels.lstm_scan(xp, w_hh, h0, c0, return_state=True)
         ref, ref_h, ref_c = kernels.lstm_scan_plain(xp, w_hh, h0, c0,
@@ -1457,15 +1476,18 @@ def phase_hires(torch, kernels, dev):
     err = float((kernels.lstm_scan(xp, w_hh)
                  - kernels.lstm_scan_plain(xp, w_hh)).abs().max())
     check(err <= 1e-4, f"K3 B=1 T={T} H={H}: max|d| {err} > 1e-4")
-    ms = device_ms(torch, lambda: kernels.lstm_scan(xp, w_hh), 3)
-    plain_ms = device_ms(torch, lambda: kernels.lstm_scan_plain(xp, w_hh), 1)
+    # 18.7 ms launches: the profiler drops such records late in a process
+    ms, how = device_or_event_ms(torch, lambda: kernels.lstm_scan(xp, w_hh), 3)
+    plain_ms, how_p = device_or_event_ms(
+        torch, lambda: kernels.lstm_scan_plain(xp, w_hh), 1)
     with torch.no_grad():
-        lib_ms = device_ms(torch, lambda: cudnn(xp), 2)
+        lib_ms, how_l = device_or_event_ms(torch, lambda: cudnn(xp), 2)
     b_ms, b_by = bound(2.0 * T * H * 4 * H, (T * 4 * H + 4 * H * H + T * H) * 4)
     print(f"K3 lstm_scan B=1 T={T} H={H} (hires_tokens, gaussian inputs): "
           f"max|d| vs plain {err:.3g}; per layer device ms: kernel={ms:.4f} "
           f"({ms / T * 1e3:.3f} us/step) plain={plain_ms:.4f} library(cuDNN "
-          f"LSTM)={lib_ms:.4f} bound={b_ms:.5f} ({b_by})")
+          f"LSTM)={lib_ms:.4f} bound={b_ms:.5f} ({b_by}); timed by {how} / "
+          f"{how_p} / {how_l}")
     return counts
 
 
@@ -1971,7 +1993,6 @@ def phase_train(torch, kernels, dev):
           f"{int(flagged.sum())} tie-flagged; loss {loss_err:.3g} relative; "
           f"gradient leaves within {grad_err:.3g} of their largest |value|")
     del mk, mp, s_e1, trainer, fresh
-    tmp.cleanup()
 
     # -- K1 at the training shape ----------------------------------------
     from encodec_tpu_torch.kernels import vq_cuda
@@ -2005,7 +2026,9 @@ def phase_train(torch, kernels, dev):
           f"device ms: kernel={ms:.4f} plain={plain_ms:.4f} "
           f"library(cdist+argmin)={lib_ms:.4f} bound={b_ms:.5f} ({b_by}); "
           f"timed by {how} / {how_p} / {how_l}")
-    return counts
+    # the run directory stays for phase_lm_train's export (the caller
+    # cleans `tmp` up)
+    return counts, tmp, run
 
 
 # gan.yaml's discriminator, and the night length of the chunked-vs-whole
@@ -2611,6 +2634,360 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
     return counts
 
 
+LM_TRAIN_LR = 1e-3     # 20 steps on one batch must lower the entropy
+
+
+def lm_step_split(torch, fn, attention_batch: int) -> tuple:
+    """Device ms of one LM training step (`fn`, after a warm-up call) by
+    group, from one profiler window with CPU ops and their input shapes: a
+    kernel belongs to the aten op that launched it. Groups: `Adam` (the
+    step's `lm_train.adam` range), `attention` (the score and value
+    matmuls, whose batch is B·heads = `attention_batch`, their softmax and
+    mask, forward and backward), `head matmul` (the per-codebook head's
+    batched matmuls), `linear matmul` (the trunk's q/k/v/out/FFN
+    matmuls), `loss` (log-softmax and NLL of the cross-entropy, forward
+    and backward), `embedding` (the gather and its scatter-add) and
+    `other` (norms, GELU, layout copies, elementwise). Returns ({group:
+    ms}, wall ms, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def in_range(e, name):
+        while e is not None:
+            if e.name == name:
+                return True
+            e = e.cpu_parent
+        return False
+
+    out: dict = {}
+    launches = 0
+    for e in prof.events():
+        kern = getattr(e, "kernels", None)
+        if not kern:
+            continue
+        launches += len(kern)
+        shapes = [sh for sh in (e.input_shapes or [])
+                  if isinstance(sh, (list, tuple)) and sh]
+        lead = shapes[0][0] if shapes else None
+        name = e.name
+        if in_range(e, "lm_train.adam"):
+            group = "Adam"
+        elif name in ("aten::bmm", "aten::baddbmm"):
+            group = "attention" if lead == attention_batch else "head matmul"
+        elif name in ("aten::mm", "aten::addmm"):
+            group = "linear matmul"
+        elif "softmax" in name and any(len(sh) == 4 and sh[1] != 1024
+                                       for sh in shapes):
+            group = ("loss" if "log_softmax" in name else "attention")
+        elif "softmax" in name or "nll_loss" in name:
+            group = "loss"
+        elif "masked_fill" in name:
+            group = "attention"
+        elif "index" in name or "embedding" in name:
+            group = "embedding"
+        else:
+            group = "other"
+        out[group] = out.get(group, 0.0) + sum(k.duration for k in kern) / 1e3
+    return out, wall_ms, launches
+
+
+def phase_lm_train(torch, kernels, model, registry, run_dir):
+    """Training an entropy prior on the port's own codes, then coding with
+    it, at full width (`lm_config_for` the 24 kHz codec: n_q 32, card 1024,
+    dim 200, 8 heads, 5 layers, W=262), counted as one path: the 24 kHz
+    model encodes 16 seeded 10 s requests at 24 kbps (codes [16, 32, 750]:
+    K2, K3); a seeded LM takes 20 steps of `make_lm_train_step` on them
+    (B=16 x T=750); the trained LM codes a held-out 10 s request
+    (`compress`, lmv=3 in 375-token blocks: K1 in the tie guard, K3) and
+    the file is read back
+    (`read_frames`) and decoded on the card; `tools.export` writes the
+    `.th` of `phase_train`'s run directory; `tools.batch` compresses 4 wavs
+    of different lengths (one shorter than a chunk) at 6 kbps through the
+    streaming extractor (K3 from a carried state, K2) and decompresses
+    them; `tools.benchmark.bench` runs once. Checks, not counted: the
+    training lowers bits per code; one step (B=4) on the card against the
+    CPU port from the same state; `forward_batch` against `scan` and
+    `__call__`; the card's decoded codes and the CPU's against the written
+    ones and the file against the CPU writer's; the export and the LM's
+    state dict reloaded bit for bit; the batch files against per-file
+    `compress_to_file` and `decompress`."""
+    import tempfile
+
+    from encodec_tpu_torch.models.ilm import IntLMModel
+    from encodec_tpu_torch.models.lm import LMModel, init_lm, lm_config_for
+    from encodec_tpu_torch.models.model import (encode_frame,
+                                                encode_frame_margins)
+    from encodec_tpu_torch.models.zoo import (load_pretrained,
+                                              lm_params_from_state,
+                                              torch_state_from_lm_params)
+    from encodec_tpu_torch.stream import binary, compress, decompress
+    from encodec_tpu_torch.stream.compress import (compress_to_file,
+                                                   read_frames,
+                                                   write_lm_payload)
+    from encodec_tpu_torch.tools import batch, benchmark, export
+    from encodec_tpu_torch.train import load_checkpoint, load_config
+    from encodec_tpu_torch.train.lm_train import (create_lm_train_state,
+                                                  make_lm_train_step,
+                                                  shift_codes)
+    from encodec_tpu_torch.train.optim import AdamState, tree_leaves, tree_map
+    from encodec_tpu_torch.train.trainer import (model_from_config,
+                                                 state_to_device)
+    from encodec_tpu_torch.utils.audio import convert_audio, load_wav, save_wav
+
+    t_phase = time.perf_counter()
+    dev = model.device
+    cfg = lm_config_for(model)
+    check((cfg.n_q, cfg.card, cfg.dim, cfg.num_heads, cfg.num_layers,
+           cfg.past_context) == (32, 1024, 200, 8, 5, 262),
+          f"not the published LM widths: {cfg}")
+    tmp = tempfile.TemporaryDirectory()
+    base = Path(tmp.name)
+    wavs = np.stack([request_audio(10.0, 24000, 300 + i) for i in range(16)])
+    sr = model.sample_rate
+    lengths = (2 * sr, int(5.3 * sr), 7 * sr + 100, 10 * sr + 17)
+    (base / "in").mkdir()
+    for i, n in enumerate(lengths):
+        save_wav(request_audio(n / sr, sr, 400 + i), base / "in" / f"w{i}.wav",
+                 sr)
+    chunk_hops = 256            # 81,920 samples: the 2 s file is shorter
+
+    # -- the lm_train path, counted: nothing but user calls in here ---------
+    model.set_target_bandwidth(24.0)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    codes = model.encode(wavs)[0][0]                     # [16, 32, 750]
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    counts_codes = launch_counts(kernels)
+    params = init_lm(torch.Generator().manual_seed(80), cfg, device=dev)
+    opt, opt_state = create_lm_train_state(params, lr=LM_TRAIN_LR)
+    step = make_lm_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, bits = [], []
+    for i in range(20):
+        if i == 19:
+            before = (params, opt_state)
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, codes)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        bits.append(float(m["bits_per_code"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    lm = LMModel(cfg, params, device=dev)
+    wav = request_audio(10.0, sr, 316)          # not in the training batch
+    torch.cuda.synchronize()
+    t_c = time.perf_counter()
+    data = compress(model, wav, use_lm=True, lm=lm, models=registry,
+                    lm_restart="auto")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _, decoded, al = read_frames(io.BytesIO(data), models=registry, lm=lm)
+    audio = model.decode(decoded)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    th = export.export_run(str(run_dir), out_dir=str(base / "export"),
+                           device=dev)
+    model.set_target_bandwidth(6.0)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t3 = time.perf_counter()
+        ecdcs = batch.compress_directory(
+            model, str(base / "in"), str(base / "ecdc"), models=registry,
+            chunk_hops=chunk_hops)
+        outs = batch.decompress_directory(str(base / "ecdc"),
+                                          str(base / "out"), models=registry)
+        torch.cuda.synchronize()
+        batch_s = time.perf_counter() - t3
+    bench = benchmark.bench(model, lm=lm, seconds=10.0, bandwidth=12.0)
+    counts = launch_counts(kernels)
+    print(f"lm_train path launches: {json.dumps(counts)}; the training "
+          f"codes alone: {json.dumps(counts_codes)}")
+    check(counts_codes["rvq_encode_fused"] > 0
+          and counts_codes["lstm_scan"] > 0,
+          f"the training codes did not launch K2 and K3: {counts_codes}")
+    check(counts["nearest_codebook"] > 0 and counts["lstm_scan_backward"] == 0,
+          f"the lm_train path did not launch K1 (or ran K3's backward): "
+          f"{counts}")
+
+    # -- verification, not counted ------------------------------------------
+    check(tuple(codes.shape) == (16, 32, 750)
+          and bool(((codes >= 0) & (codes < 1024)).all()),
+          f"training codes {tuple(codes.shape)}")
+    # the training codes (K2 at N=12,000, K3 at B=16) against the plain
+    # twins on the same [16, 1, 240000] input: equal outside the positions
+    # the plain search flags as near-ties
+    x16 = torch.from_numpy(wavs).to(dev).transpose(1, 2)
+    with torch.inference_mode():
+        plain, _ = encode_frame(model.infer_params, model.qstate, x16,
+                                model.cfg, 32, plain=True)
+        _, _, _, margins = encode_frame_margins(
+            model.infer_params, model.qstate, x16, model.cfg, 32, plain=True)
+    flagged = (margins < TIE_THRESHOLD).any(1)                  # [16, T']
+    diff = (plain != codes).any(1)                              # [16, T']
+    n_unflagged = int((diff & ~flagged).sum())
+    check(n_unflagged == 0, f"training codes: {n_unflagged} positions differ "
+                            "from the plain twins outside the tie guard")
+    print(f"lm train codes [16, 32, 750] vs plain twins on the same input: "
+          f"{int(diff.sum())} of {diff.numel()} positions differ, all inside "
+          f"the {int(flagged.sum())} tie-flagged ones")
+    del x16, plain, margins
+    check(all(math.isfinite(b) for b in bits) and bits[-1] < bits[0],
+          f"LM training did not lower bits per code: {bits}")
+    warm = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    groups, wall_ms, n_launch = lm_step_split(
+        torch, lambda: step(params, opt_state, codes), 16 * cfg.num_heads)
+    busy = sum(groups.values())
+    print(f"lm train (B=16 x T=750, K=32, full width, Adam lr "
+          f"{LM_TRAIN_LR}): codes encoded in {encode_s * 1e3:.1f} ms; 20 "
+          f"steps, first {step_ms[0]:.1f} ms, warm median {warm:.2f} ms per "
+          f"step (min {min(step_ms[1:]):.2f}, max {max(step_ms[1:]):.2f}); "
+          f"peak memory {peak:.2f} GiB; bits per code {bits[0]:.4f} -> "
+          f"{bits[-1]:.4f}")
+    print(f"profile lm train step: wall {wall_ms:.1f} ms (profiled), "
+          f"{n_launch} kernel launches, device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f}; by group: " + ", ".join(
+              f"{g} {ms:.2f} ms" for g, ms in sorted(groups.items(),
+                                                     key=lambda kv: -kv[1])))
+
+    # one step (B=4) on the card and on the CPU port from the same state:
+    # the loss within 1e-4 relative, every parameter within 0.2 lr (Adam
+    # divides each gradient entry by its second moment's root, so float32
+    # noise of a small entry moves its weight by a fraction of lr)
+    sub = codes[:4].contiguous()
+    p_c, s_c, m_c = step(before[0], before[1], sub)
+    cpu_state = AdamState(*tree_map(lambda t: t.cpu(), tuple(before[1])))
+    p_h, s_h, m_h = step(tree_map(lambda t: t.cpu(), before[0]), cpu_state,
+                         sub.cpu())
+    loss_err = abs(m_c["nll"].item() - m_h["nll"].item()) / abs(
+        m_h["nll"].item())
+    p_err = max((a.cpu() - b).abs().max().item()
+                for a, b in zip(tree_leaves(p_c), tree_leaves(p_h)))
+    check(loss_err <= 1e-4 and p_err <= 0.2 * LM_TRAIN_LR,
+          f"LM step, card vs CPU: loss {loss_err:.3g} relative, parameters "
+          f"{p_err:.3g} (limits 1e-4, {0.2 * LM_TRAIN_LR:.3g})")
+    idx = shift_codes(codes[:1].long())
+    fb_ms = time_ms(torch, lambda: lm.forward_batch(idx), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan = lm.scan(idx)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    fb = lm.forward_batch(idx)
+    called = lm(idx)[0]
+    err_scan = (scan - fb).abs().max().item()
+    err_call = (called - fb).abs().max().item()
+    check(err_scan <= 1e-5 and err_call <= 1e-5,
+          f"forward_batch vs scan {err_scan:.3g}, vs __call__ {err_call:.3g}")
+    print(f"lm float paths on the card (one request, K=32, T=750): "
+          f"forward_batch {fb_ms:.3f} ms, scan {scan_s * 1e3:.1f} ms = "
+          f"{scan_s / 750 * 1e3:.3f} ms per step; |scan - forward_batch| "
+          f"{err_scan:.3g}, |__call__ - forward_batch| {err_call:.3g}; one "
+          f"step B=4 card vs CPU: loss {loss_err:.3g} relative, parameters "
+          f"within {p_err:.3g}")
+
+    # the trained LM's file: the card's and the CPU's decode give the
+    # written codes, the CPU writer writes the same bytes
+    model.set_target_bandwidth(24.0)
+    written, _ = model.encode_guarded(wav[None], TIE_THRESHOLD)
+    check(np.array_equal(decoded[0][0].numpy(), written[0][0].cpu().numpy()),
+          "the card's decode differs from the written codes")
+    check(tuple(audio.shape) == (1, 1, 240_000)
+          and bool(torch.isfinite(audio).all()), "decoded audio")
+    lm_cpu = LMModel(cfg, params, device="cpu")
+    t0 = time.perf_counter()
+    _, cpu_frames, _ = read_frames(io.BytesIO(data), models=registry,
+                                   lm=lm_cpu)
+    cpu_decode_s = time.perf_counter() - t0
+    check(np.array_equal(cpu_frames[0][0].numpy(),
+                         written[0][0].cpu().numpy()),
+          "the CPU's decode differs from the written codes")
+    meta = binary.read_ecdc_header(io.BytesIO(data))
+    cpu_file = io.BytesIO()
+    write_lm_payload(cpu_file, {k: meta[k] for k in ("m", "al", "nc", "lm")},
+                     [(f[0].cpu(), f[1]) for f in written],
+                     IntLMModel.from_lm(lm_cpu), meta.get("lmb"))
+    check(cpu_file.getvalue() == data,
+          "the card's lmv=3 file differs from the CPU writer's")
+    raw = raw_ecdc(model, written, al)
+    print(f"lm train coding: a held-out 10 s @ 24 kbps with the trained LM, "
+          f"{len(meta['fl'])} blocks of {meta['lmb']}: {len(data)} B vs raw "
+          f"{len(raw)} B ({len(data) / len(raw):.4f}); on the card compress "
+          f"{(t1 - t_c) * 1e3:.1f} ms, read_frames + decode "
+          f"{(t2 - t1) * 1e3:.1f} ms; CPU read_frames "
+          f"{cpu_decode_s * 1e3:.1f} ms; codes = written (card and CPU), "
+          f"file = CPU writer's")
+
+    # the export and the LM's state dict, reloaded bit for bit
+    fresh = model_from_config(load_config(export.run_config_path(
+        str(run_dir))), device=dev)
+    load_pretrained(fresh, Path(th).name, str(Path(th).parent))
+    raw_state, epoch, _ = load_checkpoint(Path(run_dir) / "model.ckpt")
+    saved = state_to_device(raw_state, dev)
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(fresh.params), tree_leaves(saved.params))) and all(
+        torch.equal(a, b) for a, b in zip(fresh.qstate[:3], saved.qstate[:3]))
+    check(same, "the exported .th does not reload bit for bit")
+    back = lm_params_from_state(torch_state_from_lm_params(params), cfg.n_q,
+                                cfg.num_layers)
+    check(all(torch.equal(a.to(dev), b) for a, b in zip(
+        tree_leaves(back), tree_leaves(params))),
+        "the LM's state dict does not reload bit for bit")
+    print(f"export: {Path(th).name} ({Path(th).stat().st_size} B, epoch "
+          f"{epoch} of phase_train's run) reloads bit for bit through "
+          "load_pretrained on the card; the trained LM through "
+          "torch_state_from_lm_params -> lm_params_from_state bit for bit")
+
+    # the batch tool against per-file compression and decompression
+    short = [w for w in caught if "shorter than the shared" in str(w.message)]
+    check(len(short) == 1, f"the batch tool warned {len(short)} times of a "
+                           "file shorter than a chunk, not once")
+    model.set_target_bandwidth(6.0)
+    n_equal = max_lsb = 0
+    for i, (path, out) in enumerate(zip(ecdcs, outs)):
+        w, wsr = load_wav(base / "in" / f"w{i}.wav")
+        ref = io.BytesIO()
+        compress_to_file(model, convert_audio(w, wsr, sr, 1), ref,
+                         models=registry)
+        got = Path(path).read_bytes()
+        check(got == ref.getvalue(), f"batch file w{i}.ecdc differs from "
+                                     "per-file compress_to_file")
+        back_wav, _ = decompress(got, models=registry)
+        save_wav(back_wav.cpu().numpy(), base / "ref.wav", sr)
+        ours = np.frombuffer(Path(out).read_bytes()[44:], np.int16)
+        ref_pcm = np.frombuffer((base / "ref.wav").read_bytes()[44:],
+                                np.int16)
+        check(ours.shape == ref_pcm.shape, f"batch wav w{i}: length")
+        d = np.abs(ours.astype(np.int64) - ref_pcm)
+        max_lsb = max(max_lsb, int(d.max()))
+        n_equal += int(d.max() == 0)
+    check(max_lsb <= 1, f"batch wavs {max_lsb} int16 steps from per-file "
+                        "decompress")
+    print(f"batch tool: {len(ecdcs)} files of {list(lengths)} samples at 6 "
+          f"kbps (chunk {chunk_hops} hops; one shorter, warned once) in "
+          f"{batch_s * 1e3:.1f} ms compress+decompress; bytes = per-file "
+          f"compress_to_file; wavs vs per-file decompress: {n_equal} equal, "
+          f"max {max_lsb} int16 steps")
+    check(all(bench[k] > 0 for k in ("encode_s", "decode_s", "lm_batched_s",
+                                     "ac_encode_s", "ac_decode_s")),
+          f"benchmark: {bench}")
+    print(f"benchmark: {json.dumps(bench)}")
+    tmp.cleanup()
+    print(f"lm_train phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def lm_streams(data: bytes, meta: dict, model) -> list:
     """The range-coded streams of an lmv=3 file with an `fl` index."""
     from encodec_tpu_torch.stream import binary
@@ -2807,16 +3184,23 @@ def main() -> int:
     t0 = time.perf_counter()
     k3_bwd = phase_k3_bwd(torch, kernels, dev)
     t1 = time.perf_counter()
-    counts_train = phase_train(torch, kernels, dev)
+    counts_train, train_tmp, train_run = phase_train(torch, kernels, dev)
     t2 = time.perf_counter()
     counts_gan = phase_gan(torch, kernels, dev)
-    print(f"phases: K3 backward {t1 - t0:.1f} s, train {t2 - t1:.1f} s, "
-          f"gan {time.perf_counter() - t2:.1f} s (at {t0 - t_start:.1f} s)")
+    t3 = time.perf_counter()
     counts_lm = phase_lm(torch, kernels, model, model48, wav10, wav48)
+    t4 = time.perf_counter()
+    counts_lm_train = phase_lm_train(torch, kernels, model, registry,
+                                     train_run)
+    train_tmp.cleanup()
+    print(f"phases: K3 backward {t1 - t0:.1f} s, train {t2 - t1:.1f} s, "
+          f"gan {t3 - t2:.1f} s, lm {t4 - t3:.1f} s, lm_train "
+          f"{time.perf_counter() - t4:.1f} s (at {t0 - t_start:.1f} s)")
 
     paths = {"24k": counts, "48k": counts48, "stream": counts_stream,
              "breathing": counts_breathing, "hires_tokens": counts_hires,
-             "train": counts_train, "gan": counts_gan, "lm": counts_lm}
+             "train": counts_train, "gan": counts_gan, "lm": counts_lm,
+             "lm_train": counts_lm_train}
     for c in paths.values():   # lstm_scan counts both K3 kernels
         c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
     rows = [

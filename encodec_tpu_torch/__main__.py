@@ -135,7 +135,7 @@ def main():
         elif args.output.suffix.lower() != ".wav":
             fatal("Output extension must be .wav")
         check_output_exists(args)
-        write_wav(*decompress(args.input.read_bytes(), models=models,
+        write_wav(*decompress(args.input.read_bytes(), device=args.device,
                               repository=rep))
         return
 

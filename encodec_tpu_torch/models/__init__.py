@@ -30,6 +30,9 @@ from .zoo import (  # noqa: F401
     msstftd_params_from_jax,
     msstftd_params_from_torch,
     params_from_jax,
+    save_reference_checkpoint,
+    state_from_params,
+    torch_state_from_lm_params,
     train_state_from_jax,
 )
 from .msstftd import (  # noqa: F401

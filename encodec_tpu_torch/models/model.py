@@ -296,6 +296,12 @@ class EncodecModel:
         shared-codebook model)."""
         return self.qstate.embed
 
+    def get_lm_model(self, repository: tp.Optional[str] = None):
+        """The published LM of this model (`models.lm.get_lm_model`), read
+        from the local `repository`, on this model's device."""
+        from .lm import get_lm_model
+        return get_lm_model(self, repository)
+
     # -- public API -------------------------------------------------------
     def segment_groups(self, x) -> tp.Tuple[int, tp.List[tp.Tuple[
             tp.List[int], torch.Tensor]]]:

@@ -22,6 +22,11 @@ OIHW) and `msstftd_params_from_torch` (the reference `.th` layout).
 Spectral-norm convs travel as the reference's `weight_orig`, `weight_u`,
 `weight_v` (torch's spectral_norm) and land as `w_orig`, `u_sn`, `v_sn`.
 
+The writers: `state_from_params` / `save_reference_checkpoint` take the
+port's own model to the reference `.th` (what `tools.export` writes), and
+`torch_state_from_lm_params` an LM's tree to the reference `LMModel`
+state dict.
+
 The entropy-coding LM: `lm_params_from_state` reads the reference
 `LMModel` state dict (`torch_zoo.py::lm_params_from_torch`), and
 `lm_params_from_jax` takes the JAX package's LM tree (numpy leaves), which
@@ -167,14 +172,19 @@ def model_params_from_state(state: State, cfg) -> tp.Tuple[dict, RVQState]:
 
 
 # ---------------------------------------------------------------------------
-# The JAX package's parameter tree -> reference state dict (numpy), a copy
-# of `encodec_tpu/models/torch_zoo.py:201-306`: convs `[K, Cin, Cout]` ->
-# `[Cout, Cin, K]`, transposed convs `[K, Cout, Cin]` -> `[Cin, Cout, K]`,
-# weight-norm gains -> `[C, 1, 1]`, LSTM weights as they are.
+# A parameter tree -> reference state dict (numpy), a copy of
+# `encodec_tpu/models/torch_zoo.py:201-306`. From the JAX package's tree
+# (`from_jax`): convs `[K, Cin, Cout]` -> `[Cout, Cin, K]`, transposed
+# convs `[K, Cout, Cin]` -> `[Cin, Cout, K]`; the port's tree is in torch
+# layout already. Weight-norm gains -> `[C, 1, 1]`, LSTM weights as they
+# are.
 # ---------------------------------------------------------------------------
 
-def _conv_to_state(p: dict, prefix: str, out: dict, transposed: bool) -> None:
+def _conv_to_state(p: dict, prefix: str, out: dict, transposed: bool,
+                   from_jax: bool) -> None:
     kind, axes = ("convtr", (1, 2, 0)) if transposed else ("conv", (2, 1, 0))
+    if not from_jax:
+        axes = (0, 1, 2)
     if "w_orig" in p:
         # u and v index the `[Cout, rest]` view in both layouts
         out[f"{prefix}{kind}.weight_orig"] = np.asarray(
@@ -200,49 +210,69 @@ def _lstm_to_state(p: dict, prefix: str, out: dict) -> None:
             out[f"{prefix}bias_{name}_l{i}"] = np.asarray(layer[f"b_{name}"])
 
 
-def _resblock_to_state(p: dict, prefix: str, out: dict) -> None:
+def _resblock_to_state(p: dict, prefix: str, out: dict,
+                       from_jax: bool) -> None:
     for j, conv_p in enumerate(p["convs"]):
-        _conv_to_state(conv_p, f"{prefix}block.{2 * j + 1}.conv.", out, False)
+        _conv_to_state(conv_p, f"{prefix}block.{2 * j + 1}.conv.", out, False,
+                       from_jax)
     if "shortcut" in p:
-        _conv_to_state(p["shortcut"], f"{prefix}shortcut.conv.", out, False)
+        _conv_to_state(p["shortcut"], f"{prefix}shortcut.conv.", out, False,
+                       from_jax)
 
 
-def state_from_jax(params: dict, qstate, cfg) -> tp.Dict[str, np.ndarray]:
-    """The JAX package's `params`/`qstate` (numpy or array leaves) ->
-    reference-layout state dict, walking the module indices the loaders
-    above walk (`cfg` is an EncodecConfig)."""
+def _numpy_tree(tree):
+    """Tensor leaves (on any device) → numpy arrays; other leaves as they
+    are."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_numpy_tree(v) for v in tree]
+    return tree
+
+
+def _state_dict(params: dict, qstate, cfg,
+                from_jax: bool) -> tp.Dict[str, np.ndarray]:
+    """`params`/`qstate` -> the reference-layout state dict, walking the
+    module indices the loaders above walk (`cfg` is an EncodecConfig)."""
+    params, qstate = _numpy_tree(params), _numpy_tree(tuple(qstate))
     out: tp.Dict[str, np.ndarray] = {}
+
+    def conv(p: dict, prefix: str, transposed: bool = False) -> None:
+        _conv_to_state(p, prefix, out, transposed, from_jax)
+
     enc, root, idx = params["encoder"], "encoder.model.", 0
-    _conv_to_state(enc["init_conv"], f"{root}{idx}.conv.", out, False)
+    conv(enc["init_conv"], f"{root}{idx}.conv.")
     idx += 1
     for stage in enc["stages"]:
         for res_p in stage["res"]:
-            _resblock_to_state(res_p, f"{root}{idx}.", out)
+            _resblock_to_state(res_p, f"{root}{idx}.", out, from_jax)
             idx += 1
         idx += 1  # activation module
-        _conv_to_state(stage["down"], f"{root}{idx}.conv.", out, False)
+        conv(stage["down"], f"{root}{idx}.conv.")
         idx += 1
     if cfg.seanet.lstm:
         _lstm_to_state(enc["lstm"], f"{root}{idx}.lstm.", out)
         idx += 1
     idx += 1  # activation
-    _conv_to_state(enc["final_conv"], f"{root}{idx}.conv.", out, False)
+    conv(enc["final_conv"], f"{root}{idx}.conv.")
 
     dec, root, idx = params["decoder"], "decoder.model.", 0
-    _conv_to_state(dec["init_conv"], f"{root}{idx}.conv.", out, False)
+    conv(dec["init_conv"], f"{root}{idx}.conv.")
     idx += 1
     if cfg.seanet.lstm:
         _lstm_to_state(dec["lstm"], f"{root}{idx}.lstm.", out)
         idx += 1
     for stage in dec["stages"]:
         idx += 1  # activation
-        _conv_to_state(stage["up"], f"{root}{idx}.convtr.", out, True)
+        conv(stage["up"], f"{root}{idx}.convtr.", transposed=True)
         idx += 1
         for res_p in stage["res"]:
-            _resblock_to_state(res_p, f"{root}{idx}.", out)
+            _resblock_to_state(res_p, f"{root}{idx}.", out, from_jax)
             idx += 1
     idx += 1  # activation
-    _conv_to_state(dec["final_conv"], f"{root}{idx}.conv.", out, False)
+    conv(dec["final_conv"], f"{root}{idx}.conv.")
 
     # a shared codebook repeats its one book in every stage's slot
     embed, embed_avg, cluster = (np.asarray(qstate[i]) for i in range(3))
@@ -255,6 +285,38 @@ def state_from_jax(params: dict, qstate, cfg) -> tp.Dict[str, np.ndarray]:
         out[root + "cluster_size"] = cluster[kk]
         out[root + "inited"] = np.asarray([inited], np.float32)
     return {k: np.asarray(v, np.float32) for k, v in out.items()}
+
+
+def state_from_jax(params: dict, qstate, cfg) -> tp.Dict[str, np.ndarray]:
+    """The JAX package's `params`/`qstate` (numpy or array leaves) ->
+    reference-layout state dict (`cfg` is an EncodecConfig)."""
+    return _state_dict(params, qstate, cfg, from_jax=True)
+
+
+def state_from_params(params: dict, qstate, cfg) -> tp.Dict[str, np.ndarray]:
+    """The port's `params`/`qstate` (tensors on any device) ->
+    reference-layout state dict (numpy float32): the keys and layout that
+    `model_params_from_state` and the JAX package's `torch_zoo.
+    load_pretrained` read back (`torch_state_from_params`' counterpart)."""
+    return _state_dict(params, qstate, cfg, from_jax=False)
+
+
+def save_reference_checkpoint(model, directory: tp.Union[str, Path],
+                              name: tp.Optional[str] = None) -> str:
+    """Save `model` as a zoo-style `.th`, the sha256 prefix of the file in
+    its name (`{name or model.name}-{sha256[:8]}.th`, ref model.py:331-342),
+    and return its path. It loads back bit for bit through
+    `load_pretrained`, and into the reference's own modules."""
+    state = {k: torch.from_numpy(v) for k, v in state_from_params(
+        model.params, model.qstate, model.cfg).items()}
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    tmp = directory / "export_tmp.th"
+    torch.save(state, tmp)
+    sha = hashlib.sha256(tmp.read_bytes()).hexdigest()[:8]
+    final = directory / f"{name or model.name}-{sha}.th"
+    tmp.replace(final)
+    return str(final)
 
 
 def params_from_jax(params: dict, qstate, cfg) -> tp.Tuple[dict, RVQState]:
@@ -382,6 +444,34 @@ def lm_params_from_state(state: State, n_q: int, num_layers: int = 5) -> dict:
                      norm1=norm(f"{root}norm1."), norm2=norm(f"{root}norm2."))
         p["layers"].append(layer)
     return p
+
+
+def torch_state_from_lm_params(params: dict) -> tp.Dict[str, np.ndarray]:
+    """The LM parameter tree of `models.lm` (tensors on any device) -> the
+    reference `LMModel` state dict (numpy float32), the inverse of
+    `lm_params_from_state` (a copy of `torch_zoo.py:159-199`)."""
+    p = _numpy_tree(params)
+    out: tp.Dict[str, np.ndarray] = {}
+    for k in range(p["emb"].shape[0]):
+        out[f"emb.{k}.weight"] = p["emb"][k]
+        out[f"linears.{k}.weight"] = p["linears"]["w"][k].T
+        out[f"linears.{k}.bias"] = p["linears"]["b"][k]
+    out["transformer.norm_in.weight"] = p["norm_in"]["scale"]
+    out["transformer.norm_in.bias"] = p["norm_in"]["bias"]
+    for i, layer in enumerate(p["layers"]):
+        root = f"transformer.layers.{i}."
+        out[root + "self_attn.in_proj_weight"] = np.concatenate(
+            [layer[h]["w"].T for h in ("q", "k", "v")], axis=0)
+        out[root + "self_attn.in_proj_bias"] = np.concatenate(
+            [layer[h]["b"] for h in ("q", "k", "v")], axis=0)
+        for name, key in (("self_attn.out_proj", "out"), ("linear1", "ff1"),
+                          ("linear2", "ff2")):
+            out[f"{root}{name}.weight"] = layer[key]["w"].T
+            out[f"{root}{name}.bias"] = layer[key]["b"]
+        for name in ("norm1", "norm2"):
+            out[f"{root}{name}.weight"] = layer[name]["scale"]
+            out[f"{root}{name}.bias"] = layer[name]["bias"]
+    return {k: np.ascontiguousarray(v, np.float32) for k, v in out.items()}
 
 
 def lm_params_from_jax(params: dict) -> dict:

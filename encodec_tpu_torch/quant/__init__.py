@@ -8,6 +8,7 @@ from .rvq import (  # noqa: F401
     rvq_encode_margins,
     rvq_decode,
     rvq_forward,
+    rvq_intermediate_results,
     resolve_ties_f64,
     num_quantizers_for_bandwidth,
     bandwidth_per_quantizer,

@@ -334,6 +334,24 @@ def rvq_forward(state: RVQState, x: torch.Tensor, cfg: RVQConfig, *,
             torch.stack(commits), new_state)
 
 
+def rvq_intermediate_results(state: RVQState, x: torch.Tensor,
+                             cfg: RVQConfig, n_q: tp.Optional[int] = None
+                             ) -> tp.Dict[str, torch.Tensor]:
+    """Each stage's quantized output beside their sum (ref vq.py:80-89),
+    the hierarchy probe of the visualization tools: `{"quantized" [B, T,
+    D], "codes" [K, B, T], "quantized_stack" [K, B, T, D]}`; the codes
+    from K2."""
+    n_q = _active_n_q(cfg, n_q)
+    codes = rvq_encode(state, x, cfg, n_q=n_q)
+    if cfg.shared_codebook:
+        stack = state.embed[0][codes.long()]
+    else:
+        stack = torch.stack([state.embed[k][codes[k].long()]
+                             for k in range(n_q)])
+    return {"quantized": stack.sum(dim=0), "codes": codes,
+            "quantized_stack": stack}
+
+
 # ---------------------------------------------------------------------------
 # Bandwidth bookkeeping (ref vq.py:116-131)
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Streaming arithmetic (range) coder over quantized CDFs.
 
-The port's copy of the coder classes of `encodec_tpu/stream/ac.py`
-(framework-free; the port imports nothing of the JAX package). Bit-exact
+The port's copy of the coder classes and the float CDF builder
+(`build_stable_quantized_cdf`, for float LM probabilities) of
+`encodec_tpu/stream/ac.py` (framework-free; the port imports nothing of
+the JAX package). Bit-exact
 with the reference coder (encodec/quantization/ac.py): same range split
 (float64 ratio with ceil/floor), same bit-injection threshold, same
 common-prefix flush and final flush, so a stream written by either package
@@ -23,6 +25,37 @@ import typing as tp
 import numpy as np
 
 from .binary import BitPacker, BitUnpacker
+
+
+def build_stable_quantized_cdf(pdf: np.ndarray, total_range_bits: int,
+                               roundoff: float = 1e-8, min_range: int = 2,
+                               check: bool = True) -> np.ndarray:
+    """Quantize a pdf into integer CDF ranges over `[0, 2**total_range_bits]`.
+
+    Every symbol gets at least `min_range` slots (numerical-stability floor),
+    and the pdf is first floored to a multiple of `roundoff` so that tiny
+    cross-platform float differences in the probability model cannot change
+    the bitstream. Accepts float32 input and keeps the reference's float32
+    arithmetic so CDFs match bit-for-bit.
+    """
+    pdf = np.asarray(pdf)
+    if roundoff:
+        pdf = np.floor(pdf / np.float32(roundoff)) * np.float32(roundoff)
+    total_range = 2 ** total_range_bits
+    cardinality = len(pdf)
+    alpha = min_range * cardinality / total_range
+    assert alpha <= 1, "you must reduce min_range"
+    ranges = np.floor(((1 - alpha) * total_range) * pdf).astype(np.int64)
+    ranges += min_range
+    quantized_cdf = np.cumsum(ranges)
+    if min_range < 2:
+        raise ValueError("min_range must be at least 2.")
+    if check:
+        assert quantized_cdf[-1] <= 2 ** total_range_bits, quantized_cdf[-1]
+        if ((quantized_cdf[1:] - quantized_cdf[:-1]) < min_range).any() \
+                or quantized_cdf[0] < min_range:
+            raise ValueError("You must increase your total_range_bits.")
+    return quantized_cdf
 
 
 def encode_bounds(lows: np.ndarray, highs: np.ndarray) -> bytes:
@@ -77,6 +110,11 @@ class ArithmeticCoder:
             assert 0 <= self.low <= self.high
             self.max_bit -= 1
             self.packer.push(b1)
+
+    def push(self, symbol: int, quantized_cdf: np.ndarray) -> None:
+        range_low = 0 if symbol == 0 else int(quantized_cdf[symbol - 1])
+        range_high = int(quantized_cdf[symbol]) - 1
+        self.push_bounds(range_low, range_high)
 
     def push_bounds(self, range_low: int, range_high: int) -> None:
         """Push a symbol given its CDF bounds directly (range_low =

@@ -100,9 +100,9 @@ def write_lm_payload(fo: tp.IO[bytes], metadata: dict, frames, ilm,
 def compress_to_file(model, wav, fo: tp.IO[bytes], use_lm: bool = False,
                      lm=None, models=None,
                      lm_restart: tp.Union[int, str, None] = None,
-                     portable: bool = True) -> None:
-    """Compress a `[C, T]` waveform to a file object, through the near-tie
-    guard.
+                     frames=None, portable: bool = True,
+                     tie_guard: bool = True) -> None:
+    """Compress a `[C, T]` waveform to a file object.
 
     `model` is an `EncodecModel` with a target bandwidth set; `models`
     overrides the name registry used for validation. With `use_lm`, `lm`
@@ -111,7 +111,13 @@ def compress_to_file(model, wav, fo: tp.IO[bytes], use_lm: bool = False,
     pass `lm`. `lm_restart=R` (single-frame streams) restarts the LM every
     R tokens so the blocks decode in lockstep; "auto" picks
     `DEFAULT_LM_RESTART` for LM-coded single-frame streams. `portable=False`
-    (the JAX writer's lmv=2) is refused."""
+    (the JAX writer's lmv=2) is refused.
+
+    The codes come from the near-tie guard (`tie_guard`, the default:
+    `EncodecModel.encode_guarded` at threshold 1e-3), from the plain
+    `encode` (`tie_guard=False`), or from the caller (`frames`, e.g. the
+    batch tool's streaming extractor): then the codes are the caller's
+    contract and `wav` gives only the audio length."""
     from ..models.model import MODELS
 
     if np.ndim(wav) != 2:
@@ -141,14 +147,17 @@ def compress_to_file(model, wav, fo: tp.IO[bytes], use_lm: bool = False,
         from ..models.lm import get_lm_model
         ilm = IntLMModel.from_lm(lm if lm is not None else get_lm_model(model))
 
-    frames, stats = model.encode_guarded(torch.as_tensor(wav)[None],
-                                         threshold=1e-3)
-    logging.getLogger(__name__).log(
-        logging.INFO if stats["n_flagged"] else logging.DEBUG,
-        "tie guard: min RVQ argmin margin %.3g over %d positions; "
-        "%d flagged (< threshold), %d re-resolved in f64",
-        stats["min_margin"], stats["n_positions"], stats["n_flagged"],
-        stats["n_changed"])
+    if frames is None and tie_guard:
+        frames, stats = model.encode_guarded(torch.as_tensor(wav)[None],
+                                             threshold=1e-3)
+        logging.getLogger(__name__).log(
+            logging.INFO if stats["n_flagged"] else logging.DEBUG,
+            "tie guard: min RVQ argmin margin %.3g over %d positions; "
+            "%d flagged (< threshold), %d re-resolved in f64",
+            stats["min_margin"], stats["n_positions"], stats["n_flagged"],
+            stats["n_changed"])
+    elif frames is None:
+        frames = model.encode(torch.as_tensor(wav)[None])
     metadata = {
         "m": model.name,
         "al": int(np.shape(wav)[-1]),
@@ -229,11 +238,15 @@ def _read_lm_frames(fo, model, metadata, ilm) -> list:
 
 
 def read_frames(fo: tp.IO[bytes], models=None, lm=None,
-                repository: tp.Optional[str] = None):
+                repository: tp.Optional[str] = None,
+                device: tp.Union[str, torch.device] = "cuda"):
     """Read a `.ecdc` stream up to its code frames, without decoding audio:
     returns `(model, frames [(codes [1, K, T], scale or None)], audio
     length)`. An LM-coded stream is decoded with `lm`, else with the
-    model's published LM from the local `repository`."""
+    model's published LM from the local `repository`, on the model's
+    device. Without `models`, the registry's published model is read from
+    `repository` onto `device`; a `models` registry's factories are called
+    with `pretrained=True` alone and place their models themselves."""
     from ..models.model import MODELS
 
     metadata = binary.read_ecdc_header(fo)
@@ -260,7 +273,11 @@ def read_frames(fo: tp.IO[bytes], models=None, lm=None,
                 f"generation (lmv={lmv!r}); its CDFs are not reproducible "
                 "by this decoder. Re-encode with the current writer, or "
                 "decode raw (no-LM) streams which are unaffected.")
-    model = registry[model_name](pretrained=True)
+    if models is None:
+        model = registry[model_name](pretrained=True, repository=repository,
+                                     device=device)
+    else:
+        model = registry[model_name](pretrained=True)
     if metadata["lm"]:
         from ..models.ilm import IntLMModel
         from ..models.lm import get_lm_model
@@ -282,32 +299,40 @@ def read_frames(fo: tp.IO[bytes], models=None, lm=None,
     return model, frames, audio_length
 
 
-def decompress_from_file(fo: tp.IO[bytes], models=None, lm=None,
-                         repository: tp.Optional[str] = None
-                         ) -> tp.Tuple[torch.Tensor, int]:
+def decompress_from_file(fo: tp.IO[bytes],
+                         device: tp.Union[str, torch.device] = "cuda",
+                         models=None, lm=None,
+                         repository: tp.Optional[str] = None,
+                         decode=None) -> tp.Tuple[torch.Tensor, int]:
     """Decompress a `.ecdc` stream → `(wav [C, T], sample_rate)`.
 
-    `models` overrides the pretrained registry (name → factory called with
-    `pretrained=True`), e.g. for locally trained or random-weight models;
-    `lm` and `repository` as in `read_frames`."""
-    model, frames, audio_length = read_frames(fo, models, lm, repository)
-    wav = model.decode(frames)
+    `device` (default "cuda") is where the registry's model and its LM are
+    built when `models` is None; `models` overrides the pretrained
+    registry (name → factory called with `pretrained=True`), e.g. for
+    locally trained or random-weight models; `lm` and `repository` as in
+    `read_frames`. `decode(frames)` replaces `model.decode(frames)`, e.g.
+    `decode(frames, pcm16=True)` (`tools.batch.decompress_directory`)."""
+    model, frames, audio_length = read_frames(fo, models, lm, repository,
+                                              device)
+    wav = (decode or model.decode)(frames)
     return wav[0, :, :audio_length], model.sample_rate
 
 
 def compress(model, wav, use_lm: bool = False, lm=None, models=None,
              lm_restart: tp.Union[int, str, None] = None,
-             portable: bool = True) -> bytes:
+             portable: bool = True, tie_guard: bool = True) -> bytes:
     """Compress a `[C, T]` waveform, returning the `.ecdc` bytes."""
     fo = io.BytesIO()
     compress_to_file(model, wav, fo, use_lm=use_lm, lm=lm, models=models,
-                     lm_restart=lm_restart, portable=portable)
+                     lm_restart=lm_restart, portable=portable,
+                     tie_guard=tie_guard)
     return fo.getvalue()
 
 
-def decompress(compressed: bytes, models=None, lm=None,
-               repository: tp.Optional[str] = None
+def decompress(compressed: bytes,
+               device: tp.Union[str, torch.device] = "cuda", models=None,
+               lm=None, repository: tp.Optional[str] = None
                ) -> tp.Tuple[torch.Tensor, int]:
     """Decompress `.ecdc` bytes → `(wav [C, T], sample_rate)`."""
-    return decompress_from_file(io.BytesIO(compressed), models=models, lm=lm,
-                                repository=repository)
+    return decompress_from_file(io.BytesIO(compressed), device=device,
+                                models=models, lm=lm, repository=repository)

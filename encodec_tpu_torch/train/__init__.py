@@ -1,6 +1,7 @@
 """Training the breathing tokenizer: experiment configs, checkpoints (the
 JAX trainer's and the port's), the optimizer, the steps (the GAN phase's
-discriminator step and the balanced step included) and the Trainer.
+discriminator step and the balanced step included) and the Trainer; and
+training the entropy-coding LM (`lm_train`).
 
 `python -m encodec_tpu_torch.train --config C --log_dir D` runs it."""
 

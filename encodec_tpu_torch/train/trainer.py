@@ -22,6 +22,7 @@ float32 (ROADMAP item 11d) and `checkpoint.async_save: true` (item 11e).
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import logging
 import os
@@ -209,6 +210,7 @@ class Trainer:
         self.writer = writer
         self.start_epoch = 1
         self.epoch_seconds: tp.Dict[int, float] = {}  # training loop only
+        self._said_no_matplotlib = False
         random.seed(config.common.seed)
         self._snapshot_config()
 
@@ -312,16 +314,22 @@ class Trainer:
     def evaluate(self, epoch: int, save_figure: bool = True) -> dict:
         """Validation losses (also per dataset and item) and code entropies.
 
-        `save_figure` is taken for the JAX trainer's signature: the port
-        makes no reconstruction figure until `tools/visualize.py` is ported
-        (ROADMAP item 13)."""
+        With `save_figure` (mono models), the first batch's first item and
+        its reconstruction are drawn to `<log_dir>/<epoch>.png`
+        (`tools.visualize.reconstruction_figure`, ref train.py:290-313).
+        Without matplotlib the figure is skipped, said once per trainer.
+        Unlike JAX's trainer, a figure that fails raises: only a missing
+        matplotlib is passed over."""
         weights = self.weights_for_epoch(epoch)
         all_codes = []
         n_batches = 0
         for batch, ds_ids in self.val_loader:
             n_batches += 1
-            m, codes, _ = self.eval_step(self.state, self._batch(batch),
-                                         weights)
+            x = self._batch(batch)
+            m, codes, x_hat = self.eval_step(self.state, x, weights)
+            if n_batches == 1 and save_figure \
+                    and self.model.cfg.channels == 1:
+                self._figure(epoch, x, x_hat)
             all_codes.append(codes.cpu().numpy())
             self.metrics.fill_metrics({
                 "Loss": m["loss"], "Loss L1": m["loss_l1"],
@@ -346,6 +354,23 @@ class Trainer:
         self._log({k: v for k, v in out.items()
                    if isinstance(v, (int, float))}, "val", epoch)
         return out
+
+    def _figure(self, epoch: int, x: torch.Tensor,
+                x_hat: torch.Tensor) -> None:
+        if importlib.util.find_spec("matplotlib") is None:
+            if not self._said_no_matplotlib:
+                logging.warning("matplotlib is not installed: evaluate() "
+                                "draws no reconstruction figures")
+                self._said_no_matplotlib = True
+            return
+        from ..tools.visualize import reconstruction_figure
+        fl = self.config.loss
+        reconstruction_figure(
+            x[0, :, 0].cpu().numpy(), x_hat[0, :, 0].cpu().numpy(),
+            sampling_rate=10, n_fft=fl.n_fft,
+            win_length=getattr(fl, "win_length", None),
+            hop_length=getattr(fl, "hop_length", None),
+            path=os.path.join(self.log_dir, f"{epoch}.png"))
 
     def code_stats(self, codes: np.ndarray) -> dict:
         """Per-codebook empirical entropy (ref train.py:325-343); codes

@@ -12,7 +12,9 @@ plain recurrence, and one generator step of a tiny breathing model on the
 kernels against the same step on the plain twins; the GAN phase: a GAN
 generator step and a discriminator step (chunked and whole-signal) on the
 kernels against the plain twins, the chunked discriminator against the
-whole-signal forward, and a spectral-norm generator step.
+whole-signal forward, and a spectral-norm generator step. The float LM:
+a training step on the card against the CPU's, and the batch path against
+the streaming cell.
 
 This file imports no JAX (the GPU machine has none). On a machine without
 a CUDA device every test skips. Run on the H100 with:
@@ -807,3 +809,55 @@ def test_spectral_norm_gen_step_on_the_kernels(dev):
     for k, a in got.items():
         assert not torch.equal(a, before[k]), k
         assert (a - ref[k]).abs().max().item() <= 1e-5, k
+
+
+def _small_lm(dev_or_cpu, seed=0):
+    from encodec_tpu_torch.models.lm import LMConfig, init_lm
+    cfg = LMConfig(n_q=4, card=64, dim=32, num_heads=2, num_layers=2,
+                   past_context=12)
+    return cfg, init_lm(torch.Generator().manual_seed(seed), cfg,
+                        device=dev_or_cpu)
+
+
+def test_lm_train_step_on_the_card_matches_the_cpu(dev):
+    """One LM training step (the float LM's autograd and the optax-equal
+    Adam) on the card against the same step on the CPU: the loss within
+    1e-5 relative, every parameter within 0.2·lr (Adam scales a small
+    gradient entry's float32 noise up to a fraction of lr)."""
+    from encodec_tpu_torch.train.lm_train import (create_lm_train_state,
+                                                  make_lm_train_step)
+    from encodec_tpu_torch.train.optim import tree_leaves
+
+    cfg, params = _small_lm("cpu")
+    codes = torch.from_numpy(
+        np.random.RandomState(1).randint(0, cfg.card, (3, cfg.n_q, 40)))
+    opt, state = create_lm_train_state(params, lr=3e-4)
+    step = make_lm_train_step(cfg, opt)
+    p_cpu, _, m_cpu = step(params, state, codes)
+    g_params = _small_lm(dev)[1]
+    _, g_state = create_lm_train_state(g_params, lr=3e-4)
+    p_gpu, s_gpu, m_gpu = step(g_params, g_state, codes.to(dev))
+    assert int(s_gpu.count) == 1
+    assert abs(m_gpu["nll"].item() - m_cpu["nll"].item()) <= 1e-5 * abs(
+        m_cpu["nll"].item())
+    for a, b in zip(tree_leaves(p_gpu), tree_leaves(p_cpu)):
+        assert a.is_cuda and (a.cpu() - b).abs().max().item() <= 0.2 * 3e-4
+
+
+def test_lm_forward_batch_matches_scan_on_the_card(dev):
+    """The batch path against the streaming cell (past the window's wrap,
+    T=30 > W=12) and the reference-signature call, on the card: the
+    probabilities within 1e-5."""
+    from encodec_tpu_torch.models.lm import LMModel
+
+    cfg, params = _small_lm("cpu", seed=2)
+    lm = LMModel(cfg, params, device=dev)
+    idx = torch.from_numpy(
+        np.random.RandomState(3).randint(0, cfg.card + 1, (2, cfg.n_q, 30)))
+    batch = lm.forward_batch(idx)
+    assert batch.is_cuda and tuple(batch.shape) == (2, cfg.card, cfg.n_q, 30)
+    assert (lm.scan(idx) - batch).abs().max().item() <= 1e-5
+    probas, state, offset = lm(idx[:, :, :17])
+    rest, _, offset = lm(idx[:, :, 17:], state, offset)
+    assert offset == 30
+    assert (torch.cat([probas, rest], -1) - batch).abs().max().item() <= 1e-5
