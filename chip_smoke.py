@@ -109,12 +109,19 @@ Phases, in order (any failure exits non-zero before the last line):
 16. LM entropy coding (lmv=3) with its own launch counts: the integer LMs
    at the published widths (seeded random weights) code the 10 s 24 kHz
    request at 6 and 24 kbps in 375-token blocks and at 6 kbps unblocked,
-   and the 10 s 48 kHz request at 24 kbps (11 segments), compressed and
-   decompressed on the card with the native range coder; decoded codes
-   against the written ones and the `cc` CRC, audio against the raw path's
-   decode, each file against the one the port's CPU LM writes, CUDA CDF
-   rows against the CPU's; teacher-forced encode and decode times, a
-   profiled decode step (launches) and 8 profiled decode steps (idle
+   and the 10 s 48 kHz request at 24 kbps (11 segments), compressed on
+   the card with the native range coder and decompressed on the card, the
+   range decoder being the hand-written kernel `ac_pull_rows`
+   (`csrc/ac_decode.cu`, one launch per decode step, counted); decoded
+   codes against the written ones, the `cc` CRC and the host range
+   decoder over the card's own rows, the kernel against its twin on the
+   card (each request's first 12 steps; synthetic streams at card 16 and
+   1024 with extreme skew, ragged lanes, a cut and a corrupt stream) and
+   timed at S=2, K=32 and S=11, K=16 beside its bound, audio against the
+   raw path's decode, each file against the one the port's CPU LM writes,
+   CUDA CDF rows against the CPU's; teacher-forced encode and decode
+   times per step and per second of audio, per request a profiled decode
+   step (launches) and 8 profiled decode steps (launches per step, idle
    share), bytes against the raw file;
 17. train an entropy prior on the port's own codes at the published LM
    width (n_q 32, card 1024, dim 200, 8 heads, 5 layers), with its own
@@ -129,9 +136,9 @@ Phases, in order (any failure exits non-zero before the last line):
    written ones and the file against the CPU writer's, the export and the
    LM's state dict reloaded bit for bit, the batch files against per-file
    compression and decompression;
-18. print the `kernels` JSON line (launches per path, the grid kernel and
-   the backward kernel in rows of their own), then the final `ok` JSON
-   line.
+18. print the `kernels` JSON line (launches per path, the grid kernel, the
+   backward kernel and the range decoder in rows of their own), then the
+   final `ok` JSON line.
 
 Imports no JAX. Exits non-zero without printing a result when no CUDA
 device is present or the port's package is not next to this script.
@@ -197,7 +204,8 @@ OWN_KERNELS = {"vq_nearest_kernel": "nearest_codebook",
                "vq_rvq_kernel": "rvq_encode_fused",
                "lstm_scan_kernel": "lstm_cluster",
                "lstm_grid_kernel": "lstm_grid",
-               "lstm_bwd_kernel": "lstm_scan_backward"}
+               "lstm_bwd_kernel": "lstm_scan_backward",
+               "ac_decode_kernel": "ac_pull_rows"}
 PROFILE_WINDOWS = 20     # windows tried before a measurement fails
 PROFILE_EDGE_S = 0.05    # host time between a window's edges and its work
 PROFILE_AGREE = 0.05     # two windows agree within this device time
@@ -718,8 +726,10 @@ def phase_main_path(torch, kernels, dev):
                                codec_s=t1 - t0, ecdc_s=t2 - t1))
     counts = launch_counts(kernels)
     print(f"main path launches: {json.dumps(counts)}")
-    for name, n in counts.items():   # serving runs no backward kernel
-        check(n > 0 or name in ("lstm_grid", "lstm_scan_backward"),
+    # serving runs no backward kernel, a raw .ecdc no range decoder
+    for name, n in counts.items():
+        check(n > 0 or name in ("lstm_grid", "lstm_scan_backward",
+                                "ac_pull_rows"),
               f"kernel {name} was never launched on the main path")
 
     # -- verification, not counted --------------------------------------
@@ -905,7 +915,8 @@ def phase_main_path_48(torch, kernels, dev):
     counts = launch_counts(kernels)
     print(f"48 kHz path launches: {json.dumps(counts)}")
     for name, k in counts.items():
-        check(k > 0 or name in ("lstm_grid", "lstm_scan_backward"),
+        check(k > 0 or name in ("lstm_grid", "lstm_scan_backward",
+                                "ac_pull_rows"),
               f"kernel {name} was never launched on the 48 kHz path")
 
     # -- verification, not counted --------------------------------------
@@ -1585,12 +1596,13 @@ def phase_k3_bwd(torch, kernels, dev):
             torch.addmm(xp.reshape(B * T, 4 * H), h_prev.reshape(B * T, H),
                         w_hh.t()),
             dgates.reshape(B * T, 4 * H).t() @ h_prev.reshape(B * T, H)), 3)
-        # the twin launches 25 or so small kernels per step: not profiled
-        # over hires_tokens' 14,400 steps
-        if T <= 750:
-            timed["plain"] = device_or_event_ms(
-                torch, lambda: kernels.lstm_scan_backward_plain(
-                    pre, c_seq, dy, w_hh, c0), 1)
+        # the twin launches 25 or so small kernels per step: over
+        # hires_tokens' 14,400 steps CUDA events time one call
+        def plain():
+            kernels.lstm_scan_backward_plain(pre, c_seq, dy, w_hh, c0)
+
+        timed["plain"] = (device_or_event_ms(torch, plain, 1) if T <= 750
+                          else (time_ms(torch, plain, 1), "CUDA events"))
         cudnn = lstm_yardstick(torch, w_hh, dev)
         x_req = xp.clone().requires_grad_(True)
         lib_out = cudnn(x_req, (h0[None], c0[None]))[0]
@@ -1609,7 +1621,7 @@ def phase_k3_bwd(torch, kernels, dev):
         fwd_ms, ms, mm_ms, lib_bwd_ms, lib_ms, lib_fwd_ms = (
             timed[k][0] for k in ("fwd", "bwd", "mm", "lib_bwd", "lib",
                                   "lib_fwd"))
-        plain_ms = timed["plain"][0] if "plain" in timed else None
+        plain_ms = timed["plain"][0]
         events = sorted(k for k, (_, how) in timed.items()
                         if how != "profiler"
                         and k not in ("lib", "lib_bwd", "lib_fwd"))
@@ -1633,8 +1645,7 @@ def phase_k3_bwd(torch, kernels, dev):
               f"gradients on, CUDA events: {lib_fwd_ms:.4f}) backward "
               f"kernel={ms:.4f} "
               f"({ms / T * 1e3:.3f} us/step, bound={b_ms:.5f} ({b_by}): "
-              f"the recurrent product) plain backward="
-              f"{'not measured' if plain_ms is None else f'{plain_ms:.4f}'}"
+              f"the recurrent product) plain backward={plain_ms:.4f}"
               f"; the layer's backward: kernel + its two matmuls="
               f"{ms + mm_ms:.4f} (matmuls {mm_ms:.4f}), bound={layer_ms:.5f} "
               f"({layer_by}: three products), cuDNN LSTM backward (also dx "
@@ -2472,6 +2483,200 @@ def lm_rows_equal(torch, gpu, cpu, codes_list, C: int = 32) -> str:
             f"[{S}, {K}, {gpu.card}] equal")
 
 
+def ac_lanes(S: int, K: int, card: int, T: int, seed: int, bits: int = 24,
+             alpha: tuple = (0.3, 0.01)) -> tuple:
+    """S host-coded streams of T steps x K symbols, each symbol under its own
+    seeded random CDF (lane s draws Dirichlet(alpha[s % 2]): 0.01 is
+    extreme skew); the CDFs fill the lower 2^bits of the coder's range (23:
+    half of it, so a corrupt stream soon falls outside every interval).
+    Returns (rows [T, S, K, card] int64, the streams, symbols [T, S, K])."""
+    from encodec_tpu_torch.stream.ac import (ArithmeticCoder,
+                                             build_stable_quantized_cdf)
+
+    rng = np.random.RandomState(seed)
+    rows = np.zeros((T, S, K, card), np.int64)
+    syms = np.zeros((T, S, K), np.int64)
+    datas = []
+    for s in range(S):
+        pdfs = (rng.dirichlet(np.full(card, alpha[s % 2]), size=T * K)
+                * (1 - 1e-5)).astype(np.float32)
+        cdfs = np.stack([build_stable_quantized_cdf(p, bits) for p in pdfs])
+        sym = [rng.choice(card, p=p / p.sum()) for p in pdfs]
+        fo = io.BytesIO()
+        coder = ArithmeticCoder(fo)
+        for x, cdf in zip(sym, cdfs):
+            coder.push(int(x), cdf)
+        coder.flush()
+        datas.append(fo.getvalue())
+        rows[:, s] = cdfs.reshape(T, K, card)
+        syms[:, s] = np.reshape(sym, (T, K))
+    return rows, datas, syms
+
+
+def ac_buffers(torch, datas, Ts, T: int, K: int, dev) -> dict:
+    """The range decoder's device buffers for streams `datas` of `Ts`
+    steps, as `IntLMModel.decode_lockstep` makes them."""
+    from encodec_tpu_torch.stream import device_ac
+
+    S = len(datas)
+    buf = np.zeros((S, max(1, max(len(d) for d in datas))), np.uint8)
+    for s, d in enumerate(datas):
+        buf[s, :len(d)] = np.frombuffer(d, np.uint8)
+    return dict(
+        state=device_ac.init_state(S, dev),
+        data=torch.from_numpy(buf).to(dev),
+        nbits=torch.tensor([8 * len(d) for d in datas], device=dev),
+        ts=torch.tensor(list(Ts), device=dev),
+        codes=torch.zeros((T, S, K), dtype=torch.int64, device=dev),
+        feed=torch.zeros((S, K), dtype=torch.int64, device=dev),
+        ok=torch.ones(S, dtype=torch.bool, device=dev),
+        eof=torch.zeros(S, dtype=torch.bool, device=dev))
+
+
+AC_FIELDS = ("state", "codes", "feed", "ok", "eof")
+
+
+def ac_call(fn, b: dict, rows, t: int) -> None:
+    fn(b["state"], rows, b["data"], b["nbits"], b["ts"], t, b["codes"],
+       b["feed"], b["ok"], b["eof"])
+
+
+def ac_hold(torch, kernels, rows, datas, Ts, label: str) -> dict:
+    """`ac_pull_rows` and its plain twin, both on the card, from the same
+    inputs step by step (`rows` [T, S, K, card] on the card): the state,
+    symbols, feed, ok and eof equal after every step. Returns the kernel's
+    buffers."""
+    T, S, K, _ = rows.shape
+    dev = rows.device
+    sides = {fn: ac_buffers(torch, datas, Ts, T, K, dev)
+             for fn in (kernels.ac_pull_rows, kernels.ac_pull_rows_plain)}
+    for t in range(T):
+        for fn, b in sides.items():
+            ac_call(fn, b, rows[t], t)
+        torch.cuda.synchronize()
+        got, want = sides.values()
+        for name in AC_FIELDS:
+            check(torch.equal(got[name], want[name]),
+                  f"{label}: ac_pull_rows {name} differs from the twin at "
+                  f"step {t}")
+    return sides[kernels.ac_pull_rows]
+
+
+def lm_card_rows(torch, ilm, lanes, steps: int, chunk: int = 256) -> tuple:
+    """The card's CDF rows for the decoded `lanes` ([K, T_s] codes each,
+    teacher-forced in lockstep from a fresh state, finished lanes fed zeros:
+    the rows the decode's steps saw, bit for bit): on the host as
+    [S, steps, K, card], and the first chunk's on the card as
+    [C, S, K, card]."""
+    S, K = len(lanes), lanes[0].shape[0]
+    shifted = np.zeros((S, K, steps), np.int64)
+    for s, c in enumerate(lanes):
+        shifted[s, :, 1:c.shape[1]] = 1 + c[:, :-1]
+    x = torch.from_numpy(shifted).to(ilm.device)
+    out = np.empty((S, steps, K, ilm.card), np.int64)
+    first = None
+    with torch.inference_mode():
+        state = ilm.init_stream(S)
+        for t0 in range(0, steps, chunk):
+            rows, state = ilm.chunk_forward(x[:, :, t0:t0 + chunk], state)
+            if first is None:
+                first = rows.transpose(0, 1).contiguous()
+            out[:, t0:t0 + rows.shape[1]] = rows.cpu().numpy()
+    return out, first
+
+
+def host_decode_lanes(datas, rows: np.ndarray, Ts) -> list:
+    """Each lane decoded by the host range decoder (`make_decoder`: the
+    native one) over the given rows [S, steps, K, card]: [K, T_s] each."""
+    from encodec_tpu_torch.stream.ac import make_decoder
+
+    out = []
+    for s, (d, T) in enumerate(zip(datas, Ts)):
+        dec = make_decoder(d)
+        out.append(np.array([[dec.pull(rows[s, t, k])
+                              for k in range(rows.shape[2])]
+                             for t in range(T)], np.int64).T)
+    return out
+
+
+def ac_kernel_times(torch, kernels, rows, datas, Ts, label: str) -> dict:
+    """Device ms of one `ac_pull_rows` launch (a decode step) on a request's
+    first-step rows `[S, K, card]`, from a fresh state each call, beside its
+    plain twin on the card and the bound: the rows, the state in and out,
+    nbits and ts, the codes and feed out, the flags and the stream bytes the
+    step consumed, at the HBM rate (its S*K*card multiply-compares at the
+    FP32 rate are far below). The twin is timed by CUDA events over 3 calls:
+    it synchronizes in every turn of its bit loops, so its cost is the
+    host's, and profiler windows of its thousands of small kernels rarely
+    agree within 5%."""
+    S, K, card = rows.shape
+    b = ac_buffers(torch, datas, Ts, 1, K, rows.device)
+    state0 = b["state"].clone()
+
+    def run(fn):
+        def call():
+            b["state"].copy_(state0)
+            ac_call(fn, b, rows, 0)
+        return call
+
+    run(kernels.ac_pull_rows)()
+    torch.cuda.synchronize()
+    bits = int((b["state"][:, 4] - state0[:, 4]).sum())
+    ms = device_ms(torch, run(kernels.ac_pull_rows), 50, "ac_decode_kernel")
+    call_ms = time_ms(torch, run(kernels.ac_pull_rows), 50)
+    plain_ms = time_ms(torch, run(kernels.ac_pull_rows_plain), 3)
+    nbytes = (S * K * card * 8 + 2 * S * 5 * 8 + 2 * S * 8 + 2 * S * K * 8
+              + 4 * S + -(-bits // 8))
+    b_ms, b_by = bound(2.0 * S * K * card, nbytes)
+    print(f"AC ac_pull_rows {label} (S={S}, K={K}, card={card}; "
+          f"{bits} stream bits): device ms: kernel={ms:.4f} "
+          f"plain (events)={plain_ms:.4f} library=none bound={b_ms:.6f} ({b_by}, "
+          f"{nbytes} B); per wrapper call (events)={call_ms:.4f}; "
+          f"{ms * 1e3 / K:.3f} us per pull")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def ac_synthetic(torch, kernels, dev) -> None:
+    """The kernel against its twin on synthetic streams: card 16 and 1024
+    with extreme skew, ragged lanes (inactive ones), a cut stream (eof),
+    flipped bytes (ok false) beside intact lanes."""
+    t0 = time.perf_counter()
+    for card in (16, 1024):
+        for S, K in ((2, 32), (11, 16)):
+            T = 6
+            rows, datas, syms = ac_lanes(S, K, card, T, seed=card + S)
+            Ts = [T - (s % 3) for s in range(S)]
+            b = ac_hold(torch, kernels, torch.from_numpy(rows).to(dev), datas,
+                        Ts, f"synthetic card={card} S={S} K={K}")
+            codes = b["codes"].cpu().numpy()
+            check(all(np.array_equal(codes[:n, s], syms[:n, s])
+                      and not codes[n:, s].any() for s, n in enumerate(Ts))
+                  and bool(b["ok"].all()) and not bool(b["eof"].any()),
+                  f"ac_pull_rows card={card} S={S}: symbols differ from the "
+                  "coded ones")
+    T, K, card = 8, 16, 1024
+    rows, datas, syms = ac_lanes(5, K, card, T, seed=9, bits=23)
+    bad = list(datas)
+    bad[1] = datas[1][:len(datas[1]) // 2]
+    for s in (2, 3, 4):
+        flipped = bytearray(datas[s])
+        flipped[(s - 1) * len(flipped) // 5] ^= 0xFF
+        bad[s] = bytes(flipped)
+    b = ac_hold(torch, kernels, torch.from_numpy(rows).to(dev), bad, [T] * 5,
+                "cut and corrupt streams")
+    ok, eof = b["ok"].cpu(), b["eof"].cpu()
+    check(bool(ok[0]) and not bool(eof[0]) and np.array_equal(
+        b["codes"][:, 0].cpu().numpy(), syms[:, 0]) and bool(eof[1])
+          and not bool(ok[2:].all()),
+          f"ac_pull_rows: bad streams not flagged (ok {ok.tolist()}, eof "
+          f"{eof.tolist()})")
+    print(f"AC ac_pull_rows vs twin on the card: synthetic card 16 and 1024 "
+          f"(Dirichlet 0.3 / 0.01), S=2 K=32 and S=11 K=16, ragged lanes, "
+          f"every field equal every step; cut stream eof {eof.tolist()}, "
+          f"flipped bytes ok {ok.tolist()} ({time.perf_counter() - t0:.1f} s)")
+
+
 def phase_lm(torch, kernels, model, model48, wav24, wav48):
     """LM entropy coding (lmv=3) on the card, counted as one path: the
     integer LMs at the published widths (24 kHz: dim 200, 8 heads, 5
@@ -2480,10 +2685,16 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
     `lm_restart="auto"` (2 lanes of 375 steps) and at 6 kbps unblocked (one
     lane of 750), and the 10 s 48 kHz request at 24 kbps (11 segments in
     lockstep, the `fl` index), each compressed and decompressed on the
-    card. Checks: decoded codes equal the writer's (tie-guarded) codes and
-    the `cc` CRC passes; the audio equals the raw path's decode of the same
-    codes; each file equals, byte for byte, the one the port's CPU LM
-    writes from the same codes; CUDA CDF rows equal the CPU's."""
+    card, the range decode on the card (`ac_pull_rows`, one launch per
+    decode step). Checks: decoded codes equal the writer's (tie-guarded)
+    codes and the `cc` CRC passes, and equal the host range decoder's over
+    the card's own rows at every position; `ac_pull_rows` launched once per
+    decode step; the kernel equals its twin on the card on the requests'
+    rows and on synthetic streams (card 16 and 1024, extreme skew, inactive
+    lanes, a cut and a corrupt stream); the audio equals the raw path's
+    decode of the same codes; each file equals, byte for byte, the one the
+    port's CPU LM writes from the same codes; CUDA CDF rows equal the
+    CPU's. Returns (launch counts, the kernel's JSON metrics)."""
     from encodec_tpu_torch import native
     from encodec_tpu_torch.models.ilm import IntLMModel
     from encodec_tpu_torch.stream import binary, compress, decompress
@@ -2523,7 +2734,23 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
         decoded.append((out[1], out[2], time.perf_counter() - t0))
         return out
 
+    # and a spy on the lockstep decode keeps its streams, codes, time and
+    # the range decoder's launches
+    lockstep = IntLMModel.decode_lockstep
+    lockstep_calls = []
+
+    def lockstep_spy(self, datas, K, Ts):
+        before = kernels.ac_pull_rows.launches
+        t0 = time.perf_counter()
+        codes = lockstep(self, datas, K, Ts)
+        lockstep_calls.append(dict(
+            datas=list(datas), K=K, Ts=list(Ts), codes=codes,
+            seconds=time.perf_counter() - t0,
+            launches=kernels.ac_pull_rows.launches - before))
+        return codes
+
     compress_module.read_frames = spy
+    IntLMModel.decode_lockstep = lockstep_spy
     kernels.reset_launch_counts()
     served = []
     for label, m, lm, cpu_ilm, bw, wav, restart in jobs:
@@ -2543,15 +2770,22 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
                            decompress_s=time.perf_counter() - t1))
     counts = launch_counts(kernels)
     compress_module.read_frames = read_frames
-    check(len(decoded) == len(served), "decompress did not read its frames "
-          "through read_frames")
+    IntLMModel.decode_lockstep = lockstep
+    check(len(decoded) == len(served) == len(lockstep_calls),
+          "decompress did not read its frames through read_frames and one "
+          "lockstep decode")
     print(f"lm path launches: {json.dumps(counts)}")
+    steps_all = sum(max(c["Ts"]) for c in lockstep_calls)
     check(counts["nearest_codebook"] > 0 and counts["lstm_scan"] > 0
-          and counts["rvq_encode_fused"] == 0,
-          "the LM path did not launch K1 and K3 (and no K2)")
+          and counts["rvq_encode_fused"] == 0
+          and counts["ac_pull_rows"] == steps_all,
+          f"the LM path did not launch K1 and K3 (and no K2), or not one "
+          f"ac_pull_rows per decode step ({counts['ac_pull_rows']} for "
+          f"{steps_all} steps)")
 
     # -- verification, not counted --------------------------------------
-    for r, (frames, al, decode_s) in zip(served, decoded):
+    for r, (frames, al, decode_s), call in zip(served, decoded,
+                                               lockstep_calls):
         m, data, wav = r["m"], r["data"], r["wav"]
         gpu = IntLMModel.from_lm(r["lm"])
         m.set_target_bandwidth(r["bw"])
@@ -2588,17 +2822,41 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
         Ts = [b.shape[1] for b in blocks]
         steps = max(Ts)
         seconds = wav.shape[-1] / m.sample_rate
-        r.update(Ts=Ts, blocks=blocks, meta=meta)
+        check(call["Ts"] == Ts and call["launches"] == steps
+              and all(np.array_equal(call["codes"][s, :, :T], b)
+                      for s, (T, b) in enumerate(zip(Ts, blocks))),
+              f"{r['label']}: the lockstep decode's lanes or its "
+              f"{call['launches']} ac_pull_rows launches for {steps} steps")
+        # the host range decoder over the card's own rows: every position
+        t0 = time.perf_counter()
+        rows_host, rows_first = lm_card_rows(torch, gpu, blocks, steps)
+        host = host_decode_lanes(call["datas"], rows_host, Ts)
+        check(all(np.array_equal(h, b) for h, b in zip(host, blocks)),
+              f"{r['label']}: the card's codes differ from the host "
+              "decoder's over the card's rows")
+        n_hold = 12
+        ac_hold(torch, kernels, rows_first[:n_hold], call["datas"], Ts,
+                r["label"])
+        host_s = time.perf_counter() - t0
+        r.update(Ts=Ts, blocks=blocks, meta=meta, datas=call["datas"],
+                 rows0=rows_first[0].clone())
+        del rows_host, rows_first
+        dl_s = call["seconds"]
         print(f"lm request {r['label']}: K={meta['nc']}, {len(Ts)} lanes x "
               f"{steps} steps; {len(data)} B vs raw {len(raw)} B ("
               f"{len(data) / len(raw):.4f}); compress {r['compress_s'] * 1e3:.1f}"
               f" ms, decompress {r['decompress_s'] * 1e3:.1f} ms; teacher-"
               f"forced LM encode {encode_s * 1e3:.1f} ms; range decode "
-              f"{decode_s * 1e3:.1f} ms = {decode_s / steps * 1e3:.3f} ms per "
-              f"step, {decode_s / seconds * 1e3:.1f} ms per s of audio; "
-              f"codes = written, cc ok, audio = raw decode, file = CPU writer's"
-              f" (CPU writer {cpu_s * 1e3:.1f} ms, raw decode and checks "
-              f"{check_s * 1e3:.1f} ms)")
+              f"(decode_lockstep) {dl_s * 1e3:.1f} ms = "
+              f"{dl_s / steps * 1e3:.3f} ms per step, "
+              f"{dl_s / seconds * 1e3:.1f} ms per s of audio, "
+              f"{call['launches']} ac_pull_rows launches = steps (read_frames "
+              f"{decode_s * 1e3:.1f} ms); codes = written = host decoder's "
+              f"over the card's rows, kernel = twin over {n_hold} steps, cc "
+              f"ok, audio = raw decode, file = CPU writer's (CPU writer "
+              f"{cpu_s * 1e3:.1f} ms, raw decode and checks "
+              f"{check_s * 1e3:.1f} ms, host decoder and twin checks "
+              f"{host_s * 1e3:.1f} ms)")
     t0 = time.perf_counter()
     print(f"lm portability: 24 kHz "
           f"{lm_rows_equal(torch, IntLMModel.from_lm(lm24), cpu24, served[1]['blocks'])}"
@@ -2606,8 +2864,18 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
           f" ({(time.perf_counter() - t0) * 1e3:.1f} ms)")
     t0 = time.perf_counter()
 
-    # one profiled decode step and a profiled 8-step decode per layout
-    for r in (served[1], served[3]):
+    # the range decoder: against its twin on synthetic streams, and timed
+    # at the requests' shapes (24 kbps: S=2, K=32; 48 kHz: S=11, K=16)
+    ac_synthetic(torch, kernels, model.device)
+    ac_times = {}
+    for i in (1, 3):
+        r = served[i]
+        ac_times[i] = ac_kernel_times(torch, kernels, r["rows0"], r["datas"],
+                                      r["Ts"], r["label"])
+    ac_s = time.perf_counter() - t0
+
+    # per request: one profiled decode step and a profiled 8-step decode
+    for r in served:
         gpu = IntLMModel.from_lm(r["lm"])
         S, K = len(r["Ts"]), r["meta"]["nc"]
         feed = torch.ones((S, K), dtype=torch.int64, device=model.device)
@@ -2618,20 +2886,25 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
         records, wall = kernel_window(torch, lambda: gpu.step(feed, state), 5)
         launches = sum(n for n, _ in records.values()) / 5
         busy = sum(us for _, us in records.values()) / 5 / 1e3
-        datas = lm_streams(r["data"], r["meta"], r["m"])
         n_steps = 8
         records, wall_d = kernel_window(
             torch, lambda: gpu.decode_lockstep(
-                datas, K, [min(n_steps, T) for T in r["Ts"]]), 1)
+                r["datas"], K, [min(n_steps, T) for T in r["Ts"]]), 1)
         busy_d = sum(us for _, us in records.values()) / 1e3
+        n_d = sum(n for n, _ in records.values())
+        ac_us = sum(us for key, (_, us) in records.items()
+                    if "ac_decode_kernel" in key)
         print(f"lm decode profile, {r['label']} (S={S}, K={K}): one step "
               f"{launches:.0f} kernel launches, device busy {busy:.4f} ms, "
               f"wall {wall / 5:.3f} ms (profiled); {n_steps} lockstep decode "
-              f"steps: wall {wall_d:.2f} ms, device busy {busy_d:.3f} ms, idle "
-              f"share {1 - busy_d / wall_d:.3f}")
-    print(f"lm profiles {time.perf_counter() - t0:.1f} s; lm phase "
+              f"steps: wall {wall_d:.2f} ms = {wall_d / n_steps:.3f} ms per "
+              f"step, {n_d / n_steps:.1f} launches per step (ac_pull_rows 1), "
+              f"device busy {busy_d:.3f} ms (ac_pull_rows "
+              f"{ac_us / 1e3:.3f}), idle share {1 - busy_d / wall_d:.3f}")
+    print(f"lm profiles {time.perf_counter() - t0:.1f} s (the range "
+          f"decoder's checks and times {ac_s:.1f} s); lm phase "
           f"{time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, dict(ac_times[1], max_abs_err=0)
 
 
 LM_TRAIN_LR = 1e-3     # 20 steps on one batch must lower the entropy
@@ -2988,23 +3261,6 @@ def phase_lm_train(torch, kernels, model, registry, run_dir):
     return counts
 
 
-def lm_streams(data: bytes, meta: dict, model) -> list:
-    """The range-coded streams of an lmv=3 file with an `fl` index."""
-    from encodec_tpu_torch.stream import binary
-
-    fo = io.BytesIO(data)
-    binary.read_ecdc_header(fo)
-    segmented = "lmb" not in meta
-    if not segmented and model.normalize:
-        fo.read(4)
-    out = []
-    for n in meta["fl"]:
-        if segmented and model.normalize:
-            fo.read(4)
-        out.append(fo.read(n))
-    return out
-
-
 def launch_counts(kernels) -> dict:
     """The wrappers' launch counts, and the grid kernel's own."""
     return dict(kernels.launch_counts(),
@@ -3013,7 +3269,8 @@ def launch_counts(kernels) -> dict:
 
 KERNEL_GROUPS = (("K2", "vq_rvq_kernel"), ("K1", "vq_nearest_kernel"),
                  ("K3", "lstm_scan_kernel"), ("K3", "lstm_grid_kernel"),
-                 ("K3 backward", "lstm_bwd_kernel"))
+                 ("K3 backward", "lstm_bwd_kernel"),
+                 ("AC", "ac_decode_kernel"))
 
 
 def kernel_group(name: str) -> str:
@@ -3188,7 +3445,7 @@ def main() -> int:
     t2 = time.perf_counter()
     counts_gan = phase_gan(torch, kernels, dev)
     t3 = time.perf_counter()
-    counts_lm = phase_lm(torch, kernels, model, model48, wav10, wav48)
+    counts_lm, ac = phase_lm(torch, kernels, model, model48, wav10, wav48)
     t4 = time.perf_counter()
     counts_lm_train = phase_lm_train(torch, kernels, model, registry,
                                      train_run)
@@ -3215,6 +3472,9 @@ def main() -> int:
         # no TPU kernel: JAX's trainer differentiates the LSTM's lax.scan
         ("K3 lstm_scan_backward (backward kernel, H <= 1024)", "lstm_bwd.cu",
          "ops/lstm.py:56-72", "lstm_scan_backward", k3_bwd),
+        # no TPU kernel: JAX scans the range decoder in XLA
+        ("AC ac_pull_rows", "ac_decode.cu", "stream/device_ac.py:222",
+         "ac_pull_rows", ac),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda",

@@ -7,9 +7,12 @@
 | `lstm_scan` (K3) | `lstm_pallas.py::lstm_scan_pallas` | `csrc/lstm_scan.cu` (H ≤ 512), |
 | | | `csrc/lstm_grid.cu` (512 < H ≤ 1024) |
 | `lstm_scan_backward` (K3's gradient) | none (see below) | `csrc/lstm_bwd.cu` (H ≤ 1024) |
+| `ac_pull_rows` (the range decoder) | none (see below) | `csrc/ac_decode.cu` |
 
 K3's backward has no TPU kernel to replace: the JAX trainer differentiates
 the `lax.scan` of `encodec_tpu/ops/lstm.py:56-72`, and XLA runs the VJP.
+Nor has the range decoder of lmv=3: JAX runs the `lax.scan` of
+`encodec_tpu/stream/device_ac.py::ac_pull_row` inside its fused decode.
 
 Each wrapper runs its plain twin for CPU tensors and launches its kernel
 for CUDA tensors (or raises); each counts its launches in `.launches`,
@@ -18,6 +21,7 @@ for CUDA tensors (or raises); each counts its launches in `.launches`,
 `lstm_scan.save_launches` those that saved every step's c for the backward.
 """
 
+from .ac_cuda import ac_pull_rows, ac_pull_rows_plain  # noqa: F401
 from .lstm_cuda import (  # noqa: F401
     lstm_scan,
     lstm_scan_backward,
@@ -31,7 +35,8 @@ from .vq_cuda import (  # noqa: F401
     rvq_encode_fused_plain,
 )
 
-WRAPPERS = (nearest_codebook, rvq_encode_fused, lstm_scan, lstm_scan_backward)
+WRAPPERS = (nearest_codebook, rvq_encode_fused, lstm_scan, lstm_scan_backward,
+            ac_pull_rows)
 
 
 def reset_launch_counts() -> None:

@@ -28,10 +28,17 @@ BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C signatures of each library's entry points: (argtypes, restype). Every
 # pointer and the stream go as c_void_p, or ctypes would cut them to 32 bits.
 SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
+    "ac_decode": {
+        "ac_decode_launch": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _L, _P, _P,
+                              _P, _P, _I, _P], _I),
+        "ac_decode_max_threads": ([], _I),
+        "ac_decode_window_bytes": ([_I], _I),
+        "ac_decode_error_string": ([_I], ctypes.c_char_p),
+    },
     "lstm_scan": {
         "lstm_scan_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _P], _I),

@@ -27,11 +27,13 @@ What is rewritten for torch, op for op after the JAX functions:
 - The streaming step is the chunk forward at C = 1: its mask is the
   step's window, so the two cannot drift apart.
 
-Decoding runs the step for all lanes on the model's device, copies the
-`[S, K, card]` rows to the host once per step and pulls the symbols with
-the host range decoder (`IntLMModel.decode_lockstep`); JAX instead fuses
-the step and a device range decoder in one scan (`stream/device_ac.py`,
-not ported).
+Decoding (`IntLMModel.decode_lockstep`) runs on the model's device, as
+JAX's fused scan does: per step, the integer step for all lanes, then one
+range-decode launch (`kernels.ac_pull_rows`, the CUDA kernel of
+`csrc/ac_decode.cu`; on the CPU its twin `stream.device_ac`) that pulls
+every lane's K symbols from the step's rows and writes the codes, the next
+step's feed and the `ok`/`eof` flags on the device. Nothing is read back
+until the last step: the codes and flags come to the host in one copy.
 
 Bitstream contract: EVERY constant below (scales, clips, LUT contents,
 shift order) defines the lmv=3 format. Changing any of them changes the
@@ -712,36 +714,54 @@ class IntLMModel:
     @torch.inference_mode()
     def decode_lockstep(self, datas: tp.Sequence[bytes], K: int,
                         Ts: tp.Sequence[int]) -> np.ndarray:
-        """Range-decode S independent streams in lockstep: per step, one
-        `ilm_step` for all lanes on the device, its rows copied to the host
-        once, K symbols pulled per active lane, `1 + symbols` fed back.
-        Lane s is active while t < Ts[s]; it is fed zeros from t = Ts[s] on,
-        as the writer padded it. Returns codes `[S, K, max(Ts)]` (int64,
-        ragged tails zero). Raises EOFError when a stream ends early and
-        RuntimeError('Binary search failed') on a corrupt one."""
-        from ..stream.ac import make_decoder
+        """Range-decode S independent streams in lockstep on the model's
+        device: the counterpart of JAX's `fused_decode_chunk_exec` and
+        `stream.compress._lockstep_decode_int`. Per step t, one `step` for
+        all lanes and one `kernels.ac_pull_rows` launch on its rows, which
+        writes the lanes' symbols into `codes[t]`, `1 + symbols` into the
+        feed of step t + 1 and the sticky `ok`/`eof` flags, all in buffers
+        made before the loop; the loop knows t and reads no tensor. Lane s
+        is active while t < Ts[s]; it is fed zeros from t = Ts[s] on, as the
+        writer padded it. After the loop, codes and flags come to the host
+        in one copy. (JAX's 8192-byte buffer buckets and 256-token chunks
+        only bounded XLA's compiles; the port needs neither.)
 
-        S = len(datas)
-        decoders = [make_decoder(d) for d in datas]
-        codes = np.zeros((S, K, max(Ts)), np.int64)
+        Returns codes `[S, K, max(Ts)]` (int64, ragged tails zero). Raises
+        EOFError when a stream ended before its symbols did (a bit past
+        its end was consumed), then RuntimeError('Binary search failed')
+        when a symbol fell outside every interval (a corrupt stream), in
+        JAX's order."""
+        from ..kernels import ac_pull_rows
+        from ..stream import device_ac
+
+        S, T_max, dev = len(datas), max(Ts), self.device
+        L = max(1, max(len(d) for d in datas))
+        buf = np.zeros((S, L), np.uint8)
+        for s, d in enumerate(datas):
+            buf[s, :len(d)] = np.frombuffer(d, np.uint8)
+        data = torch.from_numpy(buf).to(dev)
+        nbits = torch.tensor([8 * len(d) for d in datas], dtype=torch.int64,
+                             device=dev)
+        ts = torch.tensor(list(Ts), dtype=torch.int64, device=dev)
+        ac = device_ac.init_state(S, dev)
+        codes = torch.zeros((T_max, S, K), dtype=torch.int64, device=dev)
+        feed = torch.zeros((S, K), dtype=torch.int64, device=dev)
+        ok = torch.ones(S, dtype=torch.bool, device=dev)
+        eof = torch.zeros(S, dtype=torch.bool, device=dev)
         state = self.init_stream(batch=S)
-        feed = torch.zeros((S, K), dtype=torch.int64, device=self.device)
-        for t in range(max(Ts)):
+        for t in range(T_max):
             rows, state = self.step(feed, state)
-            rows_h = rows.cpu().numpy()                    # [S, K, card]
-            nxt = np.zeros((S, K), np.int64)
-            for s in range(S):
-                if t >= Ts[s]:
-                    continue
-                for k in range(K):
-                    sym = decoders[s].pull(rows_h[s, k])
-                    if sym is None:
-                        raise EOFError("The stream ended sooner than expected.")
-                    codes[s, k, t] = sym
-                if t + 1 < Ts[s]:
-                    nxt[s] = 1 + codes[s, :, t]
-            feed = torch.from_numpy(nxt).to(self.device)
-        return codes
+            ac_pull_rows(ac, rows.contiguous(), data, nbits, ts, t, codes,
+                         feed, ok, eof)
+        out = torch.cat([codes.reshape(-1), ok.to(torch.int64),
+                         eof.to(torch.int64)]).cpu().numpy()
+        n = T_max * S * K
+        if out[n + S:].any():
+            raise EOFError("The stream ended sooner than expected.")
+        if not out[n:n + S].all():
+            raise RuntimeError("Binary search failed")
+        return np.ascontiguousarray(
+            np.moveaxis(out[:n].reshape(T_max, S, K), 0, -1))
 
 
 def codes_checksum(frames_codes: tp.Iterable[np.ndarray]) -> int:

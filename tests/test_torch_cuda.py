@@ -861,3 +861,148 @@ def test_lm_forward_batch_matches_scan_on_the_card(dev):
     rest, _, offset = lm(idx[:, :, 17:], state, offset)
     assert offset == 30
     assert (torch.cat([probas, rest], -1) - batch).abs().max().item() <= 1e-5
+
+
+# -- the range decoder of lmv=3 (csrc/ac_decode.cu) ------------------------
+
+def _ac_lanes(S, K, card, T, seed, bits=24):
+    """S host-coded streams of T steps x K symbols, each symbol under its own
+    random CDF (alternate lanes extremely skewed); the CDFs fill the lower
+    2^bits of the coder's range. Returns (rows [T, S, K, card] int64, the
+    streams, symbols [T, S, K])."""
+    from encodec_tpu_torch.stream.ac import (ArithmeticCoder,
+                                             build_stable_quantized_cdf)
+    import io
+
+    rng = np.random.RandomState(seed)
+    rows = np.zeros((T, S, K, card), np.int64)
+    syms = np.zeros((T, S, K), np.int64)
+    datas = []
+    for s in range(S):
+        alpha = 0.3 if s % 2 == 0 else 0.02
+        # a little slack: a float32 pdf may sum above 1
+        pdfs = (rng.dirichlet(np.full(card, alpha), size=T * K)
+                * (1 - 1e-5)).astype(np.float32)
+        cdfs = np.stack([build_stable_quantized_cdf(p, bits) for p in pdfs])
+        sym = [rng.choice(card, p=p / p.sum()) for p in pdfs]
+        fo = io.BytesIO()
+        coder = ArithmeticCoder(fo)
+        for x, cdf in zip(sym, cdfs):
+            coder.push(int(x), cdf)
+        coder.flush()
+        datas.append(fo.getvalue())
+        rows[:, s] = cdfs.reshape(T, K, card)
+        syms[:, s] = np.reshape(sym, (T, K))
+    return rows, datas, syms
+
+
+def _ac_both(dev, rows, datas, ts):
+    """`ac_pull_rows` on the card and its twin on the CPU, step by step from
+    the same inputs: state, codes, feed, ok and eof equal after every step.
+    Returns the card's (codes [T, S, K], ok, eof)."""
+    from encodec_tpu_torch.kernels import ac_pull_rows
+    from encodec_tpu_torch.stream import device_ac
+
+    T, S, K, _ = rows.shape
+    L = max(1, max(len(d) for d in datas))
+    buf = np.zeros((S, L), np.uint8)
+    for s, d in enumerate(datas):
+        buf[s, :len(d)] = np.frombuffer(d, np.uint8)
+    sides = {}
+    for side, where in (("card", dev), ("plain", torch.device("cpu"))):
+        sides[side] = dict(
+            state=device_ac.init_state(S, where),
+            data=torch.from_numpy(buf).to(where),
+            nbits=torch.tensor([8 * len(d) for d in datas], device=where),
+            ts=torch.tensor(ts, device=where),
+            codes=torch.zeros((T, S, K), dtype=torch.int64, device=where),
+            feed=torch.zeros((S, K), dtype=torch.int64, device=where),
+            ok=torch.ones(S, dtype=torch.bool, device=where),
+            eof=torch.zeros(S, dtype=torch.bool, device=where))
+    names = ("state", "codes", "feed", "ok", "eof")
+    for t in range(T):
+        for b in sides.values():
+            ac_pull_rows(b["state"], torch.from_numpy(rows[t]).to(
+                b["data"].device), b["data"], b["nbits"], b["ts"], t,
+                b["codes"], b["feed"], b["ok"], b["eof"])
+        for n in names:
+            assert torch.equal(sides["card"][n].cpu(), sides["plain"][n]), (
+                t, n)
+    g = sides["card"]
+    return g["codes"].cpu().numpy(), g["ok"].cpu(), g["eof"].cpu()
+
+
+@pytest.mark.parametrize("S", [1, 11])
+@pytest.mark.parametrize("K", [1, 32])
+@pytest.mark.parametrize("card", [16, 1024])
+def test_ac_pull_rows_kernel_matches_plain(dev, S, K, card):
+    """Every state field, symbol, feed and flag equal to the twin's after
+    every step; the symbols are the coded ones. With S=11 three lanes end
+    early (inactive lanes write zeros and keep their state)."""
+    T = 6
+    rows, datas, syms = _ac_lanes(S, K, card, T, seed=S * 100 + K + card)
+    ts = [T - (s % 3) for s in range(S)]
+    codes, ok, eof = _ac_both(dev, rows, datas, ts)
+    assert bool(ok.all()) and not bool(eof.any())
+    for s, n in enumerate(ts):
+        assert np.array_equal(codes[:n, s], syms[:n, s])
+        assert not codes[n:, s].any()
+
+
+def test_ac_pull_rows_kernel_flags_bad_streams_as_plain(dev):
+    """A cut stream (eof) and flipped bytes (ok false: the CDFs leave the
+    top half of the coder's range empty) beside an intact lane."""
+    T, K, card = 8, 4, 32
+    rows, datas, syms = _ac_lanes(5, K, card, T, seed=9, bits=23)
+    bad = list(datas)
+    bad[1] = datas[1][:len(datas[1]) // 2]
+    for s in (2, 3, 4):
+        b = bytearray(datas[s])
+        b[(s - 1) * len(b) // 5] ^= 0xFF
+        bad[s] = bytes(b)
+    codes, ok, eof = _ac_both(dev, rows, bad, [T] * 5)
+    assert bool(ok[0]) and not bool(eof[0])
+    assert np.array_equal(codes[:, 0], syms[:, 0])
+    assert bool(eof[1])
+    assert not bool(ok[2:].all())
+
+
+def test_ac_pull_rows_counts_one_launch_per_call(dev):
+    from encodec_tpu_torch import kernels
+    from encodec_tpu_torch.kernels import ac_cuda
+
+    rows, datas, _ = _ac_lanes(2, 3, 16, 4, seed=3)
+    before = kernels.ac_pull_rows.launches
+    _ac_both(dev, rows, datas, [4, 2])
+    assert kernels.ac_pull_rows.launches == before + 4
+    lib = build.load_library("ac_decode")
+    assert lib.ac_decode_max_threads() == ac_cuda.AC_MAX_THREADS
+    for K in (1, 16, 32):
+        assert lib.ac_decode_window_bytes(K) == ac_cuda.window_bytes(K)
+
+
+def test_decode_lockstep_on_the_card_equals_the_cpu(dev):
+    """The integer LM's lockstep decode with the range decoder on the card
+    (one `ac_pull_rows` launch per step) against the CPU route: codes equal
+    at every position, ragged lanes; a cut stream raises EOFError."""
+    from encodec_tpu_torch import kernels
+    from encodec_tpu_torch.models.ilm import IntLMModel
+    from encodec_tpu_torch.models.lm import LMModel
+    from encodec_tpu_torch.stream.ac import encode_bounds
+
+    cfg, params = _small_lm("cpu", seed=4)
+    cpu = IntLMModel.from_lm(LMModel(cfg, params, device="cpu"))
+    gpu = IntLMModel.from_lm(LMModel(cfg, params, device=dev))
+    rng = np.random.RandomState(5)
+    Ts = [21, 9, 30]
+    codes = [rng.randint(0, cfg.card, (cfg.n_q, T)) for T in Ts]
+    datas = [encode_bounds(lo, hi)
+             for lo, hi in cpu.codec_symbol_bounds_batched(codes)]
+    before = kernels.ac_pull_rows.launches
+    got = gpu.decode_lockstep(datas, cfg.n_q, Ts)
+    assert kernels.ac_pull_rows.launches == before + max(Ts)
+    np.testing.assert_array_equal(got, cpu.decode_lockstep(datas, cfg.n_q, Ts))
+    for s, T in enumerate(Ts):
+        np.testing.assert_array_equal(got[s, :, :T], codes[s])
+    with pytest.raises(EOFError):
+        gpu.decode_lockstep([datas[0][:len(datas[0]) // 2]], cfg.n_q, Ts[:1])

@@ -94,10 +94,10 @@ class _CudaStandIn:
 
 @pytest.mark.parametrize("which", ["nearest_codebook", "rvq_encode_fused",
                                    "lstm_scan", "lstm_scan_grid",
-                                   "lstm_scan_backward"])
+                                   "lstm_scan_backward", "ac_pull_rows"])
 def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
     from encodec_tpu_torch import kernels
-    from encodec_tpu_torch.kernels import build, lstm_cuda, vq_cuda
+    from encodec_tpu_torch.kernels import ac_cuda, build, lstm_cuda, vq_cuda
 
     def no_build(name):
         raise build.KernelBuildError(f"simulated build failure of {name}")
@@ -106,9 +106,10 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
         raise AssertionError("a CUDA tensor reached the plain twin")
 
     monkeypatch.setattr(build, "load_library", no_build)
-    for mod in (lstm_cuda, vq_cuda):
+    for mod in (lstm_cuda, vq_cuda, ac_cuda):
         for name in ("lstm_scan_plain", "nearest_codebook_plain",
-                     "rvq_encode_fused_plain", "lstm_scan_backward_plain"):
+                     "rvq_encode_fused_plain", "lstm_scan_backward_plain",
+                     "ac_pull_rows_plain"):
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, no_twin)
     args = {
@@ -120,6 +121,18 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
         # K3's backward kernel: pre-activations, c, dy, W_hh
         "lstm_scan_backward": (_CudaStandIn(2, 5, 16), _CudaStandIn(2, 5, 4),
                                _CudaStandIn(2, 5, 4), _CudaStandIn(16, 4)),
+        # the range decoder: state, rows, data, nbits, ts, t, codes, feed,
+        # ok, eof
+        "ac_pull_rows": (
+            _CudaStandIn(2, 5, dtype=torch.int64),
+            _CudaStandIn(2, 4, 16, dtype=torch.int64),
+            _CudaStandIn(2, 9, dtype=torch.uint8),
+            _CudaStandIn(2, dtype=torch.int64),
+            _CudaStandIn(2, dtype=torch.int64), 0,
+            _CudaStandIn(3, 2, 4, dtype=torch.int64),
+            _CudaStandIn(2, 4, dtype=torch.int64),
+            _CudaStandIn(2, dtype=torch.bool),
+            _CudaStandIn(2, dtype=torch.bool)),
     }[which]
     fn = getattr(kernels, which.replace("_grid", ""))
     before = fn.launches
@@ -128,7 +141,7 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
     assert fn.launches == before
     # a mixed-device call is refused before any launch
     with pytest.raises(ValueError, match="different devices"):
-        fn(torch.zeros(args[0].shape), *args[1:])
+        fn(torch.zeros(args[0].shape, dtype=args[0].dtype), *args[1:])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -160,7 +173,8 @@ def test_wrapper_launch_counters_exist():
     kernels.reset_launch_counts()
     assert kernels.launch_counts() == {"nearest_codebook": 0,
                                        "rvq_encode_fused": 0, "lstm_scan": 0,
-                                       "lstm_scan_backward": 0}
+                                       "lstm_scan_backward": 0,
+                                       "ac_pull_rows": 0}
     # CPU tensors run the plain twins and count no launch
     kernels.nearest_codebook(torch.randn(4, 8), torch.randn(5, 8))
     assert kernels.launch_counts()["nearest_codebook"] == 0
