@@ -111,18 +111,20 @@ Phases, in order (any failure exits non-zero before the last line):
    request at 6 and 24 kbps in 375-token blocks and at 6 kbps unblocked,
    and the 10 s 48 kHz request at 24 kbps (11 segments), compressed on
    the card with the native range coder and decompressed on the card, the
-   range decoder being the hand-written kernel `ac_pull_rows`
-   (`csrc/ac_decode.cu`, one launch per decode step, counted); decoded
-   codes against the written ones, the `cc` CRC and the host range
-   decoder over the card's own rows, the kernel against its twin on the
-   card (each request's first 12 steps; synthetic streams at card 16 and
-   1024 with extreme skew, ragged lanes, a cut and a corrupt stream) and
-   timed at S=2, K=32 and S=11, K=16 beside its bound, audio against the
-   raw path's decode, each file against the one the port's CPU LM writes,
-   CUDA CDF rows against the CPU's; teacher-forced encode and decode
-   times per step and per second of audio, per request a profiled decode
-   step (launches) and 8 profiled decode steps (launches per step, idle
-   share), bytes against the raw file;
+   decode step being a CUDA graph per lane count, replayed, whose range
+   decoder is the hand-written kernel `ac_head_pull` (`csrc/ac_decode.cu`,
+   the LM's CDF head fused in; one launch per decode step, replays
+   counted); decoded codes against the written ones, the `cc` CRC and the
+   host range decoder over the card's own rows, the kernel against its
+   twin on the card (each request's first 12 steps of the eager runner;
+   synthetic streams at card 16 and 1024 with extreme skew, ragged lanes,
+   a cut and a corrupt stream) and timed at S=2, K=32 and S=11, K=16
+   beside its bound, audio against the raw path's decode, each file
+   against the one the port's CPU LM writes, CUDA CDF rows against the
+   CPU's; teacher-forced encode and decode times per step and per second
+   of audio, the first decode's capture, per request profiled graph
+   replays and eager runner steps (wall per step, device busy, launches
+   per step, idle share), bytes against the raw file;
 17. train an entropy prior on the port's own codes at the published LM
    width (n_q 32, card 1024, dim 200, 8 heads, 5 layers), with its own
    launch counts: 16 seeded 10 s requests encoded at 24 kbps (K2, K3), 20
@@ -205,7 +207,7 @@ OWN_KERNELS = {"vq_nearest_kernel": "nearest_codebook",
                "lstm_scan_kernel": "lstm_cluster",
                "lstm_grid_kernel": "lstm_grid",
                "lstm_bwd_kernel": "lstm_scan_backward",
-               "ac_decode_kernel": "ac_pull_rows"}
+               "ac_head_pull_kernel": "ac_head_pull"}
 PROFILE_WINDOWS = 20     # windows tried before a measurement fails
 PROFILE_EDGE_S = 0.05    # host time between a window's edges and its work
 PROFILE_AGREE = 0.05     # two windows agree within this device time
@@ -729,7 +731,7 @@ def phase_main_path(torch, kernels, dev):
     # serving runs no backward kernel, a raw .ecdc no range decoder
     for name, n in counts.items():
         check(n > 0 or name in ("lstm_grid", "lstm_scan_backward",
-                                "ac_pull_rows"),
+                                "ac_head_pull"),
               f"kernel {name} was never launched on the main path")
 
     # -- verification, not counted --------------------------------------
@@ -916,7 +918,7 @@ def phase_main_path_48(torch, kernels, dev):
     print(f"48 kHz path launches: {json.dumps(counts)}")
     for name, k in counts.items():
         check(k > 0 or name in ("lstm_grid", "lstm_scan_backward",
-                                "ac_pull_rows"),
+                                "ac_head_pull"),
               f"kernel {name} was never launched on the 48 kHz path")
 
     # -- verification, not counted --------------------------------------
@@ -2483,39 +2485,46 @@ def lm_rows_equal(torch, gpu, cpu, codes_list, C: int = 32) -> str:
             f"[{S}, {K}, {gpu.card}] equal")
 
 
-def ac_lanes(S: int, K: int, card: int, T: int, seed: int, bits: int = 24,
-             alpha: tuple = (0.3, 0.01)) -> tuple:
-    """S host-coded streams of T steps x K symbols, each symbol under its own
-    seeded random CDF (lane s draws Dirichlet(alpha[s % 2]): 0.01 is
-    extreme skew); the CDFs fill the lower 2^bits of the coder's range (23:
-    half of it, so a corrupt stream soon falls outside every interval).
-    Returns (rows [T, S, K, card] int64, the streams, symbols [T, S, K])."""
-    from encodec_tpu_torch.stream.ac import (ArithmeticCoder,
-                                             build_stable_quantized_cdf)
+def ac_lanes(torch, S: int, K: int, card: int, T: int, seed: int,
+             spread: tuple = (4000, 60000)) -> tuple:
+    """S host-coded streams of T steps x K symbols under the CDF rows of a
+    seeded random LM head: its product `acc` [T, K, S, card] (integers, as
+    float64), bias [K, card] int32, exponent e0 = 4 and the exp2 table;
+    lane s's logits spread over `spread[s % 2]` A10 units (60000: extreme
+    skew, nearly every row one symbol). Returns (acc, head_b, e0, lut, the
+    streams, symbols [T, S, K]); acc and head_b numpy, lut a CPU tensor."""
+    from encodec_tpu_torch.models import ilm
+    from encodec_tpu_torch.stream.ac import ArithmeticCoder
 
     rng = np.random.RandomState(seed)
-    rows = np.zeros((T, S, K, card), np.int64)
+    e0 = 4
+    acc = np.stack([rng.randint(-spread[s % 2] << e0,
+                                (spread[s % 2] << e0) + 1, (T, K, card))
+                    for s in range(S)], 2).astype(np.float64)
+    head_b = rng.randint(-2000, 2001, (K, card)).astype(np.int32)
+    lut = torch.from_numpy(ilm.exp2_table().astype(np.int64))
+    rows = np.stack([ilm._head_tail(torch.from_numpy(a),
+                                    torch.from_numpy(head_b), e0, lut).numpy()
+                     for a in acc])                          # [T, S, K, card]
     syms = np.zeros((T, S, K), np.int64)
     datas = []
     for s in range(S):
-        pdfs = (rng.dirichlet(np.full(card, alpha[s % 2]), size=T * K)
-                * (1 - 1e-5)).astype(np.float32)
-        cdfs = np.stack([build_stable_quantized_cdf(p, bits) for p in pdfs])
-        sym = [rng.choice(card, p=p / p.sum()) for p in pdfs]
         fo = io.BytesIO()
         coder = ArithmeticCoder(fo)
-        for x, cdf in zip(sym, cdfs):
-            coder.push(int(x), cdf)
+        for t in range(T):
+            for k in range(K):
+                p = np.diff(np.concatenate([[0], rows[t, s, k]]))
+                syms[t, s, k] = rng.choice(card, p=p / p.sum())
+                coder.push(int(syms[t, s, k]), rows[t, s, k])
         coder.flush()
         datas.append(fo.getvalue())
-        rows[:, s] = cdfs.reshape(T, K, card)
-        syms[:, s] = np.reshape(sym, (T, K))
-    return rows, datas, syms
+    return acc, head_b, e0, lut, datas, syms
 
 
 def ac_buffers(torch, datas, Ts, T: int, K: int, dev) -> dict:
     """The range decoder's device buffers for streams `datas` of `Ts`
-    steps, as `IntLMModel.decode_lockstep` makes them."""
+    steps, as the decode runner (`models.ilm._DecodeGraph`) holds them,
+    the step counter at 0."""
     from encodec_tpu_torch.stream import device_ac
 
     S = len(datas)
@@ -2527,6 +2536,7 @@ def ac_buffers(torch, datas, Ts, T: int, K: int, dev) -> dict:
         data=torch.from_numpy(buf).to(dev),
         nbits=torch.tensor([8 * len(d) for d in datas], device=dev),
         ts=torch.tensor(list(Ts), device=dev),
+        t=torch.zeros(1, dtype=torch.int64, device=dev),
         codes=torch.zeros((T, S, K), dtype=torch.int64, device=dev),
         feed=torch.zeros((S, K), dtype=torch.int64, device=dev),
         ok=torch.ones(S, dtype=torch.bool, device=dev),
@@ -2536,53 +2546,101 @@ def ac_buffers(torch, datas, Ts, T: int, K: int, dev) -> dict:
 AC_FIELDS = ("state", "codes", "feed", "ok", "eof")
 
 
-def ac_call(fn, b: dict, rows, t: int) -> None:
-    fn(b["state"], rows, b["data"], b["nbits"], b["ts"], t, b["codes"],
-       b["feed"], b["ok"], b["eof"])
+def ac_call(fn, b: dict, acc, head: tuple) -> None:
+    """One `ac_head_pull` (or twin) call on buffers `b` at their step, from
+    the head's product `acc` and `head` = (head_b, e0, lut)."""
+    head_b, e0, lut = head
+    fn(b["state"], acc, head_b, e0, lut, b["data"], b["nbits"], b["ts"],
+       b["t"], b["codes"], b["feed"], b["ok"], b["eof"])
 
 
-def ac_hold(torch, kernels, rows, datas, Ts, label: str) -> dict:
-    """`ac_pull_rows` and its plain twin, both on the card, from the same
-    inputs step by step (`rows` [T, S, K, card] on the card): the state,
+def ac_compare(torch, kernels, sides: dict, label: str, t: int) -> None:
+    got, want = sides[kernels.ac_head_pull], sides[kernels.ac_head_pull_plain]
+    torch.cuda.synchronize()
+    for name in AC_FIELDS:
+        check(torch.equal(got[name], want[name]),
+              f"{label}: ac_head_pull {name} differs from the twin at step "
+              f"{t}")
+
+
+def ac_hold(torch, kernels, accs, head: tuple, datas, Ts, label: str) -> dict:
+    """`ac_head_pull` and its plain twin, both on the card, from the same
+    inputs step by step (`accs` [T, K, S, card] on the card): the state,
     symbols, feed, ok and eof equal after every step. Returns the kernel's
     buffers."""
-    T, S, K, _ = rows.shape
-    dev = rows.device
+    T, K = accs.shape[:2]
+    dev = accs.device
     sides = {fn: ac_buffers(torch, datas, Ts, T, K, dev)
-             for fn in (kernels.ac_pull_rows, kernels.ac_pull_rows_plain)}
+             for fn in (kernels.ac_head_pull, kernels.ac_head_pull_plain)}
     for t in range(T):
         for fn, b in sides.items():
-            ac_call(fn, b, rows[t], t)
-        torch.cuda.synchronize()
-        got, want = sides.values()
-        for name in AC_FIELDS:
-            check(torch.equal(got[name], want[name]),
-                  f"{label}: ac_pull_rows {name} differs from the twin at "
-                  f"step {t}")
-    return sides[kernels.ac_pull_rows]
+            ac_call(fn, b, accs[t], head)
+            b["t"] += 1
+        ac_compare(torch, kernels, sides, label, t)
+    return sides[kernels.ac_head_pull]
 
 
-def lm_card_rows(torch, ilm, lanes, steps: int, chunk: int = 256) -> tuple:
+def ac_head_of(ilm, K: int) -> tuple:
+    """(head_b, e0, lut) of an integer LM's first K codebooks, as the
+    decode runner hands them to the kernel."""
+    return (ilm.iparams["head_b"][:K].int(), ilm.exps[0],
+            ilm.iparams["lut"]["exp2"])
+
+
+def ac_hold_request(torch, kernels, ilm, datas, Ts, K: int, n: int,
+                    label: str):
+    """The decode's first `n` steps by the eager runner on the card (the
+    LM's part of each step, then `ac_head_pull` on the runner's buffers),
+    with the twin on a copy of the buffers from the same product: every
+    field equal after every step. Returns the step-0 product [K, S, card]
+    (the kernel's timing input)."""
+    from encodec_tpu_torch.models.ilm import _DecodeGraph
+
+    head = ac_head_of(ilm, K)
+    with torch.inference_mode():
+        runner = _DecodeGraph(ilm, len(Ts), K, max(len(d) for d in datas),
+                              max(Ts))
+        runner.reset(datas, Ts)
+        twin = {name: getattr(runner, name).clone()
+                for name in ("data", "nbits", "ts", "t", "codes")}
+        twin.update(state=runner.ac.clone(), feed=runner.feed.clone(),
+                    ok=runner.ok.clone(), eof=runner.eof.clone())
+        acc0 = None
+        for t in range(min(n, max(Ts))):
+            runner.lm()
+            if acc0 is None:
+                acc0 = runner.acc.clone()
+            mine = dict(state=runner.ac, data=runner.data,
+                        nbits=runner.nbits, ts=runner.ts, t=runner.t,
+                        codes=runner.codes, feed=runner.feed, ok=runner.ok,
+                        eof=runner.eof)
+            ac_call(kernels.ac_head_pull, mine, runner.acc, head)
+            ac_call(kernels.ac_head_pull_plain, twin, runner.acc, head)
+            runner.t += 1
+            twin["t"] += 1
+            ac_compare(torch, kernels, {kernels.ac_head_pull: mine,
+                                        kernels.ac_head_pull_plain: twin},
+                       label, t)
+    return acc0
+
+
+def lm_card_rows(torch, ilm, lanes, steps: int, chunk: int = 256):
     """The card's CDF rows for the decoded `lanes` ([K, T_s] codes each,
     teacher-forced in lockstep from a fresh state, finished lanes fed zeros:
-    the rows the decode's steps saw, bit for bit): on the host as
-    [S, steps, K, card], and the first chunk's on the card as
-    [C, S, K, card]."""
+    the rows the decode's steps saw, bit for bit), on the host as
+    [S, steps, K, card]."""
     S, K = len(lanes), lanes[0].shape[0]
     shifted = np.zeros((S, K, steps), np.int64)
     for s, c in enumerate(lanes):
         shifted[s, :, 1:c.shape[1]] = 1 + c[:, :-1]
     x = torch.from_numpy(shifted).to(ilm.device)
     out = np.empty((S, steps, K, ilm.card), np.int64)
-    first = None
     with torch.inference_mode():
         state = ilm.init_stream(S)
         for t0 in range(0, steps, chunk):
             rows, state = ilm.chunk_forward(x[:, :, t0:t0 + chunk], state)
-            if first is None:
-                first = rows.transpose(0, 1).contiguous()
             out[:, t0:t0 + rows.shape[1]] = rows.cpu().numpy()
-    return out, first
+    return out
 
 
 def host_decode_lanes(datas, rows: np.ndarray, Ts) -> list:
@@ -2599,82 +2657,92 @@ def host_decode_lanes(datas, rows: np.ndarray, Ts) -> list:
     return out
 
 
-def ac_kernel_times(torch, kernels, rows, datas, Ts, label: str) -> dict:
-    """Device ms of one `ac_pull_rows` launch (a decode step) on a request's
-    first-step rows `[S, K, card]`, from a fresh state each call, beside its
-    plain twin on the card and the bound: the rows, the state in and out,
-    nbits and ts, the codes and feed out, the flags and the stream bytes the
-    step consumed, at the HBM rate (its S*K*card multiply-compares at the
-    FP32 rate are far below). The twin is timed by CUDA events over 3 calls:
+def ac_kernel_times(torch, kernels, acc, head: tuple, datas, Ts,
+                    label: str) -> dict:
+    """Device ms of one `ac_head_pull` launch (a decode step) on a request's
+    first-step product `acc` [K, S, card], from a fresh state each call,
+    beside its plain twin on the card and the bound: the product, head_b
+    and the exp2 table read, the state in and out, nbits, ts and the step,
+    the codes and feed out, the flags and the stream bytes the step
+    consumed, at the HBM rate (≈20 integer operations per row entry at the
+    FP32 rate take less). The twin is timed by CUDA events over 3 calls:
     it synchronizes in every turn of its bit loops, so its cost is the
-    host's, and profiler windows of its thousands of small kernels rarely
-    agree within 5%."""
-    S, K, card = rows.shape
-    b = ac_buffers(torch, datas, Ts, 1, K, rows.device)
+    host's."""
+    K, S, card = acc.shape
+    b = ac_buffers(torch, datas, Ts, 1, K, acc.device)
     state0 = b["state"].clone()
 
     def run(fn):
         def call():
             b["state"].copy_(state0)
-            ac_call(fn, b, rows, 0)
+            ac_call(fn, b, acc, head)
         return call
 
-    run(kernels.ac_pull_rows)()
+    run(kernels.ac_head_pull)()
     torch.cuda.synchronize()
     bits = int((b["state"][:, 4] - state0[:, 4]).sum())
-    ms = device_ms(torch, run(kernels.ac_pull_rows), 50, "ac_decode_kernel")
-    call_ms = time_ms(torch, run(kernels.ac_pull_rows), 50)
-    plain_ms = time_ms(torch, run(kernels.ac_pull_rows_plain), 3)
-    nbytes = (S * K * card * 8 + 2 * S * 5 * 8 + 2 * S * 8 + 2 * S * K * 8
-              + 4 * S + -(-bits // 8))
-    b_ms, b_by = bound(2.0 * S * K * card, nbytes)
-    print(f"AC ac_pull_rows {label} (S={S}, K={K}, card={card}; "
+    ms = device_ms(torch, run(kernels.ac_head_pull), 50,
+                   "ac_head_pull_kernel")
+    call_ms = time_ms(torch, run(kernels.ac_head_pull), 50)
+    plain_ms = time_ms(torch, run(kernels.ac_head_pull_plain), 3)
+    nbytes = (S * K * card * 8 + K * card * 4 + 1024 * 8 + 2 * S * 5 * 8
+              + 2 * S * 8 + 8 + 2 * S * K * 8 + 4 * S + -(-bits // 8))
+    b_ms, b_by = bound(20.0 * S * K * card, nbytes)
+    print(f"AC ac_head_pull {label} (S={S}, K={K}, card={card}; "
           f"{bits} stream bits): device ms: kernel={ms:.4f} "
-          f"plain (events)={plain_ms:.4f} library=none bound={b_ms:.6f} ({b_by}, "
-          f"{nbytes} B); per wrapper call (events)={call_ms:.4f}; "
-          f"{ms * 1e3 / K:.3f} us per pull")
+          f"plain (events)={plain_ms:.4f} library=none bound={b_ms:.6f} "
+          f"({b_by}, {nbytes} B); per wrapper call (events)={call_ms:.4f}; "
+          f"{ms * 1e3 / K:.3f} us per pull with its row")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                 bound_by=b_by)
 
 
 def ac_synthetic(torch, kernels, dev) -> None:
-    """The kernel against its twin on synthetic streams: card 16 and 1024
-    with extreme skew, ragged lanes (inactive ones), a cut stream (eof),
-    flipped bytes (ok false) beside intact lanes."""
+    """The kernel against its twin on synthetic streams under a seeded
+    random head's rows: card 16 and 1024, extreme skew, ragged lanes
+    (inactive ones), a cut stream (eof), flipped bytes and a stream of
+    0xFF bytes (past every interval at its first pull: ok false) beside
+    an intact lane."""
     t0 = time.perf_counter()
     for card in (16, 1024):
         for S, K in ((2, 32), (11, 16)):
             T = 6
-            rows, datas, syms = ac_lanes(S, K, card, T, seed=card + S)
+            acc, head_b, e0, lut, datas, syms = ac_lanes(
+                torch, S, K, card, T, seed=card + S)
             Ts = [T - (s % 3) for s in range(S)]
-            b = ac_hold(torch, kernels, torch.from_numpy(rows).to(dev), datas,
-                        Ts, f"synthetic card={card} S={S} K={K}")
+            b = ac_hold(torch, kernels, torch.from_numpy(acc).to(dev),
+                        (torch.from_numpy(head_b).to(dev), e0, lut.to(dev)),
+                        datas, Ts, f"synthetic card={card} S={S} K={K}")
             codes = b["codes"].cpu().numpy()
             check(all(np.array_equal(codes[:n, s], syms[:n, s])
                       and not codes[n:, s].any() for s, n in enumerate(Ts))
                   and bool(b["ok"].all()) and not bool(b["eof"].any()),
-                  f"ac_pull_rows card={card} S={S}: symbols differ from the "
+                  f"ac_head_pull card={card} S={S}: symbols differ from the "
                   "coded ones")
     T, K, card = 8, 16, 1024
-    rows, datas, syms = ac_lanes(5, K, card, T, seed=9, bits=23)
+    acc, head_b, e0, lut, datas, syms = ac_lanes(torch, 5, K, card, T,
+                                                 seed=9)
     bad = list(datas)
     bad[1] = datas[1][:len(datas[1]) // 2]
-    for s in (2, 3, 4):
+    for s in (2, 3):
         flipped = bytearray(datas[s])
         flipped[(s - 1) * len(flipped) // 5] ^= 0xFF
         bad[s] = bytes(flipped)
-    b = ac_hold(torch, kernels, torch.from_numpy(rows).to(dev), bad, [T] * 5,
-                "cut and corrupt streams")
+    bad[4] = b"\xff" * len(datas[4])
+    b = ac_hold(torch, kernels, torch.from_numpy(acc).to(dev),
+                (torch.from_numpy(head_b).to(dev), e0, lut.to(dev)), bad,
+                [T] * 5, "cut and corrupt streams")
     ok, eof = b["ok"].cpu(), b["eof"].cpu()
     check(bool(ok[0]) and not bool(eof[0]) and np.array_equal(
         b["codes"][:, 0].cpu().numpy(), syms[:, 0]) and bool(eof[1])
-          and not bool(ok[2:].all()),
-          f"ac_pull_rows: bad streams not flagged (ok {ok.tolist()}, eof "
+          and not bool(ok[4]),
+          f"ac_head_pull: bad streams not flagged (ok {ok.tolist()}, eof "
           f"{eof.tolist()})")
-    print(f"AC ac_pull_rows vs twin on the card: synthetic card 16 and 1024 "
-          f"(Dirichlet 0.3 / 0.01), S=2 K=32 and S=11 K=16, ragged lanes, "
-          f"every field equal every step; cut stream eof {eof.tolist()}, "
-          f"flipped bytes ok {ok.tolist()} ({time.perf_counter() - t0:.1f} s)")
+    print(f"AC ac_head_pull vs twin on the card: synthetic card 16 and 1024 "
+          f"(logit spreads 4000 / 60000 A10), S=2 K=32 and S=11 K=16, "
+          f"ragged lanes, every field equal every step; cut stream eof "
+          f"{eof.tolist()}, flipped bytes and 0xFF ok {ok.tolist()} "
+          f"({time.perf_counter() - t0:.1f} s)")
 
 
 def phase_lm(torch, kernels, model, model48, wav24, wav48):
@@ -2685,12 +2753,14 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
     `lm_restart="auto"` (2 lanes of 375 steps) and at 6 kbps unblocked (one
     lane of 750), and the 10 s 48 kHz request at 24 kbps (11 segments in
     lockstep, the `fl` index), each compressed and decompressed on the
-    card, the range decode on the card (`ac_pull_rows`, one launch per
-    decode step). Checks: decoded codes equal the writer's (tie-guarded)
-    codes and the `cc` CRC passes, and equal the host range decoder's over
-    the card's own rows at every position; `ac_pull_rows` launched once per
-    decode step; the kernel equals its twin on the card on the requests'
-    rows and on synthetic streams (card 16 and 1024, extreme skew, inactive
+    card, the decode step a replayed CUDA graph per (lanes, codebooks)
+    whose range decoder is `ac_head_pull` (the LM's CDF head fused in; one
+    launch per decode step, replays counted). Checks: decoded codes equal
+    the writer's (tie-guarded) codes and the `cc` CRC passes, and equal
+    the host range decoder's over the card's own rows at every position;
+    `ac_head_pull` launched once per decode step; the kernel equals its
+    twin on the card on the requests' first 12 steps of the eager runner
+    and on synthetic streams (card 16 and 1024, extreme skew, inactive
     lanes, a cut and a corrupt stream); the audio equals the raw path's
     decode of the same codes; each file equals, byte for byte, the one the
     port's CPU LM writes from the same codes; CUDA CDF rows equal the
@@ -2740,13 +2810,13 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
     lockstep_calls = []
 
     def lockstep_spy(self, datas, K, Ts):
-        before = kernels.ac_pull_rows.launches
+        before = kernels.ac_head_pull.launches
         t0 = time.perf_counter()
         codes = lockstep(self, datas, K, Ts)
         lockstep_calls.append(dict(
             datas=list(datas), K=K, Ts=list(Ts), codes=codes,
             seconds=time.perf_counter() - t0,
-            launches=kernels.ac_pull_rows.launches - before))
+            launches=kernels.ac_head_pull.launches - before))
         return codes
 
     compress_module.read_frames = spy
@@ -2778,9 +2848,9 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
     steps_all = sum(max(c["Ts"]) for c in lockstep_calls)
     check(counts["nearest_codebook"] > 0 and counts["lstm_scan"] > 0
           and counts["rvq_encode_fused"] == 0
-          and counts["ac_pull_rows"] == steps_all,
+          and counts["ac_head_pull"] == steps_all,
           f"the LM path did not launch K1 and K3 (and no K2), or not one "
-          f"ac_pull_rows per decode step ({counts['ac_pull_rows']} for "
+          f"ac_head_pull per decode step ({counts['ac_head_pull']} for "
           f"{steps_all} steps)")
 
     # -- verification, not counted --------------------------------------
@@ -2826,33 +2896,43 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
               and all(np.array_equal(call["codes"][s, :, :T], b)
                       for s, (T, b) in enumerate(zip(Ts, blocks))),
               f"{r['label']}: the lockstep decode's lanes or its "
-              f"{call['launches']} ac_pull_rows launches for {steps} steps")
+              f"{call['launches']} ac_head_pull launches for {steps} steps")
+        # the graph is captured: a second decode is replays only
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = gpu.decode_lockstep(call["datas"], call["K"], Ts)
+        again_s = time.perf_counter() - t0
+        check(np.array_equal(again, call["codes"]),
+              f"{r['label']}: a second decode gave other codes")
         # the host range decoder over the card's own rows: every position
         t0 = time.perf_counter()
-        rows_host, rows_first = lm_card_rows(torch, gpu, blocks, steps)
+        rows_host = lm_card_rows(torch, gpu, blocks, steps)
         host = host_decode_lanes(call["datas"], rows_host, Ts)
         check(all(np.array_equal(h, b) for h, b in zip(host, blocks)),
               f"{r['label']}: the card's codes differ from the host "
               "decoder's over the card's rows")
         n_hold = 12
-        ac_hold(torch, kernels, rows_first[:n_hold], call["datas"], Ts,
-                r["label"])
+        acc0 = ac_hold_request(torch, kernels, gpu, call["datas"], Ts,
+                               call["K"], n_hold, r["label"])
         host_s = time.perf_counter() - t0
         r.update(Ts=Ts, blocks=blocks, meta=meta, datas=call["datas"],
-                 rows0=rows_first[0].clone())
-        del rows_host, rows_first
+                 acc0=acc0, first_s=call["seconds"], again_s=again_s)
+        del rows_host
         dl_s = call["seconds"]
         print(f"lm request {r['label']}: K={meta['nc']}, {len(Ts)} lanes x "
               f"{steps} steps; {len(data)} B vs raw {len(raw)} B ("
               f"{len(data) / len(raw):.4f}); compress {r['compress_s'] * 1e3:.1f}"
               f" ms, decompress {r['decompress_s'] * 1e3:.1f} ms; teacher-"
               f"forced LM encode {encode_s * 1e3:.1f} ms; range decode "
-              f"(decode_lockstep) {dl_s * 1e3:.1f} ms = "
-              f"{dl_s / steps * 1e3:.3f} ms per step, "
+              f"(decode_lockstep, the graph's capture included) "
+              f"{dl_s * 1e3:.1f} ms = {dl_s / steps * 1e3:.3f} ms per step, "
               f"{dl_s / seconds * 1e3:.1f} ms per s of audio, "
-              f"{call['launches']} ac_pull_rows launches = steps (read_frames "
-              f"{decode_s * 1e3:.1f} ms); codes = written = host decoder's "
-              f"over the card's rows, kernel = twin over {n_hold} steps, cc "
+              f"{call['launches']} ac_head_pull launches = steps (read_frames "
+              f"{decode_s * 1e3:.1f} ms); a second decode (replays only) "
+              f"{again_s * 1e3:.1f} ms = {again_s / steps * 1e3:.3f} ms per "
+              f"step, {again_s / seconds * 1e3:.1f} ms per s of audio; "
+              f"codes = written = host decoder's over the card's rows, "
+              f"kernel = twin over the eager runner's first {n_hold} steps, cc "
               f"ok, audio = raw decode, file = CPU writer's (CPU writer "
               f"{cpu_s * 1e3:.1f} ms, raw decode and checks "
               f"{check_s * 1e3:.1f} ms, host decoder and twin checks "
@@ -2870,41 +2950,72 @@ def phase_lm(torch, kernels, model, model48, wav24, wav48):
     ac_times = {}
     for i in (1, 3):
         r = served[i]
-        ac_times[i] = ac_kernel_times(torch, kernels, r["rows0"], r["datas"],
-                                      r["Ts"], r["label"])
+        ac_times[i] = ac_kernel_times(
+            torch, kernels, r["acc0"],
+            ac_head_of(IntLMModel.from_lm(r["lm"]), r["meta"]["nc"]),
+            r["datas"], r["Ts"], r["label"])
     ac_s = time.perf_counter() - t0
 
-    # per request: one profiled decode step and a profiled 8-step decode
+    # per request: the decode step as graph replays and as the eager
+    # runner's steps, profiled (the request's own streams, from step 0)
     for r in served:
         gpu = IntLMModel.from_lm(r["lm"])
         S, K = len(r["Ts"]), r["meta"]["nc"]
-        feed = torch.ones((S, K), dtype=torch.int64, device=model.device)
+        line = []
         with torch.inference_mode():
-            state = gpu.init_stream(S)
-            for _ in range(3):
-                _, state = gpu.step(feed, state)
-        records, wall = kernel_window(torch, lambda: gpu.step(feed, state), 5)
-        launches = sum(n for n, _ in records.values()) / 5
-        busy = sum(us for _, us in records.values()) / 5 / 1e3
-        n_steps = 8
-        records, wall_d = kernel_window(
-            torch, lambda: gpu.decode_lockstep(
-                r["datas"], K, [min(n_steps, T) for T in r["Ts"]]), 1)
-        busy_d = sum(us for _, us in records.values()) / 1e3
-        n_d = sum(n for n, _ in records.values())
-        ac_us = sum(us for key, (_, us) in records.items()
-                    if "ac_decode_kernel" in key)
-        print(f"lm decode profile, {r['label']} (S={S}, K={K}): one step "
-              f"{launches:.0f} kernel launches, device busy {busy:.4f} ms, "
-              f"wall {wall / 5:.3f} ms (profiled); {n_steps} lockstep decode "
-              f"steps: wall {wall_d:.2f} ms = {wall_d / n_steps:.3f} ms per "
-              f"step, {n_d / n_steps:.1f} launches per step (ac_pull_rows 1), "
-              f"device busy {busy_d:.3f} ms (ac_pull_rows "
-              f"{ac_us / 1e3:.3f}), idle share {1 - busy_d / wall_d:.3f}")
+            runner = gpu._decode_graphs[S, K]
+            check(runner.graph is not None,
+                  f"{r['label']}: the decode captured no graph")
+            for name, fn in (("graph replay", lambda: runner.run(1)),
+                             ("eager runner", runner.step)):
+                line.append(f"{name}: " + decode_profile(
+                    torch, runner, cycling(runner, fn, r["datas"], r["Ts"])))
+        print(f"lm decode profile, {r['label']} (S={S}, K={K}): "
+              f"{'; '.join(line)}; first decode (capture included) "
+              f"{r['first_s'] * 1e3:.1f} ms, again {r['again_s'] * 1e3:.1f} "
+              f"ms")
     print(f"lm profiles {time.perf_counter() - t0:.1f} s (the range "
           f"decoder's checks and times {ac_s:.1f} s); lm phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return counts, dict(ac_times[1], max_abs_err=0)
+
+
+def cycling(runner, fn, datas, Ts):
+    """`fn` (one decode step of `runner`) that returns the runner to step 0
+    of the streams every max(Ts) calls, so that every profiled step decodes
+    active lanes."""
+    done = [0]
+    runner.reset(datas, Ts)
+
+    def call():
+        if done[0] == max(Ts):
+            runner.reset(datas, Ts)
+            done[0] = 0
+        fn()
+        done[0] += 1
+    return call
+
+
+def decode_profile(torch, runner, fn, n: int = 8) -> str:
+    """One decode step (`fn`) profiled over windows of `n` steps: wall per
+    step, device busy, launches per step (the kernel's among them) and the
+    idle share, and the CUDA-event span per step of 50 back-to-back steps
+    (for graph replays, the device's time per step with the gaps between
+    the graph's nodes)."""
+    window = kernel_window(torch, fn, n, required=False)
+    span = time_ms(torch, fn, 50)
+    if window is None:
+        return (f"profiler windows unusable (not measured); CUDA-event "
+                f"span {span:.3f} ms per step")
+    records, wall = window
+    busy = sum(us for _, us in records.values()) / n / 1e3
+    launches = sum(k for k, _ in records.values()) / n
+    ac_us = sum(us for key, (_, us) in records.items()
+                if "ac_head_pull_kernel" in key) / n
+    return (f"wall {wall / n:.3f} ms per step, device busy {busy:.4f} ms "
+            f"(ac_head_pull {ac_us / 1e3:.4f}), {launches:.1f} launches per "
+            f"step, idle share {1 - busy * n / wall:.3f}; CUDA-event span "
+            f"{span:.3f} ms per step")
 
 
 LM_TRAIN_LR = 1e-3     # 20 steps on one batch must lower the entropy
@@ -3270,7 +3381,7 @@ def launch_counts(kernels) -> dict:
 KERNEL_GROUPS = (("K2", "vq_rvq_kernel"), ("K1", "vq_nearest_kernel"),
                  ("K3", "lstm_scan_kernel"), ("K3", "lstm_grid_kernel"),
                  ("K3 backward", "lstm_bwd_kernel"),
-                 ("AC", "ac_decode_kernel"))
+                 ("AC", "ac_head_pull_kernel"))
 
 
 def kernel_group(name: str) -> str:
@@ -3472,9 +3583,11 @@ def main() -> int:
         # no TPU kernel: JAX's trainer differentiates the LSTM's lax.scan
         ("K3 lstm_scan_backward (backward kernel, H <= 1024)", "lstm_bwd.cu",
          "ops/lstm.py:56-72", "lstm_scan_backward", k3_bwd),
-        # no TPU kernel: JAX scans the range decoder in XLA
-        ("AC ac_pull_rows", "ac_decode.cu", "stream/device_ac.py:222",
-         "ac_pull_rows", ac),
+        # no TPU kernel: JAX runs its CDF head and scans the range decoder
+        # in XLA
+        ("AC ac_head_pull", "ac_decode.cu",
+         "stream/device_ac.py:222 + encodec_tpu/models/ilm.py:661",
+         "ac_head_pull", ac),
     ]
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda",

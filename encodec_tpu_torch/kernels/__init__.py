@@ -7,21 +7,24 @@
 | `lstm_scan` (K3) | `lstm_pallas.py::lstm_scan_pallas` | `csrc/lstm_scan.cu` (H ≤ 512), |
 | | | `csrc/lstm_grid.cu` (512 < H ≤ 1024) |
 | `lstm_scan_backward` (K3's gradient) | none (see below) | `csrc/lstm_bwd.cu` (H ≤ 1024) |
-| `ac_pull_rows` (the range decoder) | none (see below) | `csrc/ac_decode.cu` |
+| `ac_head_pull` (the range decoder and the LM's head) | none (see below) | `csrc/ac_decode.cu` |
 
 K3's backward has no TPU kernel to replace: the JAX trainer differentiates
 the `lax.scan` of `encodec_tpu/ops/lstm.py:56-72`, and XLA runs the VJP.
-Nor has the range decoder of lmv=3: JAX runs the `lax.scan` of
-`encodec_tpu/stream/device_ac.py::ac_pull_row` inside its fused decode.
+Nor has the range decoder of lmv=3: JAX runs its CDF head and the
+`lax.scan` of `encodec_tpu/stream/device_ac.py::ac_pull_row` inside its
+fused decode scan.
 
 Each wrapper runs its plain twin for CPU tensors and launches its kernel
 for CUDA tensors (or raises); each counts its launches in `.launches`,
 `lstm_scan.stateful_launches` counts K3's launches from a given `(h0, c0)`,
 `lstm_scan.grid_launches` those of K3's grid kernel and
 `lstm_scan.save_launches` those that saved every step's c for the backward.
+`ac_head_pull.launches` also counts the replays of the LM decode's CUDA
+graph, one launch each.
 """
 
-from .ac_cuda import ac_pull_rows, ac_pull_rows_plain  # noqa: F401
+from .ac_cuda import ac_head_pull, ac_head_pull_plain  # noqa: F401
 from .lstm_cuda import (  # noqa: F401
     lstm_scan,
     lstm_scan_backward,
@@ -36,7 +39,7 @@ from .vq_cuda import (  # noqa: F401
 )
 
 WRAPPERS = (nearest_codebook, rvq_encode_fused, lstm_scan, lstm_scan_backward,
-            ac_pull_rows)
+            ac_head_pull)
 
 
 def reset_launch_counts() -> None:

@@ -33,10 +33,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # pointer and the stream go as c_void_p, or ctypes would cut them to 32 bits.
 SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
     "ac_decode": {
-        "ac_decode_launch": ([_P, _P, _P, _P, _P, _L, _I, _I, _I, _L, _P, _P,
-                              _P, _P, _I, _P], _I),
-        "ac_decode_max_threads": ([], _I),
-        "ac_decode_window_bytes": ([_I], _I),
+        "ac_head_pull_launch": ([_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _L, _L, _P, _P, _P, _P, _I, _L, _P], _I),
+        "ac_head_pull_threads": ([], _I),
+        "ac_head_pull_cluster": ([], _I),
+        "ac_head_pull_max_card": ([], _I),
+        "ac_head_pull_smem_bytes": ([_I], _L),
         "ac_decode_error_string": ([_I], ctypes.c_char_p),
     },
     "lstm_scan": {

@@ -28,12 +28,15 @@ What is rewritten for torch, op for op after the JAX functions:
   step's window, so the two cannot drift apart.
 
 Decoding (`IntLMModel.decode_lockstep`) runs on the model's device, as
-JAX's fused scan does: per step, the integer step for all lanes, then one
-range-decode launch (`kernels.ac_pull_rows`, the CUDA kernel of
-`csrc/ac_decode.cu`; on the CPU its twin `stream.device_ac`) that pulls
-every lane's K symbols from the step's rows and writes the codes, the next
-step's feed and the `ok`/`eof` flags on the device. Nothing is read back
-until the last step: the codes and flags come to the host in one copy.
+JAX's fused scan does. A decode step (`_DecodeGraph`) is the integer
+trunk for all lanes over a k/v ring in static buffers, the head's float64
+product, and one launch of `kernels.ac_head_pull` (the CUDA kernel of
+`csrc/ac_decode.cu`; on the CPU its twin `stream.device_ac`), which
+finishes the head into CDF rows and pulls every lane's K symbols, writing
+the codes, the next step's feed and the `ok`/`eof` flags on the device.
+The step index is a device counter, so on the card one step is captured
+as a CUDA graph and replayed; nothing is read back until the last step,
+when the codes and flags come to the host in one copy.
 
 Bitstream contract: EVERY constant below (scales, clips, LUT contents,
 shift order) defines the lmv=3 format. Changing any of them changes the
@@ -521,56 +524,58 @@ def _softmax_weights(logits: Tensor, mask: Tensor, lut_exp2: Tensor) -> Tensor:
     return _floordiv(e << 12, tot)
 
 
-def _head_cdf(iparams: dict, exps: tuple, x: Tensor, K: int) -> Tensor:
-    """Trunk output [..., d] -> CDF rows [..., K, card]."""
+def _head_acc(iparams: dict, x: Tensor, K: int) -> Tensor:
+    """Trunk output [..., d] -> the head's product, float64 [K, N, card]
+    (N the product of the leading dims): one matmul of the clipped
+    activations and the int8 weights of the first K codebooks, every sum
+    an integer below 2^31, so exact (see `_imatmul`)."""
     xc = torch.clamp(x, -MM_CLIP, MM_CLIP)
-    lead = xc.shape[:-1]
-    w = iparams["head_w"][:K]                          # [K, d, card]
-    acc = _imatmul(xc.reshape(1, -1, xc.shape[-1]), w)     # [K, N, card]
-    acc = acc.transpose(0, 1).reshape(*lead, K, -1)
-    logits = _rshift_round(acc, exps[0]) + iparams["head_b"][:K]
+    return torch.matmul(xc.reshape(1, -1, xc.shape[-1]).to(torch.float64),
+                        iparams["head_w"][:K])
+
+
+def _head_tail(acc: Tensor, head_b: Tensor, e0: int,
+               lut_exp2: Tensor) -> Tensor:
+    """The head after its product: `acc` [K, N, card] (`_head_acc`),
+    `head_b` [K, card] -> CDF rows [N, K, card] int64: rescale and bias,
+    the row max, the clamped base-2 exponent and `scores_to_cdf`."""
+    logits = _rshift_round(acc.to(torch.int64).transpose(0, 1), e0) + head_b
     mx = logits.max(-1, keepdim=True).values
     t = torch.clamp(logits - mx, -(63 << ABITS), 0)
-    return scores_to_cdf(_exp2_fixed(_to_base2(t), iparams["lut"]["exp2"]))
+    return scores_to_cdf(_exp2_fixed(_to_base2(t), lut_exp2))
 
 
-def ilm_chunk_forward(iparams: dict, exps: tuple, indices: Tensor,
-                      state: ILMStreamState, cfg: LMConfig
-                      ) -> tp.Tuple[Tensor, ILMStreamState]:
-    """Teacher-forced chunk: indices [B, K, C] -> (cdf rows [B, C, K, card]
-    int64, new state). Windowed attention over [cache(W) | chunk(C)] keys
-    with the mask the streaming cell induces:
-      in-chunk key s for query t:  0 <= t - s <= W
-      cache slot j for query t:    j >= max(t, W - min(length, W))
-    (the zero entry lives in the ring, placed by init_ilm_stream)."""
+def _head_cdf(iparams: dict, exps: tuple, x: Tensor, K: int) -> Tensor:
+    """Trunk output [..., d] -> CDF rows [..., K, card]."""
+    rows = _head_tail(_head_acc(iparams, x, K), iparams["head_b"][:K],
+                      exps[0], iparams["lut"]["exp2"])
+    return rows.reshape(*x.shape[:-1], K, -1)
+
+
+def _trunk(iparams: dict, exps: tuple, indices: Tensor, kcache: Tensor,
+           vcache: Tensor, phases: Tensor, mask: Tensor, cfg: LMConfig
+           ) -> tp.Tuple[Tensor, tp.List[Tensor], tp.List[Tensor]]:
+    """The integer transformer over a chunk: indices [B, K, C] at positional
+    phases [C, half] -> (trunk output [B, C, d], and per layer the chunk's
+    clipped keys and values [B, C, d] int64). Each query attends over
+    [cache (W slots of `kcache`/`vcache` [L, B, W, d]) | chunk (C)] keys
+    where `mask` [C, W + C] is true; the slots' order is the caller's (the
+    integer sums do not depend on it)."""
     B, K, C = indices.shape
-    W, H, d = cfg.past_context, cfg.num_heads, cfg.dim
+    W, H, d = kcache.shape[2], cfg.num_heads, cfg.dim
     hd = d // H
     eps_kd, ks = _consts(cfg)
     lut = iparams["lut"]
-    dev = indices.device
-
-    # per-position phases: phase_t = phase0 + t*step (wraparound exact)
-    tpos = torch.arange(C, device=dev)[:, None]
-    phases = (state.phase[None, :] + tpos * lut["pos_step"][None, :]) & MASK32
     x = _trunk_in(iparams, indices.transpose(1, 2), phases[None], cfg,
                   eps_kd)                                      # [B, C, d]
-
-    n_valid = min(state.length, W)
-    t_ar = torch.arange(C, device=dev)[:, None]
-    cache_mask = torch.arange(W, device=dev)[None, :] >= torch.clamp(
-        t_ar, min=W - n_valid)                                 # [C, W]
-    lag = t_ar - torch.arange(C, device=dev)[None, :]
-    mask = torch.cat([cache_mask, (lag >= 0) & (lag <= W)], 1)  # [C, W+C]
-
     new_k, new_v = [], []
     for li, layer in enumerate(iparams["layers"]):
         e = _exps_of(exps, li)
         q = _linear(x, layer["q"], e["q"])
         k_new = torch.clamp(_linear(x, layer["k"], e["k"]), -MM_CLIP, MM_CLIP)
         v_new = torch.clamp(_linear(x, layer["v"], e["v"]), -MM_CLIP, MM_CLIP)
-        keys = torch.cat([state.kcache[li].to(torch.int64), k_new], 1)
-        vals = torch.cat([state.vcache[li].to(torch.int64), v_new], 1)
+        keys = torch.cat([kcache[li].to(torch.int64), k_new], 1)
+        vals = torch.cat([vcache[li].to(torch.int64), v_new], 1)
         q7 = torch.clamp(_rshift_round(q, ABITS - QBITS), -2047, 2047)
         qh = q7.reshape(B, C, H, hd).transpose(1, 2)           # [B, H, C, hd]
         kh = keys.reshape(B, W + C, H, hd).permute(0, 2, 3, 1)  # [B, H, hd, S]
@@ -586,14 +591,44 @@ def ilm_chunk_forward(iparams: dict, exps: tuple, indices: Tensor,
                                lut["gelu"]), layer["ff2"], e["ff2"])
         x = _layernorm(x1 + ff, layer["norm2"]["scale"],
                        layer["norm2"]["bias"], d, lut["invsqrt"], *eps_kd)
-        new_k.append(torch.cat([state.kcache[li], k_new.to(torch.int16)],
-                               1)[:, -W:])
-        new_v.append(torch.cat([state.vcache[li], v_new.to(torch.int16)],
-                               1)[:, -W:])
+        new_k.append(k_new)
+        new_v.append(v_new)
+    return x, new_k, new_v
 
+
+def ilm_chunk_forward(iparams: dict, exps: tuple, indices: Tensor,
+                      state: ILMStreamState, cfg: LMConfig
+                      ) -> tp.Tuple[Tensor, ILMStreamState]:
+    """Teacher-forced chunk: indices [B, K, C] -> (cdf rows [B, C, K, card]
+    int64, new state). Windowed attention over [cache(W) | chunk(C)] keys
+    with the mask the streaming cell induces:
+      in-chunk key s for query t:  0 <= t - s <= W
+      cache slot j for query t:    j >= max(t, W - min(length, W))
+    (the zero entry lives in the ring, placed by init_ilm_stream)."""
+    _, K, C = indices.shape
+    W = cfg.past_context
+    lut = iparams["lut"]
+    dev = indices.device
+
+    # per-position phases: phase_t = phase0 + t*step (wraparound exact)
+    tpos = torch.arange(C, device=dev)[:, None]
+    phases = (state.phase[None, :] + tpos * lut["pos_step"][None, :]) & MASK32
+
+    n_valid = min(state.length, W)
+    t_ar = torch.arange(C, device=dev)[:, None]
+    cache_mask = torch.arange(W, device=dev)[None, :] >= torch.clamp(
+        t_ar, min=W - n_valid)                                 # [C, W]
+    lag = t_ar - torch.arange(C, device=dev)[None, :]
+    mask = torch.cat([cache_mask, (lag >= 0) & (lag <= W)], 1)  # [C, W+C]
+
+    x, ks, vs = _trunk(iparams, exps, indices, state.kcache, state.vcache,
+                       phases, mask, cfg)
     cdf = _head_cdf(iparams, exps, x, K)                       # [B, C, K, card]
     return cdf, ILMStreamState(
-        kcache=torch.stack(new_k), vcache=torch.stack(new_v),
+        kcache=torch.stack([torch.cat([c, k.to(torch.int16)], 1)[:, -W:]
+                            for c, k in zip(state.kcache, ks)]),
+        vcache=torch.stack([torch.cat([c, v.to(torch.int16)], 1)[:, -W:]
+                            for c, v in zip(state.vcache, vs)]),
         length=min(state.length + C, W + 1),
         phase=(state.phase + C * lut["pos_step"]) & MASK32)
 
@@ -711,50 +746,58 @@ class IntLMModel:
         return [(lows_h[s, :Ts[s]].reshape(-1), highs_h[s, :Ts[s]].reshape(-1))
                 for s in range(S)]
 
+    DECODE_GRAPHS = 8      # decode runners (graphs) kept, last used first
+
+    def _decode_graph(self, S: int, K: int, n_bytes: int,
+                      n_steps: int) -> "_DecodeGraph":
+        """The decode runner for S lanes of K codebooks, cached per (S, K)
+        (the `DECODE_GRAPHS` last used) and made anew (a new capture on the
+        card) when a decode needs longer streams or more steps than its
+        buffers hold; capacities are powers of two."""
+        graphs = self.__dict__.setdefault("_decode_graphs", {})
+        runner = graphs.pop((S, K), None)
+        if (runner is None or runner.data.shape[1] < n_bytes
+                or runner.codes.shape[0] < n_steps):
+            runner = _DecodeGraph(self, S, K, 1 << (n_bytes - 1).bit_length(),
+                                  1 << (n_steps - 1).bit_length())
+        graphs[S, K] = runner
+        while len(graphs) > self.DECODE_GRAPHS:
+            graphs.pop(next(iter(graphs)))
+        return runner
+
     @torch.inference_mode()
     def decode_lockstep(self, datas: tp.Sequence[bytes], K: int,
                         Ts: tp.Sequence[int]) -> np.ndarray:
         """Range-decode S independent streams in lockstep on the model's
         device: the counterpart of JAX's `fused_decode_chunk_exec` and
-        `stream.compress._lockstep_decode_int`. Per step t, one `step` for
-        all lanes and one `kernels.ac_pull_rows` launch on its rows, which
-        writes the lanes' symbols into `codes[t]`, `1 + symbols` into the
-        feed of step t + 1 and the sticky `ok`/`eof` flags, all in buffers
-        made before the loop; the loop knows t and reads no tensor. Lane s
-        is active while t < Ts[s]; it is fed zeros from t = Ts[s] on, as the
-        writer padded it. After the loop, codes and flags come to the host
-        in one copy. (JAX's 8192-byte buffer buckets and 256-token chunks
-        only bounded XLA's compiles; the port needs neither.)
+        `stream.compress._lockstep_decode_int`. The streams go into the
+        static buffers of this (S, K)'s `_DecodeGraph`, which runs max(Ts)
+        decode steps: each is the integer LM's step for all lanes and one
+        `kernels.ac_head_pull` launch, which writes the lanes' symbols into
+        `codes[t]`, `1 + symbols` into the feed of step t + 1 and the sticky
+        `ok`/`eof` flags, then advances the step counter t, a device tensor
+        that every step reads, so the host neither knows t nor reads a
+        tensor. On the card the first decode at an (S, K) runs its first
+        step eagerly and captures the step as a CUDA graph; every other step
+        is a replay of that graph. Lane s is active while t < Ts[s]; it is
+        fed zeros from t = Ts[s] on, as the writer padded it. After the
+        loop, codes and flags come to the host in one copy. (JAX's
+        8192-byte buffer buckets and 256-token chunks only bounded XLA's
+        compiles; the port needs neither.)
 
         Returns codes `[S, K, max(Ts)]` (int64, ragged tails zero). Raises
         EOFError when a stream ended before its symbols did (a bit past
         its end was consumed), then RuntimeError('Binary search failed')
         when a symbol fell outside every interval (a corrupt stream), in
         JAX's order."""
-        from ..kernels import ac_pull_rows
-        from ..stream import device_ac
-
-        S, T_max, dev = len(datas), max(Ts), self.device
-        L = max(1, max(len(d) for d in datas))
-        buf = np.zeros((S, L), np.uint8)
-        for s, d in enumerate(datas):
-            buf[s, :len(d)] = np.frombuffer(d, np.uint8)
-        data = torch.from_numpy(buf).to(dev)
-        nbits = torch.tensor([8 * len(d) for d in datas], dtype=torch.int64,
-                             device=dev)
-        ts = torch.tensor(list(Ts), dtype=torch.int64, device=dev)
-        ac = device_ac.init_state(S, dev)
-        codes = torch.zeros((T_max, S, K), dtype=torch.int64, device=dev)
-        feed = torch.zeros((S, K), dtype=torch.int64, device=dev)
-        ok = torch.ones(S, dtype=torch.bool, device=dev)
-        eof = torch.zeros(S, dtype=torch.bool, device=dev)
-        state = self.init_stream(batch=S)
-        for t in range(T_max):
-            rows, state = self.step(feed, state)
-            ac_pull_rows(ac, rows.contiguous(), data, nbits, ts, t, codes,
-                         feed, ok, eof)
-        out = torch.cat([codes.reshape(-1), ok.to(torch.int64),
-                         eof.to(torch.int64)]).cpu().numpy()
+        S, T_max = len(datas), max(Ts)
+        runner = self._decode_graph(S, K, max(1, max(len(d) for d in datas)),
+                                    T_max)
+        runner.reset(datas, Ts)
+        runner.run(T_max)
+        out = torch.cat([runner.codes[:T_max].reshape(-1),
+                         runner.ok.to(torch.int64),
+                         runner.eof.to(torch.int64)]).cpu().numpy()
         n = T_max * S * K
         if out[n + S:].any():
             raise EOFError("The stream ended sooner than expected.")
@@ -762,6 +805,129 @@ class IntLMModel:
             raise RuntimeError("Binary search failed")
         return np.ascontiguousarray(
             np.moveaxis(out[:n].reshape(T_max, S, K), 0, -1))
+
+
+class _DecodeGraph:
+    """One lockstep decode step of S lanes and K codebooks over static
+    buffers, so that the step is the same work at the same addresses every
+    time: on the card it is captured once as a CUDA graph and replayed, on
+    the CPU it runs eagerly.
+
+    Buffers, all updated in place (the head's bias `head_b` [K, card] int32,
+    the kernel's operand, is made once): the k/v ring `kc`/`vc` [L, S, W, d]
+    int16, the step counter `t` [1] (the decode's step index: the
+    positional phase is t * pos_step mod 2^32 and the ring's fill follows
+    from it), the feed [S, K], the range decoder's state [S, 5], `data`
+    [S, n_bytes], `nbits` and `ts` [S], `codes` [n_steps, S, K] and the
+    flags `ok`/`eof` [S].
+
+    The ring: step t writes its keys and values into slot t mod W, and the
+    zero-init entry (`init_ilm_stream`) starts in slot W - 1, as if written
+    at step -1. So at step t the slots holding the window are j < t and
+    j = W - 1 (all of them from t = W - 1 on): `ilm_chunk_forward`'s
+    shifted cache with its slots rotated, which the exact integer sums of
+    the attention do not see. One graph thus serves every step: the mask
+    is computed from the device counter inside the step."""
+
+    def __init__(self, model: "IntLMModel", S: int, K: int, n_bytes: int,
+                 n_steps: int):
+        from ..stream import device_ac
+
+        cfg, dev = model.cfg, model.device
+        self.model, self.K = model, K
+        self.head_b = model.iparams["head_b"][:K].to(torch.int32)
+        state = model.init_stream(batch=S)
+        self.kc0, self.vc0 = state.kcache, state.vcache
+        self.kc, self.vc = state.kcache.clone(), state.vcache.clone()
+        self.slots = torch.arange(cfg.past_context, device=dev)
+        self.seen_now = torch.ones(1, dtype=torch.bool, device=dev)
+        self.t = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.feed = torch.zeros((S, K), dtype=torch.int64, device=dev)
+        self.ac0 = device_ac.init_state(S, dev)
+        self.ac = self.ac0.clone()
+        self.data = torch.zeros((S, n_bytes), dtype=torch.uint8, device=dev)
+        self.nbits = torch.zeros(S, dtype=torch.int64, device=dev)
+        self.ts = torch.zeros(S, dtype=torch.int64, device=dev)
+        self.codes = torch.zeros((n_steps, S, K), dtype=torch.int64,
+                                 device=dev)
+        self.ok = torch.ones(S, dtype=torch.bool, device=dev)
+        self.eof = torch.zeros(S, dtype=torch.bool, device=dev)
+        self.acc: tp.Optional[Tensor] = None
+        self.graph: tp.Optional["torch.cuda.CUDAGraph"] = None
+
+    def reset(self, datas: tp.Sequence[bytes], Ts: tp.Sequence[int]) -> None:
+        """Load S streams of `Ts` steps and return to step 0."""
+        S, n_bytes = self.data.shape
+        buf = np.zeros((S, n_bytes), np.uint8)
+        for s, d in enumerate(datas):
+            buf[s, :len(d)] = np.frombuffer(d, np.uint8)
+        self.data.copy_(torch.from_numpy(buf))
+        self.nbits.copy_(torch.tensor([8 * len(d) for d in datas]))
+        self.ts.copy_(torch.tensor(list(Ts)))
+        self.kc.copy_(self.kc0)
+        self.vc.copy_(self.vc0)
+        self.ac.copy_(self.ac0)
+        self.t.zero_()
+        self.feed.zero_()
+        self.ok.fill_(True)
+        self.eof.fill_(False)
+
+    def lm(self) -> None:
+        """The LM's part of step t: the trunk on the feed over the ring,
+        the new keys and values into slot t mod W, and the head's product
+        into `acc` [K, S, card] float64."""
+        m, W = self.model, self.slots.shape[0]
+        lut = m.iparams["lut"]
+        phases = (self.t[:, None] * lut["pos_step"][None, :]) & MASK32
+        ring = (self.slots < self.t) | (self.slots >= W - 1)
+        mask = torch.cat([ring, self.seen_now])[None]           # [1, W + 1]
+        x, ks, vs = _trunk(m.iparams, m.exps, self.feed[:, :, None], self.kc,
+                           self.vc, phases, mask, m.cfg)
+        slot = torch.remainder(self.t, W)
+        for li in range(len(ks)):
+            self.kc[li].index_copy_(1, slot, ks[li].to(torch.int16))
+            self.vc[li].index_copy_(1, slot, vs[li].to(torch.int16))
+        self.acc = _head_acc(m.iparams, x, self.K)
+
+    def step(self) -> None:
+        """One decode step: `lm`, one `ac_head_pull` (the rows finished
+        from `acc` and every lane's K pulls), then t += 1."""
+        from ..kernels import ac_head_pull
+
+        self.lm()
+        m = self.model
+        ac_head_pull(self.ac, self.acc, self.head_b, m.exps[0],
+                     m.iparams["lut"]["exp2"], self.data, self.nbits, self.ts,
+                     self.t, self.codes, self.feed, self.ok, self.eof)
+        self.t += 1
+
+    def run(self, n: int) -> None:
+        """`n` decode steps from the current one. On the card: replays of
+        the captured step, each counted as one `ac_head_pull` launch; with
+        no graph yet, the first step runs eagerly on a side stream (the
+        warm-up before a capture) and the step is captured. On the CPU:
+        eager steps."""
+        from ..kernels import ac_head_pull
+
+        if self.model.device.type != "cuda":
+            for _ in range(n):
+                self.step()
+            return
+        if self.graph is None and n > 0:
+            main = torch.cuda.current_stream(self.model.device)
+            side = torch.cuda.Stream(self.model.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side):
+                self.step()
+            main.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.step()
+            self.graph = graph
+            n -= 1
+        for _ in range(n):
+            self.graph.replay()
+            ac_head_pull.launches += 1
 
 
 def codes_checksum(frames_codes: tp.Iterable[np.ndarray]) -> int:

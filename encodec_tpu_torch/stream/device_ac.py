@@ -7,8 +7,10 @@ Run on the host, it needs every decode step's CDF rows on the host: one
 blocking device→host copy per step. This module runs the *identical* state
 machine over tensors, so the rows, the coder state and the symbols stay on
 the device. On the card, one decode step of all lanes is one launch of the
-hand-written kernel `kernels.ac_cuda.ac_pull_rows` (`csrc/ac_decode.cu`);
-this module is that kernel's plain twin, which runs for CPU tensors.
+hand-written kernel `kernels.ac_cuda.ac_head_pull` (`csrc/ac_decode.cu`),
+which also finishes the LM's CDF head; `ac_head_pull_lanes`, the head's
+tail followed by `ac_pull_lanes`, is that kernel's plain twin, which runs
+for CPU tensors.
 
 Lanes. Every function decodes S independent streams at once: lane s is row
 s of each tensor. The state is one int64 tensor `[S, 5]` whose columns are
@@ -209,19 +211,19 @@ def ac_decode_rows(data: Tensor, cdfs: Tensor) -> tp.Tuple[Tensor, Tensor]:
 
 
 def ac_pull_lanes(state: Tensor, rows: Tensor, data: Tensor, nbits: Tensor,
-                  ts: Tensor, t: int, codes: Tensor, feed: Tensor,
-                  ok: Tensor, eof: Tensor) -> None:
+                  ts: Tensor, t: tp.Union[int, Tensor], codes: Tensor,
+                  feed: Tensor, ok: Tensor, eof: Tensor) -> None:
     """One lockstep decode step of S lanes, in place: the range decoder's
     part of JAX's fused scan body (`encodec_tpu/models/ilm.py:884-891`).
 
-    Lane s is active while `t < ts[s]`: it pulls the K symbols of `rows[s]`
+    The step index `t` is an int or a one-element int64 tensor. Lane s is
+    active while `t < ts[s]`: it pulls the K symbols of `rows[s]`
     (`[S, K, card]`), writes them to `codes[t, s]` (`codes` `[T, S, K]`)
     and `1 + symbols` to `feed[s]` where `t + 1 < ts[s]` (else 0: the
     writer padded the lane with zeros), and folds its step into the sticky
     flags `ok[s]` (every pull's symbol lay inside its interval) and
     `eof[s]` (some consumed bit lay past `nbits[s]`). An inactive lane
-    keeps its state and flags and writes zeros. The plain twin of
-    `kernels.ac_pull_rows`."""
+    keeps its state and flags and writes zeros."""
     live = t < ts
     new, syms, ok_row, eof_row = ac_pull_row(state, rows, data, nbits, live)
     state.copy_(new)
@@ -230,3 +232,21 @@ def ac_pull_lanes(state: Tensor, rows: Tensor, data: Tensor, nbits: Tensor,
     feed.copy_(torch.where((t + 1 < ts)[:, None], syms + 1, 0))
     ok &= ok_row | ~live
     eof |= eof_row & live
+
+
+def ac_head_pull_lanes(state: Tensor, acc: Tensor, head_b: Tensor, e0: int,
+                       lut: Tensor, data: Tensor, nbits: Tensor, ts: Tensor,
+                       t: Tensor, codes: Tensor, feed: Tensor, ok: Tensor,
+                       eof: Tensor) -> None:
+    """One lockstep decode step of S lanes from the LM head's product, in
+    place: the CDF rows of `acc` [K, S, card] float64 (the integer LM's
+    `_head_acc`), with `head_b` [K, card] int32, the head's exponent `e0`
+    and the exp2 table `lut` [1024] (`models.ilm._head_tail`), then
+    `ac_pull_lanes` at the step `t` [1] int64: JAX's fused scan body after
+    its trunk (`encodec_tpu/models/ilm.py:661` `_head_cdf`, then
+    `stream/device_ac.py:222` `ac_pull_row` per lane). The plain twin of
+    `kernels.ac_head_pull`."""
+    from ..models.ilm import _head_tail
+
+    ac_pull_lanes(state, _head_tail(acc, head_b, e0, lut), data, nbits, ts,
+                  t, codes, feed, ok, eof)

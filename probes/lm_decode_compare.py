@@ -15,9 +15,13 @@ codes under a random-weight LM) in the layouts of a 10 s request:
 24 kHz at 6 and 24 kbps in 375-token blocks (`lm_restart` auto, 2 lanes),
 at 6 kbps unblocked (one lane of 750), and 48 kHz at 24 kbps (11
 segments: 10 of 150 tokens and one of 15). Each layout reports the host
-clock of one decode (it ends in a copy to the host), after a 4-step
-warm-up, and checks the codes. Prints one line per layout and checkout,
-then a JSON line `{"lm_decode_compare": ...}`.
+clock of its first decode (where the checkout captures a CUDA graph of
+the step, the capture is in it) and of a second one, each ending in a copy
+to the host, and checks the codes. Where the checkout has the static
+decode runner (`models.ilm._DecodeGraph`), it also times that runner's
+steps run eagerly, without a capture, so that the graph's share of a gain
+is told from the kernel's. Prints one line per layout and checkout, then
+a JSON line `{"lm_decode_compare": ...}`.
 
 Imports no JAX. Needs a CUDA device.
 """
@@ -48,6 +52,7 @@ def worker(root: Path) -> dict:
     import torch
 
     import encodec_tpu_torch
+    from encodec_tpu_torch.models import ilm as ilm_mod
     from encodec_tpu_torch.models.ilm import IntLMModel
     from encodec_tpu_torch.models.lm import LMConfig, LMModel, init_lm
     from encodec_tpu_torch.stream.ac import encode_bounds
@@ -55,6 +60,9 @@ def worker(root: Path) -> dict:
     pkg = Path(encodec_tpu_torch.__file__).resolve().parent
     if pkg.parent != root.resolve():
         raise SystemExit(f"imported {pkg}, not the checkout {root}")
+    # the range decoder's library is built before any decode is timed
+    from encodec_tpu_torch.kernels import build
+    build.load_library("ac_decode")
     out = {}
     models = {}
     for label, n_q, W, K, Ts, seconds in LAYOUTS:
@@ -69,8 +77,10 @@ def worker(root: Path) -> dict:
         codes = [rng.randint(0, ilm.card, (K, T)) for T in Ts]
         datas = [encode_bounds(lo, hi)
                  for lo, hi in ilm.codec_symbol_bounds_batched(codes)]
-        ilm.decode_lockstep(datas, K, [min(4, T) for T in Ts])
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ilm.decode_lockstep(datas, K, Ts)
+        first = time.perf_counter() - t0
         t0 = time.perf_counter()
         got = ilm.decode_lockstep(datas, K, Ts)
         s = time.perf_counter() - t0
@@ -78,8 +88,24 @@ def worker(root: Path) -> dict:
                    for i, (T, c) in enumerate(zip(Ts, codes))):
             raise SystemExit(f"{label}: decoded codes differ from the coded")
         steps = max(Ts)
-        out[label] = dict(steps=steps, s=s, ms_per_step=s / steps * 1e3,
+        out[label] = dict(steps=steps, s=s, first_s=first,
+                          ms_per_step=s / steps * 1e3,
                           ms_per_s_audio=s / seconds * 1e3)
+        runner_cls = getattr(ilm_mod, "_DecodeGraph", None)
+        if runner_cls is not None:
+            with torch.inference_mode():
+                runner = runner_cls(ilm, len(Ts), K,
+                                    max(len(d) for d in datas), steps)
+                runner.reset(datas, Ts)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    runner.step()
+                eager = runner.codes[:steps].cpu().numpy()
+                e = time.perf_counter() - t0
+            if not np.array_equal(np.moveaxis(eager, 0, -1), got):
+                raise SystemExit(f"{label}: the eager runner's codes differ")
+            out[label].update(eager_s=e, eager_ms_per_step=e / steps * 1e3)
     return out
 
 
@@ -108,9 +134,13 @@ def main() -> int:
             return proc.returncode
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         for label, r in res.items():
+            eager = (f"; eager runner {r['eager_s']:.3f} s = "
+                     f"{r['eager_ms_per_step']:.3f} ms per step"
+                     if "eager_s" in r else "")
             print(f"{name} ({root}): {label}: {r['steps']} steps in "
                   f"{r['s']:.3f} s = {r['ms_per_step']:.3f} ms per step, "
-                  f"{r['ms_per_s_audio']:.1f} ms per s of audio")
+                  f"{r['ms_per_s_audio']:.1f} ms per s of audio (first "
+                  f"decode {r['first_s']:.3f} s){eager}")
         results.append(dict(turn=name, root=str(root), layouts=res))
     print(json.dumps({"lm_decode_compare": dict(card=smi, turns=results)}))
     return 0

@@ -5,7 +5,9 @@ B=10, T=150 for the ten full segments and B=1, T=15 or 1 for the tail),
 the stream's (K2 at N=6 and 7; K3 from a carried state, bit-equal to one
 launch over the whole sequence) and the breathing tokenizer's (K3's grid
 kernel at H=1024: a 4 h night is T=480, a training batch B=32), and the
-lmv=3 integer LM's CDF rows on the card against the CPU's. Training:
+lmv=3 integer LM's CDF rows on the card against the CPU's, the range
+decoder with the LM's head fused in against its twin, and the decode's
+CUDA graph against the CPU and the card's eager runner. Training:
 K3's saving forward (the same `out` bits as the plain launch), the K3
 backward kernel against its plain twin and against autograd through the
 plain recurrence, and one generator step of a tiny breathing model on the
@@ -863,47 +865,54 @@ def test_lm_forward_batch_matches_scan_on_the_card(dev):
     assert (torch.cat([probas, rest], -1) - batch).abs().max().item() <= 1e-5
 
 
-# -- the range decoder of lmv=3 (csrc/ac_decode.cu) ------------------------
+# -- the range decoder of lmv=3, the LM's CDF head fused in (csrc/ac_decode.cu)
 
-def _ac_lanes(S, K, card, T, seed, bits=24):
-    """S host-coded streams of T steps x K symbols, each symbol under its own
-    random CDF (alternate lanes extremely skewed); the CDFs fill the lower
-    2^bits of the coder's range. Returns (rows [T, S, K, card] int64, the
+def _ac_lanes(S, K, card, T, seed, spread=(4000, 60000)):
+    """S host-coded streams of T steps x K symbols under the CDF rows of a
+    seeded random head: its product `acc` [T, K, S, card] (integers, as
+    float64), bias [K, card] int32, exponent e0 = 4 and the exp2 table;
+    lane s's logits spread over `spread[s % 2]` (60000: extreme skew,
+    nearly every row one symbol). Returns (acc, head_b, e0, lut, the
     streams, symbols [T, S, K])."""
-    from encodec_tpu_torch.stream.ac import (ArithmeticCoder,
-                                             build_stable_quantized_cdf)
     import io
 
+    from encodec_tpu_torch.models import ilm
+    from encodec_tpu_torch.stream.ac import ArithmeticCoder
+
     rng = np.random.RandomState(seed)
-    rows = np.zeros((T, S, K, card), np.int64)
+    e0 = 4
+    acc = np.stack([rng.randint(-spread[s % 2] << e0, (spread[s % 2] << e0)
+                                + 1, (T, K, card)) for s in range(S)], 2)
+    head_b = rng.randint(-2000, 2001, (K, card)).astype(np.int32)
+    lut = torch.from_numpy(ilm.exp2_table().astype(np.int64))
+    acc = acc.astype(np.float64)
+    rows = np.stack([ilm._head_tail(torch.from_numpy(a),
+                                    torch.from_numpy(head_b), e0, lut).numpy()
+                     for a in acc])                          # [T, S, K, card]
     syms = np.zeros((T, S, K), np.int64)
     datas = []
     for s in range(S):
-        alpha = 0.3 if s % 2 == 0 else 0.02
-        # a little slack: a float32 pdf may sum above 1
-        pdfs = (rng.dirichlet(np.full(card, alpha), size=T * K)
-                * (1 - 1e-5)).astype(np.float32)
-        cdfs = np.stack([build_stable_quantized_cdf(p, bits) for p in pdfs])
-        sym = [rng.choice(card, p=p / p.sum()) for p in pdfs]
         fo = io.BytesIO()
         coder = ArithmeticCoder(fo)
-        for x, cdf in zip(sym, cdfs):
-            coder.push(int(x), cdf)
+        for t in range(T):
+            for k in range(K):
+                p = np.diff(np.concatenate([[0], rows[t, s, k]]))
+                syms[t, s, k] = rng.choice(card, p=p / p.sum())
+                coder.push(int(syms[t, s, k]), rows[t, s, k])
         coder.flush()
         datas.append(fo.getvalue())
-        rows[:, s] = cdfs.reshape(T, K, card)
-        syms[:, s] = np.reshape(sym, (T, K))
-    return rows, datas, syms
+    return acc, head_b, e0, lut, datas, syms
 
 
-def _ac_both(dev, rows, datas, ts):
-    """`ac_pull_rows` on the card and its twin on the CPU, step by step from
-    the same inputs: state, codes, feed, ok and eof equal after every step.
-    Returns the card's (codes [T, S, K], ok, eof)."""
-    from encodec_tpu_torch.kernels import ac_pull_rows
+def _ac_both(dev, acc, head_b, e0, lut, datas, ts):
+    """`ac_head_pull` on the card and its twin on the CPU, step by step
+    from the same inputs, the step read from a device counter: state,
+    codes, feed, ok and eof equal after every step. Returns the card's
+    (codes [T, S, K], ok, eof)."""
+    from encodec_tpu_torch.kernels import ac_head_pull
     from encodec_tpu_torch.stream import device_ac
 
-    T, S, K, _ = rows.shape
+    T, K, S, _ = acc.shape
     L = max(1, max(len(d) for d in datas))
     buf = np.zeros((S, L), np.uint8)
     for s, d in enumerate(datas):
@@ -912,9 +921,11 @@ def _ac_both(dev, rows, datas, ts):
     for side, where in (("card", dev), ("plain", torch.device("cpu"))):
         sides[side] = dict(
             state=device_ac.init_state(S, where),
+            head_b=torch.from_numpy(head_b).to(where), lut=lut.to(where),
             data=torch.from_numpy(buf).to(where),
             nbits=torch.tensor([8 * len(d) for d in datas], device=where),
             ts=torch.tensor(ts, device=where),
+            t=torch.zeros(1, dtype=torch.int64, device=where),
             codes=torch.zeros((T, S, K), dtype=torch.int64, device=where),
             feed=torch.zeros((S, K), dtype=torch.int64, device=where),
             ok=torch.ones(S, dtype=torch.bool, device=where),
@@ -922,9 +933,11 @@ def _ac_both(dev, rows, datas, ts):
     names = ("state", "codes", "feed", "ok", "eof")
     for t in range(T):
         for b in sides.values():
-            ac_pull_rows(b["state"], torch.from_numpy(rows[t]).to(
-                b["data"].device), b["data"], b["nbits"], b["ts"], t,
-                b["codes"], b["feed"], b["ok"], b["eof"])
+            ac_head_pull(b["state"], torch.from_numpy(acc[t]).to(
+                b["data"].device), b["head_b"], e0, b["lut"], b["data"],
+                b["nbits"], b["ts"], b["t"], b["codes"], b["feed"], b["ok"],
+                b["eof"])
+            b["t"] += 1
         for n in names:
             assert torch.equal(sides["card"][n].cpu(), sides["plain"][n]), (
                 t, n)
@@ -932,63 +945,82 @@ def _ac_both(dev, rows, datas, ts):
     return g["codes"].cpu().numpy(), g["ok"].cpu(), g["eof"].cpu()
 
 
-@pytest.mark.parametrize("S", [1, 11])
-@pytest.mark.parametrize("K", [1, 32])
+@pytest.mark.parametrize("S,K", [(1, 1), (1, 32), (11, 1), (11, 16),
+                                 (2, 32), (11, 32)])
 @pytest.mark.parametrize("card", [16, 1024])
-def test_ac_pull_rows_kernel_matches_plain(dev, S, K, card):
+def test_ac_head_pull_kernel_matches_plain(dev, S, K, card):
     """Every state field, symbol, feed and flag equal to the twin's after
-    every step; the symbols are the coded ones. With S=11 three lanes end
-    early (inactive lanes write zeros and keep their state)."""
+    every step, at the requests' shapes (S=2, K=32; S=11, K=16) and around
+    them; the symbols are the coded ones. With S=11 three lanes end early
+    (inactive lanes write zeros and keep their state)."""
     T = 6
-    rows, datas, syms = _ac_lanes(S, K, card, T, seed=S * 100 + K + card)
+    acc, head_b, e0, lut, datas, syms = _ac_lanes(S, K, card, T,
+                                                  seed=S * 100 + K + card)
     ts = [T - (s % 3) for s in range(S)]
-    codes, ok, eof = _ac_both(dev, rows, datas, ts)
+    codes, ok, eof = _ac_both(dev, acc, head_b, e0, lut, datas, ts)
     assert bool(ok.all()) and not bool(eof.any())
     for s, n in enumerate(ts):
         assert np.array_equal(codes[:n, s], syms[:n, s])
         assert not codes[n:, s].any()
 
 
-def test_ac_pull_rows_kernel_flags_bad_streams_as_plain(dev):
-    """A cut stream (eof) and flipped bytes (ok false: the CDFs leave the
-    top half of the coder's range empty) beside an intact lane."""
-    T, K, card = 8, 4, 32
-    rows, datas, syms = _ac_lanes(5, K, card, T, seed=9, bits=23)
+def test_ac_head_pull_kernel_flags_bad_streams_as_plain(dev):
+    """A cut stream (eof), flipped bytes and a stream of 0xFF bytes (past
+    every interval at its first pull: a head's rows never reach 2^24),
+    beside an intact lane."""
+    T, K, card = 8, 16, 1024
+    acc, head_b, e0, lut, datas, syms = _ac_lanes(5, K, card, T, seed=9)
     bad = list(datas)
     bad[1] = datas[1][:len(datas[1]) // 2]
-    for s in (2, 3, 4):
+    for s in (2, 3):
         b = bytearray(datas[s])
         b[(s - 1) * len(b) // 5] ^= 0xFF
         bad[s] = bytes(b)
-    codes, ok, eof = _ac_both(dev, rows, bad, [T] * 5)
+    bad[4] = b"\xff" * len(datas[4])
+    codes, ok, eof = _ac_both(dev, acc, head_b, e0, lut, bad, [T] * 5)
     assert bool(ok[0]) and not bool(eof[0])
     assert np.array_equal(codes[:, 0], syms[:, 0])
     assert bool(eof[1])
-    assert not bool(ok[2:].all())
+    assert not bool(ok[4])
 
 
-def test_ac_pull_rows_counts_one_launch_per_call(dev):
+def test_ac_head_pull_counts_one_launch_per_call_and_plans(dev):
+    """One counted launch per call; the plan's threads and shared memory
+    are the source's; the plan refuses more than 227 KB, and a launch just
+    under it (K=54, card 1024: 232,372 B) runs and equals the twin."""
     from encodec_tpu_torch import kernels
     from encodec_tpu_torch.kernels import ac_cuda
 
-    rows, datas, _ = _ac_lanes(2, 3, 16, 4, seed=3)
-    before = kernels.ac_pull_rows.launches
-    _ac_both(dev, rows, datas, [4, 2])
-    assert kernels.ac_pull_rows.launches == before + 4
+    acc, head_b, e0, lut, datas, _ = _ac_lanes(2, 3, 16, 4, seed=3)
+    before = kernels.ac_head_pull.launches
+    _ac_both(dev, acc, head_b, e0, lut, datas, [4, 2])
+    assert kernels.ac_head_pull.launches == before + 4
     lib = build.load_library("ac_decode")
-    assert lib.ac_decode_max_threads() == ac_cuda.AC_MAX_THREADS
-    for K in (1, 16, 32):
-        assert lib.ac_decode_window_bytes(K) == ac_cuda.window_bytes(K)
+    assert lib.ac_head_pull_threads() == ac_cuda.AC_THREADS
+    assert lib.ac_head_pull_cluster() == ac_cuda.AC_CLUSTER
+    assert lib.ac_head_pull_max_card() == ac_cuda.AC_MAX_CARD
+    for K, card in ((1, 16), (16, 1024), (32, 1024), (54, 1024)):
+        assert (lib.ac_head_pull_smem_bytes(K)
+                == ac_cuda.ac_plan(K, card)["smem"])
+    with pytest.raises(ValueError, match="227 KB"):
+        ac_cuda.ac_plan(55, 1024)
+    acc, head_b, e0, lut, datas, syms = _ac_lanes(1, 54, 1024, 2, seed=4)
+    codes, ok, _ = _ac_both(dev, acc, head_b, e0, lut, datas, [2])
+    assert bool(ok.all()) and np.array_equal(codes, syms)
 
 
 def test_decode_lockstep_on_the_card_equals_the_cpu(dev):
-    """The integer LM's lockstep decode with the range decoder on the card
-    (one `ac_pull_rows` launch per step) against the CPU route: codes equal
-    at every position, ragged lanes; a cut stream raises EOFError."""
+    """The integer LM's lockstep decode on the card (a CUDA graph of the
+    step, replayed; one `ac_head_pull` launch counted per step, replays
+    included) against the CPU route: codes equal at every position, ragged
+    lanes; the card's eager runner gives the same codes, and the host range
+    decoder over the card's own rows gives them too; a cut stream raises
+    EOFError."""
     from encodec_tpu_torch import kernels
+    from encodec_tpu_torch.models import ilm as ilm_mod
     from encodec_tpu_torch.models.ilm import IntLMModel
     from encodec_tpu_torch.models.lm import LMModel
-    from encodec_tpu_torch.stream.ac import encode_bounds
+    from encodec_tpu_torch.stream.ac import encode_bounds, make_decoder
 
     cfg, params = _small_lm("cpu", seed=4)
     cpu = IntLMModel.from_lm(LMModel(cfg, params, device="cpu"))
@@ -998,11 +1030,32 @@ def test_decode_lockstep_on_the_card_equals_the_cpu(dev):
     codes = [rng.randint(0, cfg.card, (cfg.n_q, T)) for T in Ts]
     datas = [encode_bounds(lo, hi)
              for lo, hi in cpu.codec_symbol_bounds_batched(codes)]
-    before = kernels.ac_pull_rows.launches
-    got = gpu.decode_lockstep(datas, cfg.n_q, Ts)
-    assert kernels.ac_pull_rows.launches == before + max(Ts)
-    np.testing.assert_array_equal(got, cpu.decode_lockstep(datas, cfg.n_q, Ts))
+    for _ in range(2):              # a capture, then replays only
+        before = kernels.ac_head_pull.launches
+        got = gpu.decode_lockstep(datas, cfg.n_q, Ts)
+        assert kernels.ac_head_pull.launches == before + max(Ts)
+        np.testing.assert_array_equal(got, cpu.decode_lockstep(datas,
+                                                               cfg.n_q, Ts))
     for s, T in enumerate(Ts):
         np.testing.assert_array_equal(got[s, :, :T], codes[s])
+    # the card's eager runner, and the host decoder over its rows
+    S, K = len(Ts), cfg.n_q
+    with torch.inference_mode():
+        runner = ilm_mod._DecodeGraph(gpu, S, K, 64 * 1024, 32)
+        runner.reset(datas, Ts)
+        rows = []
+        for _ in range(max(Ts)):
+            runner.step()
+            rows.append(ilm_mod._head_tail(
+                runner.acc, gpu.iparams["head_b"][:K], gpu.exps[0],
+                gpu.iparams["lut"]["exp2"]).cpu().numpy())
+        eager = runner.codes[:max(Ts)].cpu().numpy()        # [T, S, K]
+    assert runner.graph is None
+    np.testing.assert_array_equal(np.moveaxis(eager, 0, -1), got)
+    for s, T in enumerate(Ts):
+        dec = make_decoder(datas[s])
+        host = np.array([[dec.pull(rows[t][s, k]) for k in range(K)]
+                         for t in range(T)]).T
+        np.testing.assert_array_equal(host, codes[s])
     with pytest.raises(EOFError):
         gpu.decode_lockstep([datas[0][:len(datas[0]) // 2]], cfg.n_q, Ts[:1])

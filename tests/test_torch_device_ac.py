@@ -1,5 +1,5 @@
 """The range decoder of lmv=3 on the device: the port's plain twin
-(`stream/device_ac.py`, the CPU route of `kernels.ac_pull_rows`) against the
+(`stream/device_ac.py`, the CPU route of `kernels.ac_head_pull`) against the
 JAX package's `stream/device_ac.py` and the host `ArithmeticDecoder`, and
 `IntLMModel.decode_lockstep` against JAX's `_lockstep_decode_int`, on the
 CPU.
@@ -278,9 +278,11 @@ def test_mul_shift24_exact():
 
 
 def test_ac_pull_rows_cpu_route_is_the_twin():
-    """The wrapper on CPU tensors: an inactive lane writes zeros and keeps
-    its state and flags, the feed is zero on a lane's last step, and no
-    kernel launch is counted."""
+    """The pull half of the decode's CPU route (`ac_pull_lanes`, which
+    `kernels.ac_head_pull`'s twin runs after the head's tail), stepped by
+    a device counter as the decode steps it: an inactive lane writes zeros
+    and keeps its state and flags, the feed is zero on a lane's last step,
+    and no kernel launch is counted."""
     K, card = 3, 16
     cases, syms = [], []
     for seed, n in ((1, 30), (2, 12)):
@@ -296,19 +298,22 @@ def test_ac_pull_rows_cpu_route_is_the_twin():
     feed = torch.full((S, K), -1, dtype=torch.int64)
     ok = torch.ones(S, dtype=torch.bool)
     eof = torch.zeros(S, dtype=torch.bool)
+    step = torch.zeros(1, dtype=torch.int64)
     kernels.reset_launch_counts()
     for t in range(R):
         before = state[1].clone()
-        kernels.ac_pull_rows(state, torch.from_numpy(rows[:, t]).contiguous(),
-                             torch.from_numpy(data), torch.from_numpy(nbits),
-                             ts, t, codes, feed, ok, eof)
+        device_ac.ac_pull_lanes(state, torch.from_numpy(rows[:, t]),
+                                torch.from_numpy(data),
+                                torch.from_numpy(nbits), ts, step, codes,
+                                feed, ok, eof)
+        step += 1
         if t >= 4:
             assert torch.equal(state[1], before)
             assert not codes[t, 1].any() and not feed[1].any()
         want_feed = codes[t] + 1
         want_feed[(t + 1 >= ts)] = 0
         assert torch.equal(feed, want_feed)
-    assert kernels.launch_counts()["ac_pull_rows"] == 0
+    assert kernels.launch_counts()["ac_head_pull"] == 0
     np.testing.assert_array_equal(codes[:, 0].reshape(-1)[:30], syms[0])
     np.testing.assert_array_equal(codes[:4, 1].reshape(-1), syms[1][:12])
     assert ok.all() and not eof.any()

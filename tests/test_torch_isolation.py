@@ -94,7 +94,7 @@ class _CudaStandIn:
 
 @pytest.mark.parametrize("which", ["nearest_codebook", "rvq_encode_fused",
                                    "lstm_scan", "lstm_scan_grid",
-                                   "lstm_scan_backward", "ac_pull_rows"])
+                                   "lstm_scan_backward", "ac_head_pull"])
 def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
     from encodec_tpu_torch import kernels
     from encodec_tpu_torch.kernels import ac_cuda, build, lstm_cuda, vq_cuda
@@ -109,7 +109,7 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
     for mod in (lstm_cuda, vq_cuda, ac_cuda):
         for name in ("lstm_scan_plain", "nearest_codebook_plain",
                      "rvq_encode_fused_plain", "lstm_scan_backward_plain",
-                     "ac_pull_rows_plain"):
+                     "ac_head_pull_plain"):
             if hasattr(mod, name):
                 monkeypatch.setattr(mod, name, no_twin)
     args = {
@@ -121,14 +121,17 @@ def test_wrappers_raise_instead_of_falling_back(monkeypatch, which):
         # K3's backward kernel: pre-activations, c, dy, W_hh
         "lstm_scan_backward": (_CudaStandIn(2, 5, 16), _CudaStandIn(2, 5, 4),
                                _CudaStandIn(2, 5, 4), _CudaStandIn(16, 4)),
-        # the range decoder: state, rows, data, nbits, ts, t, codes, feed,
-        # ok, eof
-        "ac_pull_rows": (
+        # the range decoder: state, acc, head_b, e0, lut, data, nbits, ts,
+        # t, codes, feed, ok, eof
+        "ac_head_pull": (
             _CudaStandIn(2, 5, dtype=torch.int64),
-            _CudaStandIn(2, 4, 16, dtype=torch.int64),
+            _CudaStandIn(4, 2, 16, dtype=torch.float64),
+            _CudaStandIn(4, 16, dtype=torch.int32), 3,
+            _CudaStandIn(1024, dtype=torch.int64),
             _CudaStandIn(2, 9, dtype=torch.uint8),
             _CudaStandIn(2, dtype=torch.int64),
-            _CudaStandIn(2, dtype=torch.int64), 0,
+            _CudaStandIn(2, dtype=torch.int64),
+            _CudaStandIn(1, dtype=torch.int64),
             _CudaStandIn(3, 2, 4, dtype=torch.int64),
             _CudaStandIn(2, 4, dtype=torch.int64),
             _CudaStandIn(2, dtype=torch.bool),
@@ -174,7 +177,7 @@ def test_wrapper_launch_counters_exist():
     assert kernels.launch_counts() == {"nearest_codebook": 0,
                                        "rvq_encode_fused": 0, "lstm_scan": 0,
                                        "lstm_scan_backward": 0,
-                                       "ac_pull_rows": 0}
+                                       "ac_head_pull": 0}
     # CPU tensors run the plain twins and count no launch
     kernels.nearest_codebook(torch.randn(4, 8), torch.randn(5, 8))
     assert kernels.launch_counts()["nearest_codebook"] == 0
