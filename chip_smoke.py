@@ -138,7 +138,27 @@ Phases, in order (any failure exits non-zero before the last line):
    written ones and the file against the CPU writer's, the export and the
    LM's state dict reloaded bit for bit, the batch files against per-file
    compression and decompression;
-18. print the `kernels` JSON line (launches per path, the grid kernel, the
+18. the parallel package on torch.distributed (`phase_parallel`), with
+   its own launch counts: (a) NCCL at world 1 in this process,
+   default.yaml's model as written at B=16: the data-parallel generator
+   step against the plain step, bit for bit, and ms per step of both; a
+   one-epoch fit (3 batches) with `checkpoint.async_save: true`, its
+   checkpoint against a synchronous save of the same state, bit for bit,
+   the synchronous save's seconds and share of the epoch, the
+   asynchronous save's blocking seconds; (b) a gloo world of 2, both
+   ranks on this card (CUDA tensors staged through host memory), against
+   single-process runs on the card: the DP generator step of default.yaml
+   at B=8 (k-means and a second step; losses rtol 1e-4, the state at
+   JAX's mesh bounds, codes outside tie flags, the ranks' states and
+   generator states equal), gan.yaml's GAN generator and discriminator
+   steps at B=4, the 24 kHz model's 10 s request at 24 kbps with its
+   books split 512 + 512 (`rvq_encode_tp`: codes equal to K2's), the
+   breathing model on a 4 h night in two time shards (`encode_sp`,
+   `decode_sp`), and the published 24 kHz LM width at 4 layers in two
+   pipeline stages (`lm_forward_batch_pp`, one `make_lm_pp_train_step`);
+   launches and ms per rank. Two ranks on one card check correctness,
+   not scaling;
+19. print the `kernels` JSON line (launches per path, the grid kernel, the
    backward kernel and the range decoder in rows of their own), then the
    final `ok` JSON line.
 
@@ -398,7 +418,10 @@ def phase_k1(torch, kernels, dev):
         plan = vq_cuda.nearest_plan(N, bins, D, sms)
         x = gauss(torch, (N, D), 10, dev, 0.3)
         idx, margin = kernels.nearest_codebook(x, e)
-        ref_idx, ref_margin = kernels.nearest_codebook_plain(x, e)
+        ref_idx, ref_margin, ref_score = kernels.nearest_codebook_plain(
+            x, e, return_score=True)
+        s_idx, s_margin, score = kernels.nearest_codebook(x, e,
+                                                          return_score=True)
         xd = (e_dup[dups[0]][None] + gauss(torch, (N, D), 12, dev, 1e-3))
         d_idx, d_margin = kernels.nearest_codebook(xd.contiguous(), e_dup)
         torch.cuda.synchronize()
@@ -408,6 +431,11 @@ def phase_k1(torch, kernels, dev):
         check(n_bad == 0, f"K1 N={N}: {n_bad} indices differ at plain "
                           "margin >= 1e-5")
         check(err <= 1e-4, f"K1 N={N}: margin max|d| {err} > 1e-4")
+        score_err = float((score - ref_score).abs().max())
+        check(bool(torch.equal(s_idx, idx)) and bool(torch.equal(s_margin,
+                                                                  margin)),
+              f"K1 N={N}: the score output changed the index or margin")
+        check(score_err <= 1e-4, f"K1 N={N}: score max|d| {score_err} > 1e-4")
         check(bool((d_idx == min(dups)).all()) and bool((d_margin == 0).all()),
               f"K1 N={N}: duplicate rows across CTAs do not give the lowest "
               "index with margin 0")
@@ -420,7 +448,9 @@ def phase_k1(torch, kernels, dev):
         print(f"K1 nearest_codebook N={N} D={D} bins={bins}: plan "
               f"{plan.row_tiles} tiles x cluster {plan.cluster} = {plan.ctas} "
               f"CTAs, {plan.bins_per_cta} bins/CTA; idx equal (margin>=1e-5), "
-              f"margin max|d|={err:.3g}, duplicates {dups} -> {min(dups)}, "
+              f"margin max|d|={err:.3g}, winner score max|d|={score_err:.3g} "
+              "(idx and margin unchanged with it), "
+              f"duplicates {dups} -> {min(dups)}, "
               f"margin 0; device ms: kernel={ms:.4f} plain={plain_ms:.4f} "
               f"library(cdist+argmin)={lib_ms:.4f} bound={b_ms:.5f} ({b_by}); "
               f"per wrapper call (events)={call_ms:.4f}")
@@ -1707,8 +1737,8 @@ TRAIN_ITEMS, VAL_ITEMS = 96, 19   # 3 training batches of 32, one for eval
 def cut_epochs(build):
     """`build_dataloaders` with its virtual epochs cut to `TRAIN_ITEMS`
     training and `VAL_ITEMS` validation crops."""
-    def cut(config):
-        train, val, mapping = build(config)
+    def cut(config, *shard):
+        train, val, mapping = build(config, *shard)
         train.dataset.size, val.dataset.size = TRAIN_ITEMS, VAL_ITEMS
         return train, val, mapping
     return cut
@@ -3372,6 +3402,759 @@ def phase_lm_train(torch, kernels, model, registry, run_dir):
     return counts
 
 
+# -- the parallel phase ------------------------------------------------------
+#
+# torch.distributed on one card: (a) NCCL at world 1 in this process (the
+# production backend and code path), (b) gloo at world 2, both ranks on
+# cuda:0 (NCCL refuses two ranks on one device), CUDA tensors staged
+# through host memory (`parallel.comm`). Two ranks sharing one card measure
+# correctness, not scaling.
+
+PAR_WORLD = 2
+PAR_B_DP, PAR_B_GAN = 8, 4        # global batches of (b)'s DP and GAN checks
+PAR_LM_LAYERS, PAR_LM_B, PAR_LM_M = 4, 16, 4
+# The share of untied positions (every stage's top-2 margin >= 1e-3) whose
+# codes may differ between the ranks' B=4 encoder passes and the single
+# process's B=8 one: cuDNN picks algorithms per shape, and at the
+# breathing latents' scale (squared distances of tens to hundreds) their
+# rounding can exceed an absolute margin of 1e-3. Measured on NVIDIA H100
+# 80GB HBM3, 700.00 W: 7 and 10 of ≈2,490 (0.28%, 0.40%) with cuDNN's
+# default algorithms, 9 of 2,482 (0.36%) with the deterministic ones that
+# (b) now runs, which repeat run to run; 0 in the GAN step. Held to 0.5%;
+# the CPU tests hold every untied position.
+PAR_CODES_OFF = 0.005
+
+
+def par_leaves(tree, prefix: str = ""):
+    """(path, tensor) of a tree's tensor leaves, in JAX's order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from par_leaves(tree[k], f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from par_leaves(v, f"{prefix}/{i}")
+    elif tree is not None and hasattr(tree, "shape"):
+        yield prefix, tree
+
+
+def par_cpu(tree):
+    from encodec_tpu_torch.train.optim import tree_map
+    return tree_map(lambda t: t.detach().cpu().clone()
+                    if hasattr(t, "detach") else t, tree)
+
+
+def par_record(torch, state, m) -> dict:
+    """A step's result on the host: metrics, the state, the gradient."""
+    out = {"metrics": {k: float(v) for k, v in m.items()
+                       if hasattr(v, "dim") and v.dim() == 0},
+           "params": par_cpu(state.params),
+           "qstate": par_cpu(tuple(state.qstate[:3])),
+           "rng": state.rng.clone(), "grads": par_cpu(m.get("grads"))}
+    if state.disc_params is not None:
+        out["disc"] = par_cpu(state.disc_params)
+    if "codes" in m:
+        out["codes"] = m["codes"].cpu()
+        out["margins"] = m["margins"].cpu()
+    return out
+
+
+def par_codes(torch, codes, ref: dict) -> tuple:
+    """The DP codes `[B, K, T]` (every rank's rows in rank order) against
+    the single process's at the positions (b, t) where no stage's search
+    is tie-flagged (a flip at one stage changes the residual of every
+    later one); returns (untied positions, of which differ)."""
+    K = codes.shape[1]
+    margins = ref["margins"].reshape(K, codes.shape[0], -1)
+    safe = (margins >= TIE_THRESHOLD).all(0)                 # [B, T]
+    moved = (codes != ref["codes"]).any(1)                   # [B, T]
+    return int(safe.sum()), int(moved[safe].sum())
+
+
+def par_book_mask(torch, codes, ref: dict, start, rvq_cfg) -> tuple:
+    """The codebook entries `[books, bins]` on which a DP step (codes
+    `[B, K, T]`, every rank's rows in rank order) and the single process's
+    step `ref`, both from the state `start`, must agree. A position whose
+    code differs first at stage k0 brings other residuals to every later
+    stage: from k0 on, the clusters it was assigned on either side are
+    left out, in that stage's book. An expired cluster takes a row of the
+    stage's residual, drawn over the global batch (the draws replayed here
+    from `start`'s generator and checked against the state the step ends
+    in): it is left out when that row's position differs at an earlier
+    stage, and so is a cluster whose count comes within 1e-3 of the
+    threshold. Returns (keep, then how many clusters were left out for a
+    code, for a drawn row, at the threshold)."""
+    from encodec_tpu_torch.quant.rvq import _draw
+
+    B, K, T = codes.shape
+    got = codes.permute(1, 0, 2).reshape(K, B * T).long()   # rows b·T + t
+    want = ref["codes"].permute(1, 0, 2).reshape(K, B * T).long()
+    differs = got != want
+    first = torch.where(differs.any(0), differs.int().argmax(0),
+                        torch.full((B * T,), K))
+    bins = ref["qstate"][2].shape[1]
+    by_code = torch.zeros(ref["qstate"][2].shape, dtype=torch.bool)
+    by_draw, at_thr = by_code.clone(), by_code.clone()
+    gen = torch.Generator()
+    gen.set_state(start.rng)
+    size = start.qstate.cluster_size.detach().cpu().clone()
+    thr = rvq_cfg.threshold_ema_dead_code
+    for k in range(K):
+        b = 0 if rvq_cfg.shared_codebook else k
+        fed = first <= k
+        by_code[b, got[k, fed]] = True
+        by_code[b, want[k, fed]] = True
+        if thr > 0:
+            rows = _draw(B * T, bins, gen, torch.device("cpu"))
+            size[b] = (size[b] * rvq_cfg.decay
+                       + torch.bincount(want[k], minlength=bins).float()
+                       * (1 - rvq_cfg.decay))
+            at_thr[b] |= (size[b] - thr).abs() < 1e-3
+            by_draw[b] |= (size[b] < thr) & (first[rows] < k)
+    check(torch.equal(gen.get_state(), ref["rng"]),
+          "par_book_mask: the replayed draws do not end in the step's "
+          "generator state")
+    keep = ~(by_code | by_draw | at_thr)
+    return (keep, int(by_code.sum()), int((by_draw & ~by_code).sum()),
+            int((at_thr & ~by_code & ~by_draw).sum()))
+
+
+def par_compare(torch, got: dict, ref: dict, lr: float, steps, what: str,
+                key: str = "params", books=None) -> tuple:
+    """`got` (a rank's step) against `ref` (the single process's on the
+    global batch, from the same state) at JAX's mesh bounds: losses rtol
+    1e-4 (the gradient norm 2e-3),
+    the codebooks rtol 2e-3 atol 2e-5, the generator state equal; the
+    parameters rtol 2e-3 atol 2e-5 where every step's gradient (`steps`,
+    the reference records) is above its noise (1e-4 of its leaf's and the
+    whole gradient's largest |value|), within 2·lr per step elsewhere
+    (Adam's first update is ±lr·sign(g)). With `books` (`par_book_mask`),
+    the codebook bound holds on its kept entries (the CPU tests hold
+    every one). Returns (a summary of what was measured, the bounds it
+    broke)."""
+    bad, worst, gn = [], 0.0, 0.0
+    for k, v in ref["metrics"].items():
+        if k == "freq_acc":   # an argmax per frame: a near-tie moves one
+            if abs(got["metrics"][k] - v) > 1e-2:
+                bad.append(f"{what}: {k} {got['metrics'][k]} vs {v}")
+            continue
+        norm = k.endswith("grad_norm")
+        bound = 2e-3 if norm else 1e-4
+        rel = abs(got["metrics"][k] - v) / max(abs(v), 1e-30)
+        if rel > bound:
+            bad.append(f"{what}: {k} {got['metrics'][k]} vs {v} "
+                       f"(rel {rel:.2e} > {bound:g})")
+        if norm:
+            gn = max(gn, rel)
+        else:
+            worst = max(worst, rel)
+    if not torch.equal(got["rng"], ref["rng"]):
+        bad.append(f"{what}: the generator state differs")
+    q_err, q_far, q_n = 0.0, 0, 0
+    keep = torch.ones(ref["qstate"][2].shape, dtype=torch.bool)  # [books, bins]
+    left = ""
+    if books is not None:
+        keep, n_code, n_draw, n_thr = books
+        left = (f"; left out: {n_code} fed by a position whose code "
+                f"differs, {n_draw} expired with a row drawn from one, "
+                f"{n_thr} at the expiry threshold")
+    for (_, a), (_, b) in zip(par_leaves(got["qstate"]),
+                              par_leaves(ref["qstate"])):
+        m = keep if a.dim() == 2 else keep[..., None].expand_as(a)
+        d = (a - b).abs()
+        q_far += int((d > 2e-5 + 2e-3 * b.abs())[m].sum())
+        q_err = max(q_err, float(d[m].max()) if bool(m.any()) else 0.0)
+        q_n += int(m.sum())
+    if q_far:
+        bad.append(f"{what}: {q_far} codebook elements outside rtol 2e-3, "
+                   "atol 2e-5")
+    masks = {}
+    for rec in steps:
+        g = dict(par_leaves(rec["grads"]))
+        top = max(float(t.abs().max()) for t in g.values())
+        for k, t in g.items():
+            m = t.abs() > 1e-4 * (float(t.abs().max()) + top)
+            masks[k] = m if k not in masks else masks[k] & m
+    p_err, moved, flipped, outside, n = 0.0, 0.0, 0, 0, 0
+    for (k, a), (_, b) in zip(par_leaves(got[key]), par_leaves(ref[key])):
+        d = (a - b).abs()
+        m = masks[k]
+        far = d > 2e-5 + 2e-3 * b.abs()
+        outside += int((far & m).sum())
+        flipped += int(far.sum())
+        moved = max(moved, float(d.max()))
+        p_err = max(p_err, float(d[m].max()) if bool(m.any()) else 0.0)
+        n += d.numel()
+    if outside:
+        bad.append(f"{what}: {outside} {key} elements outside rtol 2e-3, "
+                   "atol 2e-5 where the gradient is above its noise")
+    if moved > 2 * lr * len(steps):
+        bad.append(f"{what}: a {key} element moved {moved:.3g} > 2·lr per "
+                   "step")
+    return (f"losses max rel {worst:.2e} (bound 1e-4), gradient "
+            f"norm {gn:.2e}, codebooks max|d| {q_err:.2e} over {q_n} "
+            f"elements ({int(keep.sum())} of {keep.numel()} clusters{left}"
+            f"), {key} max|d| "
+            f"{p_err:.2e} where the gradient is above its noise, {flipped} "
+            f"of {n} elements beyond rtol 2e-3 (largest move {moved:.2e}, "
+            f"2·lr per step {2 * lr * len(steps):.1e}: Adam's first update "
+            f"±lr·sign(g)), generator state "
+            f"{'equal' if torch.equal(got['rng'], ref['rng']) else 'DIFFERS'}"
+            ), bad
+
+
+def par_checksum(torch, tree) -> list:
+    """Per leaf, the sum of its float32 bit patterns (ranks' states equal
+    bit for bit ⇔ equal sums here, up to collisions)."""
+    return [int(t.detach().float().contiguous().view(torch.int32).long()
+                .sum()) for _, t in par_leaves(tree)]
+
+
+def par_rank(rank: int, world: int, store: str, base: str) -> None:
+    """One rank of (b): the gloo world of 2 on cuda:0. Runs the DP, GAN,
+    tp, sp and pp checks; rank 0 holds them against the single-process
+    results (the parent's, or its own on the same card) and prints; each
+    rank writes its launch counts and times to `<base>/rank<r>.json`."""
+    import torch
+    import torch.distributed as dist
+
+    from encodec_tpu_torch import kernels, parallel
+    from encodec_tpu_torch.device import set_fp32_policy
+    from encodec_tpu_torch.models import breathing_model
+    from encodec_tpu_torch.models.lm import (LMConfig, init_lm,
+                                             lm_forward_batch)
+    from encodec_tpu_torch.models.seanet import (seanet_decoder,
+                                                 seanet_encoder)
+    from encodec_tpu_torch.parallel import comm
+    from encodec_tpu_torch.quant import rvq_decode, rvq_encode_margins
+    from encodec_tpu_torch.train import ConfigNamespace, Trainer
+    from encodec_tpu_torch.train.lm_train import (create_lm_train_state,
+                                                  lm_loss, shift_codes)
+    from encodec_tpu_torch.train.steps import _grads, _with_grad
+
+    torch.set_num_threads(2)
+    base_p = Path(base)
+    ref = torch.load(base_p / "ref.pt", weights_only=False)
+    dev = torch.device(ref["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", dev.index or 0)
+        torch.cuda.set_device(dev)
+    set_fp32_policy()
+    # cuDNN's deterministic algorithms: the ranks' and the single process's
+    # steps then give the same bits run to run, so the comparisons below
+    # read the same differences every run (per-shape rounding only)
+    torch.backends.cudnn.deterministic = True
+    parallel.initialize_multihost(init_method=f"file://{store}",
+                                  world_size=world, rank=rank,
+                                  backend="gloo", timeout_s=600)
+    out = {"counts": {}, "ms": {}, "transport": comm.transport()}
+    say = print if rank == 0 else (lambda *a, **k: None)
+    problems: list = []   # every path runs; the rank fails at the end
+    t_all = time.perf_counter()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def empty():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    def same_on_ranks(tree, what):
+        sums = torch.tensor(par_checksum(torch, tree), dtype=torch.int64)
+        every = comm.all_gather(sums[None])
+        check(bool((every == every[0]).all()),
+              f"(b) {what}: the ranks' states differ")
+
+    kernels.reset_launch_counts()
+    # -- DP: default.yaml's model as written, B=8 (4 per rank). Step 1
+    # from a fresh state (k-means on the gathered rows), against the
+    # single process's on the global batch (rank 0 runs it while rank 1
+    # waits): the losses and the generator state. k-means (50 passes of
+    # 3,840 rows over 1,024 clusters) turns the rounding difference of a
+    # B=4 and a B=8 encoder pass (cuDNN picks algorithms per shape) into
+    # other books, so the state is held from a common one: step 2, from
+    # the DP step 1's state, against the single process's step 2 from it.
+    mesh = parallel.make_mesh()
+    config = ConfigNamespace(ref["dp_config"])
+    tr = Trainer(config, [], [], str(base_p / f"dp{rank}"), device=dev,
+                 mesh=mesh)
+    w = tr.weights_for_epoch(1)
+    x_all = ref["x"][:PAR_B_DP].to(dev)
+    x = parallel.shard_batch(mesh, x_all)
+    s1, m = timed("dp step 1", lambda: tr.gen_step(tr.state, x, w))
+    dp1 = {k: float(v) for k, v in m.items()
+           if hasattr(v, "dim") and v.dim() == 0}
+    del m
+    same_on_ranks((s1.params, tuple(s1.qstate[:3])), "DP step 1")
+    s2, m = timed("dp step 2", lambda: tr.gen_step(s1, x, w,
+                                                   keep_grads=True))
+    rec = par_record(torch, s2, m)
+    del m, s2
+    same_on_ranks((rec["params"], rec["qstate"]), "DP step 2")
+    # the path's launches; rank 0's single-process references follow
+    out["counts"]["dp"] = launch_counts(kernels)
+    codes = comm.all_gather(rec["codes"])
+    empty()
+    if rank == 0:
+        plain = Trainer(config, [], [], str(base_p / "dp_plain"), device=dev)
+        p1, pm1 = plain.gen_step(plain.state, x_all, w)
+        book_d = float((p1.qstate.embed - s1.qstate.embed).abs().max())
+        rows_d = int(((p1.qstate.embed - s1.qstate.embed).abs().amax(-1)
+                      > 1e-3).sum())
+        one = {k: float(v) for k, v in pm1.items()
+               if hasattr(v, "dim") and v.dim() == 0}
+        l1 = max(abs(dp1[k] - v) / abs(v) for k, v in one.items()
+                 if k.startswith("loss") and v != 0)
+        if l1 > 1e-4:
+            problems.append(f"(b) DP step 1: losses rel {l1:.3g} > 1e-4")
+        if not torch.equal(p1.rng, s1.rng):
+            problems.append("(b) DP step 1: the generator state differs")
+        del p1, pm1
+        empty()
+        p2, pm2 = plain.gen_step(s1, x_all, w, keep_grads=True)
+        want = par_record(torch, p2, pm2)
+        del p2, pm2, plain
+        empty()
+        n_safe, n_bad = par_codes(torch, codes, want)
+        summary, bad = par_compare(
+            torch, rec, want, w.lr, [want], "(b) DP step 2",
+            books=par_book_mask(torch, codes, want, s1, tr.model.cfg.rvq))
+        problems.extend(bad + ([f"(b) DP: codes differ at {n_bad} untied "
+                                "positions"]
+                               if n_bad > PAR_CODES_OFF * n_safe else []))
+        say(f"parallel (b) DP gloo world {world} ({comm.transport()} "
+            f"transport), default.yaml's model as written, global B="
+            f"{PAR_B_DP} x 4 h ({PAR_B_DP // world} per rank), against the "
+            f"single process on the card: step 1 from a fresh state (k-means "
+            f"on the gathered rows)")
+        say(f"    step 1: losses max rel {l1:.2e} (bound 1e-4), generator "
+            f"state equal; the books: {rows_d} of "
+            f"{s1.qstate.embed.shape[1]} rows differ by more than 1e-3 (max "
+            f"|d| {book_d:.3g}): k-means amplifies the encoder's "
+            "per-shape rounding")
+        say(f"    step 2 from step 1's state: {summary}; codes equal at "
+            f"{n_safe - n_bad} of {n_safe} untied positions (of "
+            f"{codes.shape[0] * codes.shape[2]}, held to "
+            f"{PAR_CODES_OFF:.1%}); ranks' states equal; ms per step per "
+            f"rank (cuDNN's deterministic algorithms) "
+            f"{out['ms']['dp step 1']:.1f} / {out['ms']['dp step 2']:.1f}")
+    comm.barrier()
+
+    # -- GAN: gan.yaml's GAN generator step and discriminator step, B=4,
+    # from the DP step 1's generator (its books initialised)
+    kernels.reset_launch_counts()
+    gt = Trainer(ConfigNamespace(ref["gan_config"]), [], [],
+                 str(base_p / f"gan{rank}"), device=dev, mesh=mesh)
+    start = gt.state._replace(params=s1.params, qstate=s1.qstate)
+    del tr, s1
+    w = gt.weights_for_epoch(1)
+    x_all = ref["x"][:PAR_B_GAN].to(dev)
+    x = parallel.shard_batch(mesh, x_all)
+    g1, m1 = timed("gan step", lambda: gt.gen_step(start, x, w,
+                                                   use_gan=True,
+                                                   keep_grads=True))
+    g = par_record(torch, g1, m1)
+    g2, m2 = timed("disc step", lambda: gt.disc_step(start, x, w,
+                                                     keep_grads=True))
+    d = par_record(torch, g2, m2)
+    del g1, g2, m1, m2
+    same_on_ranks((g["params"], d["disc"]), "GAN")
+    out["counts"]["gan"] = launch_counts(kernels)
+    gan_codes = comm.all_gather(g["codes"])
+    empty()
+    if rank == 0:
+        plain = Trainer(ConfigNamespace(ref["gan_config"]), [], [],
+                        str(base_p / "gan_plain"), device=dev)
+        q1, qm1 = plain.gen_step(start, x_all, w, use_gan=True,
+                                 keep_grads=True)
+        want_g = par_record(torch, q1, qm1)
+        del q1, qm1
+        q2, qm2 = plain.disc_step(start, x_all, w, keep_grads=True)
+        want_d = par_record(torch, q2, qm2)
+        del q2, qm2, plain
+        empty()
+        g_safe, g_bad = par_codes(torch, gan_codes, want_g)
+        sg, bad_g = par_compare(
+            torch, g, want_g, w.lr, [want_g], "(b) GAN generator step",
+            books=par_book_mask(torch, gan_codes, want_g, start,
+                                gt.model.cfg.rvq))
+        if g_bad > PAR_CODES_OFF * g_safe:
+            bad_g.append(f"(b) GAN: codes differ at {g_bad} untied positions")
+        sd, bad_d = par_compare(torch, d, want_d, w.disc_lr, [want_d],
+                                "(b) discriminator step", key="disc")
+        problems.extend(bad_g + bad_d)
+        say(f"parallel (b) GAN gloo world {world}, gan.yaml as written, "
+            f"global B={PAR_B_GAN}, from DP step 1's generator: GAN "
+            f"generator step {sg}; codes equal at {g_safe - g_bad} of "
+            f"{g_safe} untied positions (held to {PAR_CODES_OFF:.1%})")
+        say(f"    discriminator step {sd}; ms per step per rank "
+            f"{out['ms']['gan step']:.1f} / {out['ms']['disc step']:.1f}")
+    del gt, start, x, x_all
+    comm.barrier()
+    empty()
+
+    # -- tp: the 24 kHz codebooks as 512 + 512 bins, a 10 s request
+    kernels.reset_launch_counts()
+    tmesh = parallel.make_mesh(axis_name="model")
+    qstate = ref["tp_qstate"].__class__(
+        *(t.to(dev) for t in tuple(ref["tp_qstate"])[:3]), inited=True)
+    z = ref["tp_z"].to(dev)
+    codes = timed("tp", lambda: parallel.rvq_encode_tp(
+        qstate, z, ref["tp_cfg"], tmesh))
+    if rank == 0:
+        n_bad = int((codes.cpu() != ref["tp_codes"]).sum())
+        if n_bad:
+            problems.append(f"(b) tp: {n_bad} codes differ from K2's")
+        say(f"parallel (b) tp gloo world {world}: the 24 kHz model's 10 s "
+            f"request at 24 kbps (N={z.shape[1]}, n_q={codes.shape[0]}, "
+            f"bins {qstate.embed.shape[1]} as {world} x "
+            f"{qstate.embed.shape[1] // world}): codes equal to K2's at "
+            f"every position ({codes.numel()}); {out['ms']['tp']:.1f} ms "
+            "per rank")
+    out["counts"]["tp"] = launch_counts(kernels)
+
+    # -- sp: the breathing model at full width on a 4 h night
+    kernels.reset_launch_counts()
+    smesh = parallel.make_mesh(axis_name="seq")
+    bm = breathing_model(kmeans_init=False, device=dev)
+    night = ref["sp_x"].to(dev)
+    zs = timed("sp encode", lambda: parallel.seanet_encode_sp(
+        bm.params["encoder"], night, bm.cfg.seanet, smesh))
+    cs = timed("sp codes", lambda: parallel.encode_sp(
+        bm.params, bm.qstate, night, bm.cfg, smesh))
+    audio = timed("sp decode", lambda: parallel.decode_sp(
+        bm.params, bm.qstate, cs, bm.cfg, smesh))
+    out["counts"]["sp"] = launch_counts(kernels)
+    if rank == 0:
+        with torch.no_grad():
+            z1 = seanet_encoder(bm.params["encoder"], night, bm.cfg.seanet)
+            c1, margins = rvq_encode_margins(bm.qstate, z1, bm.cfg.rvq)
+            a1 = seanet_decoder(bm.params["decoder"],
+                                rvq_decode(bm.qstate, cs.permute(1, 0, 2),
+                                           bm.cfg.rvq), bm.cfg.seanet)
+        z_rel = float((zs - z1).abs().max() / z1.abs().max())
+        a_rel = float((audio - a1).abs().max() / a1.abs().max())
+        safe = (margins >= TIE_THRESHOLD).permute(1, 0, 2)
+        c1 = c1.permute(1, 0, 2)
+        n_bad = int((cs[safe] != c1[safe]).sum())
+        if not (z_rel <= 1e-4 and a_rel <= 1e-4 and n_bad == 0):
+            problems.append(
+                f"(b) sp: latents {z_rel:.3g}, audio {a_rel:.3g} of their "
+                f"largest |value| (bound 1e-4), {n_bad} codes differ "
+                "outside tie flags")
+        say(f"parallel (b) sp gloo world {world}: the breathing model "
+            f"(H=1024) on a 4 h night ({night.shape[1]} samples, "
+            f"{z1.shape[1]} frames, {z1.shape[1] // world} per shard): "
+            f"latents max|d| {z_rel:.3g} and audio {a_rel:.3g} of their "
+            f"largest |value| (held to 1e-4; 1e-5 expected), codes equal at "
+            f"{int(safe.sum())} of {safe.numel()} untied positions; ms per "
+            f"rank: encode {out['ms']['sp encode']:.1f}, encode+codes "
+            f"{out['ms']['sp codes']:.1f}, decode {out['ms']['sp decode']:.1f}")
+    del bm, zs, cs, audio
+
+    # -- pp: the published 24 kHz LM width at 4 layers over 2 stages
+    pmesh = parallel.make_mesh(axis_name="pipe")
+    lcfg = LMConfig(**ref["lm_cfg"])
+    params = init_lm(torch.Generator().manual_seed(0), lcfg, device=dev)
+    lm_codes = ref["lm_codes"].to(dev)
+    inputs = shift_codes(lm_codes)
+    stacked, other = parallel.stack_lm_layers(params, world)
+    stage = parallel.shard_stacked_layers(stacked, pmesh)
+    logits = timed("pp forward", lambda: parallel.lm_forward_batch_pp(
+        stage, other, inputs, lcfg, pmesh, PAR_LM_M, return_logits=True))
+    opt, opt_state = create_lm_train_state((stage, other), lr=3e-4)
+    step = parallel.make_lm_pp_train_step(lcfg, opt, pmesh, PAR_LM_M)
+    _, _, pm = timed("pp step", lambda: step((stage, other), opt_state,
+                                             lm_codes, keep_grads=True))
+    if rank == 0:
+        with torch.no_grad():
+            want = lm_forward_batch(params, inputs, lcfg, return_logits=True)
+        l_err = float((logits - want).abs().max())
+        del want, logits
+        leaves = _with_grad(params)
+        with torch.enable_grad():
+            loss, _ = lm_loss(leaves, lm_codes, lcfg)
+            grads = _grads(loss, leaves)
+        loss = float(loss.detach())
+        nll_rel = abs(float(pm["nll"]) - loss) / loss
+        gs, go = parallel.stack_lm_layers(grads, world)
+        want_g = list(par_leaves((parallel.shard_stacked_layers(gs, pmesh),
+                                  go)))
+        # the port's gradient bound: 1e-4 of the leaf's and the whole
+        # gradient's largest |value|
+        top = max(float(b.abs().max()) for _, b in want_g)
+        g_err, ok = 0.0, True
+        for (_, a), (_, b) in zip(par_leaves(pm["grads"]), want_g):
+            err = float((a - b).abs().max())
+            ok &= err <= 1e-4 * (float(b.abs().max()) + top)
+            g_err = max(g_err, err / top)
+        if not (l_err <= 2e-5 and nll_rel <= 1e-5 and ok):
+            problems.append(f"(b) pp: logits max|d| {l_err}, nll rel "
+                            f"{nll_rel}, gradient within its bound: {ok}")
+        say(f"parallel (b) pp gloo world {world}: the published 24 kHz LM "
+            f"width (dim {lcfg.dim}, K={lcfg.n_q}, card {lcfg.card}) at "
+            f"{lcfg.num_layers} layers, S={world}, M={PAR_LM_M}, codes "
+            f"B={PAR_LM_B} x T={lm_codes.shape[-1]}: logits max|d| "
+            f"{l_err:.3g} (2e-5), one step's nll rel {nll_rel:.3g} (1e-5), "
+            f"stage 0's gradient and the replicated one's max|d| "
+            f"{g_err:.3g} of the largest |g| (1e-4 of a leaf's and the "
+            f"largest |g|); ms per rank: forward "
+            f"{out['ms']['pp forward']:.1f}, step {out['ms']['pp step']:.1f}")
+    out["ms"]["all"] = (time.perf_counter() - t_all) * 1e3
+    (base_p / f"rank{rank}.json").write_text(json.dumps(out))
+    check(not problems, "; ".join(problems))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def par_nights(root: Path, n: int = 4) -> None:
+    """`n` seeded synthetic nights per channel under `root/synth`."""
+    for c, chan in enumerate(("thorax", "abdominal")):
+        (root / "synth" / chan).mkdir(parents=True, exist_ok=True)
+        for i in range(n):
+            np.savez(root / "synth" / chan / f"night{i}.npz",
+                     data=breathing_signal(TRAIN_NIGHT, 2000 + 10 * i + c),
+                     fs=10)
+
+
+def par_loaders(build, config, sizes):
+    train, val, mapping = build(config)
+    train.dataset.size, val.dataset.size = sizes
+    return train, val, mapping
+
+
+def phase_parallel(torch, kernels, dev, model24):
+    """The parallel package on torch.distributed. (a) NCCL at world 1 in
+    this process: default.yaml's model as written at B=16, the
+    data-parallel generator step against the plain step, bit for bit
+    (an all-reduce over one rank and a division by 1 are exact), then a
+    one-epoch fit (3 batches) of the mesh trainer with
+    `checkpoint.async_save: true` and an eval after it, its checkpoint
+    against a synchronous save of the same state, and the synchronous
+    save's seconds, the asynchronous save's blocking seconds and the
+    epoch's seconds. (b) a gloo world of 2 spawned on this card
+    (`par_rank`), after this process releases its cached blocks, against
+    single-process references computed there: DP, GAN, tp, sp, pp.
+    Returns the launch counts: (a)'s DP step and mesh fit, and (b) per
+    rank."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from encodec_tpu_torch import parallel
+    from encodec_tpu_torch.models.lm import lm_config_for
+    from encodec_tpu_torch.models.seanet import seanet_encoder
+    from encodec_tpu_torch.parallel import comm
+    from encodec_tpu_torch.train import (AsyncCheckpointer, ConfigNamespace,
+                                         Trainer, load_checkpoint,
+                                         save_checkpoint)
+    from encodec_tpu_torch.train import __main__ as train_entry
+    from encodec_tpu_torch.train.trainer import state_to_device
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    base = Path(tmp.name)
+    par_nights(base / "data")
+    cfg = train_config(str(base / "data"))
+    cfg["dataset"]["batch_size"] = 16
+    config = ConfigNamespace(cfg)
+    loader, _, _ = par_loaders(train_entry.build_dataloaders, config,
+                               (48, 16))
+    x32 = torch.from_numpy(next(iter(loader))[0]["x"])
+    x16 = x32[:16].to(dev)
+
+    # -- (a) NCCL, world 1 --------------------------------------------------
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    empty = torch.cuda.empty_cache if cuda else (lambda: None)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"file://{base}/nccl",
+                            world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh(1)
+        plain = Trainer(config, [], [], str(base / "plain"), device=dev)
+        dp = Trainer(config, [], [], str(base / "dp"), device=dev, mesh=mesh)
+        w = plain.weights_for_epoch(1)
+        # cuDNN's default algorithms are not deterministic (two runs of the
+        # same plain step differ in the last bits): the comparison runs
+        # both steps with deterministic ones
+        torch.backends.cudnn.deterministic = True
+        try:
+            s_p, m_p = plain.gen_step(plain.state, x16, w)
+            sync()
+            # the column counts the data-parallel path's own launches: this
+            # step, then the fit below
+            kernels.reset_launch_counts()
+            s_d, m_d = dp.gen_step(dp.state, x16, w)
+            sync()
+            counts_step = launch_counts(kernels)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        same = states_equal(torch, s_p, s_d) and all(
+            torch.equal(m_p[k], m_d[k]) for k in m_p)
+        check(same, "(a) NCCL world 1: the DP step differs from the plain "
+                    "step")
+        times = {"plain": [], "dp": []}
+        for name in ("plain", "dp", "dp", "plain"):
+            fn, st = ((plain.gen_step, s_p) if name == "plain"
+                      else (dp.gen_step, s_d))
+            sync()
+            t0 = time.perf_counter()
+            fn(st, x16, w)
+            sync()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        print(f"parallel (a) NCCL world 1 ({comm.transport()} transport), "
+              f"default.yaml's model as written, B=16 x 4 h: the DP "
+              f"generator step (k-means init) == the plain step, bit for "
+              f"bit (state, generator state, metrics; both with cuDNN's "
+              f"deterministic algorithms); ms per step (default algorithms, "
+              f"host "
+              f"clock, second steps, plain/dp/dp/plain): plain "
+              f"{times['plain'][0]:.1f} / {times['plain'][1]:.1f}, DP "
+              f"{times['dp'][0]:.1f} / {times['dp'][1]:.1f}")
+        del plain, dp, s_p, s_d, m_p, m_d
+        empty()
+
+        # one epoch of 3 batches with asynchronous saves, on the mesh: the
+        # trainer's data-parallel path (the preemption vote, eval's
+        # gathers, rank 0's save, the barrier after the write) under NCCL
+        cfg_a = json.loads(json.dumps(cfg))
+        cfg_a["checkpoint"]["async_save"] = True
+        cfg_a["distributed"]["data_parallel"] = True
+        conf_a = ConfigNamespace(cfg_a)
+        tl, vl, mapping = par_loaders(train_entry.build_dataloaders, conf_a,
+                                      (48, 16))
+        tr = Trainer(conf_a, tl, vl, str(base / "fit"), label_mapping=mapping,
+                     device=dev, mesh=mesh)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        tr.fit(max_epochs=1)
+        fit_s = time.perf_counter() - t0
+        val = tr.evaluate(2, save_figure=False)
+        counts_fit = launch_counts(kernels)
+        epoch_s = tr.epoch_seconds[1]
+        n_books = len(val.get("code_entropy", []))
+        check(np.isfinite(val["Loss"]) and n_books > 0,
+              f"(a) the mesh trainer's eval: {val}")
+        t0 = time.perf_counter()
+        save_checkpoint(tr.state, 1, base / "sync.ckpt")
+        sync_s = time.perf_counter() - t0
+        ck = AsyncCheckpointer()
+        block_s, async_s = [], []
+        for _ in range(2):   # the first allocates its pinned buffers
+            t0 = time.perf_counter()
+            ck.save(tr.state, 1, base / "async.ckpt")
+            block_s.append(time.perf_counter() - t0)
+            ck.wait()
+            async_s.append(time.perf_counter() - t0)
+        want = state_to_device(load_checkpoint(base / "sync.ckpt")[0], dev)
+        for name in ("fit/model.ckpt", "async.ckpt"):
+            got = state_to_device(load_checkpoint(base / name)[0], dev)
+            check(states_equal(torch, got, want),
+                  f"(a) {name} does not load equal to a synchronous save")
+        size = (base / "sync.ckpt").stat().st_size / 2 ** 20
+        print(f"parallel (a) async checkpoints: a one-epoch fit on the mesh "
+              f"of 3 batches (B=16, eval with gathered codes: val loss "
+              f"{val['Loss']:.4f}, {n_books} code entropies; an asynchronous "
+              f"save by rank 0, then the barrier) in {fit_s:.2f} s, "
+              f"the epoch's training loop {epoch_s:.2f} s; its checkpoint "
+              f"and a second asynchronous save load equal to a synchronous "
+              f"save of the state, bit for bit; synchronous save "
+              f"{sync_s:.3f} s ({size:.0f} MiB; {100 * sync_s / epoch_s:.1f}% "
+              f"of the epoch), asynchronous save blocking {block_s[0]:.3f} "
+              f"s the first time (pinned buffers allocated), "
+              f"{block_s[1]:.3f} s the next, written after "
+              f"{async_s[0]:.3f} / {async_s[1]:.3f} s")
+        del tr, want, got
+    finally:
+        dist.destroy_process_group()
+    empty()
+
+    # -- (b) the gloo world of 2; its inputs ---------------------------------
+    ref = {"device": str(dev), "x": x32, "dp_config": cfg,
+           "gan_config": gan_config(str(base / "data"))}
+    model24.set_target_bandwidth(24.0)
+    wav = torch.from_numpy(request_audio(10.0, 24000, 5)[None]).to(dev)
+    with torch.no_grad():
+        z = seanet_encoder(model24.infer_params["encoder"],
+                           wav.transpose(1, 2), model24.cfg.seanet)
+    n_q = min(model24.n_q_active, model24.cfg.rvq.n_q)
+    q = model24.qstate
+    ref.update(tp_qstate=q._replace(embed=q.embed.cpu(),
+                                    embed_avg=q.embed_avg.cpu(),
+                                    cluster_size=q.cluster_size.cpu()),
+               tp_z=z.cpu(),
+               tp_cfg=model24.cfg.rvq,
+               tp_codes=kernels.rvq_encode_fused(
+                   z[0].contiguous(), model24.qstate.embed.contiguous(),
+                   n_q, model24.cfg.rvq.shared_codebook).cpu()[:, None])
+    check(n_q == model24.cfg.rvq.n_q, f"tp: n_q {n_q} at 24 kbps")
+    ref["sp_x"] = torch.from_numpy(
+        breathing_signal(144_000, 7)[None, :, None])
+    lcfg = lm_config_for(model24)
+    ref["lm_cfg"] = dict(n_q=lcfg.n_q, card=lcfg.card, dim=lcfg.dim,
+                         num_heads=lcfg.num_heads, num_layers=PAR_LM_LAYERS,
+                         past_context=lcfg.past_context)
+    ref["lm_codes"] = torch.from_numpy(np.random.RandomState(9).randint(
+        0, lcfg.card, (PAR_LM_B, lcfg.n_q, 750)).astype(np.int64))
+    torch.save(ref, base / "ref.pt")
+    del ref, z, wav
+    empty()
+    t0 = time.perf_counter()
+    mp.spawn(par_rank, args=(PAR_WORLD, str(base / "gloo"), str(base)),
+             nprocs=PAR_WORLD, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((base / f"rank{r}.json").read_text())
+             for r in range(PAR_WORLD)]
+    counts_b = []
+    for r, res in enumerate(ranks):
+        total: dict = {}
+        for path, c in res["counts"].items():
+            for k, v in c.items():
+                total[k] = total.get(k, 0) + v
+        counts_b.append(total)
+        check(res["transport"] == "host", f"rank {r}: transport "
+              f"{res['transport']}")
+        for k in ("nearest_codebook", "rvq_encode_fused", "lstm_grid",
+                  "lstm_scan_backward"):
+            check(total.get(k, 0) > 0, f"(b) rank {r}: {k} never launched")
+        print(f"parallel (b) rank {r}: launches by path "
+              + "; ".join(f"{p} K1 {c['nearest_codebook']}, K2 "
+                          f"{c['rvq_encode_fused']}, K3 {c['lstm_scan']} "
+                          f"(grid {c['lstm_grid']}), K3 backward "
+                          f"{c['lstm_scan_backward']}"
+                          for p, c in res["counts"].items())
+              + f"; {res['ms']['all'] / 1e3:.1f} s in the rank")
+    for what, counts, names in (
+            ("the DP step", counts_step, ("nearest_codebook", "lstm_grid",
+                                          "lstm_scan_backward")),
+            ("the mesh fit", counts_fit, ("nearest_codebook", "lstm_grid",
+                                          "lstm_scan_backward",
+                                          "rvq_encode_fused"))):
+        for k in names:
+            check(counts.get(k, 0) > 0, f"(a) {what}: {k} never launched")
+    counts_a = {k: v + counts_step.get(k, 0) for k, v in counts_fit.items()}
+    print("parallel (a) launches by path: " + "; ".join(
+        f"{what} K1 {c['nearest_codebook']}, K2 {c['rvq_encode_fused']}, K3 "
+        f"{c['lstm_scan']} (grid {c['lstm_grid']}), K3 backward "
+        f"{c['lstm_scan_backward']}"
+        for what, c in (("DP step", counts_step), ("mesh fit", counts_fit))))
+    print(f"parallel: two ranks share one card here: these runs measure "
+          f"correctness, not scaling; the gloo world took {spawn_s:.1f} s "
+          f"(spawn included), the phase {time.perf_counter() - t_phase:.1f} s")
+    tmp.cleanup()
+    return counts_a, counts_b
+
+
 def launch_counts(kernels) -> dict:
     """The wrappers' launch counts, and the grid kernel's own."""
     return dict(kernels.launch_counts(),
@@ -3561,14 +4344,19 @@ def main() -> int:
     counts_lm_train = phase_lm_train(torch, kernels, model, registry,
                                      train_run)
     train_tmp.cleanup()
+    t5 = time.perf_counter()
+    counts_par, counts_ranks = phase_parallel(torch, kernels, dev, model)
     print(f"phases: K3 backward {t1 - t0:.1f} s, train {t2 - t1:.1f} s, "
           f"gan {t3 - t2:.1f} s, lm {t4 - t3:.1f} s, lm_train "
-          f"{time.perf_counter() - t4:.1f} s (at {t0 - t_start:.1f} s)")
+          f"{t5 - t4:.1f} s, parallel {time.perf_counter() - t5:.1f} s "
+          f"(at {t0 - t_start:.1f} s)")
 
     paths = {"24k": counts, "48k": counts48, "stream": counts_stream,
              "breathing": counts_breathing, "hires_tokens": counts_hires,
              "train": counts_train, "gan": counts_gan, "lm": counts_lm,
-             "lm_train": counts_lm_train}
+             "lm_train": counts_lm_train, "parallel_nccl_w1": counts_par}
+    for r, c in enumerate(counts_ranks):
+        paths[f"parallel_gloo_w2_rank{r}"] = c
     for c in paths.values():   # lstm_scan counts both K3 kernels
         c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
     rows = [

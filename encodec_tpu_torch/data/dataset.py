@@ -164,11 +164,24 @@ class DataLoader:
     reference's DataLoader-worker role (its motion-detect preprocessing
     costs seconds per 4 h night); numpy/scipy release the GIL for the
     heavy parts.
+
+    Data parallelism: `batch_size` is the global batch and `world` ranks
+    (`world` must divide it) each load only their rows `[rank·b,
+    (rank+1)·b)` of every global batch, `b = batch_size / world`, from the
+    same seeded permutation; items are keyed on (seed, epoch, index), so
+    the ranks together load exactly the single process's batches.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_last: bool = True,
-                 num_workers: int = 0, prefetch: int = 2):
+                 num_workers: int = 0, prefetch: int = 2,
+                 rank: int = 0, world: int = 1):
+        if world < 1 or not 0 <= rank < world:
+            raise ValueError(f"bad data-parallel rank {rank} of {world}")
+        if batch_size % world:
+            raise ValueError(f"global batch_size {batch_size} is not "
+                             f"divisible by the {world} data-parallel ranks")
+        self.rank, self.world = rank, world
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -224,6 +237,13 @@ class DataLoader:
             idx = order[i:i + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return
+            if self.world > 1:
+                if len(idx) % self.world:
+                    raise ValueError(
+                        f"a short last batch of {len(idx)} items does not "
+                        f"split over {self.world} ranks: use drop_last")
+                per = len(idx) // self.world
+                idx = idx[self.rank * per:(self.rank + 1) * per]
             yield idx
 
     def __iter__(self):

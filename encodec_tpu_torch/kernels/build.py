@@ -84,7 +84,8 @@ SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
         "lstm_bwd_error_string": ([_I], ctypes.c_char_p),
     },
     "vq_search": {
-        "vq_nearest_launch": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P], _I),
+        "vq_nearest_launch": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+                              _I),
         "vq_nearest_smem_bytes": ([_I], _I),
         "vq_nearest_rows_per_cta": ([], _I),
         "vq_nearest_tile_bins": ([], _I),

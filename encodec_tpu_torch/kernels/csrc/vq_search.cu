@@ -5,7 +5,9 @@
 //    idx = argmax_j -(|x|^2 - 2 x.e_j + |e_j|^2), first max wins. It also
 //    returns margin = best - max_{j != idx}, the top-2 gap the container
 //    writer's near-tie guard reads (encodec_tpu/quant/rvq.py
-//    rvq_encode_margins).
+//    rvq_encode_margins), and optionally the winner's score (its negated
+//    distance), on which the codebook-sharded search (parallel/tp.py)
+//    merges shards.
 // K2 `vq_rvq_launch` replaces vq_pallas.py:124 rvq_encode_pallas (body
 //    _rvq_kernel): all n_q stages in one launch; the residual tile stays in
 //    shared memory across stages, stage k searches book k (book 0 when
@@ -337,7 +339,8 @@ __device__ __forceinline__ void merge_bin_groups(Best (&st)[RM]) {
 __global__ void __launch_bounds__(THREADS)
 vq_nearest_kernel(const float* __restrict__ x, const float* __restrict__ book,
                   int N, int bins, int D, int per_cta, int vec16,
-                  int* __restrict__ idx_out, float* __restrict__ margin_out) {
+                  int* __restrict__ idx_out, float* __restrict__ margin_out,
+                  float* __restrict__ score_out) {
   extern __shared__ __align__(16) float smem[];
   const int ld = row_stride(D);
   float* xs = smem;                                  // [ROWS][ld]
@@ -395,6 +398,7 @@ vq_nearest_kernel(const float* __restrict__ x, const float* __restrict__ book,
     }
     idx_out[n0 + tid] = m.idx;
     margin_out[n0 + tid] = m.best - m.second;
+    if (score_out != nullptr) score_out[n0 + tid] = m.best;
   }
   cluster_sync();  // no CTA leaves while another still reads its results
 }
@@ -562,9 +566,11 @@ int vq_rvq_smem_bytes(int D) { return static_cast<int>(k2_smem_bytes(D)); }
 
 // x [N, D], book [bins, D] (contiguous f32). The plan: `cluster` CTAs per
 // 32-row tile, CTA r searching bins [r*per_cta, min(bins, (r+1)*per_cta)).
+// score_out (may be null): the winner's negated distance, the number the
+// search compared, so that codebook shards can be merged on it.
 int vq_nearest_launch(const float* x, const float* book, int N, int bins,
                       int D, int cluster, int per_cta, int* idx_out,
-                      float* margin_out, void* stream) {
+                      float* margin_out, float* score_out, void* stream) {
   if (N == 0) return 0;
   if (N < 0 || D < 1 || D > MAX_D || bad_split(bins, cluster, per_cta))
     return cudaErrorInvalidValue;
@@ -578,7 +584,7 @@ int vq_nearest_launch(const float* x, const float* book, int N, int bins,
   const cudaLaunchConfig_t cfg =
       cluster_config(N, cluster, k1_smem_bytes(D), &attr, stream);
   err = cudaLaunchKernelEx(&cfg, vq_nearest_kernel, x, book, N, bins, D,
-                           per_cta, vec16, idx_out, margin_out);
+                           per_cta, vec16, idx_out, margin_out, score_out);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

@@ -2,7 +2,9 @@
 
 K1 `nearest_codebook` replaces
 `encodec_tpu/kernels/vq_pallas.py:43::nearest_codebook_pallas`, extended to
-return the top-2 margin the container writer's near-tie guard reads. K2
+return the top-2 margin the container writer's near-tie guard reads, and
+on request the winner's score (its negated distance, the number the search
+compared), on which `parallel.tp` merges codebook shards. K2
 `rvq_encode_fused` replaces `vq_pallas.py:124::rvq_encode_pallas`: every
 stage in one launch with the residual kept on chip. Both kernels live in
 `csrc/vq_search.cu`; their work is bounded by FP32 FFMA throughput
@@ -136,18 +138,21 @@ def distances(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     return -((x_sq - 2.0 * (x @ embed.t())) + e_sq)
 
 
-def nearest_codebook_plain(x: torch.Tensor, embed: torch.Tensor
-                           ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of K1: (idx int32 [N], margin f32 [N]).
+def nearest_codebook_plain(x: torch.Tensor, embed: torch.Tensor,
+                           return_score: bool = False) -> tp.Tuple:
+    """Plain twin of K1: (idx int32 [N], margin f32 [N]), and with
+    `return_score` the winner's score f32 [N].
 
-    `idx` is the first maximum of the negated distance; `margin` is
-    `best - max over j != idx` (0 on an exact tie)."""
+    `idx` is the first maximum of the negated distance (`score` is that
+    maximum); `margin` is `best - max over j != idx` (0 on an exact tie)."""
     dist = distances(x, embed)
     best, idx = dist.max(dim=1)
     if dist.shape[1] > 1:
         second = dist.scatter(1, idx[:, None], float("-inf")).amax(dim=1)
     else:
         second = torch.full_like(best, float("-inf"))
+    if return_score:
+        return idx.to(torch.int32), best - second, best
     return idx.to(torch.int32), best - second
 
 
@@ -182,33 +187,38 @@ def _check_search(x: torch.Tensor, embed: torch.Tensor, book_dims: int) -> None:
         raise ValueError("empty codebook")
 
 
-def nearest_codebook(x: torch.Tensor, embed: torch.Tensor
-                     ) -> tp.Tuple[torch.Tensor, torch.Tensor]:
+def nearest_codebook(x: torch.Tensor, embed: torch.Tensor,
+                     return_score: bool = False) -> tp.Tuple:
     """K1: nearest codebook row and top-2 margin for each row of x.
 
     x: `[N, D]` f32, embed: `[bins, D]` f32, contiguous, one device.
     Returns (idx int32 `[N]`, margin f32 `[N]`): the first maximum of the
-    negated distance and best minus runner-up (0 on an exact tie). On CUDA
-    the launch follows `nearest_plan`; D is limited by shared memory
+    negated distance and best minus runner-up (0 on an exact tie); with
+    `return_score` also that maximum, the winner's score f32 `[N]`. On
+    CUDA the launch follows `nearest_plan`; D is limited by shared memory
     (D ≤ 352)."""
     _check_search(x, embed, 2)
     if x.device.type == "cpu":
-        return nearest_codebook_plain(x, embed)
+        return nearest_codebook_plain(x, embed, return_score)
     lib = build.load_library("vq_search")
     N, D = x.shape
     plan = nearest_plan(N, embed.shape[0], D, _sm_count(x.device))
     idx = torch.empty(N, dtype=torch.int32, device=x.device)
     margin = torch.empty(N, dtype=torch.float32, device=x.device)
+    score = (torch.empty(N, dtype=torch.float32, device=x.device)
+             if return_score else None)
+    out = (idx, margin, score) if return_score else (idx, margin)
     if N == 0:
-        return idx, margin
+        return out
     with torch.cuda.device(x.device):
         rc = lib.vq_nearest_launch(
             x.data_ptr(), embed.data_ptr(), N, embed.shape[0], D,
             plan.cluster, plan.bins_per_cta, idx.data_ptr(), margin.data_ptr(),
+            score.data_ptr() if score is not None else None,
             torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "vq_search", rc)
     nearest_codebook.launches += 1
-    return idx, margin
+    return out
 
 
 def rvq_encode_fused(x: torch.Tensor, embed: torch.Tensor, n_q: int,

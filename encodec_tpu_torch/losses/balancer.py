@@ -9,6 +9,13 @@ explicit state, each gradient is rescaled so loss i contributes
 `weight_i / Σweights · total_norm`, and the caller pulls the combined
 cotangent back through the generator with one backward
 (`train.steps`' balanced step).
+
+Under a data-parallel step (`dp`, `ops.batch_reduce`) x̂ is this rank's
+rows and the losses are global-batch means, so each `g_i` is this rank's
+slice of the global gradient; the norms are global-batch quantities too
+(the mean of per-item norms over the global batch, or the square root of
+the summed squares), so every rank scales alike and the cotangent is its
+slice of the single-process one.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ import dataclasses
 import typing as tp
 
 import torch
+
+from ..ops.batch_reduce import LOCAL, BatchReduce
 
 
 def averager(beta: float = 1.0):
@@ -63,10 +72,11 @@ def _ema_update(state: dict, norms: tp.Dict[str, torch.Tensor],
 
 def balance(balancer: Balancer,
             loss_fns: tp.Dict[str, tp.Callable[[torch.Tensor], torch.Tensor]],
-            x_hat: torch.Tensor, state: dict):
+            x_hat: torch.Tensor, state: dict, dp: BatchReduce = LOCAL):
     """The balanced cotangent for `x_hat`: returns `(cotangent, losses,
     new_state, metrics)`, the losses and the cotangent detached. The
-    arithmetic is the reference `Balancer.backward`'s."""
+    arithmetic is the reference `Balancer.backward`'s; `dp` reduces the
+    norms over the batch."""
     norms: tp.Dict[str, torch.Tensor] = {}
     grads: tp.Dict[str, torch.Tensor] = {}
     losses: tp.Dict[str, torch.Tensor] = {}
@@ -78,9 +88,9 @@ def balance(balancer: Balancer,
         losses[name] = loss.detach()
         if balancer.per_batch_item:
             dims = tuple(range(1, grad.dim()))
-            norms[name] = grad.square().sum(dim=dims).sqrt().mean()
+            norms[name] = dp.mean(grad.square().sum(dim=dims).sqrt().mean())
         else:
-            norms[name] = grad.square().sum().sqrt()
+            norms[name] = dp.sum(grad.square().sum()).sqrt()
         grads[name] = grad
 
     avg_norms, new_state = _ema_update(state, norms, balancer.ema_decay)

@@ -12,7 +12,9 @@ centered on the per-frame dominant ("breathing") frequency, or uniformly
 with `bandwidth=None`, and combines weighted L1 + alpha * L2; the
 dominant-bin match rate is reported as an accuracy metric (an argmax, so
 a near-tie can move it by a frame between two implementations; the loss
-with `bandwidth=None` does not depend on it).
+with `bandwidth=None` does not depend on it). The batch means go through
+`dp` (`ops.batch_reduce`): under a data-parallel training step they are
+the global batch's.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import typing as tp
 import torch
 import torch.nn.functional as F
 
+from ..ops.batch_reduce import LOCAL, BatchReduce
 from ..ops.stft import hann_window, stft
 
 
@@ -69,7 +72,8 @@ def reconstruction_loss(x: torch.Tensor, x_hat: torch.Tensor, *,
                         bandwidth: tp.Optional[float] = None,
                         sampling_rate: int = 10, n_fft: int = 1024,
                         hop_length: tp.Optional[int] = None,
-                        win_length: tp.Optional[int] = None
+                        win_length: tp.Optional[int] = None,
+                        dp: BatchReduce = LOCAL
                         ) -> tp.Dict[str, torch.Tensor]:
     """Weighted spectral L1+L2 with breathing-rate accuracy.
 
@@ -80,7 +84,7 @@ def reconstruction_loss(x: torch.Tensor, x_hat: torch.Tensor, *,
                                     win_length)
     rate_x = S_x.argmax(dim=1)
     rate_hat = S_x_hat.argmax(dim=1)
-    acc = (rate_x == rate_hat).float().mean()
+    acc = dp.mean((rate_x == rate_hat).float().mean())
 
     # the reference keeps bins < 0.5/bin_freq = n_fft: a no-op slice on the
     # (n_fft//2+1)-bin spectrogram, kept for fidelity
@@ -89,8 +93,8 @@ def reconstruction_loss(x: torch.Tensor, x_hat: torch.Tensor, *,
     S_x_hat = S_x_hat[:, :keep]
 
     weight = breathing_frequency_weight(S_x, rate_x, bandwidth)
-    l1 = ((S_x - S_x_hat).abs() * weight).mean()
-    l2 = ((S_x - S_x_hat).square() * weight).mean()
+    l1 = dp.mean(((S_x - S_x_hat).abs() * weight).mean())
+    l2 = dp.mean(((S_x - S_x_hat).square() * weight).mean())
     return {
         "total_loss": l1 + l2 * alpha,
         "l1_loss": l1,

@@ -36,6 +36,7 @@ import torch
 
 from .. import ops
 from ..device import resolve_device
+from ..ops.batch_reduce import LOCAL, BatchReduce
 from ..quant import (RVQConfig, RVQState, init_rvq, num_quantizers_for_bandwidth,
                      resolve_ties_f64, rvq_decode, rvq_encode,
                      rvq_encode_margins, rvq_forward)
@@ -152,7 +153,8 @@ def decode_frame(params, qstate: RVQState, codes: torch.Tensor,
 def forward_train(params, qstate: RVQState, x: torch.Tensor,
                   cfg: EncodecConfig, n_q: int,
                   generator: tp.Optional[torch.Generator] = None,
-                  training: bool = True, plain: bool = False, **draws):
+                  training: bool = True, plain: bool = False,
+                  dp: BatchReduce = LOCAL, **draws):
     """Fork-style training forward on one (unsegmented) batch `[B, T, C]`.
 
     Returns (x_hat [B, T, C], codes [B, K, T'], commit_losses [K],
@@ -161,12 +163,13 @@ def forward_train(params, qstate: RVQState, x: torch.Tensor,
     codebook loss in the reference (vq.py:114), and callers weight them
     separately. `training=False` is the eval forward: K2 codes and the
     quantizer state unchanged. `draws` (`init_idx`, `sample_idx`,
-    `margins`) go to `rvq_forward`; `plain=True` runs every kernel's plain
+    `margins`) go to `rvq_forward`, and `dp` (the batch's reductions over
+    a data-parallel step's ranks); `plain=True` runs every kernel's plain
     twin."""
     emb = seanet_encoder(params["encoder"], x, cfg.seanet, plain=plain)
     quantized, codes, commit, new_qstate = rvq_forward(
         qstate, emb, cfg.rvq, n_q=n_q, training=training, generator=generator,
-        plain=plain, **draws)
+        plain=plain, dp=dp, **draws)
     out = seanet_decoder(params["decoder"], quantized, cfg.seanet, plain=plain)
     return out[:, :x.shape[1]], codes.permute(1, 0, 2), commit, new_qstate
 

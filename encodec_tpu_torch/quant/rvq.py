@@ -22,6 +22,17 @@ same indices; the indices can also be passed in (`init_idx`, `sample_idx`),
 which is how the tests feed JAX's draws to the port. The EMA statistics
 are one-hot matmuls (no atomics), so a step gives the same bits run to
 run.
+
+Under a data-parallel training step (`dp`, a `parallel.comm.DataParallel`;
+`ops.batch_reduce.LOCAL` otherwise) each rank holds its rows of the global
+batch, and every draw from the step's
+generator sees the global rows in rank order, so the ranks' codebooks and
+generator states stay identical and equal the single process's on the
+whole batch: the lazy k-means init runs on the gathered residual on every
+rank, the EMA statistics are summed over ranks before the decay, the
+expiry draws row indices over the global N (the owning rank contributes
+each drawn row, the others zeros, summed: x + 0 is exact), and the commit
+loss is the global mean.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ import torch
 
 from ..kernels import (nearest_codebook, nearest_codebook_plain,
                        rvq_encode_fused, rvq_encode_fused_plain)
+from ..ops.batch_reduce import LOCAL, BatchReduce
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,26 +231,39 @@ def _kmeans(samples: torch.Tensor, num_clusters: int, num_iters: int,
 
 def _sample_vectors(samples: torch.Tensor, num: int,
                     generator: tp.Optional[torch.Generator] = None,
-                    idx: tp.Optional[torch.Tensor] = None) -> torch.Tensor:
+                    idx: tp.Optional[torch.Tensor] = None,
+                    dp: BatchReduce = LOCAL) -> torch.Tensor:
     """Random batch vectors for init and expiry (ref core_vq.py:65-73): the
-    rows `idx`, drawn from `generator` when not given."""
+    rows `idx`, drawn from `generator` when not given. Under data
+    parallelism `samples` is this rank's block of the global rows and the
+    indices are global."""
+    r, ranks = dp.rows()
+    n = samples.shape[0]
     if idx is None:
-        idx = _draw(samples.shape[0], num, generator, samples.device)
-    return samples[idx.to(samples.device)]
+        idx = _draw(n * ranks, num, generator, samples.device)
+    idx = idx.to(samples.device)
+    if ranks == 1:
+        return samples[idx]
+    local = idx - r * n
+    mine = (local >= 0) & (local < n)
+    rows = samples[local.clamp(0, n - 1)]
+    return dp.sum(torch.where(mine[:, None], rows, torch.zeros_like(rows)))
 
 
 def _stage_train(cfg: RVQConfig, residual: torch.Tensor, embed: torch.Tensor,
                  embed_avg: torch.Tensor, cluster_size: torch.Tensor,
                  generator: tp.Optional[torch.Generator] = None,
                  sample_idx: tp.Optional[torch.Tensor] = None,
-                 plain: bool = False, margins: tp.Optional[list] = None):
+                 plain: bool = False, margins: tp.Optional[list] = None,
+                 dp: BatchReduce = LOCAL):
     """One RVQ stage in training mode (residual: [N, D]).
 
     Returns (quantized_st [N, D], codes [N] int64, commit_loss [], new
     (embed, embed_avg, cluster_size)). The codebook statistics carry no
     gradient; quantized_st passes the gradient straight through to the
     residual, and the commit loss pulls the residual to its code. The
-    search's top-2 margins [N] are appended to `margins` when given."""
+    search's top-2 margins [N] are appended to `margins` when given. `dp`
+reduces the statistics, the draws and the commit loss over the batch."""
     x = residual
     xd = x.detach()
     idx = _search(xd, embed, plain, margins)
@@ -247,8 +272,8 @@ def _stage_train(cfg: RVQConfig, residual: torch.Tensor, embed: torch.Tensor,
 
     # EMA codebook update (ref core_vq.py:240-252)
     cluster_size_new = (cluster_size * cfg.decay
-                        + one_hot.sum(0) * (1 - cfg.decay))
-    embed_sum = one_hot.t() @ xd
+                        + dp.sum(one_hot.sum(0)) * (1 - cfg.decay))
+    embed_sum = dp.sum(one_hot.t() @ xd)
     embed_avg_new = embed_avg * cfg.decay + embed_sum * (1 - cfg.decay)
     n = cluster_size_new.sum()
     smoothed = ((cluster_size_new + cfg.epsilon)
@@ -262,14 +287,15 @@ def _stage_train(cfg: RVQConfig, residual: torch.Tensor, embed: torch.Tensor,
     # replacement survives the next normalization.
     if cfg.threshold_ema_dead_code > 0:
         expired = (cluster_size_new < cfg.threshold_ema_dead_code)[:, None]
-        replacement = _sample_vectors(xd, cfg.bins, generator, sample_idx)
+        replacement = _sample_vectors(xd, cfg.bins, generator, sample_idx,
+                                      dp)
         embed_out = torch.where(expired, replacement, embed_out)
         embed_avg_new = torch.where(expired, replacement * smoothed[:, None],
                                     embed_avg_new)
 
     # straight-through + commit loss (ref core_vq.py:316-346)
     quantized_st = x + (quantized - x).detach()
-    commit_loss = (quantized_st.detach() - x).square().mean()
+    commit_loss = dp.mean((quantized_st.detach() - x).square().mean())
     return (quantized_st, idx, commit_loss,
             (embed_out, embed_avg_new, cluster_size_new))
 
@@ -279,7 +305,7 @@ def rvq_forward(state: RVQState, x: torch.Tensor, cfg: RVQConfig, *,
                 generator: tp.Optional[torch.Generator] = None,
                 plain: bool = False, init_idx: Draws = None,
                 sample_idx: Draws = None,
-                margins: tp.Optional[list] = None):
+                margins: tp.Optional[list] = None, dp: BatchReduce = LOCAL):
     """Full RVQ forward (the training semantics of the reference's
     `vq(x, n_q)`). x: [B, T, D] latents.
 
@@ -289,7 +315,9 @@ def rvq_forward(state: RVQState, x: torch.Tensor, cfg: RVQConfig, *,
     the k-means seeds) and `sample_idx` (per stage, the expiry
     replacements) give the draws instead. With `margins` (a list), each
     training stage's top-2 search margins [B·T] are appended to it, for a
-    near-tie guard when two routes are compared."""
+    near-tie guard when two routes are compared. `dp` spans the batch's
+    reductions and draws over a data-parallel step's ranks (x is this
+    rank's rows)."""
     n_q = _active_n_q(cfg, n_q)
     B, T, D = x.shape
     if not training:
@@ -302,7 +330,7 @@ def rvq_forward(state: RVQState, x: torch.Tensor, cfg: RVQConfig, *,
     # book k's k-means sees the RESIDUAL after the books before it quantize
     # with their fresh means, not the raw latents.
     if cfg.kmeans_init and not state.inited:
-        residual = flat.detach()
+        residual = dp.gather(flat.detach())
         means, counts = [], []
         for k in range(cfg.num_books):
             m, c = _kmeans(residual, cfg.bins, cfg.kmeans_iters, generator,
@@ -321,7 +349,7 @@ def rvq_forward(state: RVQState, x: torch.Tensor, cfg: RVQConfig, *,
         b = 0 if cfg.shared_codebook else k
         q, idx, commit, (new_e[b], new_ea[b], new_cs[b]) = _stage_train(
             cfg, residual, new_e[b], new_ea[b], new_cs[b], generator,
-            None if sample_idx is None else sample_idx[k], plain, margins)
+            None if sample_idx is None else sample_idx[k], plain, margins, dp)
         residual = residual - q
         qs.append(q)
         codes.append(idx)

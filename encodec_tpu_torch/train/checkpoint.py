@@ -25,8 +25,13 @@ Saving writes the same manifest structure the JAX package writes, so
 file the port wrote; tensors are written as numpy arrays, on any device.
 The write is atomic (a temporary file, fsync'd, renamed over the target),
 the previous generation is rotated to `<path>.prev` first, and the payload
-carries `format_version`. The JAX package's `AsyncCheckpointer` is not
-ported: constructing it raises.
+carries `format_version`.
+
+`AsyncCheckpointer` (JAX's, :289-336) overlaps a save with training: a
+snapshot of the state on the device (new tensors, so the next step cannot
+race the writer), the device-to-host copy on a side stream fenced by an
+event, and `save_checkpoint` on one writer thread, at most one write in
+flight; a writer's error is raised by the next `save` or `wait`.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ import collections
 import json
 import logging
 import os
+import threading
 import typing as tp
 import zipfile
 from pathlib import Path
@@ -43,9 +49,6 @@ import numpy as np
 import torch
 
 FORMAT_VERSION = 2
-ASYNC_ITEM = ("asynchronous checkpoint saving is not ported; saves are "
-              "synchronous (ROADMAP item 11e): set checkpoint.async_save: "
-              "false")
 
 log = logging.getLogger(__name__)
 
@@ -204,12 +207,109 @@ def save_checkpoint(state, epoch: int, path: tp.Union[str, Path],
         pass  # non-POSIX or restricted fs: the renames are still atomic
 
 
-class AsyncCheckpointer:
-    """Not ported: the JAX package overlaps checkpoint writes with training
-    on a device snapshot; the port writes synchronously."""
+def _snapshot(tree, copies: list):
+    """A copy of every tensor leaf of `tree` (namedtuples keep their class),
+    on its own device; CUDA leaves are appended to `copies`."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach().clone()
+        if t.is_cuda:
+            copies.append(t)
+        return t
+    if isinstance(tree, dict):
+        return {k: _snapshot(v, copies) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_snapshot(v, copies) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_snapshot(v, copies) for v in tree)
+    return tree
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"AsyncCheckpointer: {ASYNC_ITEM}")
+
+def _to_host(tree, stream, buffers: tp.Iterator[torch.Tensor]) -> tp.Any:
+    """CUDA leaves → the next pinned host buffers of `buffers`, copied on
+    `stream` (not waited for); other leaves as they are."""
+    if isinstance(tree, torch.Tensor):
+        if not tree.is_cuda:
+            return tree
+        host = next(buffers)
+        tree.record_stream(stream)
+        host.copy_(tree, non_blocking=True)
+        return host
+    if isinstance(tree, dict):
+        return {k: _to_host(v, stream, buffers) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_to_host(v, stream, buffers) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_host(v, stream, buffers) for v in tree)
+    return tree
+
+
+class AsyncCheckpointer:
+    """Overlap checkpoint writes with training (JAX's `AsyncCheckpointer`).
+
+    `save()` waits for the write in flight (ordering kept, and a slow disk
+    cannot queue snapshots), then copies the state on its device (the
+    current stream: the copy sees every update queued before it, and the
+    steps after it cannot touch it), copies that snapshot to pinned host
+    memory on a side stream, records an event there, and starts one writer
+    thread that waits on the event and runs `save_checkpoint`. It returns
+    once the copies are queued: the caller blocks for the snapshot's
+    launch, not for the transfer or the disk. The pinned buffers are kept
+    for the next save of a state of the same layout (the write before it
+    is done by then), so only the first save pays their allocation.
+    `wait()` blocks until the write is done and re-raises its error; a
+    failed write is also raised by the next `save()`."""
+
+    def __init__(self):
+        self._thread: tp.Optional[threading.Thread] = None
+        self._error: tp.Optional[BaseException] = None
+        self._streams: tp.Dict[torch.device, tp.Any] = {}
+        self._pinned: tp.List[torch.Tensor] = []
+
+    def save(self, state, epoch: int, path: tp.Union[str, Path],
+             extra: tp.Optional[dict] = None,
+             keep_previous: bool = True) -> None:
+        self.wait()
+        cuda: tp.List[torch.Tensor] = []
+        snap = _snapshot(state, cuda)
+        event = None
+        if cuda:
+            dev = cuda[0].device
+            stream = self._streams.get(dev)
+            if stream is None:
+                stream = self._streams[dev] = torch.cuda.Stream(dev)
+            layout = [(t.shape, t.dtype) for t in cuda]
+            if [(t.shape, t.dtype) for t in self._pinned] != layout:
+                self._pinned = [torch.empty(shape, dtype=dtype,
+                                            pin_memory=True)
+                                for shape, dtype in layout]
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                snap = _to_host(snap, stream, iter(self._pinned))
+                event = torch.cuda.Event()
+                event.record(stream)
+
+        def run():
+            try:
+                if event is not None:
+                    event.synchronize()
+                save_checkpoint(snap, epoch, path, extra=extra,
+                                keep_previous=keep_previous)
+            except BaseException as e:  # raised by the next save()/wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="ckpt-writer")
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Block until the write in flight (if any) is done; re-raise its
+        error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
 
 
 def load_checkpoint(path: tp.Union[str, Path]):

@@ -25,8 +25,26 @@ launch in the discriminator step's generator forward, K2 in the eval step.
 The discriminator's convs are cuDNN's. `plain=True` runs every plain twin
 instead (the reference the kernels are held to on the card).
 
+Data parallelism (`mesh=`, JAX's `make_train_steps(mesh=)`): each rank
+passes its rows of the global batch (`parallel.shard_batch`) and a state
+identical on every rank. The steps hand `dp`, a `parallel.comm.
+DataParallel` over the mesh's `data` axis (`ops.batch_reduce.LOCAL`
+without a mesh), to every loss, the balancer and the quantizer: every loss
+is a mean over the global batch (JAX's SPMD semantics), the quantizer's
+statistics and draws see the global rows (`quant.rvq`), the balancer's
+norms are global, and the gradients are summed over ranks in flat buckets
+(`comm.all_reduce_tree`) before the clip and Adam, so the clip sees the
+global norm and every rank takes the same update: the step equals the
+single-process step on the whole batch, to float rounding. The scalar
+metrics are global, hence equal on every rank, and each step ends by
+checking that they are (`dp.check_replicated`: a loss term that missed
+`dp` raises); the codes and margins of `keep_grads` and eval's per-item
+losses are the rank's own rows.
+
 Not ported: `compute_dtype=bfloat16` (ROADMAP item 11d: an H100 bf16 mode
 needs a margin audit first); asking for it raises `NotImplementedError`.
+Nor the data×seq step (`distributed.seq_parallel`, ROADMAP item 11f),
+refused by name (`refuse_seq_parallel`).
 """
 
 from __future__ import annotations
@@ -41,10 +59,12 @@ from ..losses.balancer import Balancer, balance, init_balancer_state
 from ..losses.gan import disc_loss, total_loss
 from ..losses.spectrogram import reconstruction_loss
 from ..models.model import EncodecConfig, forward_train
+from ..ops.batch_reduce import LOCAL, BatchReduce
 from ..models.msstftd import (MSSTFTConfig, init_msstftd, msstftd_forward,
                               msstftd_gan_sums_chunked, msstftd_num_fmaps,
                               msstftd_sub_forward)
 from ..ops.conv import spectral_norm_update_tree
+from ..parallel import comm
 from ..quant import RVQState
 from .optim import AdamState, adam_update, init_adam, tree_leaves, tree_map
 
@@ -52,8 +72,17 @@ BF16_ITEM = ("bfloat16 compute is not ported: an H100 bf16 mode needs a "
              "margin audit first (ROADMAP item 11d)")
 
 
+SEQ_ITEM = ("the data×seq training step is not ported: sequence "
+            "parallelism's halo exchange needs a backward first (ROADMAP "
+            "item 11f); use distributed.data_parallel alone")
+
+
 def refuse_bf16(what: str) -> tp.NoReturn:
     raise NotImplementedError(f"{what}: {BF16_ITEM}")
+
+
+def refuse_seq_parallel(what: str) -> tp.NoReturn:
+    raise NotImplementedError(f"{what}: {SEQ_ITEM}")
 
 
 DISC_SEED_OFFSET = 1 << 20
@@ -140,18 +169,21 @@ def _with_grad(tree):
 
 
 def gan_terms(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
-              x_hat: torch.Tensor, disc_remat: bool = False):
+              x_hat: torch.Tensor, disc_remat: bool = False,
+              dp: BatchReduce = LOCAL):
     """The generator's GAN terms `(l_g, l_feat)` by JAX's route for the
     config: the chunked discriminator (`disc_cfg.time_chunk`), each
     resolution recomputed in the backward (`disc_remat`), or the whole
-    signal. The real signal's branch builds no graph."""
+    signal. The real signal's branch builds no graph; `dp` reduces the
+    batch means."""
     n_subs = len(disc_params["discs"])
     n_feat = n_subs * msstftd_num_fmaps(disc_cfg)
     l_g = l_feat = batch.new_zeros(())
     if disc_cfg.time_chunk:
         for i, sub in enumerate(disc_params["discs"]):
-            sums = msstftd_gan_sums_chunked(sub, batch, x_hat, disc_cfg, i,
-                                            chunk=disc_cfg.time_chunk)
+            sums = {k: dp.sum(v) for k, v in msstftd_gan_sums_chunked(
+                sub, batch, x_hat, disc_cfg, i,
+                chunk=disc_cfg.time_chunk).items()}
             l_g = l_g + sums["lg_fake"] / sums["n_logit"]
             # mean|real - fake| / mean|real| per layer: the counts cancel
             l_feat = l_feat + (sums["feat_diff"] / sums["feat_real"]).sum()
@@ -164,23 +196,30 @@ def gan_terms(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
                 with torch.no_grad():
                     _, fmap_real = msstftd_sub_forward(sub, batch, disc_cfg,
                                                        i)
-                lf = batch.new_zeros(())
-                for fr, ff in zip(fmap_real, fmap_fake):
-                    lf = lf + (fr - ff).abs().mean() / fr.abs().mean()
-                return (1.0 - logits_fake).square().mean(), lf
-            lg, lf = checkpoint(one, x_hat, use_reentrant=False)
-            l_g = l_g + lg
+                diff = torch.stack([(fr - ff).abs().mean()
+                                    for fr, ff in zip(fmap_real, fmap_fake)])
+                real = torch.stack([fr.abs().mean() for fr in fmap_real])
+                return (1.0 - logits_fake).square().mean(), diff, real
+            # the ranks' means are combined outside the recomputed region,
+            # so no collective runs in the backward
+            lg, diff, real = checkpoint(one, x_hat, use_reentrant=False)
+            diff, real = dp.mean(diff), dp.mean(real)
+            lf = batch.new_zeros(())
+            for j in range(diff.shape[0]):
+                lf = lf + diff[j] / real[j]
+            l_g = l_g + dp.mean(lg)
             l_feat = l_feat + lf
         return l_g / n_subs, l_feat / n_feat
     with torch.no_grad():
         _, fmap_real = msstftd_forward(disc_params, batch, disc_cfg)
     logits_fake, fmap_fake = msstftd_forward(disc_params, x_hat, disc_cfg)
-    lg = total_loss(fmap_real, logits_fake, fmap_fake, batch, x_hat)
+    lg = total_loss(fmap_real, logits_fake, fmap_fake, batch, x_hat, dp)
     return lg["l_g"], lg["l_feat"]
 
 
 def disc_losses(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
-                x_hat: torch.Tensor, disc_remat: bool = False):
+                x_hat: torch.Tensor, disc_remat: bool = False,
+                dp: BatchReduce = LOCAL):
     """The discriminator's LSGAN loss and its mean logits on the real and
     the fake signal, `(loss, logits_real, logits_fake)`, by the same three
     routes as `gan_terms`."""
@@ -189,8 +228,9 @@ def disc_losses(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
         loss = lr_mean = lf_mean = batch.new_zeros(())
         for i, sub in enumerate(subs):
             if disc_cfg.time_chunk:
-                sums = msstftd_gan_sums_chunked(sub, batch, x_hat, disc_cfg,
-                                                i, chunk=disc_cfg.time_chunk)
+                sums = {k: dp.sum(v) for k, v in msstftd_gan_sums_chunked(
+                    sub, batch, x_hat, disc_cfg, i,
+                    chunk=disc_cfg.time_chunk).items()}
                 n = sums["n_logit"]
                 l_i = (sums["sq_fake"] + sums["lg_real"]) / n
                 lr_i, lf_i = sums["sum_real"] / n, sums["sum_fake"] / n
@@ -198,18 +238,20 @@ def disc_losses(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
                 def one(i=i, sub=sub):
                     lr, _ = msstftd_sub_forward(sub, batch, disc_cfg, i)
                     lf, _ = msstftd_sub_forward(sub, x_hat, disc_cfg, i)
-                    return (lf.square().mean() + (1.0 - lr).square().mean(),
+                    return (lf.square().mean(), (1.0 - lr).square().mean(),
                             lr.mean(), lf.mean())
-                l_i, lr_i, lf_i = checkpoint(one, use_reentrant=False)
+                sq_f, sq_r, lr_i, lf_i = checkpoint(one, use_reentrant=False)
+                l_i = dp.mean(sq_f) + dp.mean(sq_r)
+                lr_i, lf_i = dp.mean(lr_i), dp.mean(lf_i)
             loss = loss + l_i
             lr_mean = lr_mean + lr_i
             lf_mean = lf_mean + lf_i
         return loss / len(subs), lr_mean / len(subs), lf_mean / len(subs)
     logits_real, _ = msstftd_forward(disc_params, batch, disc_cfg)
     logits_fake, _ = msstftd_forward(disc_params, x_hat, disc_cfg)
-    return (disc_loss(logits_real, logits_fake),
-            sum(lg.mean() for lg in logits_real) / len(logits_real),
-            sum(lg.mean() for lg in logits_fake) / len(logits_fake))
+    return (disc_loss(logits_real, logits_fake, dp),
+            sum(dp.mean(lg.mean()) for lg in logits_real) / len(logits_real),
+            sum(dp.mean(lg.mean()) for lg in logits_fake) / len(logits_fake))
 
 
 def make_train_steps(model_cfg: EncodecConfig,
@@ -219,7 +261,7 @@ def make_train_steps(model_cfg: EncodecConfig,
                      balancer: tp.Optional[Balancer] = None,
                      clip: tp.Optional[float] = 0.1,
                      compute_dtype=None, disc_remat: bool = False,
-                     plain: bool = False):
+                     plain: bool = False, mesh=None):
     """Build `(gen_step, disc_step, eval_step, balanced_gen_step)`, as JAX's
     `make_train_steps` (`balanced_gen_step` is None without a balancer).
 
@@ -237,7 +279,12 @@ def make_train_steps(model_cfg: EncodecConfig,
     `batch` is a float32 tensor on the parameters' device. The steps are
     functional: `state` is not modified. `disc_remat=True` recomputes each
     STFT resolution's GAN terms in the backward (less memory, the same
-    values); `disc_cfg.time_chunk` supersedes it."""
+    values); `disc_cfg.time_chunk` supersedes it.
+
+    `mesh` (a `DeviceMesh` with a "data" axis): each step is the
+    data-parallel step on this rank's rows of the global batch (see the
+    module's docstring). A mesh of one rank runs the same code and gives
+    the plain step's bits."""
     if compute_dtype is not None and compute_dtype not in (torch.float32,
                                                           "float32", "f32"):
         refuse_bf16(f"compute_dtype={compute_dtype}")
@@ -245,8 +292,17 @@ def make_train_steps(model_cfg: EncodecConfig,
     fl_kwargs = dict(alpha=0.01, bandwidth=None, sampling_rate=10, n_fft=512)
     fl_kwargs.update(freq_loss_kwargs or {})
 
+    group = None if mesh is None else mesh.get_group("data")
+    dp = LOCAL if mesh is None else comm.DataParallel(group)
+
     def freq_loss(x, x_hat):
-        return reconstruction_loss(x[..., 0], x_hat[..., 0], **fl_kwargs)
+        return reconstruction_loss(x[..., 0], x_hat[..., 0], dp=dp,
+                                   **fl_kwargs)
+
+    def reduce_grads(grads):
+        """Each rank's gradient is its rows' share of the global loss's:
+        their sum is the whole batch's."""
+        return grads if mesh is None else comm.all_reduce_tree(grads, group)
 
     def gen_step(state: TrainState, batch: torch.Tensor,
                  weights: LossWeights, use_gan: bool = False,
@@ -263,10 +319,10 @@ def make_train_steps(model_cfg: EncodecConfig,
         with torch.enable_grad():
             x_hat, codes, commit, new_qstate = forward_train(
                 params, state.qstate, batch, model_cfg, n_q, generator,
-                training=True, plain=plain, margins=margins)
+                training=True, plain=plain, dp=dp, margins=margins)
             commit_mean = commit.mean()
             freq = freq_loss(batch, x_hat)
-            losses_g = total_loss(None, None, None, batch, x_hat)
+            losses_g = total_loss(None, None, None, batch, x_hat, dp)
             loss = (losses_g["l_1"] * weights.l1
                     + freq["total_loss"] * weights.freq
                     + losses_g["l_2"] * weights.l2
@@ -274,9 +330,9 @@ def make_train_steps(model_cfg: EncodecConfig,
                     + commit_mean * weights.codebook)
             if use_gan:
                 l_g, l_feat = gan_terms(state.disc_params, disc_cfg, batch,
-                                        x_hat, disc_remat)
+                                        x_hat, disc_remat, dp)
                 loss = loss + l_g * weights.gen + l_feat * weights.feat
-            grads = _grads(loss, params)
+            grads = reduce_grads(_grads(loss, params))
         new_params, new_opt, grad_norm = adam_update(
             grads, state.opt_state, params_in, weights.lr, clip)
         metrics = {
@@ -292,6 +348,7 @@ def make_train_steps(model_cfg: EncodecConfig,
         }
         if use_gan:
             metrics.update(loss_gen=l_g.detach(), loss_feat=l_feat.detach())
+        dp.check_replicated(metrics)
         if keep_grads:
             metrics.update(grads=grads, codes=codes,
                            margins=torch.stack(margins))
@@ -310,18 +367,19 @@ def make_train_steps(model_cfg: EncodecConfig,
         with torch.enable_grad():
             x_hat, _, commit, new_qstate = forward_train(
                 params, state.qstate, batch, model_cfg, n_q, generator,
-                training=True, plain=plain)
+                training=True, plain=plain, dp=dp)
             commit_mean = commit.mean()
         loss_fns = {
-            "l_t": lambda y: (batch - y).abs().mean(),
+            "l_t": lambda y: dp.mean((batch - y).abs().mean()),
             "l_f": lambda y: freq_loss(batch, y)["total_loss"],
         }
         cot, losses, new_bal, bal_metrics = balance(
-            balancer, loss_fns, x_hat, state.balancer_state)
+            balancer, loss_fns, x_hat, state.balancer_state, dp)
         # the commit scalar feeds both the commit and the codebook weights
         # (the reference passes one loss under both names, vq.py:114)
         w_commit = commit_mean.new_tensor(weights.commit + weights.codebook)
-        grads = _grads((x_hat, commit_mean), params, (cot, w_commit))
+        grads = reduce_grads(_grads((x_hat, commit_mean), params,
+                                    (cot, w_commit)))
         new_params, new_opt, grad_norm = adam_update(
             grads, state.opt_state, state.params, weights.lr, clip)
         zero = commit_mean.new_zeros(())
@@ -332,6 +390,7 @@ def make_train_steps(model_cfg: EncodecConfig,
                        loss_l1=losses["l_t"], loss_l2=zero,
                        loss_freq=losses["l_f"], freq_acc=zero,
                        grad_norm=grad_norm)
+        dp.check_replicated(metrics)
         if keep_grads:
             metrics["grads"] = grads
         return state._replace(params=new_params, qstate=new_qstate,
@@ -351,18 +410,19 @@ def make_train_steps(model_cfg: EncodecConfig,
         with torch.no_grad():
             x_hat, _, _, _ = forward_train(
                 state.params, state.qstate, batch, model_cfg, n_q, generator,
-                training=True, plain=plain)
+                training=True, plain=plain, dp=dp)
         disc = _with_grad(disc_in)
         with torch.enable_grad():
             loss, lr_mean, lf_mean = disc_losses(disc, disc_cfg, batch,
-                                                 x_hat, disc_remat)
-            grads = _grads(loss, disc)
+                                                 x_hat, disc_remat, dp)
+            grads = reduce_grads(_grads(loss, disc))
         new_disc, new_opt, grad_norm = adam_update(
             grads, state.disc_opt_state, disc_in, weights.disc_lr, clip)
         metrics = {"loss_disc": loss.detach(),
                    "logits_real": lr_mean.detach(),
                    "logits_fake": lf_mean.detach(),
                    "disc_grad_norm": grad_norm}
+        dp.check_replicated(metrics)
         if keep_grads:
             metrics["grads"] = grads
         return state._replace(disc_params=new_disc, disc_opt_state=new_opt,
@@ -373,9 +433,9 @@ def make_train_steps(model_cfg: EncodecConfig,
                   weights: LossWeights):
         x_hat, codes, commit, _ = forward_train(
             state.params, state.qstate, batch, model_cfg, n_q, training=False,
-            plain=plain)
+            plain=plain, dp=dp)
         freq = freq_loss(batch, x_hat)
-        losses_g = total_loss(None, None, None, batch, x_hat)
+        losses_g = total_loss(None, None, None, batch, x_hat, dp)
         loss = (losses_g["l_1"] * weights.l1
                 + freq["total_loss"] * weights.freq
                 + losses_g["l_2"] * weights.l2
@@ -386,6 +446,7 @@ def make_train_steps(model_cfg: EncodecConfig,
             "freq_acc": freq["acc"], "loss_commit": commit.mean(),
             "l_t": losses_g["l_t"], "l_t_2": losses_g["l_t_2"],
         }
+        dp.check_replicated(metrics)
         return metrics, codes, x_hat
 
     return (gen_step, disc_step, eval_step,

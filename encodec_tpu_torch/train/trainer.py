@@ -16,7 +16,21 @@ the gradient balancer when `balancer.weights` is set and
 The trainer runs on `device` (default "cuda"; it raises without a GPU;
 "cpu" runs every plain twin). Configs it cannot run yet are refused when
 the trainer is built, not epochs later: a compute dtype other than
-float32 (ROADMAP item 11d) and `checkpoint.async_save: true` (item 11e).
+float32 (ROADMAP item 11d) and `distributed.seq_parallel` above 1 (the
+data×seq step, item 11f).
+
+`checkpoint.async_save: true` writes through `AsyncCheckpointer` (JAX's
+`trainer.py:328-354`): `resume` and the end of `fit` wait for the write.
+
+Data parallelism (`mesh=`, a `DeviceMesh` with a `data` axis, one process
+per device; `python -m encodec_tpu_torch.train` builds it under torchrun):
+the loaders yield each rank's rows of the global batch, the steps are the
+data-parallel steps (`make_train_steps(mesh=)`), the train metrics are
+global, eval's per-item losses and code entropies are over the gathered
+rows, and rank 0 alone writes the config, TensorBoard, figures and
+checkpoints (a barrier follows each wait for a write); every rank loads on
+resume. A preemption request on any rank stops every rank at the same
+step boundary.
 """
 
 from __future__ import annotations
@@ -38,14 +52,15 @@ from ..losses.balancer import Balancer
 from ..models.model import EncodecModel, build_model
 from ..models.msstftd import MSSTFTConfig
 from ..quant import RVQState, num_quantizers_for_bandwidth
-from .checkpoint import (ASYNC_ITEM, load_checkpoint_with_fallback,
+from ..parallel import comm
+from .checkpoint import (AsyncCheckpointer, load_checkpoint_with_fallback,
                          previous_path, save_checkpoint)
 from .config import ConfigNamespace, config_to_dict, parse_segment
 from .metrics import Metrics
 from .optim import AdamState
 from .schedulers import linear_warmup_cosine
 from .steps import (LossWeights, TrainState, create_train_state,
-                    make_train_steps, refuse_bf16)
+                    make_train_steps, refuse_bf16, refuse_seq_parallel)
 
 # `extra` of the checkpoints this trainer writes: the parameters are in the
 # port's (torch) layout, unlike a JAX-written file's
@@ -126,9 +141,11 @@ def state_to_device(raw, device: torch.device) -> TrainState:
 class Trainer:
     def __init__(self, config: ConfigNamespace, train_loader, val_loader,
                  log_dir: str, label_mapping: tp.Optional[dict] = None,
-                 writer=None, device: tp.Union[str, torch.device] = "cuda"):
+                 writer=None, device: tp.Union[str, torch.device] = "cuda",
+                 mesh=None):
         """`train_loader` and `val_loader` yield `(batch, ds_ids)` with
-        `batch["x"]` a `[B, T, C]` float32 array (the port's `DataLoader`)."""
+        `batch["x"]` a `[B, T, C]` float32 array (the port's `DataLoader`;
+        under `mesh`, this rank's rows)."""
         self.config = config
         self.train_loader = train_loader
         self.val_loader = val_loader
@@ -137,9 +154,16 @@ class Trainer:
         dtype_name = getattr(config.common, "compute_dtype", None)
         if dtype_name and str(dtype_name) not in ("float32", "f32"):
             refuse_bf16(f"common.compute_dtype: {dtype_name}")
-        if getattr(getattr(config, "checkpoint", None), "async_save", False):
-            raise NotImplementedError(
-                f"checkpoint.async_save: true: {ASYNC_ITEM}")
+        seq = int(getattr(getattr(config, "distributed", None),
+                          "seq_parallel", 0) or 0)
+        if seq > 1:
+            refuse_seq_parallel(f"distributed.seq_parallel: {seq}")
+        self.mesh = mesh
+        self.group = None if mesh is None else mesh.get_group("data")
+        self.rank = 0 if mesh is None else comm.rank(self.group)
+        self.async_save = bool(getattr(getattr(config, "checkpoint", None),
+                                       "async_save", False))
+        self._async_ckpt: tp.Optional[AsyncCheckpointer] = None
         self.device = resolve_device(device)
         os.makedirs(log_dir, exist_ok=True)
 
@@ -180,7 +204,7 @@ class Trainer:
             return make_train_steps(
                 self.model.cfg, self.disc_cfg, freq_loss_kwargs=freq_kwargs,
                 balancer=self.balancer, clip=self.clip, n_q=n_q,
-                disc_remat=disc_remat)
+                disc_remat=disc_remat, mesh=mesh)
 
         (self.gen_step, self.disc_step, self.eval_step,
          self.balanced_gen_step) = make_steps()
@@ -207,7 +231,7 @@ class Trainer:
         self.use_balancer = bool(self.balancer) and \
             bool(getattr(loss_cfg, "use_balancer", False))
         self.metrics = Metrics()
-        self.writer = writer
+        self.writer = writer if self.rank == 0 else None
         self.start_epoch = 1
         self.epoch_seconds: tp.Dict[int, float] = {}  # training loop only
         self._said_no_matplotlib = False
@@ -217,8 +241,8 @@ class Trainer:
     def _snapshot_config(self) -> None:
         """The experiment config in the run directory, for a self-contained
         resume (ref train.py:379-384): config.yaml, or config.json where
-        PyYAML is missing."""
-        if any(os.path.exists(os.path.join(self.log_dir, n))
+        PyYAML is missing. Rank 0 alone writes it."""
+        if self.rank != 0 or any(os.path.exists(os.path.join(self.log_dir, n))
                for n in ("config.yaml", "config.json")):
             return
         cfg = config_to_dict(self.config)
@@ -273,7 +297,10 @@ class Trainer:
                              0.5))
         log_this = epoch % self.config.common.log_interval == 0
         for batch, _ds_ids in self.train_loader:
-            if guard is not None and guard.requested:
+            stop = guard is not None and guard.requested
+            if self.mesh is not None:
+                stop = comm.any_rank(stop, self.group)
+            if stop:
                 break  # stop at a step boundary; fit checkpoints
             x = self._batch(batch)
             # the draws in JAX's order: the coin, then the bandwidth
@@ -319,7 +346,8 @@ class Trainer:
         (`tools.visualize.reconstruction_figure`, ref train.py:290-313).
         Without matplotlib the figure is skipped, said once per trainer.
         Unlike JAX's trainer, a figure that fails raises: only a missing
-        matplotlib is passed over."""
+        matplotlib is passed over. Under a mesh the per-item losses and the
+        codes are gathered from every rank, and rank 0 draws."""
         weights = self.weights_for_epoch(epoch)
         all_codes = []
         n_batches = 0
@@ -327,9 +355,16 @@ class Trainer:
             n_batches += 1
             x = self._batch(batch)
             m, codes, x_hat = self.eval_step(self.state, x, weights)
-            if n_batches == 1 and save_figure \
+            if n_batches == 1 and save_figure and self.rank == 0 \
                     and self.model.cfg.channels == 1:
                 self._figure(epoch, x, x_hat)
+            l_t, l_t_2 = m["l_t"], m["l_t_2"]
+            if self.mesh is not None:
+                codes = comm.all_gather(codes, self.group)
+                l_t = comm.all_gather(l_t, self.group)
+                l_t_2 = comm.all_gather(l_t_2, self.group)
+                ds_ids = comm.all_gather(torch.as_tensor(
+                    np.asarray(ds_ids, np.int64)), self.group).numpy()
             all_codes.append(codes.cpu().numpy())
             self.metrics.fill_metrics({
                 "Loss": m["loss"], "Loss L1": m["loss_l1"],
@@ -337,7 +372,7 @@ class Trainer:
                 "Frequency Accuracy": m["freq_acc"],
             })
             # per-dataset per-item losses (ref train.py:258-261)
-            l_t, l_t_2 = m["l_t"].cpu().numpy(), m["l_t_2"].cpu().numpy()
+            l_t, l_t_2 = l_t.cpu().numpy(), l_t_2.cpu().numpy()
             for j, d_id in enumerate(np.asarray(ds_ids)):
                 name = self.label_mapping.get(int(d_id), str(int(d_id)))
                 self.metrics.fill_metrics({f"Loss L1 {name}": l_t[j],
@@ -395,18 +430,37 @@ class Trainer:
 
     def save(self, epoch: int) -> None:
         """Checkpoint the full train state to `<log_dir>/model.ckpt`; the
-        config rides along, and `param_layout` marks the port's layout."""
-        save_checkpoint(self.state, epoch,
-                        os.path.join(self.log_dir, "model.ckpt"),
-                        extra={"config": config_to_dict(self.config),
-                               "param_layout": PARAM_LAYOUT})
+        config rides along, and `param_layout` marks the port's layout.
+        With `checkpoint.async_save: true` the write overlaps training
+        (`AsyncCheckpointer`). Under a mesh rank 0 alone writes."""
+        if self.rank != 0:
+            return
+        path = os.path.join(self.log_dir, "model.ckpt")
+        extra = {"config": config_to_dict(self.config),
+                 "param_layout": PARAM_LAYOUT}
+        if self.async_save:
+            if self._async_ckpt is None:
+                self._async_ckpt = AsyncCheckpointer()
+            self._async_ckpt.save(self.state, epoch, path, extra=extra)
+        else:
+            save_checkpoint(self.state, epoch, path, extra=extra)
+
+    def wait_for_checkpoint(self) -> None:
+        """Block until an asynchronous write in flight is done (raising its
+        error); under a mesh, then a barrier, so every rank sees the
+        file."""
+        if self._async_ckpt is not None:
+            self._async_ckpt.wait()
+        if self.mesh is not None:
+            comm.barrier(self.group)
 
     def resume(self, path: tp.Optional[str] = None) -> None:
         """Continue from `path` (default `<log_dir>/model.ckpt`, falling back
         to `.prev` when the newest generation is truncated or missing): a
         file this trainer wrote, bit for bit, or a JAX-written one through
         `models.zoo.train_state_from_jax`. Without either, nothing
-        changes."""
+        changes. Waits for a write in flight first; every rank loads."""
+        self.wait_for_checkpoint()
         path = path or os.path.join(self.log_dir, "model.ckpt")
         if not (os.path.exists(path) or os.path.exists(previous_path(path))):
             return
@@ -434,7 +488,10 @@ class Trainer:
                 t0 = time.time()
                 metrics = self.train_one_epoch(epoch, guard=guard)
                 self.epoch_seconds[epoch] = time.time() - t0
-                if guard.requested:
+                stop = guard.requested
+                if self.mesh is not None:
+                    stop = comm.any_rank(stop, self.group)
+                if stop:
                     # the epoch was cut short: label the checkpoint so a
                     # resume re-runs it from its start
                     self.save(epoch - 1)
@@ -451,4 +508,5 @@ class Trainer:
                     self.save(epoch)
                 if on_epoch:
                     on_epoch(epoch, metrics)
+        self.wait_for_checkpoint()
         return self.state

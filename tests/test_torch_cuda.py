@@ -96,6 +96,25 @@ def test_nearest_kernel_matches_plain(dev, N, D, bins):
     assert torch.allclose(margin, ref_margin, atol=1e-4, rtol=0)
 
 
+@pytest.mark.parametrize("N,D,bins", [(750, 128, 1024), (750, 128, 512),
+                                      (3000, 256, 1024), (37, 48, 100)])
+def test_nearest_kernel_score(dev, N, D, bins):
+    """K1's optional winner score (the codebook-sharded search merges shards
+    on it): the index and margin are those of the call without it, bit for
+    bit, and the score is the twin's within the margin's bound, the
+    negated distance of the returned row."""
+    x = _rand((N, D), 2, dev, scale=0.3)
+    e = _books((bins, D), 3, dev)
+    idx, margin = nearest_codebook(x, e)
+    idx2, margin2, score = nearest_codebook(x, e, return_score=True)
+    _, _, ref_score = nearest_codebook_plain(x, e, return_score=True)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, idx2) and torch.equal(margin, margin2)
+    assert torch.allclose(score, ref_score, atol=1e-4, rtol=0)
+    own = vq_cuda.distances(x, e).gather(1, idx.long()[:, None])[:, 0]
+    assert torch.allclose(score, own, atol=1e-4, rtol=0)
+
+
 def test_nearest_kernel_duplicate_rows_pick_lowest(dev):
     x = torch.ones(8, 128, device=dev)
     e = torch.cat([torch.ones(4, 128), torch.zeros(4, 128)]).to(dev)
@@ -1059,3 +1078,36 @@ def test_decode_lockstep_on_the_card_equals_the_cpu(dev):
         np.testing.assert_array_equal(host, codes[s])
     with pytest.raises(EOFError):
         gpu.decode_lockstep([datas[0][:len(datas[0]) // 2]], cfg.n_q, Ts[:1])
+
+
+def test_nccl_collectives_carry_cpu_tensors_through_the_card(dev, tmp_path):
+    """On an NCCL group (world 1 here) a CPU tensor is copied to the card
+    for the collective and its result comes back on the host, as eval's
+    gathered dataset ids do; a CUDA tensor stays on the card; the
+    preemption vote and the replicated-metrics check run."""
+    import torch.distributed as dist
+
+    from encodec_tpu_torch import parallel
+    from encodec_tpu_torch.parallel import comm
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh(1)
+        group = mesh.get_group("data")
+        assert comm.transport(group) == "device"
+        ids = torch.arange(5, dtype=torch.int64)
+        for got in (comm.all_gather(ids, group),
+                    comm.all_reduce(ids, "sum", group),
+                    comm.broadcast(ids, 0, group)):
+            assert got.device.type == "cpu"
+            assert torch.equal(got, ids)
+        x = torch.randn(3, 4, device=dev)
+        got = comm.all_reduce(x, "mean", group)
+        assert got.device == x.device and torch.equal(got, x)
+        assert comm.any_rank(True, group) and not comm.any_rank(False,
+                                                                group)
+        comm.DataParallel(group).check_replicated(
+            {"loss": x.sum(), "acc": torch.tensor(0.5)})
+    finally:
+        dist.destroy_process_group()

@@ -60,11 +60,10 @@ from encodec_tpu_torch.models import build_model, params_from_jax
 from encodec_tpu_torch.models.zoo import _find_adam
 from encodec_tpu_torch.ops import stft
 from encodec_tpu_torch.quant import rvq
-from encodec_tpu_torch.train import (AsyncCheckpointer, ConfigNamespace,
-                                     LossWeights, Trainer, adam_update,
-                                     create_train_state, init_adam,
-                                     load_checkpoint, make_train_steps,
-                                     save_checkpoint)
+from encodec_tpu_torch.train import (ConfigNamespace, LossWeights, Trainer,
+                                     adam_update, create_train_state,
+                                     init_adam, load_checkpoint,
+                                     make_train_steps, save_checkpoint)
 from encodec_tpu_torch.train import __main__ as train_entry
 from encodec_tpu_torch.train.__main__ import main as train_main
 from encodec_tpu_torch.train.optim import tree_leaves
@@ -634,12 +633,15 @@ def _refusal(case, tmp_path, tm):
     cfg = _config(tmp_path)
     if case == "make_train_steps bf16":
         make_train_steps(tm.cfg, compute_dtype=torch.bfloat16)
-    elif case == "AsyncCheckpointer":
-        AsyncCheckpointer()
+    elif case == "train main seq_parallel":
+        cfg["distributed"] = {"data_parallel": True, "seq_parallel": 2}
+        (tmp_path / "c.json").write_text(json.dumps(cfg))
+        train_main(["--config", str(tmp_path / "c.json"), "--log_dir",
+                    str(tmp_path / "r"), "--device", "cpu"])
     else:
         section, key, value = {
             "Trainer bf16": ("common", "compute_dtype", "bfloat16"),
-            "Trainer async_save": ("checkpoint", "async_save", True)}[case]
+            "Trainer seq_parallel": ("distributed", "seq_parallel", 2)}[case]
         cfg[section][key] = value
         Trainer(ConfigNamespace(cfg), [], [], str(tmp_path / "r"),
                 device="cpu")
@@ -647,10 +649,12 @@ def _refusal(case, tmp_path, tm):
 
 @pytest.mark.parametrize("case,item", [
     ("make_train_steps bf16", "11d"), ("Trainer bf16", "11d"),
-    ("Trainer async_save", "11e"), ("AsyncCheckpointer", "11e")])
+    ("Trainer seq_parallel", "11f"), ("train main seq_parallel", "11f")])
 def test_bf16_and_async_save_are_refused(case, item, tmp_path, pair):
     """What the port still refuses, each naming its ROADMAP item: bfloat16
-    compute (behind a margin audit) and asynchronous checkpoint saves."""
+    compute (behind a margin audit) and the data×seq training step
+    (`distributed.seq_parallel > 1`). Asynchronous saves, refused until
+    the parallel slice, now run: `tests/test_torch_parallel_train.py`."""
     with pytest.raises(NotImplementedError, match=item):
         _refusal(case, tmp_path, pair["tm"])
 
