@@ -158,7 +158,21 @@ Phases, in order (any failure exits non-zero before the last line):
    pipeline stages (`lm_forward_batch_pp`, one `make_lm_pp_train_step`);
    launches and ms per rank. Two ranks on one card check correctness,
    not scaling;
-19. print the `kernels` JSON line (launches per path, the grid kernel, the
+19. the data×seq training step and the DAC-style RVQ
+   (`phase_seq_parallel`): a gloo world of 2 on this card, data 1 x seq
+   2, gan.yaml as written at B=4 on 4 h nights: a generator step with the
+   k-means init, then from its state a generator, a GAN generator and a
+   discriminator step, each against one process on the card (losses rtol
+   1e-4, the state at JAX's mesh bounds, codes outside tie flags, the
+   ranks' states equal), ms and peak memory per rank beside the single
+   process's, K1, K3's saving forward and backward launched on each rank;
+   `dac_rvq_forward` at the reference DAC shape on the card against the
+   CPU port (codes outside float64 near-ties, latents within 1e-5). On
+   one card the seq halos, gathers and sums run over gloo only (NCCL
+   cannot put two ranks on one card, and a seq axis of one rank is the
+   data-parallel step); `probes/seq_nccl.py` runs the same checks over
+   NCCL on four cards;
+20. print the `kernels` JSON line (launches per path, the grid kernel, the
    backward kernel and the range decoder in rows of their own), then the
    final `ok` JSON line.
 
@@ -4155,6 +4169,317 @@ def phase_parallel(torch, kernels, dev, model24):
     return counts_a, counts_b
 
 
+SEQ_WORLD = 2
+SEQ_B = 4                   # gan.yaml's rows in (b): one data rank
+SEQ_NIGHT = 144_000         # 4 h at 10 Hz = 2 shards x hop 300 x 240
+DAC_SHAPE = (4, 750, 512)   # (c): the reference DAC's input width
+
+
+def seq_rank(rank: int, world: int, store: str, base: str) -> None:
+    """One rank of a data×seq world, gan.yaml as written at B=4 on 4 h
+    nights; `<base>/seq_ref.pt` gives the batch, the transport and the
+    data axis's size: the phase's (b) is a gloo world of 2 on cuda:0, data
+    1 x seq 2; `probes/seq_nccl.py` runs an NCCL world, one card per rank.
+    The steps (a first generator step with the k-means init, then from its
+    state a second one, a GAN generator step and a discriminator step) run
+    on every rank; rank 0 then runs them in one process on the whole batch
+    and holds the world's (codes gathered over data) against them. Each
+    rank writes its ms, peak memory, launch counts and the problems found
+    to `<base>/seq<r>.json`."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from encodec_tpu_torch import kernels, parallel
+    from encodec_tpu_torch.device import set_fp32_policy
+    from encodec_tpu_torch.parallel import comm
+    from encodec_tpu_torch.train import ConfigNamespace, Trainer
+
+    torch.set_num_threads(2)
+    base_p = Path(base)
+    ref = torch.load(base_p / "seq_ref.pt", weights_only=False)
+    backend, n_data = ref.get("backend", "gloo"), ref.get("data", 1)
+    dev = torch.device(ref["device"])
+    cuda = dev.type == "cuda"
+    if cuda:
+        dev = torch.device("cuda", rank if backend == "nccl"
+                           else dev.index or 0)
+        torch.cuda.set_device(dev)
+        os.environ["LOCAL_RANK"] = str(dev.index)
+    set_fp32_policy()
+    torch.backends.cudnn.deterministic = True   # as in phase_parallel (b)
+    parallel.initialize_multihost(init_method=f"file://{store}",
+                                  world_size=world, rank=rank,
+                                  backend=backend,
+                                  timeout_s=600 if backend == "gloo" else 300)
+    out = {"ms": {}, "gib": {}, "transport": comm.transport()}
+    say = print if rank == 0 else (lambda *a, **k: None)
+    problems: list = []
+    t_all = time.perf_counter()
+
+    def timed(name, fn):
+        """`fn()`, its ms and its peak memory above what was allocated
+        before it (the activations and the step's new state)."""
+        if not cuda:
+            t0 = time.perf_counter()
+            res = fn()
+            out["ms"][name] = (time.perf_counter() - t0) * 1e3
+            out["gib"][name] = 0.0
+            return res
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out["ms"][name] = (time.perf_counter() - t0) * 1e3
+        out["gib"][name] = (torch.cuda.max_memory_allocated()
+                            - before) / 2 ** 30
+        return res
+
+    def same_on_ranks(tree, what):
+        sums = torch.tensor(par_checksum(torch, tree), dtype=torch.int64)
+        every = comm.all_gather(sums[None])
+        check(bool((every == every[0]).all()),
+              f"seq (b) {what}: the ranks' states differ")
+
+    mesh = parallel.make_mesh_2d(n_data, world // n_data)
+    data_group = mesh.get_group("data")
+    config = ConfigNamespace(ref["config"])
+    tr = Trainer(config, [], [], str(base_p / f"seq{rank}"), device=dev,
+                 mesh=mesh)
+    w = tr.weights_for_epoch(1)
+    x = parallel.shard_batch(mesh, ref["x"], "data").to(dev)
+    kernels.reset_launch_counts()
+    s1, m = timed("gen 1", lambda: tr.gen_step(tr.state, x, w))
+    step1 = {k: float(v) for k, v in m.items()
+             if hasattr(v, "dim") and v.dim() == 0}
+    del m
+    recs = {}
+    for name, fn in (
+            ("gen 2", lambda: tr.gen_step(s1, x, w, keep_grads=True)),
+            ("gan", lambda: tr.gen_step(s1, x, w, use_gan=True,
+                                        keep_grads=True)),
+            ("disc", lambda: tr.disc_step(s1, x, w, keep_grads=True))):
+        st, m = timed(name, fn)
+        recs[name] = par_record(torch, st, m)
+        if "codes" in recs[name]:       # every data rank's rows, in order
+            recs[name]["codes"] = comm.all_gather(recs[name]["codes"],
+                                                  data_group)
+        del st, m
+    out["counts"] = dict(launch_counts(kernels),
+                         lstm_save=kernels.lstm_scan.save_launches)
+    same_on_ranks((s1.params, tuple(s1.qstate[:3])), "step 1")
+    for name, rec in recs.items():
+        same_on_ranks((rec["params"], rec["qstate"], rec.get("disc")), name)
+    comm.barrier()
+    if rank == 0:
+        plain = Trainer(config, [], [], str(base_p / "seq_plain"),
+                        device=dev)
+        x = ref["x"].to(dev)            # the whole batch
+        p1, pm = timed("one 1", lambda: plain.gen_step(plain.state, x, w))
+        one = {k: float(v) for k, v in pm.items()
+               if hasattr(v, "dim") and v.dim() == 0}
+        l1, l1_key = max((abs(step1[k] - v) / abs(v), k)
+                         for k, v in one.items()
+                         if k.startswith("loss") and v != 0)
+        rows_d = int(((p1.qstate.embed - s1.qstate.embed).abs().amax(-1)
+                      > 1e-3).sum())
+        if l1 > 1e-4:
+            problems.append(f"seq (b) step 1: losses rel {l1:.3g} "
+                            f"({l1_key}) > 1e-4")
+        if not torch.equal(p1.rng, s1.rng):
+            problems.append("seq (b) step 1: the generator state differs")
+        del p1, pm
+        n_seq = world // n_data
+        say(f"seq (b) {backend} world {world} ({comm.transport()} "
+            f"transport), data {n_data} x seq {n_seq}, gan.yaml as written, "
+            f"B={SEQ_B} x 4 h ({SEQ_NIGHT // n_seq} samples per shard), "
+            "against one process "
+            f"on the card: step 1 from a fresh state (k-means): losses max "
+            f"rel {l1:.2e} ({l1_key}; bound 1e-4), generator state equal; "
+            f"{rows_d} book rows of {s1.qstate.embed.shape[1]} per book "
+            "differ by more than 1e-3")
+        for name, fn in (
+                ("gen 2", lambda: plain.gen_step(s1, x, w, keep_grads=True)),
+                ("gan", lambda: plain.gen_step(s1, x, w, use_gan=True,
+                                               keep_grads=True)),
+                ("disc", lambda: plain.disc_step(s1, x, w,
+                                                 keep_grads=True))):
+            st, m = timed("one " + name, fn)
+            want = par_record(torch, st, m)
+            del st, m
+            got = recs[name]
+            disc = name == "disc"
+            summary, bad = par_compare(
+                torch, got, want, w.disc_lr if disc else w.lr, [want],
+                f"seq (b) {name}", key="disc" if disc else "params",
+                books=None if disc else par_book_mask(
+                    torch, got["codes"], want, s1, tr.model.cfg.rvq))
+            if not disc:
+                n_safe, n_bad = par_codes(torch, got["codes"], want)
+                if n_bad > PAR_CODES_OFF * n_safe:
+                    bad.append(f"seq (b) {name}: codes differ at {n_bad} "
+                               "untied positions")
+                summary += (f"; codes equal at {n_safe - n_bad} of {n_safe} "
+                            f"untied positions (held to {PAR_CODES_OFF:.1%})")
+            problems.extend(bad)
+            say(f"    {name} step: {summary}")
+        del plain
+    out["ms"]["all"] = (time.perf_counter() - t_all) * 1e3
+    out["problems"] = problems          # `seq_world` fails on them
+    (base_p / f"seq{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dac_tie_flags(torch, params, z, cfg) -> "np.ndarray":
+    """`[B, N, T]` True where a stage's cosine lookup, in float64 on the
+    CPU along the float32 forward's residuals, has its top two within 1e-5
+    (a near-tie that float32 rounding may turn), or an earlier stage of
+    that position has."""
+    from encodec_tpu_torch.quant import dac_vq
+
+    res = z.double()
+    flags = []
+    for stage in params["stages"][:cfg.n_codebooks]:
+        st = {k: ({q: t.double() for q, t in v.items()}
+                  if isinstance(v, dict) else v.double())
+              for k, v in stage.items()}
+        z_e = dac_vq._wn_linear(st["in_proj"], res)
+        enc = z_e.reshape(-1, z_e.shape[-1])
+        enc = enc / enc.norm(dim=1, keepdim=True)
+        cb = st["codebook"] / st["codebook"].norm(dim=1, keepdim=True)
+        top = torch.topk(enc @ cb.t(), 2, dim=1).values
+        flags.append((top[:, 0] - top[:, 1] < 1e-5).reshape(z.shape[:2]))
+        z_q, _ = dac_vq._decode_latents(st["codebook"], z_e)
+        res = res - dac_vq._wn_linear(st["out_proj"], z_q)
+    flags = torch.stack(flags, dim=1)                     # [B, N, T]
+    return (flags.int().cumsum(1) > 0).numpy()
+
+
+def seq_world(torch, dev, base: Path, world: int, backend: str = "gloo",
+              n_data: int = 1) -> list:
+    """A data×seq world of `world` ranks (`seq_rank`): data `n_data` x seq
+    `world // n_data`, gloo on this card or NCCL with a card per rank;
+    gan.yaml as written at B=4 on 4 h nights, each step against one
+    process. Checks and prints each rank's launches, ms and peak memory
+    beside the single process's; returns the launch counts per rank."""
+    import torch.multiprocessing as mp
+
+    x = np.stack([breathing_signal(SEQ_NIGHT, 3000 + i)
+                  for i in range(SEQ_B)])[..., None]
+    torch.save({"config": gan_config(str(base / "data")),
+                "x": torch.from_numpy(x), "device": str(dev),
+                "backend": backend, "data": n_data},
+               base / "seq_ref.pt")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mp.spawn(seq_rank, args=(world, str(base / backend), str(base)),
+             nprocs=world, join=True)
+    spawn_s = time.perf_counter() - t0
+    ranks = [json.loads((base / f"seq{r}.json").read_text())
+             for r in range(world)]
+    wire = "host" if backend == "gloo" else "device"
+    counts = []
+    for r, res in enumerate(ranks):
+        c = res["counts"]
+        counts.append(c)
+        check(res["transport"] == wire, f"seq rank {r}: transport "
+              f"{res['transport']}")
+        for k in ("nearest_codebook", "lstm_grid", "lstm_scan_backward",
+                  "lstm_save"):
+            check(c.get(k, 0) > 0, f"seq (b) rank {r}: {k} never launched")
+        print(f"seq (b) rank {r}: launches K1 {c['nearest_codebook']}, K3 "
+              f"grid {c['lstm_grid']} (saving forward {c['lstm_save']}), "
+              f"K3 backward {c['lstm_scan_backward']}, K2 "
+              f"{c['rvq_encode_fused']}; ms per step " + ", ".join(
+                  f"{n} {res['ms'][n]:.1f}" for n in ("gen 1", "gen 2",
+                                                      "gan", "disc"))
+              + "; peak GiB above the state " + ", ".join(
+                  f"{n} {res['gib'][n]:.2f}" for n in ("gen 1", "gen 2",
+                                                       "gan", "disc"))
+              + f"; {res['ms']['all'] / 1e3:.1f} s in the rank")
+    one = ranks[0]
+    shared = ("two ranks on one card: correctness and the memory split, "
+              "not scaling; the seq collectives crossed gloo here, NCCL "
+              "only between cards (probes/seq_nccl.py)"
+              if backend == "gloo" else
+              f"{world} ranks on {world} cards, NCCL")
+    print(f"seq (b) one process at B={SEQ_B} on the card: ms per step "
+          + ", ".join(f"{n} {one['ms']['one ' + n]:.1f}"
+                      for n in ("1", "gen 2", "gan", "disc"))
+          + "; peak GiB above the state " + ", ".join(
+              f"{n} {one['gib']['one ' + n]:.2f}"
+              for n in ("1", "gen 2", "gan", "disc"))
+          + f" ({shared}; the world took {spawn_s:.1f} s, spawn included)")
+    problems = [p for res in ranks for p in res["problems"]]
+    check(not problems, "; ".join(problems))
+    return counts
+
+
+def phase_seq_parallel(torch, kernels, dev):
+    """The data×seq training step (`distributed.seq_parallel`), then the
+    DAC-style RVQ. (A 1 x 1 mesh is the data-parallel step, which
+    `phase_parallel`'s (a) holds to the plain step.) (b) a gloo world of 2
+    on this card (`seq_world`), data 1 x seq 2, gan.yaml as written at B=4
+    on 4 h nights: the generator, GAN
+    generator and discriminator steps against one process on the card,
+    ms and peak memory per rank beside the single process's, launches per
+    rank. (c) `dac_rvq_forward` at the reference DAC shape (input_dim
+    512, 9 books of 1024 x 8) on a `[4, 750, 512]` input, on the card
+    against the CPU port. Returns (b)'s launch counts per rank."""
+    import tempfile
+
+    from encodec_tpu_torch.quant import dac_vq
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    counts = seq_world(torch, dev, Path(tmp.name), SEQ_WORLD)
+
+    # (c) the DAC-style RVQ on the card against the CPU port
+    cfg = dac_vq.DacRVQConfig()
+    params = dac_vq.init_dac_rvq(torch.Generator().manual_seed(0), cfg)
+    z = torch.randn(*DAC_SHAPE, generator=torch.Generator().manual_seed(1))
+    want = dac_vq.dac_rvq_forward(params, z, cfg)
+    on = {"stages": [{k: ({q: t.to(dev) for q, t in v.items()}
+                          if isinstance(v, dict) else v.to(dev))
+                      for k, v in st.items()} for st in params["stages"]]}
+    zd = z.to(dev)
+    got = dac_vq.dac_rvq_forward(on, zd, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        dac_vq.dac_rvq_forward(on, zd, cfg)
+    torch.cuda.synchronize()
+    dac_ms = (time.perf_counter() - t0) / 5 * 1e3
+    ties = dac_tie_flags(torch, params, z, cfg)
+    codes, wcodes = got["codes"].cpu().numpy(), want["codes"].numpy()
+    n_bad = int((codes != wcodes)[~ties].sum())
+    # a position's latents are compared where no stage up to it is flagged
+    lat_ok = ~ties.any(1)                                    # [B, T]
+    lat_err = float((got["latents"].cpu() - want["latents"]).abs()[
+        torch.from_numpy(lat_ok)].max())
+    z_err = float((got["z"].cpu() - want["z"]).abs()[
+        torch.from_numpy(lat_ok)].max())
+    check(n_bad == 0 and lat_err <= 1e-5,
+          f"seq (c) dac_rvq_forward on the card: {n_bad} codes differ "
+          f"outside near-ties, latents max|d| {lat_err:.3g} (bound 1e-5)")
+    print(f"seq (c) dac_rvq_forward (input_dim {cfg.input_dim}, "
+          f"{cfg.n_codebooks} books of {cfg.codebook_size} x "
+          f"{cfg.codebook_dim}) on {list(DAC_SHAPE)}: the card's codes equal "
+          f"the CPU port's at {codes.size - int(ties.sum())} of {codes.size} "
+          f"(stage, position) pairs ({int(ties.sum())} flagged as near-ties "
+          f"in float64, {int((codes != wcodes).sum())} differ in all); "
+          f"latents max|d| {lat_err:.3g} (bound 1e-5) and z {z_err:.3g} "
+          f"where unflagged; {dac_ms:.2f} ms per forward on the card (host "
+          f"clock, cuBLAS float32 lookups)")
+    print(f"seq: the phase took {time.perf_counter() - t_phase:.1f} s")
+    tmp.cleanup()
+    return counts
+
+
 def launch_counts(kernels) -> dict:
     """The wrappers' launch counts, and the grid kernel's own."""
     return dict(kernels.launch_counts(),
@@ -4346,10 +4671,12 @@ def main() -> int:
     train_tmp.cleanup()
     t5 = time.perf_counter()
     counts_par, counts_ranks = phase_parallel(torch, kernels, dev, model)
+    t6 = time.perf_counter()
+    counts_seq = phase_seq_parallel(torch, kernels, dev)
     print(f"phases: K3 backward {t1 - t0:.1f} s, train {t2 - t1:.1f} s, "
           f"gan {t3 - t2:.1f} s, lm {t4 - t3:.1f} s, lm_train "
-          f"{t5 - t4:.1f} s, parallel {time.perf_counter() - t5:.1f} s "
-          f"(at {t0 - t_start:.1f} s)")
+          f"{t5 - t4:.1f} s, parallel {t6 - t5:.1f} s, seq "
+          f"{time.perf_counter() - t6:.1f} s (at {t0 - t_start:.1f} s)")
 
     paths = {"24k": counts, "48k": counts48, "stream": counts_stream,
              "breathing": counts_breathing, "hires_tokens": counts_hires,
@@ -4357,6 +4684,9 @@ def main() -> int:
              "lm_train": counts_lm_train, "parallel_nccl_w1": counts_par}
     for r, c in enumerate(counts_ranks):
         paths[f"parallel_gloo_w2_rank{r}"] = c
+    for r, c in enumerate(counts_seq):
+        paths[f"seq_gloo_1x2_rank{r}"] = {k: v for k, v in c.items()
+                                          if k != "lstm_save"}
     for c in paths.values():   # lstm_scan counts both K3 kernels
         c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
     rows = [

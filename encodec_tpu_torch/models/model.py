@@ -154,7 +154,7 @@ def forward_train(params, qstate: RVQState, x: torch.Tensor,
                   cfg: EncodecConfig, n_q: int,
                   generator: tp.Optional[torch.Generator] = None,
                   training: bool = True, plain: bool = False,
-                  dp: BatchReduce = LOCAL, **draws):
+                  dp: BatchReduce = LOCAL, seq=None, **draws):
     """Fork-style training forward on one (unsegmented) batch `[B, T, C]`.
 
     Returns (x_hat [B, T, C], codes [B, K, T'], commit_losses [K],
@@ -165,12 +165,34 @@ def forward_train(params, qstate: RVQState, x: torch.Tensor,
     quantizer state unchanged. `draws` (`init_idx`, `sample_idx`,
     `margins`) go to `rvq_forward`, and `dp` (the batch's reductions over
     a data-parallel step's ranks); `plain=True` runs every kernel's plain
-    twin."""
-    emb = seanet_encoder(params["encoder"], x, cfg.seanet, plain=plain)
+    twin.
+
+    `seq` (a process group): time sharded over its ranks. The encoder's
+    conv trunk runs on this rank's shard of `x` (whole on every rank), its
+    token-rate features are gathered, and the LSTM, the final conv and the
+    RVQ run on the whole latents on every rank (`quantized`, `codes` and
+    `commit` equal on the seq peers; `dp` still spans the data axis only:
+    the peers hold the same rows); the decoder's token-rate head runs
+    replicated, each rank upsamples its slice, and `x_hat` is gathered
+    (`parallel.sp`). The caller checks once that time can be sharded
+    exactly (`parallel.sp.check_seq_parallel`, as `make_train_steps`
+    does); a length that is not a multiple of seq × hop raises here."""
+    if seq is None:
+        emb = seanet_encoder(params["encoder"], x, cfg.seanet, plain=plain)
+    else:
+        # imported here: parallel.sp builds on this package's SEANet ops
+        from ..parallel.sp import seanet_decode_seq, seanet_encode_seq
+        emb = seanet_encode_seq(params["encoder"], x, cfg.seanet, seq,
+                                plain=plain)
     quantized, codes, commit, new_qstate = rvq_forward(
         qstate, emb, cfg.rvq, n_q=n_q, training=training, generator=generator,
         plain=plain, dp=dp, **draws)
-    out = seanet_decoder(params["decoder"], quantized, cfg.seanet, plain=plain)
+    if seq is None:
+        out = seanet_decoder(params["decoder"], quantized, cfg.seanet,
+                             plain=plain)
+    else:
+        out = seanet_decode_seq(params["decoder"], quantized, cfg.seanet,
+                                seq, plain=plain)
     return out[:, :x.shape[1]], codes.permute(1, 0, 2), commit, new_qstate
 
 

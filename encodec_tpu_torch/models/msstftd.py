@@ -197,13 +197,19 @@ def _logit_width(cfg: MSSTFTConfig, i: int) -> int:
 def msstftd_gan_sums_chunked(sub_params: dict, x: torch.Tensor,
                              x_hat: tp.Optional[torch.Tensor],
                              cfg: MSSTFTConfig, i: int, *,
-                             chunk: int) -> dict:
+                             chunk: int,
+                             shard: tp.Tuple[int, int] = (0, 1)) -> dict:
     """GAN loss sums of sub-discriminator `i` over `x` (real) and `x_hat`
     (fake, may be None), chunk by chunk over time; each chunk's body runs
     under `torch.utils.checkpoint` (recomputed in the backward), so the
     activations held are one chunk's. Values equal the whole-signal
     forward's up to summation order (tested); sums are float32, added in
     chunk order, the last chunk ragged.
+
+    `shard = (index, count)`: only block `index` of `count` contiguous,
+    near-equal blocks of the chunks (every block non-empty: fewer chunks
+    than blocks is a `ValueError`); the blocks' sums add up to the whole
+    signal's. `n_logit` is the whole signal's count.
 
     Returns: lg_fake = Σ(1 - D(x̂))², sq_fake = ΣD(x̂)², lg_real =
     Σ(1 - D(x))², sum_fake / sum_real = ΣD, all over the valid logits;
@@ -216,6 +222,12 @@ def msstftd_gan_sums_chunked(sub_params: dict, x: torch.Tensor,
     z_fake = _spec(x_hat, cfg, i) if x_hat is not None else None
     B, _, T, _ = z_real.shape
     n_chunks = -(-T // chunk)
+    index, count = shard
+    if n_chunks < count:
+        raise ValueError(
+            f"sub-discriminator {i}: {n_chunks} time chunks of {chunk} "
+            f"frames cannot be shared by {count} ranks; use a smaller "
+            "disc_time_chunk or fewer sequence shards")
 
     def pad_t(z):
         return F.pad(z, (0, 0, H, H + n_chunks * chunk - T))
@@ -245,7 +257,8 @@ def msstftd_gan_sums_chunked(sub_params: dict, x: torch.Tensor,
         ("lg_fake", "sq_fake", "sum_fake", "feat_diff", "feat_real")
         if z_fake is not None else ())
     sums: dict = {}
-    for c in range(n_chunks):
+    for c in range(n_chunks * index // count,
+                   n_chunks * (index + 1) // count):
         s = c * chunk
         zr = z_real[:, :, s:s + chunk + 2 * H]
         zf = None if z_fake is None else z_fake[:, :, s:s + chunk + 2 * H]

@@ -12,7 +12,9 @@ gloo on the CPU; meshes are `DeviceMesh`es with JAX's axis names.
 - `tp`: the codebook-sharded RVQ search (`nearest_codebook_tp`,
   `rvq_encode_tp`);
 - `sp`: the sequence-parallel SEANet encode and decode (`seanet_encode_sp`,
-  `encode_sp`, `seanet_decode_sp`, `decode_sp`);
+  `encode_sp`, `seanet_decode_sp`, `decode_sp`), and the differentiable
+  sharded trunks of the data×seq training step (`seanet_encode_seq`,
+  `seanet_decode_seq`, `check_seq_parallel`);
 - `pp`: the pipelined LM (`stack_lm_layers`, `shard_stacked_layers`,
   `lm_forward_batch_pp`, `make_lm_pp_train_step`).
 """
@@ -35,9 +37,12 @@ from .pp import (  # noqa: F401
     stack_lm_layers,
 )
 from .sp import (  # noqa: F401
+    check_seq_parallel,
     decode_sp,
     encode_sp,
+    seanet_decode_seq,
     seanet_decode_sp,
+    seanet_encode_seq,
     seanet_encode_sp,
 )
 from .tp import nearest_codebook_tp, rvq_encode_tp  # noqa: F401

@@ -2,9 +2,15 @@
 
 New in the port (JAX inserts its collectives inside `shard_map` and the
 SPMD partitioner; torch calls them by hand): `all_reduce` (sum or mean),
-`all_gather` in rank order, `shift_right` (a tensor to the next rank, one
-from the previous: sp's halos and pp's activations), `send` / `recv`,
-`broadcast` and `barrier`, each on a group (None: the default group).
+`all_gather` in rank order, `shift_right` / `shift_left` (a tensor to the
+next rank, one from the previous, or the reverse: pp's activations),
+`send` / `recv`, `broadcast` and `barrier`, each on a group (None: the
+default group). These detach their inputs. The differentiable ones, for a
+time axis sharded over a group (sp's trunks, inference and training):
+`halo` (a conv layer's left context from the previous rank; rank 0's own
+start context), `tail_handoff` (a transposed conv's overlap into the next
+rank), `gather_time` (all-gather, reduce-scatter backward) and `sum_over`
+(all-reduce both ways).
 
 Transport. The group's backend picks the device a collective runs on
 (`transport(group)`), never a failure. On an NCCL group it is the card:
@@ -133,27 +139,41 @@ def recv(like: torch.Tensor, src: int, group: Group = None) -> torch.Tensor:
     return _out(y, like)
 
 
-def shift_right(x: torch.Tensor, group: Group = None
-                ) -> tp.Optional[torch.Tensor]:
-    """Send `x` to the next rank and return the previous rank's `x`
-    (None on rank 0; the last rank sends nothing). Every rank's `x` has
-    the same shape."""
+def _shift(x: torch.Tensor, group: Group, step: int
+            ) -> tp.Optional[torch.Tensor]:
+    """Send `x` to rank `r + step` and return rank `r - step`'s `x` (None
+    where that rank does not exist)."""
     r, n = rank(group), world(group)
     wire = _wire(x, group)
     ops = []
-    if r + 1 < n:
+    if 0 <= r + step < n:
         out = x.detach().to(wire).contiguous()
-        ops.append(dist.P2POp(dist.isend, out, global_rank(group, r + 1),
+        ops.append(dist.P2POp(dist.isend, out, global_rank(group, r + step),
                               group))
     got = None
-    if r > 0:
+    if 0 <= r - step < n:
         got = torch.empty(x.shape, dtype=x.dtype, device=wire)
-        ops.append(dist.P2POp(dist.irecv, got, global_rank(group, r - 1),
+        ops.append(dist.P2POp(dist.irecv, got, global_rank(group, r - step),
                               group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
     return None if got is None else _out(got, x)
+
+
+def shift_right(x: torch.Tensor, group: Group = None
+                ) -> tp.Optional[torch.Tensor]:
+    """Send `x` to the next rank and return the previous rank's `x`
+    (None on rank 0; the last rank sends nothing). Every rank's `x` has
+    the same shape."""
+    return _shift(x, group, 1)
+
+
+def shift_left(x: torch.Tensor, group: Group = None
+               ) -> tp.Optional[torch.Tensor]:
+    """Send `x` to the previous rank and return the next rank's `x` (None
+    on the last rank; rank 0 sends nothing)."""
+    return _shift(x, group, -1)
 
 
 def barrier(group: Group = None) -> None:
@@ -193,6 +213,121 @@ def all_reduce_tree(tree, group: Group = None):
 
 
 # ---------------------------------------------------------------------------
+# Differentiable collectives of a sharded time axis (the data×seq step)
+# ---------------------------------------------------------------------------
+#
+# Each backward is its forward's adjoint, with the cotangent convention of
+# `train.steps`: a cotangent of a tensor replicated over the group is this
+# rank's share (the true cotangent is the sum over the ranks). Every rank
+# builds the same graph of these nodes, so their backwards run in the same
+# order on every rank. Under `torch.no_grad()` they are the plain
+# collectives (the inference paths of `parallel.sp`).
+
+class _Halo(torch.autograd.Function):
+    """Forward: the previous rank's `tail` (rank 0: `prime.clone()`, its
+    own stream-start context). Backward: the cotangent goes back to the
+    previous rank, where it is `tail`'s; rank 0's is `prime`'s."""
+
+    @staticmethod
+    def forward(ctx, tail, prime, group):
+        ctx.group = group
+        got = shift_right(tail, group)
+        return prime.clone() if got is None else got
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        back = shift_left(g, ctx.group)
+        first = rank(ctx.group) == 0
+        return back, (g if first else None), None
+
+
+class _TailHandoff(torch.autograd.Function):
+    """Forward: `head` with the previous rank's `tail` added to its first
+    samples (time on the last axis; rank 0 adds nothing). Backward: the
+    cotangent of those samples goes back to the previous rank, where it is
+    `tail`'s."""
+
+    @staticmethod
+    def forward(ctx, head, tail, group):
+        ctx.group, ctx.pt = group, tail.shape[-1]
+        got = shift_right(tail, group)
+        out = head.clone()
+        if got is not None:
+            out[..., :ctx.pt] += got
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        back = shift_left(g[..., :ctx.pt].contiguous(), ctx.group)
+        return g, back, None
+
+
+class _GatherTime(torch.autograd.Function):
+    """Forward: every rank's `x` concatenated along `dim` in rank order.
+    Backward: the sum of the ranks' cotangents, this rank's slice: a
+    reduce-scatter on NCCL; gloo has none, so there an all-reduce of the
+    whole cotangent, then this rank's slice of it."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, dim, n = ctx.group, ctx.dim, ctx.n
+        if transport(group) == "device":
+            # the rank-ordered blocks along dim 0, as NCCL scatters them
+            src = g.movedim(dim, 0).to(_wire(g, group)).contiguous()
+            mine = src.new_empty((n,) + tuple(src.shape[1:]))
+            dist.reduce_scatter_tensor(mine, src, group=group)
+            return _out(mine.movedim(0, dim).contiguous(), g), None, None
+        total = all_reduce(g.contiguous(), "sum", group)
+        return total.narrow(dim, rank(group) * n, n), None, None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over the group's ranks, forward and backward (all-reduce is
+    its own adjoint)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), "sum", ctx.group), None
+
+
+def halo(tail: torch.Tensor, prime: tp.Optional[torch.Tensor],
+         group: Group = None) -> torch.Tensor:
+    """A conv layer's left context: the previous rank's `tail`; on rank 0
+    `prime` (which only rank 0 needs). Differentiable."""
+    return _Halo.apply(tail, prime, group)
+
+
+def tail_handoff(head: torch.Tensor, tail: torch.Tensor,
+                 group: Group = None) -> torch.Tensor:
+    """A transposed conv's overlap-add across ranks: `head` (`[..., L]`)
+    plus the previous rank's `tail` (`[..., k - s]`) on its first samples.
+    Differentiable."""
+    return _TailHandoff.apply(head, tail, group)
+
+
+def gather_time(x: torch.Tensor, group: Group = None, dim: int = 1
+                ) -> torch.Tensor:
+    """`all_gather` along `dim` with a reduce-scatter backward."""
+    return _GatherTime.apply(x, group, dim)
+
+
+def sum_over(x: torch.Tensor, group: Group = None) -> torch.Tensor:
+    """`all_reduce` (sum) with an all-reduce backward."""
+    return _SumOver.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
 # The reductions of a data-parallel training step
 # ---------------------------------------------------------------------------
 
@@ -211,7 +346,9 @@ class _ReplicatedSum(torch.autograd.Function):
 
 class DataParallel(BatchReduce):
     """The batch reductions of a training step whose batch is split over
-    `group`'s ranks (the mesh's `data` axis); see the module docstring."""
+    `group`'s ranks (the mesh's `data` axis); see the module docstring.
+    `check_replicated` holds the metrics equal over the whole world (a
+    data×seq mesh's seq peers too)."""
 
     def __init__(self, group: Group):
         self.group = group
@@ -237,7 +374,7 @@ class DataParallel(BatchReduce):
         dev = metrics[names[0]].device
         mine = torch.stack([metrics[k].detach().float().to(dev)
                             for k in names])
-        every = all_gather(mine[None], self.group).cpu()
+        every = all_gather(mine[None]).cpu()
         bits = every.view(torch.int32)        # NaN equal to its own bits
         differ = [k for k, col in zip(names, bits.t())
                   if not bool((col == col[0]).all())]

@@ -6,7 +6,8 @@ CPU. `initialize_multihost` brings the default process group up from
 torchrun's environment (or explicit arguments); `make_mesh`,
 `make_mesh_2d` and `make_hybrid_mesh` build `DeviceMesh`es with JAX's
 axis names (`"data"`, `"model"`, `"seq"`, `"pipe"`); `shard_batch` gives
-a rank its rows of the global batch.
+a rank its rows of the global batch over one axis (on a data × seq mesh,
+`"data"`: the seq peers get the same rows).
 
 JAX's refusals are kept:
 - a single process with no distributed environment is a no-op

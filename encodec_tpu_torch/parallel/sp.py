@@ -1,10 +1,14 @@
 """Sequence-parallel SEANet encode and decode: time sharded over a `seq` axis.
 
 Port of `encodec_tpu/parallel/sp.py` (`seanet_encode_sp`, `encode_sp`,
-`seanet_decode_sp`, `decode_sp`). Causal convolutions admit exact time
-sharding: each conv layer needs only `effective_kernel - stride` samples
-of left context, which the previous rank sends (`comm.shift_right`, one
-small exchange per layer) while every rank computes its shard; rank 0
+`seanet_decode_sp`, `decode_sp`), and the training forward's sharded
+trunks (`seanet_encode_seq`, `seanet_decode_seq`, on a process group; the
+inference functions are those under `torch.no_grad()`), with the checks
+of what can be sharded (`check_seq_parallel`). Causal convolutions admit
+exact time sharding: each conv layer needs only `effective_kernel -
+stride` samples of left context, which the previous rank sends
+(`comm.halo`, one small exchange per layer) while every rank computes its
+shard; rank 0
 primes its context with the reflect padding the batch forward applies at
 the signal start (`ops.streaming.prime_conv_stream`). The LSTM runs at the
 token rate (hop-times fewer steps), so after the sharded conv trunk the
@@ -12,7 +16,11 @@ token rate (hop-times fewer steps), so after the sharded conv trunk the
 and the final conv run replicated. The decoder mirrors it: the token-rate
 head (init conv + LSTM) replicated, then each rank upsamples its slice of
 the tokens, a transposed conv's `kernel - stride` overlap tail going to
-the next rank like the streaming decoder's carry.
+the next rank like the streaming decoder's carry (`comm.tail_handoff`).
+Each exchange and gather is differentiable: its backward sends the
+cotangent back to the rank the data came from (`comm`'s convention: a
+replicated tensor's cotangent is this rank's share), so the training
+step's backward runs through the same code.
 
 JAX's version is bit-exact on XLA. Here cuDNN (or oneDNN on the CPU) may
 pick another algorithm for a shard's length than for the whole signal, so
@@ -36,10 +44,11 @@ from ..ops.streaming import prime_conv_stream, sconv1d_stream
 from . import comm
 
 
-def _halo_or_prime(y: torch.Tensor, ctx: int, k: int, s: int, d: int,
-                   group, cfg: SEANetConfig) -> torch.Tensor:
+def _context(y: torch.Tensor, ctx: int, k: int, s: int, d: int,
+             group, cfg: SEANetConfig) -> torch.Tensor:
     """Left context of this shard: the previous shard's tail; on the first
-    shard the batch-start padding of its own head."""
+    shard the batch-start padding of its own head (differentiable: the
+    halo's cotangent goes back to the previous shard)."""
     if ctx == 0:
         return y[:, :0]
     if y.shape[1] < ctx:
@@ -48,16 +57,15 @@ def _halo_or_prime(y: torch.Tensor, ctx: int, k: int, s: int, d: int,
             f"{y.shape[1]} < receptive context {ctx} of a conv layer "
             f"(kernel {k}, stride {s}, dilation {d}). Use fewer shards or "
             f"a longer signal (analogous to streaming.min_first_chunk).")
-    halo = comm.shift_right(y[:, y.shape[1] - ctx:].contiguous(), group)
-    if halo is None:
-        return prime_conv_stream(y, k, s, d, pad_mode=cfg.pad_mode)
-    return halo
+    prime = (prime_conv_stream(y, k, s, d, pad_mode=cfg.pad_mode)
+             if comm.rank(group) == 0 else None)
+    return comm.halo(y[:, y.shape[1] - ctx:], prime, group)
 
 
 def _sp_conv(p, y, *, k: int, s: int = 1, d: int = 1, cfg: SEANetConfig,
              group, norm: tp.Optional[str] = None) -> torch.Tensor:
     ctx = (k - 1) * d + 1 - s
-    state = _halo_or_prime(y, ctx, k, s, d, group, cfg)
+    state = _context(y, ctx, k, s, d, group, cfg)
     out, _ = sconv1d_stream(p, y, state, kernel_size=k, stride=s, dilation=d,
                             norm=cfg.norm if norm is None else norm)
     return out
@@ -76,28 +84,58 @@ def _sp_resblock(p, x, cfg: SEANetConfig, dilations, group) -> torch.Tensor:
     return sc + y
 
 
-def _shard(x: torch.Tensor, group, multiple: int) -> torch.Tensor:
+def _shard(x: torch.Tensor, group, multiple: int,
+           unit: str = "") -> torch.Tensor:
     """This rank's equal slice of the time axis (dim 1), whose length must
-    be a multiple of `multiple` per rank."""
+    be a multiple of `multiple` per rank (`unit` names it in the error)."""
     n, r = comm.world(group), comm.rank(group)
     if x.shape[1] % (n * multiple):
         raise ValueError(f"length {x.shape[1]} is not a multiple of "
-                         f"{n} shards x {multiple}")
+                         f"{n} shards x {unit}{multiple}")
     per = x.shape[1] // n
     return x[:, r * per:(r + 1) * per]
 
 
-@torch.no_grad()
-def seanet_encode_sp(params, x: torch.Tensor, cfg: SEANetConfig, mesh, *,
-                     axis_name: str = "seq",
-                     plain: bool = False) -> torch.Tensor:
-    """Sequence-parallel `seanet_encoder`: x `[B, T, C]` with `T % (shards
-    * hop) == 0` → latents `[B, T/hop, dimension]` on every rank.
-    `plain=True` runs the LSTM's plain twin."""
-    if not cfg.causal:
-        raise ValueError("sequence parallelism requires a causal model")
-    group = mesh.get_group(axis_name)
-    y = _sp_conv(params["init_conv"], _shard(x, group, cfg.hop_length),
+def _check_causal(sn: SEANetConfig, what: str) -> None:
+    if not (sn.causal and sn.trim_right_ratio == 1.0):
+        raise ValueError(f"{what} requires a causal model with "
+                         "trim_right_ratio 1")
+
+
+def check_seq_parallel(cfg, shards: int) -> None:
+    """Raise `ValueError` where training cannot shard time over `shards`
+    ranks exactly (`cfg` an `EncodecConfig` or a `SEANetConfig`): a
+    non-causal model (its convs read right context) or a decoder whose
+    transposed convs trim on the left, time group norm and a normalized
+    model (statistics over the whole time axis), and stage remat (its
+    recomputed region would hold the halo collectives). The length is
+    checked at each step (`seanet_encode_seq`)."""
+    sn = getattr(cfg, "seanet", cfg)
+    what = f"sequence parallelism over {shards} shards"
+    _check_causal(sn, what)
+    if sn.norm == "time_group_norm":
+        raise ValueError(f"{what}: time_group_norm normalizes over the "
+                         "whole time axis")
+    if getattr(cfg, "normalize", False):
+        raise ValueError(f"{what}: audio_normalize scales each item by its "
+                         "RMS over the whole time axis")
+    if sn.remat:
+        raise ValueError(f"{what}: model.remat recomputes whole stages in "
+                         "the backward, and a stage's halo exchanges would "
+                         "run again there; train without remat (shards "
+                         "already hold 1/shards of the activations)")
+
+
+def seanet_encode_seq(params, x: torch.Tensor, cfg: SEANetConfig, group, *,
+                      plain: bool = False) -> torch.Tensor:
+    """The encoder with time sharded over `group`: x `[B, T, C]` (whole,
+    on every rank; `T % (shards * hop) == 0`) → latents `[B, T/hop,
+    dimension]`, whole on every rank. Differentiable: the halos and the
+    gather carry their cotangents back to the shards that sent them. The
+    caller has checked `cfg` (`check_seq_parallel`, or the causal check
+    of `seanet_encode_sp`). `plain=True` runs the LSTM's plain twin."""
+    y = _sp_conv(params["init_conv"],
+                 _shard(x, group, cfg.hop_length, "hop "),
                  k=cfg.kernel_size, cfg=cfg, group=group)
     for stage, ratio in zip(params["stages"], cfg.encoder_ratios):
         for j, res_p in enumerate(stage["res"]):
@@ -107,13 +145,25 @@ def seanet_encode_sp(params, x: torch.Tensor, cfg: SEANetConfig, mesh, *,
         y = _sp_conv(stage["down"], y, k=ratio * 2, s=ratio, cfg=cfg,
                      group=group)
     # the token-rate tail: gathered, then replicated
-    y = comm.all_gather(y.contiguous(), group, dim=1)
+    y = comm.gather_time(y, group, dim=1)
     if cfg.lstm:
         y = ops.lstm(params["lstm"], y, skip=True, plain=plain)
     y = _act(y, cfg.activation_alpha)
     return ops.sconv1d(params["final_conv"], y,
                        kernel_size=cfg.last_kernel_size, causal=True,
                        norm=cfg.norm, pad_mode=cfg.pad_mode)
+
+
+@torch.no_grad()
+def seanet_encode_sp(params, x: torch.Tensor, cfg: SEANetConfig, mesh, *,
+                     axis_name: str = "seq",
+                     plain: bool = False) -> torch.Tensor:
+    """Sequence-parallel `seanet_encoder`: x `[B, T, C]` with `T % (shards
+    * hop) == 0` → latents `[B, T/hop, dimension]` on every rank.
+    `plain=True` runs the LSTM's plain twin."""
+    _check_causal(cfg, "sequence parallelism")
+    return seanet_encode_seq(params, x, cfg, mesh.get_group(axis_name),
+                             plain=plain)
 
 
 def encode_sp(params, qstate, x: torch.Tensor, cfg, mesh, *,
@@ -143,27 +193,20 @@ def _sp_convtr(p, y, *, k: int, s: int, cfg: SEANetConfig,
     pt = k - s
     out = full[:, :, :L_out]
     if pt > 0:
-        halo = comm.shift_right(full[:, :, L_out:L_out + pt].contiguous(),
-                                group)
-        if halo is not None:
-            out = out.clone()
-            out[:, :, :pt] += halo
+        out = comm.tail_handoff(out, full[:, :, L_out:L_out + pt], group)
     if p.get("b") is not None:
         out = out + p["b"][:, None]
     return _apply_norm(out, p, cfg.norm).transpose(1, 2)
 
 
-@torch.no_grad()
-def seanet_decode_sp(params, z: torch.Tensor, cfg: SEANetConfig, mesh, *,
-                     axis_name: str = "seq",
-                     plain: bool = False) -> torch.Tensor:
-    """Sequence-parallel `seanet_decoder` for causal models with
-    `trim_right_ratio == 1`: z `[B, Tz, D]` with `Tz % shards == 0` →
-    audio `[B, Tz*hop, C]` on every rank."""
-    if not (cfg.causal and cfg.trim_right_ratio == 1.0):
-        raise ValueError("sequence-parallel decoding needs a causal model "
-                         "with trim_right_ratio 1")
-    group = mesh.get_group(axis_name)
+def seanet_decode_seq(params, z: torch.Tensor, cfg: SEANetConfig, group, *,
+                      plain: bool = False) -> torch.Tensor:
+    """The decoder with time sharded over `group`, for causal models with
+    `trim_right_ratio == 1`: z `[B, Tz, D]` (whole on every rank; `Tz %
+    shards == 0`) → audio `[B, Tz*hop, C]`, whole on every rank. The
+    token-rate head (init conv + LSTM) runs replicated, then each rank
+    upsamples its slice of the tokens. Differentiable. The caller has
+    checked `cfg`, as for `seanet_encode_seq`."""
     y = ops.sconv1d(params["init_conv"], z, kernel_size=cfg.kernel_size,
                     causal=True, norm=cfg.norm, pad_mode=cfg.pad_mode)
     if cfg.lstm:
@@ -181,7 +224,19 @@ def seanet_decode_sp(params, z: torch.Tensor, cfg: SEANetConfig, mesh, *,
                  group=group, norm=cfg.resolved_decoder_final_norm())
     if cfg.final_activation is not None:
         y = resolve_activation(cfg.final_activation)(y)
-    return comm.all_gather(y.contiguous(), group, dim=1)
+    return comm.gather_time(y, group, dim=1)
+
+
+@torch.no_grad()
+def seanet_decode_sp(params, z: torch.Tensor, cfg: SEANetConfig, mesh, *,
+                     axis_name: str = "seq",
+                     plain: bool = False) -> torch.Tensor:
+    """Sequence-parallel `seanet_decoder` for causal models with
+    `trim_right_ratio == 1`: z `[B, Tz, D]` with `Tz % shards == 0` →
+    audio `[B, Tz*hop, C]` on every rank."""
+    _check_causal(cfg, "sequence-parallel decoding")
+    return seanet_decode_seq(params, z, cfg, mesh.get_group(axis_name),
+                             plain=plain)
 
 
 def decode_sp(params, qstate, codes: torch.Tensor, cfg, mesh, *,

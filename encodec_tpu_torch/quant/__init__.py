@@ -1,4 +1,5 @@
-"""Residual vector quantization (layer L2): inference and training."""
+"""Residual vector quantization (layer L2): inference and training, and
+the DAC-style RVQ (`dac_vq`, not wired into the model)."""
 
 from .rvq import (  # noqa: F401
     RVQConfig,
@@ -12,4 +13,13 @@ from .rvq import (  # noqa: F401
     resolve_ties_f64,
     num_quantizers_for_bandwidth,
     bandwidth_per_quantizer,
+)
+from .dac_vq import (  # noqa: F401
+    DacRVQConfig,
+    dac_from_codes,
+    dac_from_latents,
+    dac_rvq_forward,
+    dac_vq_stage,
+    init_dac_rvq,
+    snake,
 )

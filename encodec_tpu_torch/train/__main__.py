@@ -15,8 +15,11 @@ trains data-parallel, one process per GPU (`cuda:LOCAL_RANK`, NCCL; gloo
 with `--device cpu`): the config's `batch_size` is the global batch, each
 rank loads its rows, and rank 0 writes the run directory. A single
 process, or a world of one, runs the plain path (JAX's `elif n > 1`). A
-failed process-group handshake raises. `distributed.seq_parallel > 1` is
-refused (ROADMAP item 11f).
+failed process-group handshake raises. `distributed.seq_parallel: N > 1`
+adds time sharding: the world must be a multiple of N, the mesh is
+`make_mesh_2d(world // N, N)` (JAX's `__main__.py:108-111`), and the
+loaders take the `data` axis's rank and size, so the N seq peers of a
+data rank load the same rows.
 """
 
 from __future__ import annotations
@@ -90,7 +93,6 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None):
     args = parser.parse_args(argv)
 
     from .config import load_config
-    from .steps import refuse_seq_parallel
     from .trainer import Trainer
 
     if args.resume_from and os.path.exists(args.resume_from):
@@ -106,26 +108,32 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None):
         config = load_config(args.config)
         resume = False
 
-    mesh, rank, world = None, 0, 1
+    mesh, rank = None, 0
+    data_rank, data_world = 0, 1     # the loaders' share of each batch
     device = args.device
     dist_cfg = getattr(config, "distributed", None)
-    seq = int(getattr(dist_cfg, "seq_parallel", 0) or 0)
-    if seq > 1:
-        refuse_seq_parallel(f"distributed.seq_parallel: {seq}")
+    seq = int(getattr(dist_cfg, "seq_parallel", 1) or 1)
     if getattr(dist_cfg, "data_parallel", False):
         import torch
 
         from ..parallel import (comm, initialize_multihost, local_device,
-                                make_mesh)
+                                make_mesh, make_mesh_2d)
         cpu = torch.device(args.device).type == "cpu"
-        if initialize_multihost(backend="gloo" if cpu else "nccl") \
-                and comm.world() > 1:
+        live = initialize_multihost(backend="gloo" if cpu else "nccl")
+        world = comm.world() if live else 1
+        if world % seq:
+            raise ValueError(f"distributed.seq_parallel: {seq} does not "
+                             f"divide the world of {world} processes")
+        if world > 1:
             import torch.distributed as dist
 
-            rank, world = comm.rank(), comm.world()
+            rank = comm.rank()
             if not cpu:
                 device = local_device()
-            mesh = make_mesh(world)
+            mesh = (make_mesh_2d(world // seq, seq) if seq > 1
+                    else make_mesh(world))
+            data_rank = mesh.get_local_rank("data")
+            data_world = mesh.size(0)
             # every rank writes to rank 0's run directory
             box = [log_dir]
             dist.broadcast_object_list(box, src=0)
@@ -142,7 +150,7 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None):
             pass
 
     train_loader, val_loader, mapping = (
-        build_dataloaders(config, rank, world) if world > 1
+        build_dataloaders(config, data_rank, data_world) if data_world > 1
         else build_dataloaders(config))
     trainer = Trainer(config, train_loader, val_loader, log_dir,
                       label_mapping=mapping, writer=writer, device=device,

@@ -41,10 +41,54 @@ checking that they are (`dp.check_replicated`: a loss term that missed
 `dp` raises); the codes and margins of `keep_grads` and eval's per-item
 losses are the rank's own rows.
 
+Data × seq (`mesh=` with a `data` and a `seq` axis, JAX's 2-D mesh
+step): the batch is split over `data` as above and time over `seq`. Each
+rank passes its data rows, whole in time (the seq peers pass the same
+rows); `models.forward_train(seq=)` runs the conv trunks on this rank's
+time shard (`parallel.sp`), gathers the token-rate features for the
+LSTM (K3's saving forward and backward kernels, on every seq rank) and
+the RVQ (K1, on the whole latents, its statistics and draws reduced over
+`data` only through `dp`), and gathers `x_hat`. The losses then see the
+whole signal of the rank's rows. By route:
+- the L1/L2, spectral, commit and balanced terms, and the GAN terms by
+  the whole-signal and `disc_remat` routes, run replicated on every seq
+  rank;
+- the chunked GAN route (`disc_cfg.time_chunk`) shares the chunks: each
+  seq rank sums its block of them, and the sums of every resolution are
+  added over seq (one `comm.sum_over`) and then over data (`dp.sum`).
+
+The convention that makes this step the single-process step:
+- every cotangent that crosses a sharded or replicated boundary is
+  partial, this rank's share: the true cotangent is the sum over the seq
+  ranks. Each seq collective's backward is its forward's adjoint under
+  that rule: a halo's cotangent goes back to the rank that sent it, a
+  gather's backward is a reduce-scatter (`comm.gather_time`), the slice
+  of a replicated tensor passes its zero-padded cotangent, a sum over seq
+  has an all-reduce backward (`comm.sum_over`);
+- a replicated loss counts once in total: every rank computes the same
+  loss, and its backward starts from `1/seq` (`_grads(..., share)`;
+  the balanced step scales its cotangents alike). A chunked GAN sum is
+  not replicated but shared, and the all-reduce backward of `sum_over`
+  gives each block back the whole of its weight;
+- `dp`'s data reductions keep their identity backward (each data rank
+  holds the global loss over data);
+- every parameter gradient is summed over all data×seq ranks
+  (`comm.all_reduce_tree` over the world) before the clip and Adam.
+So the world's gradient is the single process's, leaf by leaf; a leaf fed
+by a complete cotangent on every seq rank would come out `seq` times too
+large, which the CPU tests' gradient bound catches. The scalar metrics
+must come out equal on every rank of the world (`dp.check_replicated`).
+Sharded time is refused where it is not exact
+(`parallel.sp.check_seq_parallel`: a non-causal model, time group norm,
+`audio_normalize`, `model.remat`, a length that is not a multiple of
+seq × hop). Stage remat is refused rather than sharded, because its
+recomputed region would rerun the per-layer halo exchanges (no collective
+runs in a recomputed region: the chunked GAN route's bodies hold none, and
+`disc_remat` runs replicated). A seq axis of one rank runs the
+data-parallel step.
+
 Not ported: `compute_dtype=bfloat16` (ROADMAP item 11d: an H100 bf16 mode
 needs a margin audit first); asking for it raises `NotImplementedError`.
-Nor the data×seq step (`distributed.seq_parallel`, ROADMAP item 11f),
-refused by name (`refuse_seq_parallel`).
 """
 
 from __future__ import annotations
@@ -65,6 +109,7 @@ from ..models.msstftd import (MSSTFTConfig, init_msstftd, msstftd_forward,
                               msstftd_sub_forward)
 from ..ops.conv import spectral_norm_update_tree
 from ..parallel import comm
+from ..parallel.sp import check_seq_parallel
 from ..quant import RVQState
 from .optim import AdamState, adam_update, init_adam, tree_leaves, tree_map
 
@@ -72,17 +117,8 @@ BF16_ITEM = ("bfloat16 compute is not ported: an H100 bf16 mode needs a "
              "margin audit first (ROADMAP item 11d)")
 
 
-SEQ_ITEM = ("the data×seq training step is not ported: sequence "
-            "parallelism's halo exchange needs a backward first (ROADMAP "
-            "item 11f); use distributed.data_parallel alone")
-
-
 def refuse_bf16(what: str) -> tp.NoReturn:
     raise NotImplementedError(f"{what}: {BF16_ITEM}")
-
-
-def refuse_seq_parallel(what: str) -> tp.NoReturn:
-    raise NotImplementedError(f"{what}: {SEQ_ITEM}")
 
 
 DISC_SEED_OFFSET = 1 << 20
@@ -168,22 +204,52 @@ def _with_grad(tree):
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
+def _chunk_sums(subs, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
+                x_hat: torch.Tensor, dp: BatchReduce, seq=None) -> list:
+    """Each sub-discriminator's chunked GAN sums over the global batch, all
+    reduced in one exchange. Under `seq` (a process group) this rank sums
+    its block of the chunks, and the blocks' sums are first added over seq
+    (`comm.sum_over`, all-reduce backward); the logit counts are the whole
+    signal's on every seq rank and are added over data only."""
+    shard = (0, 1) if seq is None else (comm.rank(seq), comm.world(seq))
+    per = [msstftd_gan_sums_chunked(sub, batch, x_hat, disc_cfg, i,
+                                    chunk=disc_cfg.time_chunk, shard=shard)
+           for i, sub in enumerate(subs)]
+    keys = [[k for k in sums if k != "n_logit"] for sums in per]
+    shared = torch.cat([sums[k].reshape(-1)
+                        for sums, ks in zip(per, keys) for k in ks])
+    if seq is not None:
+        shared = comm.sum_over(shared, seq)
+    flat = dp.sum(torch.cat([shared] + [sums["n_logit"].reshape(1)
+                                        for sums in per]))
+    out, at = [], 0
+    for sums, ks in zip(per, keys):
+        got = {}
+        for k in ks:
+            n = sums[k].numel()
+            got[k] = flat[at:at + n].reshape(sums[k].shape)
+            at += n
+        out.append(got)
+    for got, n_logit in zip(out, flat[at:]):
+        got["n_logit"] = n_logit
+    return out
+
+
 def gan_terms(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
               x_hat: torch.Tensor, disc_remat: bool = False,
-              dp: BatchReduce = LOCAL):
+              dp: BatchReduce = LOCAL, seq=None):
     """The generator's GAN terms `(l_g, l_feat)` by JAX's route for the
     config: the chunked discriminator (`disc_cfg.time_chunk`), each
     resolution recomputed in the backward (`disc_remat`), or the whole
     signal. The real signal's branch builds no graph; `dp` reduces the
-    batch means."""
+    batch means; under `seq` the chunked route shares the chunks over its
+    ranks (`_chunk_sums`), the other two run replicated."""
     n_subs = len(disc_params["discs"])
     n_feat = n_subs * msstftd_num_fmaps(disc_cfg)
     l_g = l_feat = batch.new_zeros(())
     if disc_cfg.time_chunk:
-        for i, sub in enumerate(disc_params["discs"]):
-            sums = {k: dp.sum(v) for k, v in msstftd_gan_sums_chunked(
-                sub, batch, x_hat, disc_cfg, i,
-                chunk=disc_cfg.time_chunk).items()}
+        for sums in _chunk_sums(disc_params["discs"], disc_cfg, batch,
+                                x_hat, dp, seq):
             l_g = l_g + sums["lg_fake"] / sums["n_logit"]
             # mean|real - fake| / mean|real| per layer: the counts cancel
             l_feat = l_feat + (sums["feat_diff"] / sums["feat_real"]).sum()
@@ -219,18 +285,18 @@ def gan_terms(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
 
 def disc_losses(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
                 x_hat: torch.Tensor, disc_remat: bool = False,
-                dp: BatchReduce = LOCAL):
+                dp: BatchReduce = LOCAL, seq=None):
     """The discriminator's LSGAN loss and its mean logits on the real and
     the fake signal, `(loss, logits_real, logits_fake)`, by the same three
-    routes as `gan_terms`."""
+    routes as `gan_terms` (and the same sharing under `seq`)."""
     subs = disc_params["discs"]
     if disc_cfg.time_chunk or disc_remat:
         loss = lr_mean = lf_mean = batch.new_zeros(())
+        chunked = (_chunk_sums(subs, disc_cfg, batch, x_hat, dp, seq)
+                   if disc_cfg.time_chunk else None)
         for i, sub in enumerate(subs):
-            if disc_cfg.time_chunk:
-                sums = {k: dp.sum(v) for k, v in msstftd_gan_sums_chunked(
-                    sub, batch, x_hat, disc_cfg, i,
-                    chunk=disc_cfg.time_chunk).items()}
+            if chunked is not None:
+                sums = chunked[i]
                 n = sums["n_logit"]
                 l_i = (sums["sq_fake"] + sums["lg_real"]) / n
                 lr_i, lf_i = sums["sum_real"] / n, sums["sum_fake"] / n
@@ -284,7 +350,10 @@ def make_train_steps(model_cfg: EncodecConfig,
     `mesh` (a `DeviceMesh` with a "data" axis): each step is the
     data-parallel step on this rank's rows of the global batch (see the
     module's docstring). A mesh of one rank runs the same code and gives
-    the plain step's bits."""
+    the plain step's bits. With a "seq" axis too (`parallel.make_mesh_2d`),
+    time is sharded over it: the data×seq step, its convention in the
+    module's docstring; what cannot be sharded raises `ValueError` here
+    or, for the length, at the step."""
     if compute_dtype is not None and compute_dtype not in (torch.float32,
                                                           "float32", "f32"):
         refuse_bf16(f"compute_dtype={compute_dtype}")
@@ -293,16 +362,29 @@ def make_train_steps(model_cfg: EncodecConfig,
     fl_kwargs.update(freq_loss_kwargs or {})
 
     group = None if mesh is None else mesh.get_group("data")
+    seq = None
+    if mesh is not None and "seq" in (mesh.mesh_dim_names or ()) \
+            and mesh.size(mesh.mesh_dim_names.index("seq")) > 1:
+        seq = mesh.get_group("seq")
+        check_seq_parallel(model_cfg, comm.world(seq))
     dp = LOCAL if mesh is None else comm.DataParallel(group)
+    # a replicated loss's share on each seq rank (its gradient counts once)
+    share = None if seq is None else 1.0 / comm.world(seq)
 
     def freq_loss(x, x_hat):
         return reconstruction_loss(x[..., 0], x_hat[..., 0], dp=dp,
                                    **fl_kwargs)
 
     def reduce_grads(grads):
-        """Each rank's gradient is its rows' share of the global loss's:
-        their sum is the whole batch's."""
-        return grads if mesh is None else comm.all_reduce_tree(grads, group)
+        """Each rank's gradient is its rows' (and its shard's) share of the
+        global loss's: their sum over the world is the whole batch's."""
+        if mesh is None:
+            return grads
+        return comm.all_reduce_tree(grads, group if seq is None else None)
+
+    def scaled(t: torch.Tensor) -> tp.Optional[torch.Tensor]:
+        """The cotangent of a replicated loss `t` on this rank (None: 1)."""
+        return None if share is None else t * share
 
     def gen_step(state: TrainState, batch: torch.Tensor,
                  weights: LossWeights, use_gan: bool = False,
@@ -319,7 +401,7 @@ def make_train_steps(model_cfg: EncodecConfig,
         with torch.enable_grad():
             x_hat, codes, commit, new_qstate = forward_train(
                 params, state.qstate, batch, model_cfg, n_q, generator,
-                training=True, plain=plain, dp=dp, margins=margins)
+                training=True, plain=plain, dp=dp, seq=seq, margins=margins)
             commit_mean = commit.mean()
             freq = freq_loss(batch, x_hat)
             losses_g = total_loss(None, None, None, batch, x_hat, dp)
@@ -330,9 +412,10 @@ def make_train_steps(model_cfg: EncodecConfig,
                     + commit_mean * weights.codebook)
             if use_gan:
                 l_g, l_feat = gan_terms(state.disc_params, disc_cfg, batch,
-                                        x_hat, disc_remat, dp)
+                                        x_hat, disc_remat, dp, seq)
                 loss = loss + l_g * weights.gen + l_feat * weights.feat
-            grads = reduce_grads(_grads(loss, params))
+            grads = reduce_grads(_grads(loss, params,
+                                        scaled(torch.ones_like(loss))))
         new_params, new_opt, grad_norm = adam_update(
             grads, state.opt_state, params_in, weights.lr, clip)
         metrics = {
@@ -367,7 +450,7 @@ def make_train_steps(model_cfg: EncodecConfig,
         with torch.enable_grad():
             x_hat, _, commit, new_qstate = forward_train(
                 params, state.qstate, batch, model_cfg, n_q, generator,
-                training=True, plain=plain, dp=dp)
+                training=True, plain=plain, dp=dp, seq=seq)
             commit_mean = commit.mean()
         loss_fns = {
             "l_t": lambda y: dp.mean((batch - y).abs().mean()),
@@ -378,6 +461,8 @@ def make_train_steps(model_cfg: EncodecConfig,
         # the commit scalar feeds both the commit and the codebook weights
         # (the reference passes one loss under both names, vq.py:114)
         w_commit = commit_mean.new_tensor(weights.commit + weights.codebook)
+        if share is not None:
+            cot, w_commit = scaled(cot), scaled(w_commit)
         grads = reduce_grads(_grads((x_hat, commit_mean), params,
                                     (cot, w_commit)))
         new_params, new_opt, grad_norm = adam_update(
@@ -410,12 +495,13 @@ def make_train_steps(model_cfg: EncodecConfig,
         with torch.no_grad():
             x_hat, _, _, _ = forward_train(
                 state.params, state.qstate, batch, model_cfg, n_q, generator,
-                training=True, plain=plain, dp=dp)
+                training=True, plain=plain, dp=dp, seq=seq)
         disc = _with_grad(disc_in)
         with torch.enable_grad():
             loss, lr_mean, lf_mean = disc_losses(disc, disc_cfg, batch,
-                                                 x_hat, disc_remat, dp)
-            grads = reduce_grads(_grads(loss, disc))
+                                                 x_hat, disc_remat, dp, seq)
+            grads = reduce_grads(_grads(loss, disc,
+                                        scaled(torch.ones_like(loss))))
         new_disc, new_opt, grad_norm = adam_update(
             grads, state.disc_opt_state, disc_in, weights.disc_lr, clip)
         metrics = {"loss_disc": loss.detach(),
@@ -433,7 +519,7 @@ def make_train_steps(model_cfg: EncodecConfig,
                   weights: LossWeights):
         x_hat, codes, commit, _ = forward_train(
             state.params, state.qstate, batch, model_cfg, n_q, training=False,
-            plain=plain, dp=dp)
+            plain=plain, dp=dp, seq=seq)
         freq = freq_loss(batch, x_hat)
         losses_g = total_loss(None, None, None, batch, x_hat, dp)
         loss = (losses_g["l_1"] * weights.l1

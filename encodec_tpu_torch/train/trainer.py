@@ -16,8 +16,7 @@ the gradient balancer when `balancer.weights` is set and
 The trainer runs on `device` (default "cuda"; it raises without a GPU;
 "cpu" runs every plain twin). Configs it cannot run yet are refused when
 the trainer is built, not epochs later: a compute dtype other than
-float32 (ROADMAP item 11d) and `distributed.seq_parallel` above 1 (the
-data×seq step, item 11f).
+float32 (ROADMAP item 11d).
 
 `checkpoint.async_save: true` writes through `AsyncCheckpointer` (JAX's
 `trainer.py:328-354`): `resume` and the end of `fit` wait for the write.
@@ -30,7 +29,13 @@ global, eval's per-item losses and code entropies are over the gathered
 rows, and rank 0 alone writes the config, TensorBoard, figures and
 checkpoints (a barrier follows each wait for a write); every rank loads on
 resume. A preemption request on any rank stops every rank at the same
-step boundary.
+step boundary. Under a data×seq mesh (`distributed.seq_parallel: N`,
+`parallel.make_mesh_2d(world // N, N)`) the loaders are the `data` axis's
+(the seq peers load the same rows), the steps shard time over `seq`,
+eval gathers over `data` only, and rank 0 of the world alone writes; the
+preemption vote and the barriers span the world. A model that cannot
+shard time is refused when the trainer is built
+(`parallel.sp.check_seq_parallel`).
 """
 
 from __future__ import annotations
@@ -60,7 +65,7 @@ from .metrics import Metrics
 from .optim import AdamState
 from .schedulers import linear_warmup_cosine
 from .steps import (LossWeights, TrainState, create_train_state,
-                    make_train_steps, refuse_bf16, refuse_seq_parallel)
+                    make_train_steps, refuse_bf16)
 
 # `extra` of the checkpoints this trainer writes: the parameters are in the
 # port's (torch) layout, unlike a JAX-written file's
@@ -154,13 +159,11 @@ class Trainer:
         dtype_name = getattr(config.common, "compute_dtype", None)
         if dtype_name and str(dtype_name) not in ("float32", "f32"):
             refuse_bf16(f"common.compute_dtype: {dtype_name}")
-        seq = int(getattr(getattr(config, "distributed", None),
-                          "seq_parallel", 0) or 0)
-        if seq > 1:
-            refuse_seq_parallel(f"distributed.seq_parallel: {seq}")
         self.mesh = mesh
+        # eval gathers over `data`; the vote, the barriers and the writes
+        # span the world (a data×seq mesh's seq peers hold the same rows)
         self.group = None if mesh is None else mesh.get_group("data")
-        self.rank = 0 if mesh is None else comm.rank(self.group)
+        self.rank = 0 if mesh is None else comm.rank()
         self.async_save = bool(getattr(getattr(config, "checkpoint", None),
                                        "async_save", False))
         self._async_ckpt: tp.Optional[AsyncCheckpointer] = None
@@ -299,7 +302,7 @@ class Trainer:
         for batch, _ds_ids in self.train_loader:
             stop = guard is not None and guard.requested
             if self.mesh is not None:
-                stop = comm.any_rank(stop, self.group)
+                stop = comm.any_rank(stop)
             if stop:
                 break  # stop at a step boundary; fit checkpoints
             x = self._batch(batch)
@@ -452,7 +455,7 @@ class Trainer:
         if self._async_ckpt is not None:
             self._async_ckpt.wait()
         if self.mesh is not None:
-            comm.barrier(self.group)
+            comm.barrier()
 
     def resume(self, path: tp.Optional[str] = None) -> None:
         """Continue from `path` (default `<log_dir>/model.ckpt`, falling back
@@ -490,7 +493,7 @@ class Trainer:
                 self.epoch_seconds[epoch] = time.time() - t0
                 stop = guard.requested
                 if self.mesh is not None:
-                    stop = comm.any_rank(stop, self.group)
+                    stop = comm.any_rank(stop)
                 if stop:
                     # the epoch was cut short: label the checkpoint so a
                     # resume re-runs it from its start

@@ -330,16 +330,3 @@ def test_pp_train_steps_match_the_single_process_step(paths):
         for a, b in zip(tree_leaves(g_other), tree_leaves(other)):
             np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                        atol=1e-5)
-
-
-def test_seq_parallel_training_is_refused(tmp_path):
-    """The data×seq training step is not ported: `distributed.seq_parallel
-    > 1` raises, naming its ROADMAP item."""
-    from encodec_tpu_torch.train import ConfigNamespace, Trainer
-    from tests.test_torch_train import CONFIG
-
-    cfg = dict(CONFIG, distributed={"data_parallel": True,
-                                    "seq_parallel": 4})
-    with pytest.raises(NotImplementedError, match="11f"):
-        Trainer(ConfigNamespace(cfg), [], [], str(tmp_path / "r"),
-                device="cpu")

@@ -1,7 +1,8 @@
 """Rank functions of the parallel tests (no tests here, and no JAX).
 
-`tests/test_torch_parallel_train.py` and `tests/test_torch_parallel.py`
-start one gloo world per module with `torch.multiprocessing.spawn`, which
+`tests/test_torch_parallel_train.py`, `tests/test_torch_parallel.py` and
+`tests/test_torch_seq_parallel.py` start one gloo world per module with
+`torch.multiprocessing.spawn`, which
 re-imports this module in every rank: it imports torch and the port only.
 Each rank initialises its process group from a file store under the
 test's temporary directory (no port to collide on under xdist), runs one
@@ -311,4 +312,226 @@ def task_paths(out: str) -> dict:
     return res
 
 
-TASKS = {"train": task_train, "main": task_main, "paths": task_paths}
+# -- the data×seq step (tests/test_torch_seq_parallel.py) -----------------
+
+SEQ_T = 1200          # 2 seq shards x hop 10 divide it
+SEQ_CASES = ("kmeans_1", "gen", "gan_plain", "gan_chunked", "gan_remat",
+             "disc_plain", "disc_chunked", "disc_remat", "balanced_item",
+             "balanced_batch")
+
+
+def seq_cases(inputs: dict, mesh=None) -> dict:
+    """The data×seq cases on `inputs` (the JAX-initialised tiny model and
+    discriminator), B=4 x T=1200: with `mesh` (data x seq), this rank's
+    data rows, whole in time; without, the single-process step on the
+    global batch."""
+    rows = ((lambda a: torch.from_numpy(np.ascontiguousarray(
+        parallel.shard_batch(mesh, a, "data")))) if mesh is not None
+        else torch.from_numpy)
+    w = LossWeights.make(**WEIGHTS)
+    res = {}
+
+    def keep(name, state, m):
+        res[name] = _record(state, m)
+        for k in ("codes", "margins"):
+            if k in m:
+                res[name][k] = m[k].clone()
+
+    km = build_model([0.08], seed=3, device="cpu",
+                     **dict(TINY, kmeans_init=True))
+    steps = make_train_steps(km.cfg, freq_loss_kwargs=FL, mesh=mesh)
+    state, m = steps[0](create_train_state(km, seed=0),
+                        rows(batch(1, T=SEQ_T)), w, keep_grads=True)
+    keep("kmeans_1", state, m)
+
+    tm = build_model([0.08], seed=3, device="cpu", **TINY)
+    tm.params, tm.qstate = inputs["params"], inputs["qstate"]
+    gen, _, ev, _ = make_train_steps(tm.cfg, freq_loss_kwargs=FL, mesh=mesh)
+    state, m = gen(create_train_state(tm, seed=0), rows(batch(0, T=SEQ_T)),
+                   w, keep_grads=True)
+    keep("gen", state, m)
+    em, codes, x_hat = ev(create_train_state(tm, seed=0),
+                          rows(batch(6, T=SEQ_T)), w)
+    res["eval"] = {"metrics": {k: v.clone() for k, v in em.items()},
+                   "codes": codes.clone(), "x_hat": x_hat.clone()}
+    for route in ROUTES:
+        cfg = msstftd.MSSTFTConfig(
+            **DISC, time_chunk=7 if route == "chunked" else None)
+        steps = make_train_steps(tm.cfg, cfg, freq_loss_kwargs=FL,
+                                 disc_remat=route == "remat", mesh=mesh)
+        state = create_train_state(tm, cfg, seed=0)._replace(
+            disc_params=inputs["disc"])
+        s1, m = steps[0](state, rows(batch(3, T=SEQ_T)), w, use_gan=True,
+                         keep_grads=True)
+        keep(f"gan_{route}", s1, m)
+        s2, m = steps[1](state, rows(batch(4, T=SEQ_T)), w, keep_grads=True)
+        keep(f"disc_{route}", s2, m)
+    for per_item in (True, False):
+        bal = Balancer(weights={"l_t": 1.0, "l_f": 1.0},
+                       per_batch_item=per_item)
+        steps = make_train_steps(tm.cfg, freq_loss_kwargs=FL, balancer=bal,
+                                 mesh=mesh)
+        state = create_train_state(tm, seed=0, balancer=bal)
+        state, m = steps[3](state, rows(batch(5, T=SEQ_T)), w,
+                            keep_grads=True)
+        keep(f"balanced_{'item' if per_item else 'batch'}", state, m)
+    return res
+
+
+class _Scatter(torch.autograd.Function):
+    """A replicated tensor's slice `r` of `n` along dim 1 (backward: the
+    sum over the ranks of the zero-padded cotangents: the whole cotangent
+    on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.shape = group, x.shape
+        n, r = parallel.comm.world(group), parallel.comm.rank(group)
+        per = x.shape[1] // n
+        return x[:, r * per:(r + 1) * per].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        n, r = parallel.comm.world(ctx.group), parallel.comm.rank(ctx.group)
+        full = g.new_zeros(ctx.shape)
+        per = ctx.shape[1] // n
+        full[:, r * per:(r + 1) * per] = g
+        return parallel.comm.all_reduce(full, "sum", ctx.group), None
+
+
+class _Share(torch.autograd.Function):
+    """The identity, whose backward takes this rank's share of a
+    replicated output's cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / parallel.comm.world(ctx.group), None
+
+
+def seq_gradchecks(group) -> dict:
+    """`torch.autograd.gradcheck` in float64 of the halo, the tail
+    hand-off, the gather and the sum over `group`: each wrapped as a
+    function of a replicated input (sliced per rank) to a replicated
+    output (gathered), so every rank checks the whole Jacobian."""
+    comm = parallel.comm
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn(2, 2 * comm.world(group), 3, generator=gen,
+                    dtype=torch.float64, requires_grad=True)
+
+    def halo(x):
+        y = _Scatter.apply(x, group)
+        prime = y[:, :1].flip(1) * 0.5 if comm.rank(group) == 0 else None
+        ctx = comm.halo(y[:, -1:] * 3.0, prime, group)
+        return _Share.apply(comm.gather_time(torch.cat([ctx, y], 1),
+                                             group), group)
+
+    def tail(x):
+        y = _Scatter.apply(x, group).transpose(1, 2)      # time last
+        out = comm.tail_handoff(y * 2.0, y[..., -1:].square(), group)
+        return _Share.apply(comm.gather_time(out, group, dim=2), group)
+
+    def gather(x):
+        y = _Scatter.apply(x, group)
+        return _Share.apply(comm.gather_time(y.sin(), group), group)
+
+    def total(x):
+        y = _Scatter.apply(x, group)
+        return _Share.apply(comm.sum_over(y.square().sum(1), group), group)
+
+    out = {}
+    for name, fn in (("halo", halo), ("tail", tail), ("gather", gather),
+                     ("sum", total)):
+        # a failure returns False on every rank alike (the same Jacobians),
+        # so the ranks stay in step
+        out[name] = bool(torch.autograd.gradcheck(
+            fn, (x,), eps=1e-6, atol=1e-8, raise_exception=False))
+    return out
+
+
+def seq_refusals(mesh) -> dict:
+    """What the data×seq step refuses, each message (None: no error)."""
+    import dataclasses
+
+    tm = build_model([0.08], seed=3, device="cpu", **TINY)
+    cfg, sn = tm.cfg, tm.cfg.seanet
+    bad = {"non-causal": dataclasses.replace(
+               cfg, seanet=dataclasses.replace(sn, causal=False)),
+           "time_group_norm": dataclasses.replace(
+               cfg, seanet=dataclasses.replace(sn, norm="time_group_norm")),
+           "audio_normalize": dataclasses.replace(cfg, normalize=True),
+           "remat": dataclasses.replace(
+               cfg, seanet=dataclasses.replace(sn, remat=True))}
+    out = {}
+    for name, c in bad.items():
+        try:
+            make_train_steps(c, freq_loss_kwargs=FL, mesh=mesh)
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    gen = make_train_steps(cfg, freq_loss_kwargs=FL, mesh=mesh)[0]
+    x = torch.from_numpy(np.ascontiguousarray(parallel.shard_batch(
+        mesh, batch(0, T=SEQ_T + 10), "data")))
+    try:
+        gen(create_train_state(tm, seed=0), x, LossWeights.make(**WEIGHTS))
+        out["length"] = None
+    except ValueError as e:
+        out["length"] = str(e)
+    return out
+
+
+def task_seq(out: str) -> dict:
+    """The data×seq cases on a 2 x 2 mesh, the collectives' gradchecks on
+    its seq axis, and the refusals."""
+    mesh = parallel.make_mesh_2d(2, dist.get_world_size() // 2)
+    inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
+    res = seq_cases(inputs, mesh)
+    res["gradcheck"] = seq_gradchecks(mesh.get_group("seq"))
+    res["refusals"] = seq_refusals(mesh)
+    res["coords"] = (mesh.get_local_rank("data"), mesh.get_local_rank("seq"))
+    return res
+
+
+def task_seq_main(out: str) -> dict:
+    """`python -m encodec_tpu_torch.train` with `distributed.seq_parallel:
+    2` (gloo, `--device cpu`) and asynchronous saves, one epoch; then a
+    resume of its run directory for a second epoch."""
+    from encodec_tpu_torch.train import __main__ as entry
+
+    with open(os.path.join(out, "seq_main.json")) as fh:
+        spec = json.load(fh)
+    build = entry.build_dataloaders
+    shards = []
+
+    def cut(config, *shard):
+        shards.append(shard)
+        train, val, mapping = build(config, *shard)
+        train.dataset.size, val.dataset.size = spec["sizes"]
+        return train, val, mapping
+
+    entry.build_dataloaders = cut
+    try:
+        first = entry.main(["--config", spec["config"], "--log_dir",
+                            spec["log_dir"], "--device", "cpu",
+                            "--max_epochs", "1"])
+        res = {"rank": first.rank, "shards": list(shards),
+               "mesh": tuple(first.mesh.mesh_dim_names),
+               "params_1": _detach(first.state.params),
+               "files_1": sorted(os.listdir(spec["log_dir"]))}
+        dist.barrier()
+        again = entry.main(["--config", spec["config"], "--resume_from",
+                            spec["log_dir"], "--device", "cpu",
+                            "--max_epochs", "2"])
+    finally:
+        entry.build_dataloaders = build
+    res.update(start=again.start_epoch, params_2=_detach(again.state.params),
+               val=again.evaluate(2, save_figure=False))
+    return res
+
+
+TASKS = {"train": task_train, "main": task_main, "paths": task_paths,
+         "seq": task_seq, "seq_main": task_seq_main}

@@ -633,30 +633,34 @@ def _refusal(case, tmp_path, tm):
     cfg = _config(tmp_path)
     if case == "make_train_steps bf16":
         make_train_steps(tm.cfg, compute_dtype=torch.bfloat16)
-    elif case == "train main seq_parallel":
-        cfg["distributed"] = {"data_parallel": True, "seq_parallel": 2}
-        (tmp_path / "c.json").write_text(json.dumps(cfg))
-        train_main(["--config", str(tmp_path / "c.json"), "--log_dir",
-                    str(tmp_path / "r"), "--device", "cpu"])
     else:
-        section, key, value = {
-            "Trainer bf16": ("common", "compute_dtype", "bfloat16"),
-            "Trainer seq_parallel": ("distributed", "seq_parallel", 2)}[case]
-        cfg[section][key] = value
+        cfg["common"]["compute_dtype"] = "bfloat16"
         Trainer(ConfigNamespace(cfg), [], [], str(tmp_path / "r"),
                 device="cpu")
 
 
 @pytest.mark.parametrize("case,item", [
-    ("make_train_steps bf16", "11d"), ("Trainer bf16", "11d"),
-    ("Trainer seq_parallel", "11f"), ("train main seq_parallel", "11f")])
+    ("make_train_steps bf16", "11d"), ("Trainer bf16", "11d")])
 def test_bf16_and_async_save_are_refused(case, item, tmp_path, pair):
-    """What the port still refuses, each naming its ROADMAP item: bfloat16
-    compute (behind a margin audit) and the data×seq training step
-    (`distributed.seq_parallel > 1`). Asynchronous saves, refused until
-    the parallel slice, now run: `tests/test_torch_parallel_train.py`."""
+    """What the port still refuses, naming its ROADMAP item: bfloat16
+    compute (behind a margin audit). Asynchronous saves, refused until
+    the parallel slice, now run: `tests/test_torch_parallel_train.py`; so
+    does the data×seq step: `tests/test_torch_seq_parallel.py`."""
     with pytest.raises(NotImplementedError, match=item):
         _refusal(case, tmp_path, pair["tm"])
+
+
+def test_seq_parallel_must_divide_the_world(tmp_path):
+    """`distributed.seq_parallel: 2` in a single process: the entry point
+    refuses a world the seq axis does not divide (JAX's `__main__.py`
+    asserts `devices % seq_parallel == 0`) before it builds anything."""
+    cfg = _config(tmp_path)
+    cfg["distributed"] = {"data_parallel": True, "seq_parallel": 2}
+    (tmp_path / "c.json").write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="does not divide the world of 1"):
+        train_main(["--config", str(tmp_path / "c.json"), "--log_dir",
+                    str(tmp_path / "r"), "--device", "cpu"])
+    assert not (tmp_path / "r").exists()
 
 
 def test_gan_config_and_balancer_build(tmp_path, pair):
