@@ -172,7 +172,21 @@ Phases, in order (any failure exits non-zero before the last line):
    cannot put two ranks on one card, and a seq axis of one rank is the
    data-parallel step); `probes/seq_nccl.py` runs the same checks over
    NCCL on four cards;
-20. print the `kernels` JSON line (launches per path, the grid kernel, the
+20. the reduced-precision modes (`phase_precision`): (a) bf16 training
+   compute (`common.compute_dtype: bfloat16`), gan.yaml's model as written
+   at B=4 on 4 h nights: from a float32 state after the k-means step, a
+   generator, a GAN generator and a discriminator step in bf16: finite,
+   masters and Adam float32, the GAN terms within rtol 0.1 of the float32
+   steps', the losses within 2e-2 of the same bf16 steps on the plain
+   twins; K1, K3's saving forward and K3's backward launched, each held to
+   its twin on the inputs the bf16 step gave it; (b) `set_precision` on
+   the 24 kHz model, a 10 s request at 6 kbps at 'high' (TF32) and at
+   'fast' (bf16 trunks): K2 and K3 (and K1 in the guarded 'high'
+   encode) held to their twins on the request's inputs, the 'high' codes
+   and audio to the twins' path, the `.ecdc` writer refused at 'high' and
+   at 'fast', the guarded 'high' codes decoded, the TF32 flags as they
+   were after every call;
+21. print the `kernels` JSON line (launches per path, the grid kernel, the
    backward kernel and the range decoder in rows of their own), then the
    final `ok` JSON line.
 
@@ -4480,6 +4494,292 @@ def phase_seq_parallel(torch, kernels, dev):
     return counts
 
 
+PREC_B = 4                  # the bf16 steps' batch of 4 h nights
+PREC_LOSS_REL = 2e-2        # bf16 losses off the plain twins'
+
+
+PREC_WRAPPED = (("encodec_tpu_torch.quant.rvq", "nearest_codebook"),
+                ("encodec_tpu_torch.quant.rvq", "rvq_encode_fused"),
+                ("encodec_tpu_torch.ops.lstm", "lstm_scan"),
+                ("encodec_tpu_torch.ops.lstm", "lstm_scan_backward"))
+
+
+def capture_first(torch, fn) -> tuple:
+    """`fn()`, and the arguments of the first call it made to each kernel
+    wrapper of `PREC_WRAPPED` (cloned), by the wrapper's name."""
+    import importlib
+
+    seen: dict = {}
+    mods = [(importlib.import_module(m), n) for m, n in PREC_WRAPPED]
+    origs = [getattr(mod, name) for mod, name in mods]
+    for (mod, name), orig in zip(mods, origs):
+        def spy(*a, _orig=orig, _name=name, **k):
+            seen.setdefault(_name, ([t.detach().clone()
+                                     if torch.is_tensor(t) else t
+                                     for t in a], k))
+            return _orig(*a, **k)
+        setattr(mod, name, spy)
+    try:
+        out = fn()
+    finally:
+        for (mod, name), orig in zip(mods, origs):
+            setattr(mod, name, orig)
+    return out, seen
+
+
+def hold_captured(torch, kernels, seen: dict, what: str) -> str:
+    """Each captured kernel call against its plain twin on the same
+    inputs: K1's and K2's codes equal where the twin chain's margins are
+    untied (K1's margins within the tie threshold of the twin's), K3's
+    outputs within 1e-4, K3's backward within 1e-4 of its largest |value|.
+    Fails on a difference; returns a summary."""
+    out = []
+    if "nearest_codebook" in seen:
+        a, k = seen["nearest_codebook"]
+        idx_k, m_k = kernels.nearest_codebook(*a, **k)
+        idx_p, m_p = kernels.nearest_codebook_plain(*a, **k)
+        untied = (m_k >= TIE_THRESHOLD) & (m_p >= TIE_THRESHOLD)
+        off = int((idx_k != idx_p)[untied].sum())
+        m_err = float((m_k - m_p).abs().max())
+        check(off == 0 and m_err <= TIE_THRESHOLD,
+              f"{what}: K1 off its twin at {off} untied rows, margins "
+              f"max|d| {m_err:.3g}")
+        out.append(f"K1 {off} of {int(untied.sum())} untied rows off, "
+                   f"margins max|d| {m_err:.3g}")
+    if "rvq_encode_fused" in seen:
+        (x, embed, n_q, *rest), k = seen["rvq_encode_fused"]
+        shared = bool(rest[0]) if rest else k.get("shared", False)
+        got = kernels.rvq_encode_fused(x, embed, n_q, shared)
+        codes, margins = plain_stage_margins(torch, kernels, x, embed, n_q,
+                                             shared)
+        untied = (margins >= TIE_THRESHOLD).all(0)
+        off = int((got != codes).any(0)[untied].sum())
+        check(off == 0, f"{what}: K2 off its twin at {off} untied rows")
+        out.append(f"K2 {off} of {int(untied.sum())} untied rows off")
+    if "lstm_scan" in seen:
+        a, k = seen["lstm_scan"]
+        got, want = kernels.lstm_scan(*a, **k), kernels.lstm_scan_plain(*a,
+                                                                        **k)
+        if torch.is_tensor(got):
+            got, want = (got,), (want,)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, want))
+        check(err <= 1e-4, f"{what}: K3 max|d| {err:.3g} from its twin")
+        out.append(f"K3 max|d| {err:.3g}")
+    if "lstm_scan_backward" in seen:
+        a, k = seen["lstm_scan_backward"]
+        d_k = kernels.lstm_scan_backward(*a, **k)[0]
+        d_p = kernels.lstm_scan_backward_plain(*a)[0]
+        err = float((d_k - d_p).abs().max() / d_p.abs().max())
+        check(err <= 1e-4, f"{what}: K3 backward {err:.3g} of its largest "
+              "|value| from its twin")
+        out.append(f"K3 backward {err:.3g} of its largest |value|")
+    torch.cuda.synchronize()
+    return ", ".join(out)
+
+
+def tf32_flags(torch) -> tuple:
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def phase_precision(torch, kernels, dev, model, registry):
+    """The reduced-precision modes (see the module's docstring, item 20).
+    Returns the launch counts of (a)'s bf16 steps and of (b)'s requests.
+
+    In bf16 a float32 rounding difference (K3 against its twin) can move a
+    trunk's output by a bf16 step, so a path's codes on the kernels and on
+    the twins are compared but not held outside the float32 tie flags;
+    each kernel is held to its twin on the very inputs the path gave it
+    (the first call of each, `capture_first`, `hold_captured`)."""
+    import copy
+    import tempfile
+
+    from encodec_tpu_torch.device import precision_scope
+    from encodec_tpu_torch.models.model import (decode_frame, encode_frame,
+                                                encode_frame_margins)
+    from encodec_tpu_torch.stream import compress
+    from encodec_tpu_torch.train import ConfigNamespace, Trainer
+    from encodec_tpu_torch.train.optim import tree_leaves
+    from encodec_tpu_torch.train.steps import make_train_steps
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    # -- (a) a bf16 step on gan.yaml's model ------------------------------
+    cfg = gan_config(tmp.name)
+    cfg16 = copy.deepcopy(cfg)
+    cfg16["common"]["compute_dtype"] = "bfloat16"
+    tr32 = Trainer(ConfigNamespace(cfg), [], [], tmp.name + "/a", device=dev)
+    tr16 = Trainer(ConfigNamespace(cfg16), [], [], tmp.name + "/b",
+                   device=dev)
+    x = torch.from_numpy(np.stack([
+        breathing_signal(SEQ_NIGHT, 5000 + i) for i in range(PREC_B)])[
+            ..., None]).to(dev)
+    w = tr32.weights_for_epoch(61)          # commit and GAN terms on
+    s0, _ = tr32.gen_step(tr32.state, x, w)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    steps16, seen = capture_first(torch, lambda: {
+        "gen": tr16.gen_step(s0, x, w, keep_grads=True),
+        "gan": tr16.gen_step(s0, x, w, use_gan=True, keep_grads=True),
+        "disc": tr16.disc_step(s0, x, w)})
+    torch.cuda.synchronize()
+    bf16_ms = (time.perf_counter() - t0) * 1e3
+    counts_train = dict(launch_counts(kernels),
+                        lstm_save=kernels.lstm_scan.save_launches)
+    for k in ("nearest_codebook", "lstm_grid", "lstm_scan_backward",
+              "lstm_save"):
+        check(counts_train.get(k, 0) > 0,
+              f"precision (a): {k} never launched in the bf16 steps")
+    plain16 = make_train_steps(
+        tr16.model.cfg, tr16.disc_cfg, freq_loss_kwargs=tr16.freq_kwargs,
+        clip=tr16.clip, compute_dtype=torch.bfloat16, plain=True)
+    steps32 = {"gen": tr32.gen_step(s0, x, w),
+               "gan": tr32.gen_step(s0, x, w, use_gan=True),
+               "disc": tr32.disc_step(s0, x, w)}
+    twins = {"gen": plain16[0](s0, x, w, keep_grads=True),
+             "gan": plain16[0](s0, x, w, use_gan=True, keep_grads=True),
+             "disc": plain16[1](s0, x, w)}
+    torch.cuda.synchronize()
+    for kind, (st, m) in steps16.items():
+        scal = {k: float(v) for k, v in m.items()
+                if hasattr(v, "dim") and v.dim() == 0}
+        check(all(np.isfinite(v) for v in scal.values()),
+              f"precision (a) {kind}: a metric is not finite: {scal}")
+        check(all(t.dtype == torch.float32 for t in tree_leaves(
+            (st.params, st.opt_state.mu, st.opt_state.nu, st.disc_params,
+             st.disc_opt_state.mu, st.disc_opt_state.nu))),
+              f"precision (a) {kind}: a master or Adam leaf is not float32")
+    gan_rel = {k: abs(float(steps16[kd][1][k]) - float(steps32[kd][1][k]))
+               / abs(float(steps32[kd][1][k]))
+               for kd, ks in (("gan", ("loss_gen", "loss_feat")),
+                              ("disc", ("loss_disc",))) for k in ks}
+    check(max(gan_rel.values()) <= 0.1,
+          f"precision (a): GAN terms beyond rtol 0.1 of float32: {gan_rel}")
+    twin_rel, off = {}, {}
+    for kind in steps16:
+        m, mp = steps16[kind][1], twins[kind][1]
+        for k in ("loss", "loss_gen", "loss_feat", "loss_disc"):
+            if k in m:
+                twin_rel[f"{kind} {k}"] = (abs(float(m[k]) - float(mp[k]))
+                                           / abs(float(mp[k])))
+        if "codes" in m:
+            flagged = ((m["margins"] < TIE_THRESHOLD)
+                       | (mp["margins"] < TIE_THRESHOLD)).any(0)
+            diff = (m["codes"] != mp["codes"]).any(1).reshape(-1)
+            off[kind] = (int((diff & ~flagged).sum()),
+                         int((~flagged).sum()))
+    check(max(twin_rel.values()) <= PREC_LOSS_REL,
+          f"precision (a): bf16 losses off the plain twins' beyond "
+          f"{PREC_LOSS_REL:g}: {twin_rel}")
+    held = hold_captured(torch, kernels, seen, "precision (a)")
+    print(f"precision (a) bf16 steps, gan.yaml as written at B={PREC_B} x "
+          f"4 h, from a float32 state after the k-means step: generator, "
+          f"GAN generator and discriminator steps finite, masters and Adam "
+          f"float32; {bf16_ms:.1f} ms for the three (first calls); GAN "
+          f"terms vs float32 (rtol 0.1): " + ", ".join(
+              f"{k} {v:.3g}" for k, v in gan_rel.items())
+          + "; vs the plain twins in bf16 (bound "
+          f"{PREC_LOSS_REL:g}): " + ", ".join(
+              f"{k} {v:.3g}" for k, v in twin_rel.items())
+          + "; codes off the twins' at " + ", ".join(
+              f"{k} {n} of {t}" for k, (n, t) in off.items())
+          + " positions untied in float32 (reported); on the step's own "
+          f"inputs against the twins: {held}; launches K1 "
+          f"{counts_train['nearest_codebook']}, K3 grid "
+          f"{counts_train['lstm_grid']} (saving forward "
+          f"{counts_train['lstm_save']}), K3 backward "
+          f"{counts_train['lstm_scan_backward']}")
+    del steps16, steps32, twins, tr16, tr32, s0, x
+    torch.cuda.empty_cache()
+
+    # -- (b) set_precision on a 10 s 24 kHz request ------------------------
+    wav = request_audio(10.0, model.sample_rate, 160)
+    model.set_target_bandwidth(6.0)
+    before = tf32_flags(torch)
+    xin = torch.from_numpy(wav[None]).to(dev)
+    kernels.reset_launch_counts()
+    served = {}
+    for mode in ("high", "fast"):
+        model.set_precision(mode)
+        t0 = time.perf_counter()
+        (frames, audio), seen = capture_first(torch, lambda: (
+            lambda f: (f, model.decode(f)))(model.encode(xin)))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(tf32_flags(torch) == before,
+              f"precision (b) {mode}: the TF32 flags changed")
+        served[mode] = (frames[0][0], audio, ms, seen)
+        try:
+            compress(model, wav, models=registry)
+            refused = False
+        except RuntimeError as exc:
+            refused = str(exc).startswith(
+                f"refusing to write .ecdc at set_precision({mode!r})")
+        check(refused, f"precision (b): the writer did not refuse {mode!r}")
+        if mode == "high":
+            # the guard as a model call (K1 per stage); its codes decode
+            (guarded, _), seen_k1 = capture_first(
+                torch, lambda: model.encode_guarded(xin))
+            seen.update(seen_k1)
+            back = model.decode(guarded)
+            check(tuple(back.shape) == tuple(xin.shape)
+                  and bool(torch.isfinite(back).all()),
+                  "precision (b): the guarded 'high' codes do not decode")
+        check(tf32_flags(torch) == before,
+              f"precision (b) {mode}: the TF32 flags changed")
+    counts_req = launch_counts(kernels)
+    model.set_precision("highest")
+    for k in ("nearest_codebook", "rvq_encode_fused", "lstm_scan"):
+        check(counts_req.get(k, 0) > 0,
+              f"precision (b): {k} never launched at 'high' or 'fast'")
+    # each mode's kernels against the plain twins at the same mode
+    lines = []
+    x3 = xin.transpose(1, 2)
+    n_q = model.n_q_active
+    for mode, (codes, audio, ms, seen) in served.items():
+        model.set_precision(mode)
+        dt = model.compute_dtype
+        with precision_scope(mode), torch.inference_mode():
+            pc, _ = encode_frame(model.infer_params, model.qstate, x3,
+                                 model.cfg, n_q, plain=True,
+                                 compute_dtype=dt)
+            _, _, _, mg = encode_frame_margins(
+                model.infer_params, model.qstate, x3, model.cfg, n_q,
+                compute_dtype=dt)
+            _, _, _, mgp = encode_frame_margins(
+                model.infer_params, model.qstate, x3, model.cfg, n_q,
+                plain=True, compute_dtype=dt)
+            pa = decode_frame(model.infer_params, model.qstate, codes,
+                              model.cfg, plain=True, compute_dtype=dt)
+        flagged = ((mg < TIE_THRESHOLD) | (mgp < TIE_THRESHOLD)).any(1)[0]
+        diff = (codes[0] != pc[0]).any(0)
+        a_err = float((audio[0].transpose(0, 1) - pa[0]).abs().max())
+        if mode == "high":      # float32 trunks rounded to TF32 inside cuDNN
+            check(int((diff & ~flagged).sum()) == 0,
+                  f"precision (b) {mode}: codes differ from the plain "
+                  "twins' outside the tie flags")
+            check(a_err <= 1e-3, f"precision (b) {mode}: audio {a_err:.3g} "
+                  "from the plain twins' decode (bound 0.001)")
+        held = hold_captured(torch, kernels, seen, f"precision (b) {mode}")
+        lines.append(f"{mode} {ms:.1f} ms, codes vs twins {int(diff.sum())} "
+                     f"of {diff.numel()} differ ({int(flagged.sum())} "
+                     f"tie-flagged), audio max|d| {a_err:.3g}"
+                     + (" (held: codes outside the flags, audio 1e-3)"
+                        if mode == "high" else " (reported)")
+                     + f"; on the path's inputs: {held}")
+    model.set_precision("highest")
+    print("precision (b) a 10 s 24 kHz request at 6 kbps: " + "; ".join(
+        lines) + f"; .ecdc refused at 'high' and 'fast', the guarded 'high' "
+          f"codes decoded; "
+          f"TF32 flags {before} before and after every call; launches K1 "
+          f"{counts_req['nearest_codebook']}, K2 "
+          f"{counts_req['rvq_encode_fused']}, K3 {counts_req['lstm_scan']}")
+    print(f"precision: the phase took {time.perf_counter() - t_phase:.1f} s")
+    tmp.cleanup()
+    return counts_train, counts_req
+
+
 def launch_counts(kernels) -> dict:
     """The wrappers' launch counts, and the grid kernel's own."""
     return dict(kernels.launch_counts(),
@@ -4673,10 +4973,14 @@ def main() -> int:
     counts_par, counts_ranks = phase_parallel(torch, kernels, dev, model)
     t6 = time.perf_counter()
     counts_seq = phase_seq_parallel(torch, kernels, dev)
+    t7 = time.perf_counter()
+    counts_bf16, counts_prec = phase_precision(torch, kernels, dev, model,
+                                               registry)
     print(f"phases: K3 backward {t1 - t0:.1f} s, train {t2 - t1:.1f} s, "
           f"gan {t3 - t2:.1f} s, lm {t4 - t3:.1f} s, lm_train "
           f"{t5 - t4:.1f} s, parallel {t6 - t5:.1f} s, seq "
-          f"{time.perf_counter() - t6:.1f} s (at {t0 - t_start:.1f} s)")
+          f"{t7 - t6:.1f} s, precision {time.perf_counter() - t7:.1f} s "
+          f"(at {t0 - t_start:.1f} s)")
 
     paths = {"24k": counts, "48k": counts48, "stream": counts_stream,
              "breathing": counts_breathing, "hires_tokens": counts_hires,
@@ -4687,6 +4991,9 @@ def main() -> int:
     for r, c in enumerate(counts_seq):
         paths[f"seq_gloo_1x2_rank{r}"] = {k: v for k, v in c.items()
                                           if k != "lstm_save"}
+    paths["bf16_train"] = {k: v for k, v in counts_bf16.items()
+                           if k != "lstm_save"}
+    paths["precision_high_fast"] = counts_prec
     for c in paths.values():   # lstm_scan counts both K3 kernels
         c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
     rows = [

@@ -17,17 +17,31 @@ as one batch, at row `s·B + b` for segment s and item b, so the LSTM kernel
 sees all of them at once; the frames `encode` returns are views into that
 batch.
 
-`forward_train` is the training forward (float32 only): encoder, the
-training RVQ (EMA codebooks, k-means init, straight-through) and decoder,
-on the unfolded weight-norm parameters `(v, g)`, outside inference mode,
-so autograd can differentiate it (the LSTM through K3's backward kernel).
-`EncodecModel.forward` / `__call__` is the fork's eval forward. Not ported:
-the reduced-precision modes (only the 'highest' float32 path exists).
+`forward_train` is the training forward: encoder, the training RVQ (EMA
+codebooks, k-means init, straight-through) and decoder, on the unfolded
+weight-norm parameters `(v, g)`, outside inference mode, so autograd can
+differentiate it (the LSTM through K3's backward kernel). With
+`compute_dtype=torch.bfloat16` the conv trunks compute in bf16 (weights
+cast from the float32 masters inside each conv); the LSTM, the RVQ (its
+searches and EMA statistics) and the returned waveform stay float32.
+`EncodecModel.forward` / `__call__` is the fork's eval forward.
+
+`EncodecModel.set_precision` ('highest', 'high', 'fast'; JAX:
+`encodec_tpu/models/model.py:276-298`) is the model's own mode, applied
+around its calls (`encode`, `encode_guarded`, `decode`, `forward`, and a
+`StreamingCodec` over it): 'highest' is float32 throughout (the default);
+'high' turns on TF32 for cuDNN convolutions and cuBLAS matmuls inside the
+call only (`device.precision_scope`; on the CPU, which has no TF32, it
+computes as 'highest'); 'fast' runs the SEANet conv trunks in bf16 through
+the casts above. In every mode K1, K2 and K3 are float32 kernels and the
+LSTM and the RVQ take float32. The `.ecdc` writer's rules for the modes
+are in `stream/compress.py`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import typing as tp
 
@@ -35,7 +49,7 @@ import numpy as np
 import torch
 
 from .. import ops
-from ..device import resolve_device
+from ..device import check_precision_mode, precision_scope, resolve_device
 from ..ops.batch_reduce import LOCAL, BatchReduce
 from ..quant import (RVQConfig, RVQState, init_rvq, num_quantizers_for_bandwidth,
                      resolve_ties_f64, rvq_decode, rvq_encode,
@@ -114,24 +128,30 @@ def _normalize(x: torch.Tensor, cfg: EncodecConfig):
 
 
 def encode_frame(params, qstate: RVQState, x: torch.Tensor,
-                 cfg: EncodecConfig, n_q: int, plain: bool = False):
+                 cfg: EncodecConfig, n_q: int, plain: bool = False,
+                 compute_dtype: torch.dtype = torch.float32):
     """Encode one segment `[B, T, C]` → (codes [B, K, T'], scale [B, 1] or
     None) (K3, K2).
 
-    `plain=True` runs every kernel's plain twin, even on CUDA tensors."""
+    `plain=True` runs every kernel's plain twin, even on CUDA tensors;
+    `compute_dtype` (bf16) is the encoder trunk's dtype, the latents go to
+    the RVQ in float32."""
     x, scale = _normalize(x, cfg)
-    emb = seanet_encoder(params["encoder"], x, cfg.seanet, plain=plain)
+    emb = seanet_encoder(params["encoder"], x.to(compute_dtype), cfg.seanet,
+                         plain=plain).float()
     codes = rvq_encode(qstate, emb, cfg.rvq, n_q=n_q, plain=plain)
     return codes.permute(1, 0, 2), scale
 
 
 def encode_frame_margins(params, qstate: RVQState, x: torch.Tensor,
-                         cfg: EncodecConfig, n_q: int, plain: bool = False):
+                         cfg: EncodecConfig, n_q: int, plain: bool = False,
+                         compute_dtype: torch.dtype = torch.float32):
     """`encode_frame` plus the latents and per-stage argmin margins, for the
     near-tie guard (K3, K1). Returns (codes [B, K, T'], scale or None,
-    z [B, T', D], margins [B, K, T'])."""
+    z [B, T', D] float32, margins [B, K, T'])."""
     x, scale = _normalize(x, cfg)
-    emb = seanet_encoder(params["encoder"], x, cfg.seanet, plain=plain)
+    emb = seanet_encoder(params["encoder"], x.to(compute_dtype), cfg.seanet,
+                         plain=plain).float()
     codes, margins = rvq_encode_margins(qstate, emb, cfg.rvq, n_q=n_q,
                                         plain=plain)
     return codes.permute(1, 0, 2), scale, emb, margins.permute(1, 0, 2)
@@ -140,11 +160,14 @@ def encode_frame_margins(params, qstate: RVQState, x: torch.Tensor,
 def decode_frame(params, qstate: RVQState, codes: torch.Tensor,
                  cfg: EncodecConfig,
                  scale: tp.Optional[torch.Tensor] = None,
-                 plain: bool = False) -> torch.Tensor:
+                 plain: bool = False,
+                 compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Decode codes `[B, K, T']` (and scale `[B, 1]`) → waveform `[B, T, C]`
-    (K3; `plain=True` runs its plain twin, even on CUDA tensors)."""
+    float32 (K3; `plain=True` runs its plain twin, even on CUDA tensors;
+    `compute_dtype` is the decoder trunk's dtype)."""
     emb = rvq_decode(qstate, codes.permute(1, 0, 2), cfg.rvq)
-    out = seanet_decoder(params["decoder"], emb, cfg.seanet, plain=plain)
+    out = seanet_decoder(params["decoder"], emb.to(compute_dtype),
+                         cfg.seanet, plain=plain).float()
     if scale is not None:
         out = out * scale.reshape(-1, 1, 1)
     return out
@@ -154,7 +177,8 @@ def forward_train(params, qstate: RVQState, x: torch.Tensor,
                   cfg: EncodecConfig, n_q: int,
                   generator: tp.Optional[torch.Generator] = None,
                   training: bool = True, plain: bool = False,
-                  dp: BatchReduce = LOCAL, seq=None, **draws):
+                  dp: BatchReduce = LOCAL, seq=None,
+                  compute_dtype: torch.dtype = torch.float32, **draws):
     """Fork-style training forward on one (unsegmented) batch `[B, T, C]`.
 
     Returns (x_hat [B, T, C], codes [B, K, T'], commit_losses [K],
@@ -167,6 +191,12 @@ def forward_train(params, qstate: RVQState, x: torch.Tensor,
     a data-parallel step's ranks); `plain=True` runs every kernel's plain
     twin.
 
+    `compute_dtype` (`torch.bfloat16`, or float32): `x` is cast to it
+    before the encoder trunk, the latents go to the RVQ in float32 (K1 and
+    the EMA statistics stay float32), the quantized latents are cast to it
+    before the decoder, and `x_hat` is returned in float32 (JAX:
+    `encodec_tpu/models/model.py:198-216`).
+
     `seq` (a process group): time sharded over its ranks. The encoder's
     conv trunk runs on this rank's shard of `x` (whole on every rank), its
     token-rate features are gathered, and the LSTM, the final conv and the
@@ -177,23 +207,26 @@ def forward_train(params, qstate: RVQState, x: torch.Tensor,
     (`parallel.sp`). The caller checks once that time can be sharded
     exactly (`parallel.sp.check_seq_parallel`, as `make_train_steps`
     does); a length that is not a multiple of seq × hop raises here."""
+    x_c = x.to(compute_dtype)
     if seq is None:
-        emb = seanet_encoder(params["encoder"], x, cfg.seanet, plain=plain)
+        emb = seanet_encoder(params["encoder"], x_c, cfg.seanet, plain=plain)
     else:
         # imported here: parallel.sp builds on this package's SEANet ops
         from ..parallel.sp import seanet_decode_seq, seanet_encode_seq
-        emb = seanet_encode_seq(params["encoder"], x, cfg.seanet, seq,
+        emb = seanet_encode_seq(params["encoder"], x_c, cfg.seanet, seq,
                                 plain=plain)
     quantized, codes, commit, new_qstate = rvq_forward(
-        qstate, emb, cfg.rvq, n_q=n_q, training=training, generator=generator,
-        plain=plain, dp=dp, **draws)
+        qstate, emb.float(), cfg.rvq, n_q=n_q, training=training,
+        generator=generator, plain=plain, dp=dp, **draws)
+    quantized = quantized.to(compute_dtype)
     if seq is None:
         out = seanet_decoder(params["decoder"], quantized, cfg.seanet,
                              plain=plain)
     else:
         out = seanet_decode_seq(params["decoder"], quantized, cfg.seanet,
                                 seq, plain=plain)
-    return out[:, :x.shape[1]], codes.permute(1, 0, 2), commit, new_qstate
+    return (out[:, :x.shape[1]].float(), codes.permute(1, 0, 2), commit,
+            new_qstate)
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +265,16 @@ def _to_device(tree, device: torch.device):
     return tree
 
 
+def _in_mode(fn):
+    """An `EncodecModel` call run under the model's precision mode (its
+    TF32 flags set around the call only)."""
+    @functools.wraps(fn)
+    def call(self, *args, **kwargs):
+        with precision_scope(self.precision):
+            return fn(self, *args, **kwargs)
+    return call
+
+
 class EncodecModel:
     """Stateful convenience wrapper mirroring the reference API surface.
 
@@ -246,6 +289,26 @@ class EncodecModel:
         self.params = params
         self.qstate = qstate
         self.bandwidth: tp.Optional[float] = None
+        self.precision = "highest"
+
+    def set_precision(self, mode: str) -> None:
+        """The model's precision mode, for its own calls.
+
+        'highest' (default): float32 convolutions and matmuls, the parity
+        path. 'high': TF32 for cuDNN convolutions and cuBLAS matmuls (a
+        10-bit mantissa per product, float32 sums), on only inside this
+        model's calls; on the CPU, which has no TF32, it computes as
+        'highest'. 'fast': the SEANet conv trunks in bf16 (weights cast
+        from the float32 masters inside each conv, norm statistics in
+        float32), on the CPU too. K1, K2 and K3 are float32 kernels in
+        every mode, and the LSTM and the RVQ take float32. The `.ecdc`
+        writer refuses 'high' and 'fast' (`stream/compress.py`)."""
+        self.precision = check_precision_mode(mode)
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        """The conv trunks' dtype in this mode."""
+        return torch.bfloat16 if self.precision == "fast" else torch.float32
 
     @property
     def params(self):
@@ -358,6 +421,7 @@ class EncodecModel:
             frames[i] = (codes[j * B:(j + 1) * B],
                          None if scale is None else scale[j * B:(j + 1) * B])
 
+    @_in_mode
     @torch.inference_mode()
     def encode(self, x) -> tp.List[EncodedFrame]:
         """x: `[B, C, T]` audio (float in [-1, 1], or int16 PCM). Returns one
@@ -367,10 +431,12 @@ class EncodecModel:
             len(idxs) for idxs, _ in groups)
         for idxs, stacked in groups:
             codes, scale = encode_frame(self.infer_params, self.qstate,
-                                        stacked, self.cfg, self.n_q_active)
+                                        stacked, self.cfg, self.n_q_active,
+                                        compute_dtype=self.compute_dtype)
             self._split(B, idxs, codes, scale, frames)
         return frames  # type: ignore[return-value]
 
+    @_in_mode
     @torch.inference_mode()
     def encode_guarded(self, x, threshold: float = 1e-3
                        ) -> tp.Tuple[tp.List[EncodedFrame], dict]:
@@ -391,7 +457,7 @@ class EncodecModel:
         for idxs, stacked in groups:
             codes, scale, z, margins = encode_frame_margins(
                 self.infer_params, self.qstate, stacked, self.cfg,
-                self.n_q_active)
+                self.n_q_active, compute_dtype=self.compute_dtype)
             codes = codes.cpu().numpy()              # [G·B, K, T']
             m = margins.cpu().numpy()                # [G·B, K, T']
             stats["n_positions"] += int(m.shape[0] * m.shape[2])
@@ -410,6 +476,7 @@ class EncodecModel:
                         scale, frames)
         return frames, stats  # type: ignore[return-value]
 
+    @_in_mode
     @torch.inference_mode()
     def decode(self, frames: tp.Sequence[EncodedFrame],
                pcm16: bool = False) -> torch.Tensor:
@@ -436,7 +503,8 @@ class EncodecModel:
             scale = None if no_scale else torch.cat(
                 [torch.as_tensor(frames[i][1]) for i in idxs]).to(self.device)
             out = decode_frame(self.infer_params, self.qstate,
-                               codes.to(self.device), self.cfg, scale)
+                               codes.to(self.device), self.cfg, scale,
+                               compute_dtype=self.compute_dtype)
             for j, i in enumerate(idxs):
                 outs[i] = out[j * B:(j + 1) * B]
         if self.cfg.segment is None:
@@ -446,6 +514,7 @@ class EncodecModel:
         out = out.transpose(1, 2)
         return _pcm16_from_float(out) if pcm16 else out
 
+    @_in_mode
     def forward(self, x):
         """Fork-parity forward: returns (x_hat [B, C, T], codes [B, K, T'],
         commit, codebook) without updating the quantizer state (eval
@@ -460,7 +529,8 @@ class EncodecModel:
         if self.cfg.segment is None and not self.cfg.normalize:
             out, codes, commit, _ = forward_train(
                 self.params, self.qstate, x.transpose(1, 2), self.cfg,
-                self.n_q_active, training=False)
+                self.n_q_active, training=False,
+                compute_dtype=self.compute_dtype)
             return out.transpose(1, 2), codes, commit, commit
         frames = self.encode(x)
         codes = torch.cat([f[0] for f in frames], dim=-1)

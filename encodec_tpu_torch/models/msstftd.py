@@ -107,10 +107,15 @@ def _spec(x: torch.Tensor, cfg: MSSTFTConfig, i: int) -> torch.Tensor:
 
 
 def msstftd_sub_forward(sub_params: dict, x: torch.Tensor,
-                        cfg: MSSTFTConfig, i: int):
+                        cfg: MSSTFTConfig, i: int,
+                        compute_dtype: torch.dtype = torch.float32):
     """One sub-discriminator: audio `[B, T, C]` → (logits `[B, out, t, w]`,
-    five feature maps). The unit `disc_remat` recomputes in the backward."""
-    z = _spec(x, cfg, i)
+    five feature maps). The unit `disc_remat` recomputes in the backward.
+
+    `compute_dtype` (bf16): the conv stack, hence the feature maps, in that
+    dtype; the STFT stays float32 and the logits are returned in float32
+    (JAX: `encodec_tpu/models/msstftd.py:104-125`)."""
+    z = _spec(x, cfg, i).to(compute_dtype)
     fmap = []
     plan = _sub_channel_plan(cfg)
     for p, (_cin, _cout, stride, dil, pad, _k, _n) in zip(
@@ -122,14 +127,15 @@ def msstftd_sub_forward(sub_params: dict, x: torch.Tensor,
     (_cin, _cout, stride, dil, pad, _k, _n) = plan[-1]
     z = conv2d(sub_params["convs"][-1], z, stride=stride, dilation=dil,
                padding=pad, impl=cfg.conv_impl)
-    return z, fmap
+    return z.float(), fmap
 
 
-def msstftd_forward(params: dict, x: torch.Tensor, cfg: MSSTFTConfig):
+def msstftd_forward(params: dict, x: torch.Tensor, cfg: MSSTFTConfig,
+                    compute_dtype: torch.dtype = torch.float32):
     """Audio `[B, T, C]` → (logits list, feature maps list of lists)."""
     logits, fmaps = [], []
     for i, sub in enumerate(params["discs"]):
-        logit, fmap = msstftd_sub_forward(sub, x, cfg, i)
+        logit, fmap = msstftd_sub_forward(sub, x, cfg, i, compute_dtype)
         logits.append(logit)
         fmaps.append(fmap)
     return logits, fmaps
@@ -183,7 +189,7 @@ def _sub_stack_valid(sub_params: dict, z: torch.Tensor, cfg: MSSTFTConfig,
     z = conv2d(sub_params["convs"][-1], z, stride=stride, dilation=dil,
                padding=(0, pad[1]), impl=cfg.conv_impl)
     shrink += pad[0]
-    return _mask_rows(z, off + shrink, T), fmap
+    return _mask_rows(z.float(), off + shrink, T), fmap
 
 
 def _logit_width(cfg: MSSTFTConfig, i: int) -> int:
@@ -198,7 +204,9 @@ def msstftd_gan_sums_chunked(sub_params: dict, x: torch.Tensor,
                              x_hat: tp.Optional[torch.Tensor],
                              cfg: MSSTFTConfig, i: int, *,
                              chunk: int,
-                             shard: tp.Tuple[int, int] = (0, 1)) -> dict:
+                             shard: tp.Tuple[int, int] = (0, 1),
+                             compute_dtype: torch.dtype = torch.float32
+                             ) -> dict:
     """GAN loss sums of sub-discriminator `i` over `x` (real) and `x_hat`
     (fake, may be None), chunk by chunk over time; each chunk's body runs
     under `torch.utils.checkpoint` (recomputed in the backward), so the
@@ -214,12 +222,16 @@ def msstftd_gan_sums_chunked(sub_params: dict, x: torch.Tensor,
     Returns: lg_fake = Σ(1 - D(x̂))², sq_fake = ΣD(x̂)², lg_real =
     Σ(1 - D(x))², sum_fake / sum_real = ΣD, all over the valid logits;
     n_logit = their count; feat_diff[l] = Σ|D_l(x) - D_l(x̂)| (the real map
-    detached), feat_real[l] = Σ|D_l(x)|."""
+    detached), feat_real[l] = Σ|D_l(x)|.
+
+    `compute_dtype` (bf16): the conv stacks in that dtype, the STFT and
+    every sum in float32 (JAX: `encodec_tpu/models/msstftd.py:240-250`)."""
     if chunk <= 0:
         raise ValueError(f"chunk must be positive, got {chunk}")
     H = sub_time_halo(cfg)
-    z_real = _spec(x, cfg, i)
-    z_fake = _spec(x_hat, cfg, i) if x_hat is not None else None
+    z_real = _spec(x, cfg, i).to(compute_dtype)
+    z_fake = (_spec(x_hat, cfg, i).to(compute_dtype)
+              if x_hat is not None else None)
     B, _, T, _ = z_real.shape
     n_chunks = -(-T // chunk)
     index, count = shard
@@ -244,8 +256,10 @@ def msstftd_gan_sums_chunked(sub_params: dict, x: torch.Tensor,
                                                 T)
             fd, fr = [], []
             for (ar, sh), (af, _) in zip(fmap_r, fmap_f):
-                real = ar[:, :, H - sh:H - sh + chunk].detach()
-                fake = af[:, :, H - sh:H - sh + chunk]
+                # feature maps in float32 before the difference, as the
+                # other GAN routes take them
+                real = ar[:, :, H - sh:H - sh + chunk].detach().float()
+                fake = af[:, :, H - sh:H - sh + chunk].float()
                 fd.append((real - fake).abs().sum())
                 fr.append(real.abs().sum())
             out += [(1.0 - logits_f[:, :, :rows]).square().sum(),
@@ -266,7 +280,7 @@ def msstftd_gan_sums_chunked(sub_params: dict, x: torch.Tensor,
         for name, v in zip(names, part):
             sums[name] = v if name not in sums else sums[name] + v
     n_logit = T * B * cfg.out_channels * _logit_width(cfg, i)
-    sums["n_logit"] = z_real.new_tensor(float(n_logit))
+    sums["n_logit"] = torch.tensor(float(n_logit), device=z_real.device)
     return sums
 
 

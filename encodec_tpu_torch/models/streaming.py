@@ -28,6 +28,7 @@ import typing as tp
 import torch
 
 from .. import ops
+from ..device import precision_scope
 from ..ops.streaming import (convtr_stream_init, prime_conv_stream,
                              sconv1d_stream, sconv1d_stream_finish,
                              sconv_transpose1d_stream)
@@ -287,7 +288,10 @@ class StreamingCodec:
     at `EncodecModel`. `n_q` is fixed when the codec is built (the model's
     bandwidth setting then, unless given) and does not follow later
     changes of the model's bandwidth; assigning `codec.n_q` takes effect
-    from the next chunk."""
+    from the next chunk. Each chunk runs in the model's precision mode at
+    that call (`EncodecModel.set_precision`: its TF32 flags around the
+    chunk, its conv dtype), as the offline calls do, so streamed codes
+    follow the same arithmetic as `model.encode`'s."""
 
     def __init__(self, model, n_q: tp.Optional[int] = None):
         self.model = model
@@ -305,21 +309,24 @@ class StreamingCodec:
         self._dec_state = None
 
     def _audio(self, chunk) -> torch.Tensor:
+        """Audio in the conv trunk's dtype, `[B, L, C]`."""
         x = _float_from_pcm16(torch.as_tensor(chunk).to(self.model.device))
-        return x.transpose(1, 2)
+        return x.to(self.model.compute_dtype).transpose(1, 2)
 
     def _codes(self, emb: torch.Tensor) -> torch.Tensor:
-        codes = rvq_encode(self.model.qstate, emb, self.cfg.rvq, n_q=self.n_q)
+        codes = rvq_encode(self.model.qstate, emb.float(), self.cfg.rvq,
+                           n_q=self.n_q)
         return codes.permute(1, 0, 2)
 
     @torch.inference_mode()
     def encode_chunk(self, chunk) -> torch.Tensor:
         """`[B, C, L]` audio chunk (`L % hop == 0`) → codes `[B, K, L/hop]`
         (K3 from the carried state, K2)."""
-        emb, self._enc_state = encoder_stream_step(
-            self.model.infer_params["encoder"], self._audio(chunk),
-            self._enc_state, self.cfg.seanet)
-        return self._codes(emb)
+        with precision_scope(self.model.precision):
+            emb, self._enc_state = encoder_stream_step(
+                self.model.infer_params["encoder"], self._audio(chunk),
+                self._enc_state, self.cfg.seanet)
+            return self._codes(emb)
 
     @torch.inference_mode()
     def encode_finish(self, tail) -> torch.Tensor:
@@ -330,11 +337,12 @@ class StreamingCodec:
         if self._enc_state is None:
             raise ValueError("encode_finish needs at least one prior "
                              "encode_chunk")
-        emb = encoder_stream_finish(self.model.infer_params["encoder"],
-                                    self._audio(tail), self._enc_state,
-                                    self.cfg.seanet)
-        self._enc_state = None
-        return self._codes(emb)
+        with precision_scope(self.model.precision):
+            emb = encoder_stream_finish(self.model.infer_params["encoder"],
+                                        self._audio(tail), self._enc_state,
+                                        self.cfg.seanet)
+            self._enc_state = None
+            return self._codes(emb)
 
     @torch.inference_mode()
     def decode_chunk(self, codes) -> torch.Tensor:
@@ -343,7 +351,9 @@ class StreamingCodec:
         codes = torch.as_tensor(codes).to(self.model.device)
         emb = rvq_decode(self.model.qstate, codes.permute(1, 0, 2),
                          self.cfg.rvq)
-        out, self._dec_state = decoder_stream_step(
-            self.model.infer_params["decoder"], emb, self._dec_state,
-            self.cfg.seanet)
-        return out.transpose(1, 2)
+        with precision_scope(self.model.precision):
+            out, self._dec_state = decoder_stream_step(
+                self.model.infer_params["decoder"],
+                emb.to(self.model.compute_dtype), self._dec_state,
+                self.cfg.seanet)
+        return out.float().transpose(1, 2)

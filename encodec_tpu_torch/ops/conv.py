@@ -19,6 +19,13 @@ step by `spectral_norm_update_tree`, as the JAX package does.
 
 Public functions take and return channels-last `[B, T, C]`; internally
 they run channels-first `[B, C, T]` for `F.conv1d`.
+
+Reduced precision (bf16 training compute, `EncodecModel.set_precision(
+'fast')`): a conv computes in its input's dtype. Its effective weight
+(weight or spectral norm) is computed from the float32 masters and then
+cast, with the bias, to that dtype (`conv_weights`); the norms take their
+statistics in float32 and cast the result back. On float32 inputs every
+cast is the identity, so the float32 path is unchanged bit for bit.
 """
 
 from __future__ import annotations
@@ -184,6 +191,16 @@ def effective_weight(params: Params, transposed: bool = False
     return params["w"]
 
 
+def conv_weights(params: Params, x: torch.Tensor, transposed: bool = False
+                 ) -> tp.Tuple[torch.Tensor, tp.Optional[torch.Tensor]]:
+    """`(weight, bias)` for a conv on `x`: the effective weight from the
+    float32 masters, then weight and bias cast to `x.dtype` (JAX casts at
+    the same point, `encodec_tpu/ops/conv.py:386-393`)."""
+    w = effective_weight(params, transposed).to(x.dtype)
+    b = params.get("b")
+    return w, None if b is None else b.to(x.dtype)
+
+
 def fold_weight_norm(params: Params) -> Params:
     """Fold weight-norm (v, g) into a plain weight for inference."""
     if "v" not in params:
@@ -210,9 +227,14 @@ def fold_weight_norm_tree(tree):
 
 def _normalize(x: torch.Tensor, dims, scale: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
-    mean = x.mean(dim=dims, keepdim=True)
-    var = (x - mean).square().mean(dim=dims, keepdim=True)
-    return (x - mean) * torch.rsqrt(var + eps) * scale[:, None] + bias[:, None]
+    """Statistics and the affine map in float32 whatever `x`'s dtype; the
+    result in `x`'s dtype (JAX: `encodec_tpu/ops/conv.py:220-242`)."""
+    x32 = x.float()
+    mean = x32.mean(dim=dims, keepdim=True)
+    var = (x32 - mean).square().mean(dim=dims, keepdim=True)
+    out = ((x32 - mean) * torch.rsqrt(var + eps) * scale[:, None]
+           + bias[:, None])
+    return out.to(x.dtype)
 
 
 def _apply_norm(y: torch.Tensor, params: Params, norm: str) -> torch.Tensor:
@@ -259,8 +281,8 @@ def sconv1d(params: Params, x: torch.Tensor, *, kernel_size: int,
         padding_right = padding_total // 2
         paddings = (padding_total - padding_right, padding_right + extra_padding)
     xc = pad_time(x.transpose(1, 2), paddings, mode=pad_mode)
-    y = F.conv1d(xc, effective_weight(params), params.get("b"),
-                 stride=stride, dilation=dilation)
+    w, b = conv_weights(params, x)
+    y = F.conv1d(xc, w, b, stride=stride, dilation=dilation)
     return _apply_norm(y, params, norm).transpose(1, 2)
 
 
@@ -275,9 +297,8 @@ def sconv_transpose1d(params: Params, x: torch.Tensor, *, kernel_size: int,
     if causal and norm == "time_group_norm":
         raise ValueError("GroupNorm doesn't support causal evaluation.")
     padding_total = kernel_size - stride
-    y = F.conv_transpose1d(x.transpose(1, 2),
-                           effective_weight(params, transposed=True),
-                           params.get("b"), stride=stride)
+    w, b = conv_weights(params, x, transposed=True)
+    y = F.conv_transpose1d(x.transpose(1, 2), w, b, stride=stride)
     y = _apply_norm(y, params, norm).transpose(1, 2)
     if causal:
         padding_right = math.ceil(padding_total * trim_right_ratio)

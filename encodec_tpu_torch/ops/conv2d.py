@@ -75,10 +75,14 @@ def conv2d(p: Params, x: torch.Tensor, *,
            padding: tp.Tuple[int, int] = (0, 0),
            impl: str = "xla") -> torch.Tensor:
     """x: `[B, Cin, H, W]` → `[B, Cout, H', W']`, zero padding
-    `(pad_h, pad_w)` on both sides of each axis."""
+    `(pad_h, pad_w)` on both sides of each axis. Computes in `x`'s dtype:
+    the weight is resolved from the float32 masters, then it and the bias
+    are cast to that dtype (JAX: `encodec_tpu/ops/conv2d.py:60-85`)."""
     if impl not in CONV2D_IMPLS:
         raise ValueError(f"unknown conv2d impl {impl!r}")
-    return F.conv2d(x, weight2d(p), p.get("b"), stride=stride,
+    b = p.get("b")
+    return F.conv2d(x, weight2d(p).to(x.dtype),
+                    None if b is None else b.to(x.dtype), stride=stride,
                     padding=padding, dilation=dilation)
 
 

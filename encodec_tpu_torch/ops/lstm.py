@@ -14,6 +14,11 @@ keeps every step's c) and whose backward is K3's backward kernel
 (`kernels.lstm_scan_backward`), with the pre-activations and dW_hh as one
 matmul each around it. Otherwise (inference) the layer runs the plain K3
 launch, as it always did.
+The recurrence always computes in float32 (K3, its saving variant, its
+backward and its twin are float32 kernels): a bf16 input is cast up
+before the input projection and the result cast back on exit; a caller's
+streaming state joins in float32, and the returned state is float32
+(JAX: `encodec_tpu/ops/lstm.py:95-125`).
 Gate packing follows torch.nn.LSTM (i, f, g, o).
 Parameters per layer, torch layout: w_ih [4H, in], w_hh [4H, H], b_ih, b_hh.
 """
@@ -125,6 +130,10 @@ def lstm(params: Params, x: torch.Tensor, *, skip: bool = True,
     through `LstmLayer` (K3's saving forward and the backward kernel)."""
     scan = lstm_scan_plain if plain else lstm_scan
     train = _trains(params, x, state)
+    in_dtype = x.dtype
+    x = x.float()
+    if state is not None:
+        state = tuple(t.float() for t in state)
     y = x
     hs, cs = [], []
     for i, layer in enumerate(params["layers"]):
@@ -147,6 +156,7 @@ def lstm(params: Params, x: torch.Tensor, *, skip: bool = True,
             y = out
     if skip:
         y = y + x
+    y = y.to(in_dtype)
     if return_state:
         return y, (torch.stack(hs), torch.stack(cs))
     return y
@@ -157,9 +167,10 @@ def lstm_step(params: Params, x: torch.Tensor,
     """Single-timestep stacked LSTM update for streaming.
 
     x: [B, C]; state: (h, c) each [L, B, H]. Returns (y [B, H], new_state).
-    No skip connection (the caller decides)."""
-    h, c = state
-    y = x
+    No skip connection (the caller decides). Computes in float32 and
+    returns `y` in `x`'s dtype, the state in float32."""
+    h, c = (t.float() for t in state)
+    y = x.float()
     new_h, new_c = [], []
     for i, layer in enumerate(params["layers"]):
         gates = (y @ layer["w_ih"].t() + h[i] @ layer["w_hh"].t()
@@ -168,4 +179,4 @@ def lstm_step(params: Params, x: torch.Tensor,
         new_h.append(hi)
         new_c.append(ci)
         y = hi
-    return y, (torch.stack(new_h), torch.stack(new_c))
+    return y.to(x.dtype), (torch.stack(new_h), torch.stack(new_c))

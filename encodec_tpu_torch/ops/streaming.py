@@ -21,7 +21,7 @@ import typing as tp
 import torch
 import torch.nn.functional as F
 
-from .conv import _apply_norm, effective_weight
+from .conv import _apply_norm, conv_weights
 from .pad import pad_time
 
 Params = tp.Dict[str, tp.Any]
@@ -35,8 +35,11 @@ def _check_norm(norm: str) -> None:
 
 
 def _with_context(x: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
-    """`[state | x]` as a contiguous channels-first `[B, C, ctx + L]`."""
-    return torch.cat([state.transpose(1, 2), x.transpose(1, 2)], dim=2)
+    """`[state | x]` as a contiguous channels-first `[B, C, ctx + L]`, in
+    `x`'s dtype (a stream whose model changed its precision mode carries
+    its contexts on in the new dtype)."""
+    return torch.cat([state.to(x.dtype).transpose(1, 2), x.transpose(1, 2)],
+                     dim=2)
 
 
 def conv_stream_init(batch: int, in_ch: int, kernel_size: int,
@@ -66,8 +69,8 @@ def sconv1d_stream(params: Params, x: torch.Tensor, state: torch.Tensor, *,
                          f"the stride {stride}")
     ctx = (kernel_size - 1) * dilation + 1 - stride
     full = _with_context(x, state)
-    y = F.conv1d(full, effective_weight(params), params.get("b"),
-                 stride=stride, dilation=dilation)
+    w, b = conv_weights(params, x)
+    y = F.conv1d(full, w, b, stride=stride, dilation=dilation)
     y = _apply_norm(y, params, norm).transpose(1, 2)
     return y, full[:, :, full.shape[2] - ctx:].transpose(1, 2)
 
@@ -106,17 +109,17 @@ def sconv_transpose1d_stream(params: Params, x: torch.Tensor,
         raise ValueError("streaming transposed conv supports parameter "
                          f"norms only, got {norm!r}")
     pt = kernel_size - stride
-    full = F.conv_transpose1d(x.transpose(1, 2), effective_weight(params),
-                              None, stride=stride)
+    w, b = conv_weights(params, x)
+    full = F.conv_transpose1d(x.transpose(1, 2), w, None, stride=stride)
     if pt > 0:
-        full[:, :, :pt] += carry.transpose(1, 2)
+        full[:, :, :pt] += carry.to(x.dtype).transpose(1, 2)
     L_out = x.shape[1] * stride
     y = full[:, :, :L_out]
-    if params.get("b") is not None:
+    if b is not None:
         # in place, so y keeps the batch path's layout (a slice of the
         # whole conv output), and elementwise ops downstream take the same
         # code paths as there
-        y += params["b"][:, None]
+        y += b[:, None]
     return y.transpose(1, 2), full[:, :, L_out:].transpose(1, 2)
 
 
@@ -136,6 +139,6 @@ def sconv1d_stream_finish(params: Params, x: torch.Tensor,
     full = _with_context(x, state)
     if extra:
         full = pad_time(full, (0, extra), mode=pad_mode)
-    y = F.conv1d(full, effective_weight(params), params.get("b"),
-                 stride=stride, dilation=dilation)
+    w, b = conv_weights(params, x)
+    y = F.conv1d(full, w, b, stride=stride, dilation=dilation)
     return _apply_norm(y, params, norm).transpose(1, 2)

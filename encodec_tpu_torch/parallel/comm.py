@@ -301,11 +301,21 @@ class _SumOver(torch.autograd.Function):
         return all_reduce(g.contiguous(), "sum", ctx.group), None
 
 
+def _wide(x: tp.Optional[torch.Tensor]) -> tp.Optional[torch.Tensor]:
+    """`x` as the seq exchanges carry it: a reduced-precision activation
+    (bf16 under `compute_dtype`) in float32, for the transport only (the
+    cast back on arrival, and its cotangent's round trip, are exact), so
+    gloo and NCCL see one dtype; float32 and float64 as they are."""
+    if x is None or x.dtype in (torch.float32, torch.float64):
+        return x
+    return x.float()
+
+
 def halo(tail: torch.Tensor, prime: tp.Optional[torch.Tensor],
          group: Group = None) -> torch.Tensor:
     """A conv layer's left context: the previous rank's `tail`; on rank 0
     `prime` (which only rank 0 needs). Differentiable."""
-    return _Halo.apply(tail, prime, group)
+    return _Halo.apply(_wide(tail), _wide(prime), group).to(tail.dtype)
 
 
 def tail_handoff(head: torch.Tensor, tail: torch.Tensor,
@@ -313,13 +323,13 @@ def tail_handoff(head: torch.Tensor, tail: torch.Tensor,
     """A transposed conv's overlap-add across ranks: `head` (`[..., L]`)
     plus the previous rank's `tail` (`[..., k - s]`) on its first samples.
     Differentiable."""
-    return _TailHandoff.apply(head, tail, group)
+    return _TailHandoff.apply(_wide(head), _wide(tail), group).to(head.dtype)
 
 
 def gather_time(x: torch.Tensor, group: Group = None, dim: int = 1
                 ) -> torch.Tensor:
     """`all_gather` along `dim` with a reduce-scatter backward."""
-    return _GatherTime.apply(x, group, dim)
+    return _GatherTime.apply(_wide(x), group, dim).to(x.dtype)
 
 
 def sum_over(x: torch.Tensor, group: Group = None) -> torch.Tensor:

@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from .. import ops
 from ..models.seanet import (SEANetConfig, _act, _resblock_dims,
                              resolve_activation)
-from ..ops.conv import _apply_norm, effective_weight
+from ..ops.conv import _apply_norm, conv_weights
 from ..ops.streaming import prime_conv_stream, sconv1d_stream
 from . import comm
 
@@ -186,16 +186,15 @@ def _sp_convtr(p, y, *, k: int, s: int, cfg: SEANetConfig,
     each shard computes its whole bias-free output; the `k - s` samples
     past its end belong to the next shard's head (rank 0 receives nothing:
     the stream-start state)."""
-    full = F.conv_transpose1d(y.transpose(1, 2),
-                              effective_weight(p, transposed=True), None,
-                              stride=s)
+    w, b = conv_weights(p, y, transposed=True)
+    full = F.conv_transpose1d(y.transpose(1, 2), w, None, stride=s)
     L_out = y.shape[1] * s
     pt = k - s
     out = full[:, :, :L_out]
     if pt > 0:
         out = comm.tail_handoff(out, full[:, :, L_out:L_out + pt], group)
-    if p.get("b") is not None:
-        out = out + p["b"][:, None]
+    if b is not None:
+        out = out + b[:, None]
     return _apply_norm(out, p, cfg.norm).transpose(1, 2)
 
 

@@ -4,9 +4,13 @@ Port of `encodec_tpu/stream/compress.py`: the header (`m`, `al`, `nc`,
 `lm`), then per segment, for a normalized model, its big-endian f32 scale,
 then its codes: packed LSB-first in (t, k) order (raw), or range-coded
 against the integer LM's CDF rows (`use_lm`). The writer encodes through
-the near-tie guard (`EncodecModel.encode_guarded`, threshold 1e-3), so
-positions whose RVQ top-2 gap is razor-thin resolve the same way in every
-writer whose latents agree.
+the near-tie guard (`EncodecModel.encode_guarded` at `GUARD_THRESHOLD`,
+1e-3), so positions whose RVQ top-2 gap is razor-thin resolve the same way
+in every writer whose latents agree. It writes only at the model's
+default `set_precision('highest')`: 'high' (TF32 on the card) and 'fast'
+(bf16 conv trunks) move the encoder latents themselves, and the card's
+margin audit (`probes/precision_audit.py`) found no guard threshold that
+gives the 'highest' writer's codes in either mode, so both are refused.
 
 LM-coded streams are lmv=3: the prior is the integer LM (`models.ilm`), so
 any device reproduces the writer's CDF rows bit for bit, and the header's
@@ -44,6 +48,26 @@ from . import binary
 from .ac import encode_bounds
 
 _SCALE = struct.Struct("!f")
+
+# The near-tie guard's threshold: it covers the drift of distances between
+# executables at 'highest' (the JAX writer's 1e-3).
+GUARD_THRESHOLD = 1e-3
+
+# Why the writer refuses the reduced-precision modes: the margin audit on
+# an H100 (`probes/precision_audit.py`, full-size seeded models, 10 s of
+# speech-like audio). A flagged position is re-resolved in float64 from
+# the writer's own latents, so where a mode's latent drift exceeds a
+# position's float64 margin, no threshold gives back the 'highest' codes.
+REFUSED_MODES = {
+    "high": "TF32 moves the 48 kHz model's latents by up to 4.0e-3, and "
+            "its guarded codes stay off the 'highest' writer's at 4, 7, 20 "
+            "and 42 of 1,515 positions (3, 6, 12, 24 kbps) at every "
+            "threshold from 1e-3 to 2",
+    "fast": "its bf16 conv trunks move the 48 kHz model's latents by up to "
+            "7.9e-2, and its codes stay off the 'highest' writer's at 78 to "
+            "579 of 1,515 positions (3 to 24 kbps) at every threshold from "
+            "1e-3 to 2",
+}
 
 # Default lm_restart block length for single-frame LM streams when the
 # caller asks for "auto" (the CLI default): 5 s of tokens at 75 Hz, the
@@ -114,10 +138,12 @@ def compress_to_file(model, wav, fo: tp.IO[bytes], use_lm: bool = False,
     (the JAX writer's lmv=2) is refused.
 
     The codes come from the near-tie guard (`tie_guard`, the default:
-    `EncodecModel.encode_guarded` at threshold 1e-3), from the plain
+    `EncodecModel.encode_guarded` at `GUARD_THRESHOLD`), from the plain
     `encode` (`tie_guard=False`), or from the caller (`frames`, e.g. the
     batch tool's streaming extractor): then the codes are the caller's
-    contract and `wav` gives only the audio length."""
+    contract and `wav` gives only the audio length. A model at
+    `set_precision('high')` or 'fast' is refused (RuntimeError), whatever
+    the codes' source (`REFUSED_MODES`)."""
     from ..models.model import MODELS
 
     if np.ndim(wav) != 2:
@@ -141,6 +167,11 @@ def compress_to_file(model, wav, fo: tp.IO[bytes], use_lm: bool = False,
             "portable=False (lmv=2) streams are pinned to the JAX package's "
             "compiled float-LM executable; the port writes only the "
             "portable lmv=3 format")
+    if model.precision in REFUSED_MODES:
+        raise RuntimeError(
+            f"refusing to write .ecdc at set_precision({model.precision!r}): "
+            f"{REFUSED_MODES[model.precision]} (margin audit on an H100, "
+            "probes/precision_audit.py). Write at 'highest', the default.")
     ilm = None
     if use_lm:
         from ..models.ilm import IntLMModel
@@ -148,8 +179,8 @@ def compress_to_file(model, wav, fo: tp.IO[bytes], use_lm: bool = False,
         ilm = IntLMModel.from_lm(lm if lm is not None else get_lm_model(model))
 
     if frames is None and tie_guard:
-        frames, stats = model.encode_guarded(torch.as_tensor(wav)[None],
-                                             threshold=1e-3)
+        frames, stats = model.encode_guarded(
+            torch.as_tensor(wav)[None], threshold=GUARD_THRESHOLD)
         logging.getLogger(__name__).log(
             logging.INFO if stats["n_flagged"] else logging.DEBUG,
             "tie guard: min RVQ argmin margin %.3g over %d positions; "

@@ -87,8 +87,16 @@ runs in a recomputed region: the chunked GAN route's bodies hold none, and
 `disc_remat` runs replicated). A seq axis of one rank runs the
 data-parallel step.
 
-Not ported: `compute_dtype=bfloat16` (ROADMAP item 11d: an H100 bf16 mode
-needs a margin audit first); asking for it raises `NotImplementedError`.
+Mixed precision (`compute_dtype=torch.bfloat16`, JAX's `make_train_steps(
+compute_dtype=)`): every step (generator, GAN generator by its three
+routes, discriminator, balanced, eval) runs the SEANet conv trunks and the
+discriminator's conv stack in bf16, each conv casting its weights from the
+float32 masters (`ops.conv`, `ops.conv2d`). The float32 islands are JAX's:
+the LSTM recurrence (K3 and its backward), the RVQ (K1's searches, the EMA
+statistics), the STFT, the logits, every loss and feature-map sum, the
+master parameters and the Adam state. No autocast wraps a step. Under a
+mesh the same casts run on every rank; the seq exchanges carry float32 on
+the wire (`parallel.comm`).
 """
 
 from __future__ import annotations
@@ -113,12 +121,21 @@ from ..parallel.sp import check_seq_parallel
 from ..quant import RVQState
 from .optim import AdamState, adam_update, init_adam, tree_leaves, tree_map
 
-BF16_ITEM = ("bfloat16 compute is not ported: an H100 bf16 mode needs a "
-             "margin audit first (ROADMAP item 11d)")
+COMPUTE_DTYPES = {"float32": torch.float32, "f32": torch.float32,
+                  "bfloat16": torch.bfloat16}
 
 
-def refuse_bf16(what: str) -> tp.NoReturn:
-    raise NotImplementedError(f"{what}: {BF16_ITEM}")
+def resolve_compute_dtype(compute_dtype) -> torch.dtype:
+    """torch.float32 (also for None) or torch.bfloat16, from a dtype or its
+    name (`common.compute_dtype` in a config); anything else raises."""
+    if compute_dtype is None:
+        return torch.float32
+    if compute_dtype in (torch.float32, torch.bfloat16):
+        return compute_dtype
+    if str(compute_dtype) in COMPUTE_DTYPES:
+        return COMPUTE_DTYPES[str(compute_dtype)]
+    raise ValueError(f"unsupported compute_dtype {compute_dtype!r}: "
+                     "float32 or bfloat16")
 
 
 DISC_SEED_OFFSET = 1 << 20
@@ -205,7 +222,8 @@ def _with_grad(tree):
 
 
 def _chunk_sums(subs, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
-                x_hat: torch.Tensor, dp: BatchReduce, seq=None) -> list:
+                x_hat: torch.Tensor, dp: BatchReduce, seq=None,
+                compute_dtype: torch.dtype = torch.float32) -> list:
     """Each sub-discriminator's chunked GAN sums over the global batch, all
     reduced in one exchange. Under `seq` (a process group) this rank sums
     its block of the chunks, and the blocks' sums are first added over seq
@@ -213,7 +231,8 @@ def _chunk_sums(subs, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
     signal's on every seq rank and are added over data only."""
     shard = (0, 1) if seq is None else (comm.rank(seq), comm.world(seq))
     per = [msstftd_gan_sums_chunked(sub, batch, x_hat, disc_cfg, i,
-                                    chunk=disc_cfg.time_chunk, shard=shard)
+                                    chunk=disc_cfg.time_chunk, shard=shard,
+                                    compute_dtype=compute_dtype)
            for i, sub in enumerate(subs)]
     keys = [[k for k in sums if k != "n_logit"] for sums in per]
     shared = torch.cat([sums[k].reshape(-1)
@@ -237,19 +256,21 @@ def _chunk_sums(subs, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
 
 def gan_terms(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
               x_hat: torch.Tensor, disc_remat: bool = False,
-              dp: BatchReduce = LOCAL, seq=None):
+              dp: BatchReduce = LOCAL, seq=None,
+              compute_dtype: torch.dtype = torch.float32):
     """The generator's GAN terms `(l_g, l_feat)` by JAX's route for the
     config: the chunked discriminator (`disc_cfg.time_chunk`), each
     resolution recomputed in the backward (`disc_remat`), or the whole
     signal. The real signal's branch builds no graph; `dp` reduces the
     batch means; under `seq` the chunked route shares the chunks over its
-    ranks (`_chunk_sums`), the other two run replicated."""
+    ranks (`_chunk_sums`), the other two run replicated. The conv stacks
+    run in `compute_dtype`; the feature-map means are float32."""
     n_subs = len(disc_params["discs"])
     n_feat = n_subs * msstftd_num_fmaps(disc_cfg)
     l_g = l_feat = batch.new_zeros(())
     if disc_cfg.time_chunk:
         for sums in _chunk_sums(disc_params["discs"], disc_cfg, batch,
-                                x_hat, dp, seq):
+                                x_hat, dp, seq, compute_dtype):
             l_g = l_g + sums["lg_fake"] / sums["n_logit"]
             # mean|real - fake| / mean|real| per layer: the counts cancel
             l_feat = l_feat + (sums["feat_diff"] / sums["feat_real"]).sum()
@@ -257,14 +278,15 @@ def gan_terms(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
     if disc_remat:
         for i, sub in enumerate(disc_params["discs"]):
             def one(x_hat, i=i, sub=sub):
-                logits_fake, fmap_fake = msstftd_sub_forward(sub, x_hat,
-                                                             disc_cfg, i)
+                logits_fake, fmap_fake = msstftd_sub_forward(
+                    sub, x_hat, disc_cfg, i, compute_dtype)
                 with torch.no_grad():
                     _, fmap_real = msstftd_sub_forward(sub, batch, disc_cfg,
-                                                       i)
-                diff = torch.stack([(fr - ff).abs().mean()
+                                                       i, compute_dtype)
+                diff = torch.stack([(fr.float() - ff.float()).abs().mean()
                                     for fr, ff in zip(fmap_real, fmap_fake)])
-                real = torch.stack([fr.abs().mean() for fr in fmap_real])
+                real = torch.stack([fr.float().abs().mean()
+                                    for fr in fmap_real])
                 return (1.0 - logits_fake).square().mean(), diff, real
             # the ranks' means are combined outside the recomputed region,
             # so no collective runs in the backward
@@ -277,22 +299,27 @@ def gan_terms(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
             l_feat = l_feat + lf
         return l_g / n_subs, l_feat / n_feat
     with torch.no_grad():
-        _, fmap_real = msstftd_forward(disc_params, batch, disc_cfg)
-    logits_fake, fmap_fake = msstftd_forward(disc_params, x_hat, disc_cfg)
+        _, fmap_real = msstftd_forward(disc_params, batch, disc_cfg,
+                                       compute_dtype)
+    logits_fake, fmap_fake = msstftd_forward(disc_params, x_hat, disc_cfg,
+                                             compute_dtype)
     lg = total_loss(fmap_real, logits_fake, fmap_fake, batch, x_hat, dp)
     return lg["l_g"], lg["l_feat"]
 
 
 def disc_losses(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
                 x_hat: torch.Tensor, disc_remat: bool = False,
-                dp: BatchReduce = LOCAL, seq=None):
+                dp: BatchReduce = LOCAL, seq=None,
+                compute_dtype: torch.dtype = torch.float32):
     """The discriminator's LSGAN loss and its mean logits on the real and
     the fake signal, `(loss, logits_real, logits_fake)`, by the same three
-    routes as `gan_terms` (and the same sharing under `seq`)."""
+    routes as `gan_terms` (and the same sharing under `seq`), the conv
+    stacks in `compute_dtype`."""
     subs = disc_params["discs"]
     if disc_cfg.time_chunk or disc_remat:
         loss = lr_mean = lf_mean = batch.new_zeros(())
-        chunked = (_chunk_sums(subs, disc_cfg, batch, x_hat, dp, seq)
+        chunked = (_chunk_sums(subs, disc_cfg, batch, x_hat, dp, seq,
+                               compute_dtype)
                    if disc_cfg.time_chunk else None)
         for i, sub in enumerate(subs):
             if chunked is not None:
@@ -302,8 +329,10 @@ def disc_losses(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
                 lr_i, lf_i = sums["sum_real"] / n, sums["sum_fake"] / n
             else:
                 def one(i=i, sub=sub):
-                    lr, _ = msstftd_sub_forward(sub, batch, disc_cfg, i)
-                    lf, _ = msstftd_sub_forward(sub, x_hat, disc_cfg, i)
+                    lr, _ = msstftd_sub_forward(sub, batch, disc_cfg, i,
+                                                compute_dtype)
+                    lf, _ = msstftd_sub_forward(sub, x_hat, disc_cfg, i,
+                                                compute_dtype)
                     return (lf.square().mean(), (1.0 - lr).square().mean(),
                             lr.mean(), lf.mean())
                 sq_f, sq_r, lr_i, lf_i = checkpoint(one, use_reentrant=False)
@@ -313,8 +342,10 @@ def disc_losses(disc_params, disc_cfg: MSSTFTConfig, batch: torch.Tensor,
             lr_mean = lr_mean + lr_i
             lf_mean = lf_mean + lf_i
         return loss / len(subs), lr_mean / len(subs), lf_mean / len(subs)
-    logits_real, _ = msstftd_forward(disc_params, batch, disc_cfg)
-    logits_fake, _ = msstftd_forward(disc_params, x_hat, disc_cfg)
+    logits_real, _ = msstftd_forward(disc_params, batch, disc_cfg,
+                                     compute_dtype)
+    logits_fake, _ = msstftd_forward(disc_params, x_hat, disc_cfg,
+                                     compute_dtype)
     return (disc_loss(logits_real, logits_fake, dp),
             sum(dp.mean(lg.mean()) for lg in logits_real) / len(logits_real),
             sum(dp.mean(lg.mean()) for lg in logits_fake) / len(logits_fake))
@@ -353,10 +384,12 @@ def make_train_steps(model_cfg: EncodecConfig,
     the plain step's bits. With a "seq" axis too (`parallel.make_mesh_2d`),
     time is sharded over it: the data×seq step, its convention in the
     module's docstring; what cannot be sharded raises `ValueError` here
-    or, for the length, at the step."""
-    if compute_dtype is not None and compute_dtype not in (torch.float32,
-                                                          "float32", "f32"):
-        refuse_bf16(f"compute_dtype={compute_dtype}")
+    or, for the length, at the step.
+
+    `compute_dtype` (`torch.bfloat16` or "bfloat16"; None or float32 is
+    the float32 step): the conv trunks' dtype in every step (see the
+    module's docstring)."""
+    compute_dtype = resolve_compute_dtype(compute_dtype)
     n_q = n_q or model_cfg.rvq.n_q
     fl_kwargs = dict(alpha=0.01, bandwidth=None, sampling_rate=10, n_fft=512)
     fl_kwargs.update(freq_loss_kwargs or {})
@@ -401,7 +434,8 @@ def make_train_steps(model_cfg: EncodecConfig,
         with torch.enable_grad():
             x_hat, codes, commit, new_qstate = forward_train(
                 params, state.qstate, batch, model_cfg, n_q, generator,
-                training=True, plain=plain, dp=dp, seq=seq, margins=margins)
+                training=True, plain=plain, dp=dp, seq=seq, margins=margins,
+                compute_dtype=compute_dtype)
             commit_mean = commit.mean()
             freq = freq_loss(batch, x_hat)
             losses_g = total_loss(None, None, None, batch, x_hat, dp)
@@ -412,7 +446,8 @@ def make_train_steps(model_cfg: EncodecConfig,
                     + commit_mean * weights.codebook)
             if use_gan:
                 l_g, l_feat = gan_terms(state.disc_params, disc_cfg, batch,
-                                        x_hat, disc_remat, dp, seq)
+                                        x_hat, disc_remat, dp, seq,
+                                        compute_dtype)
                 loss = loss + l_g * weights.gen + l_feat * weights.feat
             grads = reduce_grads(_grads(loss, params,
                                         scaled(torch.ones_like(loss))))
@@ -450,7 +485,8 @@ def make_train_steps(model_cfg: EncodecConfig,
         with torch.enable_grad():
             x_hat, _, commit, new_qstate = forward_train(
                 params, state.qstate, batch, model_cfg, n_q, generator,
-                training=True, plain=plain, dp=dp, seq=seq)
+                training=True, plain=plain, dp=dp, seq=seq,
+                compute_dtype=compute_dtype)
             commit_mean = commit.mean()
         loss_fns = {
             "l_t": lambda y: dp.mean((batch - y).abs().mean()),
@@ -495,11 +531,13 @@ def make_train_steps(model_cfg: EncodecConfig,
         with torch.no_grad():
             x_hat, _, _, _ = forward_train(
                 state.params, state.qstate, batch, model_cfg, n_q, generator,
-                training=True, plain=plain, dp=dp, seq=seq)
+                training=True, plain=plain, dp=dp, seq=seq,
+                compute_dtype=compute_dtype)
         disc = _with_grad(disc_in)
         with torch.enable_grad():
             loss, lr_mean, lf_mean = disc_losses(disc, disc_cfg, batch,
-                                                 x_hat, disc_remat, dp, seq)
+                                                 x_hat, disc_remat, dp, seq,
+                                                 compute_dtype)
             grads = reduce_grads(_grads(loss, disc,
                                         scaled(torch.ones_like(loss))))
         new_disc, new_opt, grad_norm = adam_update(
@@ -519,7 +557,7 @@ def make_train_steps(model_cfg: EncodecConfig,
                   weights: LossWeights):
         x_hat, codes, commit, _ = forward_train(
             state.params, state.qstate, batch, model_cfg, n_q, training=False,
-            plain=plain, dp=dp, seq=seq)
+            plain=plain, dp=dp, seq=seq, compute_dtype=compute_dtype)
         freq = freq_loss(batch, x_hat)
         losses_g = total_loss(None, None, None, batch, x_hat, dp)
         loss = (losses_g["l_1"] * weights.l1

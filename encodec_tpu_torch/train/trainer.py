@@ -14,9 +14,10 @@ the gradient balancer when `balancer.weights` is set and
 `loss.use_balancer` is true.
 
 The trainer runs on `device` (default "cuda"; it raises without a GPU;
-"cpu" runs every plain twin). Configs it cannot run yet are refused when
-the trainer is built, not epochs later: a compute dtype other than
-float32 (ROADMAP item 11d).
+"cpu" runs every plain twin). `common.compute_dtype: bfloat16` (JAX's
+`trainer.py:104-121`) runs the conv trunks and the discriminator's conv
+stack in bf16 with float32 masters (`train.steps`); another dtype is
+refused when the trainer is built.
 
 `checkpoint.async_save: true` writes through `AsyncCheckpointer` (JAX's
 `trainer.py:328-354`): `resume` and the end of `fit` wait for the write.
@@ -65,7 +66,7 @@ from .metrics import Metrics
 from .optim import AdamState
 from .schedulers import linear_warmup_cosine
 from .steps import (LossWeights, TrainState, create_train_state,
-                    make_train_steps, refuse_bf16)
+                    make_train_steps, resolve_compute_dtype)
 
 # `extra` of the checkpoints this trainer writes: the parameters are in the
 # port's (torch) layout, unlike a JAX-written file's
@@ -156,9 +157,10 @@ class Trainer:
         self.val_loader = val_loader
         self.log_dir = log_dir
         self.label_mapping = label_mapping or {}
-        dtype_name = getattr(config.common, "compute_dtype", None)
-        if dtype_name and str(dtype_name) not in ("float32", "f32"):
-            refuse_bf16(f"common.compute_dtype: {dtype_name}")
+        # mixed precision: `common.compute_dtype: bfloat16` runs the conv
+        # trunks and the discriminator's conv stack in bf16 (`train.steps`)
+        self.compute_dtype = resolve_compute_dtype(
+            getattr(config.common, "compute_dtype", None) or None)
         self.mesh = mesh
         # eval gathers over `data`; the vote, the barriers and the writes
         # span the world (a data×seq mesh's seq peers hold the same rows)
@@ -207,7 +209,8 @@ class Trainer:
             return make_train_steps(
                 self.model.cfg, self.disc_cfg, freq_loss_kwargs=freq_kwargs,
                 balancer=self.balancer, clip=self.clip, n_q=n_q,
-                disc_remat=disc_remat, mesh=mesh)
+                disc_remat=disc_remat, compute_dtype=self.compute_dtype,
+                mesh=mesh)
 
         (self.gen_step, self.disc_step, self.eval_step,
          self.balanced_gen_step) = make_steps()

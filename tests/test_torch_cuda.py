@@ -16,7 +16,10 @@ generator step and a discriminator step (chunked and whole-signal) on the
 kernels against the plain twins, the chunked discriminator against the
 whole-signal forward, and a spectral-norm generator step. The float LM:
 a training step on the card against the CPU's, and the batch path against
-the streaming cell.
+the streaming cell. The reduced-precision modes: a bf16 GAN and
+discriminator step against the float32 steps, the TF32 flags scoped to
+a model call at 'high', and K1, K2 and K3 launched at 'fast' and held to
+the plain twins.
 
 This file imports no JAX (the GPU machine has none). On a machine without
 a CUDA device every test skips. Run on the H100 with:
@@ -1111,3 +1114,150 @@ def test_nccl_collectives_carry_cpu_tensors_through_the_card(dev, tmp_path):
             {"loss": x.sum(), "acc": torch.tensor(0.5)})
     finally:
         dist.destroy_process_group()
+
+
+def test_bf16_steps_on_the_card_match_its_float32_steps(dev):
+    """bf16 training compute on the card: a GAN generator step and a
+    discriminator step of the tiny model (weight norm; the chunked route)
+    from one state, within the CPU tests' bounds of the float32 steps
+    (`tests/test_torch_precision.py`: the GAN terms and the
+    discriminator's loss rtol 0.1), masters and Adam float32, and K1, K3's
+    saving forward and its backward launched."""
+    from encodec_tpu_torch import kernels
+    from encodec_tpu_torch.train import (LossWeights, create_train_state,
+                                         make_train_steps)
+    from encodec_tpu_torch.train.optim import tree_leaves
+
+    model, disc, x = _tiny_gan(dev, norm="weight_norm")
+    fl = dict(n_fft=64, win_length=64, hop_length=16, sampling_rate=10)
+    w = LossWeights.make(lr=1e-3, disc_lr=1e-3, freq=0.25, commit=0.25)
+    state = create_train_state(model, disc, seed=0)
+    gen16, disc16, _, _ = make_train_steps(model.cfg, disc,
+                                           freq_loss_kwargs=fl,
+                                           compute_dtype=torch.bfloat16)
+    gen32, disc32, _, _ = make_train_steps(model.cfg, disc,
+                                           freq_loss_kwargs=fl)
+    kernels.reset_launch_counts()
+    s16, m16 = gen16(state, x, w, use_gan=True)
+    d16, dm16 = disc16(state, x, w)
+    counts = kernels.launch_counts()
+    assert counts["nearest_codebook"] > 0 and counts["lstm_scan"] > 0
+    assert lstm_scan.save_launches > 0 and counts["lstm_scan_backward"] > 0
+    _, m32 = gen32(state, x, w, use_gan=True)
+    _, dm32 = disc32(state, x, w)
+    for k in ("loss_gen", "loss_feat"):
+        assert abs(m16[k].item() - m32[k].item()) <= 0.1 * abs(m32[k].item())
+    assert abs(dm16["loss_disc"].item() - dm32["loss_disc"].item()) <= \
+        0.1 * abs(dm32["loss_disc"].item())
+    assert all(t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+               for t in tree_leaves((s16.params, s16.opt_state.mu,
+                                     d16.disc_params, d16.disc_opt_state.nu)))
+
+
+def _small24(dev):
+    from encodec_tpu_torch.models import build_model
+
+    model = build_model([1.5, 6.0], sample_rate=24000, channels=1,
+                        causal=True, model_norm="weight_norm",
+                        name="encodec_24khz", ratios=[8, 5, 4, 2],
+                        bins=1024, dimension=16, n_filters=4,
+                        kmeans_init=False, device=dev)
+    model.set_target_bandwidth(6.0)
+    x = torch.from_numpy((0.3 * np.random.RandomState(1).randn(1, 1, 9600))
+                         .astype(np.float32)).to(dev)
+    return model, x
+
+
+def test_high_mode_scopes_the_tf32_flags_on_the_card(dev, monkeypatch):
+    """'high' turns TF32 on inside the model's call only: the encoder sees
+    both flags on, and after the call (an exception included) they are
+    back to float32."""
+    import encodec_tpu_torch.models.model as mmod
+
+    model, x = _small24(dev)
+    seen = []
+    enc = mmod.seanet_encoder
+
+    def spy(*a, **k):
+        seen.append((torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32))
+        return enc(*a, **k)
+
+    monkeypatch.setattr(mmod, "seanet_encoder", spy)
+    model.set_precision("high")
+    try:
+        model.encode(x)
+        assert seen == [(True, True)]
+        assert not torch.backends.cuda.matmul.allow_tf32
+        assert not torch.backends.cudnn.allow_tf32
+        with pytest.raises(ValueError):
+            model.encode(x[0])
+        assert not (torch.backends.cuda.matmul.allow_tf32
+                    or torch.backends.cudnn.allow_tf32)
+    finally:
+        model.set_precision("highest")
+
+
+def test_fast_mode_launches_k1_k2_k3_and_holds_to_the_twins(dev,
+                                                            monkeypatch):
+    """'fast' (bf16 conv trunks) on the card: `encode` launches K2 and
+    K3, `encode_guarded` K1 at every stage; each kernel is held to its
+    plain twin on the very inputs the path gave it (its first call, the
+    trunks' bf16 outputs cast to float32): K1's rows and K2's codes equal
+    where the twins' margins are at least 1e-3, K1's margins within 1e-3,
+    K3's outputs within 1e-4. (The path's codes are not held to the twins'
+    path: in bf16, K3's float32 rounding gap to its twin can move a trunk
+    output by a whole bf16 step, which the 1e-3 tie flags do not cover.)"""
+    import importlib
+
+    from encodec_tpu_torch import kernels
+
+    # by path: the packages export functions of the same names
+    lmod = importlib.import_module("encodec_tpu_torch.ops.lstm")
+    qmod = importlib.import_module("encodec_tpu_torch.quant.rvq")
+    seen = {}
+    for mod, name in ((qmod, "nearest_codebook"), (qmod, "rvq_encode_fused"),
+                      (lmod, "lstm_scan")):
+        def spy(*a, _orig=getattr(mod, name), _name=name, **k):
+            seen.setdefault(_name, ([t.detach().clone()
+                                     if torch.is_tensor(t) else t
+                                     for t in a], k))
+            return _orig(*a, **k)
+        monkeypatch.setattr(mod, name, spy)
+    model, x = _small24(dev)
+    model.set_precision("fast")
+    try:
+        kernels.reset_launch_counts()
+        model.encode(x)
+        model.encode_guarded(x)
+        counts = kernels.launch_counts()
+    finally:
+        model.set_precision("highest")
+    assert counts["rvq_encode_fused"] == 1
+    assert counts["lstm_scan"] == 4
+    assert counts["nearest_codebook"] == model.n_q_active
+    a, k = seen["nearest_codebook"]
+    idx, m = nearest_codebook(*a, **k)
+    idx_p, m_p = nearest_codebook_plain(*a, **k)
+    untied = (m >= 1e-3) & (m_p >= 1e-3)
+    assert untied.any() and torch.equal(idx[untied], idx_p[untied])
+    assert float((m - m_p).abs().max()) <= 1e-3
+    (xr, embed, n_q, *rest), k = seen["rvq_encode_fused"]
+    shared = bool(rest[0]) if rest else k.get("shared", False)
+    codes = rvq_encode_fused(xr, embed, n_q, shared)
+    residual, want, margins = xr, [], []
+    for q in range(n_q):
+        book = embed[0 if shared else q]
+        i_p, m_q = nearest_codebook_plain(residual, book)
+        want.append(i_p)
+        margins.append(m_q)
+        residual = residual - book[i_p.long()]
+    untied = (torch.stack(margins) >= 1e-3).all(0)
+    assert untied.any()
+    assert torch.equal(codes[:, untied], torch.stack(want)[:, untied])
+    a, k = seen["lstm_scan"]
+    assert a[0].dtype == torch.float32
+    got, ref = lstm_scan(*a, **k), lstm_scan_plain(*a, **k)
+    if torch.is_tensor(got):
+        got, ref = (got,), (ref,)
+    assert max(float((g - r).abs().max()) for g, r in zip(got, ref)) <= 1e-4

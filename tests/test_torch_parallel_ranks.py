@@ -484,6 +484,40 @@ def seq_refusals(mesh) -> dict:
     return out
 
 
+def seq_bf16_cases(inputs: dict, mesh=None) -> dict:
+    """The bf16 data×seq steps (`compute_dtype=torch.bfloat16`): a GAN
+    generator step and a discriminator step by the chunked route, B=4 x
+    T=1200, on the tiny model with weight norm in place of layer norm (in
+    bf16 the layer norm over 4 channels moves the step's gradient by tens
+    of percent, `tests/test_torch_precision.py`) and `inputs`'
+    discriminator; with `mesh`, this rank's data rows, without, the
+    single-process step on the global batch."""
+    rows = ((lambda a: torch.from_numpy(np.ascontiguousarray(
+        parallel.shard_batch(mesh, a, "data")))) if mesh is not None
+        else torch.from_numpy)
+    w = LossWeights.make(**WEIGHTS)
+    tm = build_model([0.08], seed=3, device="cpu",
+                     **dict(TINY, model_norm="weight_norm"))
+    tm.qstate = tm.qstate._replace(
+        cluster_size=torch.full_like(tm.qstate.cluster_size, 50.0))
+    cfg = msstftd.MSSTFTConfig(**DISC, time_chunk=7)
+    gen, disc, _, _ = make_train_steps(tm.cfg, cfg, freq_loss_kwargs=FL,
+                                       compute_dtype=torch.bfloat16,
+                                       mesh=mesh)
+    state = create_train_state(tm, cfg, seed=0)._replace(
+        disc_params=inputs["disc"])
+    s1, m = gen(state, rows(batch(3, T=SEQ_T)), w, use_gan=True)
+    s2, dm = disc(state, rows(batch(4, T=SEQ_T)), w)
+    return {"gan": _record(s1, m), "disc": _record(s2, dm)}
+
+
+def task_seq_bf16(out: str) -> dict:
+    """The bf16 cases on a 2 x 2 mesh."""
+    mesh = parallel.make_mesh_2d(2, dist.get_world_size() // 2)
+    inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
+    return seq_bf16_cases(inputs, mesh)
+
+
 def task_seq(out: str) -> dict:
     """The data×seq cases on a 2 x 2 mesh, the collectives' gradchecks on
     its seq axis, and the refusals."""
@@ -534,4 +568,5 @@ def task_seq_main(out: str) -> dict:
 
 
 TASKS = {"train": task_train, "main": task_main, "paths": task_paths,
-         "seq": task_seq, "seq_main": task_seq_main}
+         "seq": task_seq, "seq_main": task_seq_main,
+         "seq_bf16": task_seq_bf16}

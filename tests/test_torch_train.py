@@ -629,25 +629,42 @@ def test_trainer_resumes_a_jax_written_checkpoint(tmp_path):
     assert np.isfinite(float(m["loss"]))
 
 
-def _refusal(case, tmp_path, tm):
+@pytest.mark.parametrize("gan", [False, True], ids=["gen", "gan"])
+def test_trainer_takes_a_bf16_step(gan, tmp_path):
+    """`common.compute_dtype: bfloat16` (refused before the mixed-precision
+    slice) builds a Trainer whose steps compute the conv trunks in bf16:
+    one generator step from a fresh state (the k-means init) is finite
+    and, with the discriminator, so are a GAN generator step and a
+    discriminator step; the masters, the Adam moments and the losses stay
+    float32. Asynchronous saves: `tests/test_torch_parallel_train.py`; the
+    data×seq step: `tests/test_torch_seq_parallel.py`."""
     cfg = _config(tmp_path)
-    if case == "make_train_steps bf16":
-        make_train_steps(tm.cfg, compute_dtype=torch.bfloat16)
-    else:
-        cfg["common"]["compute_dtype"] = "bfloat16"
-        Trainer(ConfigNamespace(cfg), [], [], str(tmp_path / "r"),
-                device="cpu")
-
-
-@pytest.mark.parametrize("case,item", [
-    ("make_train_steps bf16", "11d"), ("Trainer bf16", "11d")])
-def test_bf16_and_async_save_are_refused(case, item, tmp_path, pair):
-    """What the port still refuses, naming its ROADMAP item: bfloat16
-    compute (behind a margin audit). Asynchronous saves, refused until
-    the parallel slice, now run: `tests/test_torch_parallel_train.py`; so
-    does the data×seq step: `tests/test_torch_seq_parallel.py`."""
-    with pytest.raises(NotImplementedError, match=item):
-        _refusal(case, tmp_path, pair["tm"])
+    cfg["common"]["compute_dtype"] = "bfloat16"
+    cfg["model"]["train_discriminator"] = gan
+    tr = Trainer(ConfigNamespace(cfg), [], [], str(tmp_path / "r"),
+                 device="cpu")
+    assert tr.compute_dtype is torch.bfloat16
+    x = torch.from_numpy(_batch(72))
+    state, m = tr.gen_step(tr.state, x, tr.weights_for_epoch(1))
+    metrics = [m]
+    if gan:
+        state, m = tr.gen_step(state, x, tr.weights_for_epoch(1),
+                               use_gan=True)
+        state, dm = tr.disc_step(state, x, tr.weights_for_epoch(1))
+        metrics += [m, dm]
+        assert np.isfinite(float(m["loss_gen"]))
+        assert np.isfinite(float(dm["loss_disc"]))
+        for k, leaf in _leaves((state.disc_params, state.disc_opt_state.mu,
+                                state.disc_opt_state.nu)):
+            assert leaf.dtype == torch.float32, k
+    assert np.isfinite(float(metrics[0]["loss"]))
+    assert all(v.dtype == torch.float32 for mt in metrics
+               for v in mt.values()
+               if isinstance(v, torch.Tensor) and v.is_floating_point())
+    for k, leaf in _leaves((state.params, state.opt_state.mu,
+                            state.opt_state.nu)):
+        assert leaf.dtype == torch.float32, k
+    assert state.qstate.embed.dtype == torch.float32
 
 
 def test_seq_parallel_must_divide_the_world(tmp_path):
