@@ -63,7 +63,7 @@ Phases, in order (any failure exits non-zero before the last line):
    signal, and a profile of one night (device busy, idle share, K3's
    share);
 12. `params/hires_tokens.yaml`'s model (H=256, T=14,400 steps per 4 h
-   night) from a config dict: one night, K3 ms per layer;
+   night) from the port's copy of the file: one night, K3 ms per layer;
 13. K3's backward kernel (`csrc/lstm_bwd.cu`) and the saving forward per
    layer, from a given state, at H=1024 with B=1 and 32 (T=480), H=512
    (B=4, T=750) and H=256 (B=1, T=14,400), each with its plan (rows and
@@ -77,14 +77,15 @@ Phases, in order (any failure exits non-zero before the last line):
    plain backward, and the layer's backward (the kernel and its two
    matmuls) beside the bound of its three products and cuDNN's LSTM
    backward and forward + backward;
-14. training `params/default.yaml`'s model (as a dict; B=32 nights of 4 h):
+14. training `params/default.yaml`'s model (the port's copy, read by
+   `load_config`; B=32 nights of 4 h):
    the largest batch of the config as it is that fits the card (its peak
    memory, ms per step and one profiled step by kernel group); the first
    step from a fresh state with every leaf's gradient finite and non-zero;
    then, as a stand-in for the config (its B=32 does not fit), with
    its own launch counts, `python -m encodec_tpu_torch.train`'s `main` at
    B=32 with `model.remat: true` on synthetic npz nights through
-   `build_dataloaders` (epochs cut to 3 batches), 2 epochs of 3 steps
+   `build_dataloaders` (epochs cut to 2 batches), 2 epochs of 2 steps
    with k-means init, eval and save; a fresh `Trainer` resuming the run
    bit for bit and stepping on; ms per step, peak memory and one profiled
    step by kernel group (idle share); one B=4 step from epoch 1's state on
@@ -92,7 +93,7 @@ Phases, in order (any failure exits non-zero before the last line):
    positions, loss within 1e-4, gradient leaves within 1e-3); K1 at the
    training shape (N=15,360, D=256, 1024 bins) against its twin and
    cdist+argmin;
-15. the GAN phase of training (`params/gan.yaml` as a dict: default.yaml's
+15. the GAN phase of training (`params/gan.yaml`, read so: default.yaml's
    generator with the MS-STFT discriminator in 512-frame chunks), with its
    own launch counts: the largest batch of gan.yaml as written at which a
    GAN generator step and a discriminator step both fit (peak memory, ms
@@ -100,13 +101,39 @@ Phases, in order (any failure exits non-zero before the last line):
    forward and backward, conv1d, K1, K3 forward and backward, other; idle
    share); the B=32 stand-in with `model.remat: true`; gan_disc512.yaml as
    written (B=8, the whole-signal route); `train.__main__.main` at B=32
-   with remat, the discriminator from epoch 1, 2 epochs of 3 steps (at
+   with remat, the discriminator from epoch 1, 2 epochs of 2 steps (at
    least one GAN step and one discriminator step), resumed bit for bit
    with the discriminator's state; a GAN step and a discriminator step at
    B=4 on the kernels against the plain twins; the chunked discriminator
    against the whole-signal forward and `disc_remat` against the plain
    route (B=2, 1 h nights);
-16. LM entropy coding (lmv=3) with its own launch counts: the integer LMs
+16. six published configs never trained on the card before
+   (`phase_configs`: tokens_10s, l2_weightnorm, l2, multires_disc,
+   bins512_commit, disc256_bins256), each read from
+   `encodec_tpu_torch/params/<name>.yaml` with PyYAML hidden (as on a
+   machine without it), with its own launch counts: n_q, H, hop and T per
+   night; the first step from a fresh state (B=2, k-means init) with every
+   gradient leaf finite and non-zero; for l2, whose B=32 is default.yaml's
+   and does not fit (phase 14), B=32 with `model.remat: true` as a
+   stand-in; `python -m encodec_tpu_torch.train`'s
+   `main` with `--config encodec_tpu_torch/params/<name>.yaml` (the root,
+   the dataset, the cut epochs and a stand-in's options set through
+   `build_dataloaders`): 2 epochs of 2 batches with the k-means init, eval
+   and save, K1, K2, K3 and K3's backward launched; l2_weightnorm (the
+   GAN phase from epoch 0, two whole-signal discriminators) resumed bit
+   for bit in a fresh Trainer, the discriminator's state included; from
+   epoch 1's state at the run's batch, ms per step (median of two) and
+   peak memory, and K1 and K3 (saving forward and backward) on the inputs
+   that step gave them, held against their twins and, for the shapes new
+   to the table, timed beside the twins, the library and the bound; a
+   generator step at B=2 on the batch's first half hour from epoch 1's
+   state on the kernels against the plain twins (codes outside tie flags,
+   loss within 1e-4, each gradient leaf within 1e-3 of its own largest
+   |value| plus 1e-3 of the whole gradient's), for l2_weightnorm the GAN
+   generator step (5e-3) and a discriminator step; then `tools.inference`
+   with `--config encodec_tpu_torch/params/default.yaml` on the l2 run's
+   checkpoint;
+17. LM entropy coding (lmv=3) with its own launch counts: the integer LMs
    at the published widths (seeded random weights) code the 10 s 24 kHz
    request at 6 and 24 kbps in 375-token blocks and at 6 kbps unblocked,
    and the 10 s 48 kHz request at 24 kbps (11 segments), compressed on
@@ -125,7 +152,7 @@ Phases, in order (any failure exits non-zero before the last line):
    of audio, the first decode's capture, per request profiled graph
    replays and eager runner steps (wall per step, device busy, launches
    per step, idle share), bytes against the raw file;
-17. train an entropy prior on the port's own codes at the published LM
+18. train an entropy prior on the port's own codes at the published LM
    width (n_q 32, card 1024, dim 200, 8 heads, 5 layers), with its own
    launch counts: 16 seeded 10 s requests encoded at 24 kbps (K2, K3), 20
    steps of `make_lm_train_step` at B=16 x T=750 (ms per step, peak
@@ -138,7 +165,7 @@ Phases, in order (any failure exits non-zero before the last line):
    written ones and the file against the CPU writer's, the export and the
    LM's state dict reloaded bit for bit, the batch files against per-file
    compression and decompression;
-18. the parallel package on torch.distributed (`phase_parallel`), with
+19. the parallel package on torch.distributed (`phase_parallel`), with
    its own launch counts: (a) NCCL at world 1 in this process,
    default.yaml's model as written at B=16: the data-parallel generator
    step against the plain step, bit for bit, and ms per step of both; a
@@ -158,7 +185,7 @@ Phases, in order (any failure exits non-zero before the last line):
    pipeline stages (`lm_forward_batch_pp`, one `make_lm_pp_train_step`);
    launches and ms per rank. Two ranks on one card check correctness,
    not scaling;
-19. the data×seq training step and the DAC-style RVQ
+20. the data×seq training step and the DAC-style RVQ
    (`phase_seq_parallel`): a gloo world of 2 on this card, data 1 x seq
    2, gan.yaml as written at B=4 on 4 h nights: a generator step with the
    k-means init, then from its state a generator, a GAN generator and a
@@ -172,7 +199,7 @@ Phases, in order (any failure exits non-zero before the last line):
    cannot put two ranks on one card, and a seq axis of one rank is the
    data-parallel step); `probes/seq_nccl.py` runs the same checks over
    NCCL on four cards;
-20. the reduced-precision modes (`phase_precision`): (a) bf16 training
+21. the reduced-precision modes (`phase_precision`): (a) bf16 training
    compute (`common.compute_dtype: bfloat16`), gan.yaml's model as written
    at B=4 on 4 h nights: from a float32 state after the k-means step, a
    generator, a GAN generator and a discriminator step in bf16: finite,
@@ -186,7 +213,7 @@ Phases, in order (any failure exits non-zero before the last line):
    and audio to the twins' path, the `.ecdc` writer refused at 'high' and
    at 'fast', the guarded 'high' codes decoded, the TF32 flags as they
    were after every call;
-21. print the `kernels` JSON line (launches per path, the grid kernel, the
+22. print the `kernels` JSON line (launches per path, the grid kernel, the
    backward kernel and the range decoder in rows of their own), then the
    final `ok` JSON line.
 
@@ -200,6 +227,7 @@ import importlib
 import io
 import json
 import math
+import statistics
 import struct
 import subprocess
 import sys
@@ -1279,7 +1307,10 @@ def phase_k3_grid(torch, kernels, dev):
         c0 = gauss(torch, (B, H), 54, dev, 1.0)
         proj = xp.reshape(B * T, 4 * H)
         eye = cudnn.weight_ih_l0.detach()
-        gemm_ms = device_ms(torch, lambda: proj @ eye, 5)
+        # the yardsticks fall back to CUDA events where no two profiler
+        # windows agree (late in a long process the profiler loses
+        # records); the kernel's own time does not
+        gemm_ms = device_or_event_ms(torch, lambda: proj @ eye, 5)[0]
         for stateful in (False, True):
             st = (h0, c0) if stateful else (None, None)
             before = kernels.lstm_scan.grid_launches
@@ -1295,12 +1326,15 @@ def phase_k3_grid(torch, kernels, dev):
                                f"max|d| {err} > 1e-4")
             ms = device_ms(torch, lambda: kernels.lstm_scan(
                 xp, w_hh, *st, return_state=True), 10)
-            plain_ms = device_ms(torch, lambda: kernels.lstm_scan_plain(
-                xp, w_hh, *st, return_state=True), 2)
+            plain_ms = device_or_event_ms(torch, lambda: kernels.
+                                          lstm_scan_plain(
+                                              xp, w_hh, *st,
+                                              return_state=True), 2)[0]
             lib_state = (h0[None], c0[None]) if stateful else None
             with torch.no_grad():
                 lib_err = float((cudnn(xp, lib_state)[0] - out).abs().max())
-                lib_ms = device_ms(torch, lambda: cudnn(xp, lib_state), 5)
+                lib_ms = device_or_event_ms(
+                    torch, lambda: cudnn(xp, lib_state), 5)[0]
             nbytes = (B * T * 4 * H + 4 * H * H + B * T * H + B * H
                       + (2 * B * H if stateful else 0)) * 4
             b_ms, b_by = bound(2.0 * B * T * H * 4 * H, nbytes)
@@ -1506,16 +1540,13 @@ def phase_breathing(torch, kernels, dev):
 def phase_hires(torch, kernels, dev):
     """`params/hires_tokens.yaml`'s model (H=256, hop 10: T=14,400 LSTM steps
     per 4 h night; the cluster kernel's longest chain), built by
-    `model_from_config` from that file's `model:` values as a dict: one
-    night encoded and decoded, K3's device ms per layer. Counted as its own
-    path."""
-    from encodec_tpu_torch.train import ConfigNamespace, model_from_config
+    `model_from_config` from `encodec_tpu_torch/params/hires_tokens.yaml`
+    (`load_config`): one night encoded and decoded, K3's device ms per
+    layer. Counted as its own path."""
+    from encodec_tpu_torch.train import load_config, model_from_config
 
-    model = model_from_config(ConfigNamespace({"model": dict(
-        audio_normalize=False, bins=1024, causal=True, channels=1,
-        dimension=256, filters=32, name="my_encodec", norm="layer_norm",
-        ratios=[5, 2, 1], sample_rate=10, segment="None",
-        target_bandwidths=[0.1])}), device=dev)
+    model = model_from_config(load_config(config_path("hires_tokens")),
+                              device=dev)
     check(model.params["encoder"]["lstm"]["layers"][0]["w_hh"].shape
           == (1024, 256) and model.cfg.seanet.hop_length == 10,
           "not the hires_tokens configuration")
@@ -1722,44 +1753,42 @@ def phase_k3_bwd(torch, kernels, dev):
     return rows[32, 480, 1024]
 
 
-# params/default.yaml's model and loss sections (the card has no PyYAML)
-DEFAULT_MODEL = {
-    "ratios": [6, 5, 5, 2, 1], "bins": 1024, "dimension": 256,
-    "target_bandwidths": [0.08], "train_discriminator": False,
-    "train_discriminator_start_epoch": 60, "train_discriminator_prob": 0.5,
-    "disc_hop_lengths": [20, 128], "disc_win_lengths": [100, 512],
-    "disc_n_ffts": [1024, 1024], "filters": 32, "audio_normalize": False,
-    "causal": True, "norm": "layer_norm", "segment": "None",
-    "name": "my_encodec", "sample_rate": 10, "channels": 1}
-DEFAULT_LOSS = {
-    "weight_l1": 1.0, "weight_l2": 0.01, "weight_commit": 0.25,
-    "weight_freq": 0.25, "weight_g": 3.0, "weight_feat": 3.0, "alpha": 0.01,
-    "bandwidth": None, "n_fft": 512, "commit_start_epoch": 30}
 TRAIN_NIGHT = 4 * 36_000 + 600   # a 4 h crop with room to move
+PARAMS = Path(__file__).resolve().parent / "encodec_tpu_torch" / "params"
+
+
+def config_path(name: str) -> str:
+    """`encodec_tpu_torch/params/<name>.yaml`, relative to the working
+    directory when the checkout is it (as a user passes it)."""
+    path = PARAMS / f"{name}.yaml"
+    try:
+        return str(path.relative_to(Path.cwd()))
+    except ValueError:
+        return str(path)
+
+
+def published_config(name: str, root: str) -> dict:
+    """`encodec_tpu_torch/params/<name>.yaml` as written (`load_config`,
+    with or without PyYAML), on synthetic nights under `root`, logging and
+    saving every epoch, in one process (`distributed.data_parallel` off:
+    eval keeps its last short batch; `cut_epochs` cuts the virtual
+    epochs)."""
+    from encodec_tpu_torch.train import config_to_dict, load_config
+
+    cfg = config_to_dict(load_config(config_path(name)))
+    cfg["common"]["log_interval"] = 1
+    cfg["checkpoint"]["save_every"] = 1
+    cfg["dataset"].update(root=root, datasets={"synth": 1.0})
+    cfg["distributed"] = {"data_parallel": False}
+    return cfg
 
 
 def train_config(root: str) -> dict:
-    """default.yaml with its model and loss sections as they are, logging
-    and saving every epoch, one device, and synthetic nights under `root`
-    (`cut_epochs` cuts the virtual epochs)."""
-    return {
-        "exp_details": {"name": "default", "description": "4 hours at 10 Hz"},
-        "common": {"log_interval": 1, "max_epoch": 2000, "seed": 42,
-                   "gradient_clipping": True},
-        "dataset": {"root": root, "batch_size": 32, "num_workers": 8,
-                    "max_length": 144_000, "debug": False, "cv": 0,
-                    "datasets": {"synth": 1.0},
-                    "thorax": 0.5, "abdominal": 0.5},
-        "checkpoint": {"save_every": 1},
-        "optimization": {"lr": 1e-3, "disc_lr": 3e-4},
-        "loss": dict(DEFAULT_LOSS),
-        "lr_scheduler": {"warmup_epoch": 10},
-        "model": dict(DEFAULT_MODEL),
-        "distributed": {"data_parallel": False},
-    }
+    """default.yaml (`published_config`)."""
+    return published_config("default", root)
 
 
-TRAIN_ITEMS, VAL_ITEMS = 96, 19   # 3 training batches of 32, one for eval
+TRAIN_ITEMS, VAL_ITEMS = 64, 19   # 2 training batches of 32, one for eval
 
 
 def cut_epochs(build):
@@ -1810,6 +1839,34 @@ def states_equal(torch, a, b) -> bool:
     pairs.append((a.rng, b.rng))
     return (a.qstate.inited == b.qstate.inited and len(la) == len(lb)
             and all(torch.equal(x.cpu(), y.cpu()) for x, y in pairs))
+
+
+def codes_off_ties(torch, mk: dict, mp: dict) -> tuple:
+    """Two training steps' codes ([B, K, T']) held stage by stage. The
+    stages share one book, which each stage's EMA update and dead-code
+    expiry change before the next searches it: so at the first stage
+    where any position's code differs, each difference must be tie-flagged
+    (margin < `TIE_THRESHOLD`, [K, B·T'], in either step), and the stages
+    after it search another book and are not compared. Returns
+    (positions, positions differing, that first stage or None, positions
+    tie-flagged at some stage, positions off outside the guard)."""
+    K = mk["codes"].shape[1]
+    diff = (mk["codes"] != mp["codes"]).transpose(0, 1).reshape(K, -1)
+    tied = torch.minimum(mk["margins"], mp["margins"]) < TIE_THRESHOLD
+    stages = [k for k in range(K) if bool(diff[k].any())]
+    first = stages[0] if stages else None
+    off = 0 if first is None else int((diff[first] & ~tied[first]).sum())
+    return (diff.shape[1], int(diff.any(0).sum()), first,
+            int(tied.any(0).sum()), off)
+
+
+def codes_line(counts: tuple) -> str:
+    n, differ, first, flagged, off = counts
+    where = ("" if first is None else
+             f", first at stage {first}, where {off} are outside the tie "
+             "guard (the stages after it search another book)")
+    return (f"{differ} of {n} positions' codes differ{where} ({flagged} "
+            "positions tie-flagged at some stage)")
 
 
 def one_window(torch, fn) -> tuple:
@@ -1873,7 +1930,7 @@ def phase_train(torch, kernels, dev):
     Counted as one path, `python -m encodec_tpu_torch.train`'s `main` on
     that JSON config over synthetic npz nights (through
     `build_dataloaders`, its epochs cut by `cut_epochs`) at B=32: 2 epochs
-    of 3 steps with the k-means init, eval and save each epoch. Then: a
+    of 2 steps with the k-means init, eval and save each epoch. Then: a
     fresh Trainer resumes the run directory bit for bit and steps on; ms
     per step at B=32 and the peak memory; one profiled step by kernel
     group; one step (B=4) from the state after epoch 1 on the kernels
@@ -1980,7 +2037,7 @@ def phase_train(torch, kernels, dev):
     counts = launch_counts(kernels)
     counts["lstm_save"] = kernels.lstm_scan.save_launches
     steps = int(trainer.state.opt_state.count)
-    check(steps == 6, f"2 epochs ran {steps} steps, not 6")
+    check(steps == 4, f"2 epochs ran {steps} steps, not 4")
     check(counts["nearest_codebook"] > 0 and counts["rvq_encode_fused"] > 0
           and counts["lstm_save"] == 4 * steps
           and counts["lstm_scan_backward"] == 4 * steps
@@ -2044,24 +2101,20 @@ def phase_train(torch, kernels, dev):
     _, mk = fresh.gen_step(s_e1, x4, w2, keep_grads=True)
     _, mp = gen_plain(s_e1, x4, w2, keep_grads=True)
     torch.cuda.synchronize()
-    flagged = ((mk["margins"] < TIE_THRESHOLD)
-               | (mp["margins"] < TIE_THRESHOLD)).any(0)
-    diff = (mk["codes"] != mp["codes"]).any(1).reshape(-1)
+    held = codes_off_ties(torch, mk, mp)
     loss_err = abs(float(mk["loss"]) - float(mp["loss"])) / abs(
         float(mp["loss"]))
     grad_err = max(float((g - r).abs().max()) / float(r.abs().max())
                    for g, r in zip(tree_leaves(mk["grads"]),
                                    tree_leaves(mp["grads"])))
-    check(int((diff & ~flagged).sum()) == 0,
-          "train step B=4: codes differ from the plain twins' outside the "
-          "tie guard")
+    check(held[-1] == 0, "train step B=4: codes differ from the plain "
+                         "twins' outside the tie guard")
     check(loss_err <= 1e-4, f"train step B=4: loss {loss_err:.3g} from the "
                             "plain twins' > 1e-4 relative")
     check(grad_err <= 1e-3, f"train step B=4: a gradient leaf {grad_err:.3g} "
                             "of its largest |value| from the plain twins'")
     print(f"train step B=4 from epoch 1's state, kernels vs plain twins: "
-          f"{int(diff.sum())} of {diff.numel()} positions' codes differ, "
-          f"{int(flagged.sum())} tie-flagged; loss {loss_err:.3g} relative; "
+          f"{codes_line(held)}; loss {loss_err:.3g} relative; "
           f"gradient leaves within {grad_err:.3g} of their largest |value|")
     del mk, mp, s_e1, trainer, fresh
 
@@ -2110,46 +2163,27 @@ CHECK_NIGHT = 36_000
 
 
 def gan_config(root: str) -> dict:
-    """params/gan.yaml as written (its model, loss and optimization
-    sections: default.yaml's with the discriminator on, 512-frame chunks),
-    logging and saving every epoch, one device, synthetic nights under
-    `root`."""
-    cfg = train_config(root)
-    cfg["exp_details"] = {"name": "gan",
-                          "description": "adversarial fine-tuning phase"}
-    cfg["model"].update(train_discriminator=True, disc_time_chunk=512)
-    return cfg
+    """params/gan.yaml as written (`published_config`: default.yaml's
+    generator with the discriminator on, 512-frame chunks)."""
+    return published_config("gan", root)
 
 
 def gan_disc512_config(root: str) -> dict:
     """params/gan_disc512.yaml as written: B=8, ratios [5, 5, 2, 1] (H=512),
     512 bins, one 512-FFT discriminator (hop 50, window 300), no
     `disc_time_chunk` (the whole-signal route), no L2 or commit loss."""
-    cfg = train_config(root)
-    cfg["exp_details"] = {"name": "gan_disc512",
-                          "description": "adversarial, single 512-FFT "
-                                         "discriminator (ref 271224_l1)"}
-    cfg["dataset"]["batch_size"] = 8
-    cfg["loss"].update(weight_l2=0.0, weight_commit=0.0)
-    cfg["model"].update(ratios=[5, 5, 2, 1], bins=512,
-                        train_discriminator=True,
-                        train_discriminator_start_epoch=100,
-                        disc_hop_lengths=[50], disc_win_lengths=[300],
-                        disc_n_ffts=[512])
-    return cfg
+    return published_config("gan_disc512", root)
 
 
 def conv_split(torch, fn) -> dict:
-    """Device ms of the cuDNN convolutions in one call of `fn` (after a
-    warm-up call), from one profiler window with CPU ops and their input
+    """Device ms of the cuDNN convolutions in one call of `fn` (warm: it
+    follows `one_window`'s calls), from one profiler window with CPU ops and their input
     shapes: a kernel belongs to the aten op that launched it, and that op
     is a 2-D conv (the discriminator's) when one of its 4-D operands spans
     both spatial dims, else a 1-D conv (the SEANet's, which cuDNN runs as
     [B, C, 1, T])."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         with profile(activities=[ProfilerActivity.CPU,
@@ -2239,14 +2273,15 @@ def phase_gan(torch, kernels, dev):
     written: the largest batch of 32, 24, 16, 12 and 8 nights at which a
     GAN generator step and a discriminator step both fit, their peak
     memory, ms per step and one profiled step of each by kernel group;
-    then the B=32 stand-in with `model.remat: true` (departing from the
-    config) and gan_disc512.yaml as written (B=8, the whole-signal
-    route). Counted as one path, `python -m encodec_tpu_torch.train`'s
-    `main` on that JSON config at B=32 over synthetic npz nights (epochs
-    cut by `cut_epochs`), 2 epochs of 3 steps with the discriminator from
-    epoch 1 (the config says 60: a departure, so the phase reaches it),
-    eval and save; a fresh Trainer resumes the run bit for bit, the
-    discriminator, its Adam state and the balancer's included. Then a GAN
+    then gan_disc512.yaml as written (B=8, the whole-signal route).
+    Counted as one path, `python -m encodec_tpu_torch.train`'s `main` on
+    the B=32 stand-in with `model.remat: true` (departing from the
+    config) over synthetic npz nights (epochs cut by `cut_epochs`), 2
+    epochs of 2 steps with the discriminator from epoch 1 (the config says
+    60: a departure, so the phase reaches it), eval and save; a fresh
+    Trainer resumes the run bit for bit, the discriminator, its Adam state
+    and the balancer's included, and times one GAN generator step and one
+    discriminator step of the stand-in from there. Then a GAN
     generator step and a discriminator step at B=4 from epoch 1's state
     on the kernels against the plain twins; the chunked discriminator
     against the whole-signal forward and `disc_remat` against the plain
@@ -2313,26 +2348,9 @@ def phase_gan(torch, kernels, dev):
     del tr
     torch.cuda.empty_cache()
 
-    # -- the B=32 stand-in with remat -------------------------------------
     cfg_r = json.loads(json.dumps(cfg))
     cfg_r["model"]["remat"] = True
     cfg_r["model"]["train_discriminator_start_epoch"] = 1
-    tr = Trainer(ConfigNamespace(cfg_r), [], [], str(base / "remat"),
-                 device=dev)
-    torch.cuda.reset_peak_memory_stats()
-    got = gan_steps_fit(torch, tr, x32, w)
-    check(got is not None, "the B=32 stand-in (remat) ran out of memory")
-    s_g = got[0]
-    gen_ms = step_ms(torch, lambda: tr.gen_step(s_g, x32, w, use_gan=True))
-    disc_ms = step_ms(torch, lambda: tr.disc_step(s_g, x32, w))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"gan step B=32 x 4 h with remat (a stand-in departing from "
-          f"gan.yaml, which does not fit B=32): GAN generator step "
-          f"{gen_ms[0]:.1f} / {gen_ms[1]:.1f} ms, discriminator step "
-          f"{disc_ms[0]:.1f} / {disc_ms[1]:.1f} ms (host clock, "
-          f"synchronized); peak memory {peak:.2f} GiB")
-    del tr, s_g
-    torch.cuda.empty_cache()
 
     # -- gan_disc512.yaml as written: the whole-signal route, B=8 ---------
     cfg5 = gan_disc512_config(str(base / "data"))
@@ -2376,9 +2394,9 @@ def phase_gan(torch, kernels, dev):
     counts["lstm_save"] = kernels.lstm_scan.save_launches
     steps = int(trainer.state.opt_state.count)
     n_disc = int(trainer.state.disc_opt_state.count)
-    check(steps == 6 and 0 < n_disc < steps,
+    check(steps == 4 and 0 < n_disc < steps,
           f"2 epochs ran {steps} generator steps and {n_disc} "
-          "discriminator steps; wanted 6 and at least one of each kind")
+          "discriminator steps; wanted 4 and at least one of each kind")
     evals = 2          # one batch of VAL_ITEMS per eval
     check(counts["nearest_codebook"] > 0 and counts["rvq_encode_fused"] > 0
           and counts["lstm_save"] == 4 * steps
@@ -2412,6 +2430,22 @@ def phase_gan(torch, kernels, dev):
           f"equal the saved ones bit for bit")
     del trainer
 
+    # -- the B=32 stand-in's steps from the resumed state: one timed step
+    # of each (the run's depth is cut to keep the script well inside its
+    # time limit)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    w3 = fresh.weights_for_epoch(3)
+    gen_ms = step_ms(torch, lambda: fresh.gen_step(fresh.state, x32, w3,
+                                                   use_gan=True), 1)
+    disc_ms = step_ms(torch, lambda: fresh.disc_step(fresh.state, x32, w3), 1)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"gan step B=32 x 4 h with remat (a stand-in departing from "
+          f"gan.yaml, which does not fit B=32), from the resumed state: GAN "
+          f"generator step {gen_ms[0]:.1f} ms, discriminator step "
+          f"{disc_ms[0]:.1f} ms (host clock, synchronized); peak memory "
+          f"{peak:.2f} GiB")
+
     # -- the kernels against the plain twins, B=4 -------------------------
     raw, epoch, _ = load_checkpoint(run / "model.ckpt.prev")
     check(epoch == 1, f"model.ckpt.prev holds epoch {epoch}")
@@ -2426,21 +2460,17 @@ def phase_gan(torch, kernels, dev):
     sk, dk = fresh.disc_step(s_e1, x4, w2)
     sp, dp = disc_p(s_e1, x4, w2)
     torch.cuda.synchronize()
-    flagged = ((mk["margins"] < TIE_THRESHOLD)
-               | (mp["margins"] < TIE_THRESHOLD)).any(0)
-    diff = (mk["codes"] != mp["codes"]).any(1).reshape(-1)
+    held = codes_off_ties(torch, mk, mp)
     errs = {k: abs(float(mk[k]) - float(mp[k])) / abs(float(mp[k]))
             for k in ("loss", "loss_gen", "loss_feat")}
     errs.update({k: abs(float(dk[k]) - float(dp[k])) / abs(float(dp[k]))
                  for k in ("loss_disc", "logits_real", "logits_fake")})
-    check(int((diff & ~flagged).sum()) == 0,
-          "gan step B=4: codes differ from the plain twins' outside the "
-          "tie guard")
+    check(held[-1] == 0, "gan step B=4: codes differ from the plain twins' "
+                         "outside the tie guard")
     check(max(errs.values()) <= 1e-4,
           f"gan steps B=4: losses from the plain twins' beyond 1e-4: {errs}")
     print(f"gan steps B=4 from epoch 1's state, kernels vs plain twins: "
-          f"{int(diff.sum())} of {diff.numel()} positions' codes differ "
-          f"({int(flagged.sum())} tie-flagged); relative differences "
+          f"{codes_line(held)}; relative differences "
           "(bound 1e-4): " + ", ".join(f"{k} {v:.3g}"
                                        for k, v in errs.items()))
     del mk, mp, sk, sp, s_e1, fresh
@@ -2489,6 +2519,575 @@ def phase_gan(torch, kernels, dev):
           f"{rerr:.3g} (bound 1e-5)")
     tmp.cleanup()
     return counts
+
+
+# the six published configs `phase_configs` trains, in order; the stand-in
+# options of a config whose own batch does not fit the card (l2 is
+# default.yaml's model at its B=32, which `phase_train` finds out of memory;
+# the others fit theirs: PERF.md §5); the GAN step's gradient bound against
+# the twins (`tests/test_torch_gan.py`'s `GAN_GRAD_REL`)
+CONFIG_RUNS = ("tokens_10s", "l2_weightnorm", "l2", "multires_disc",
+               "bins512_commit", "disc256_bins256")
+CONFIG_STANDIN = {"l2": {"remat": True}}
+CONFIG_CHECK_B, CONFIG_CHECK_T = 2, 18_000   # the twin steps: B=2 x 0.5 h
+CONFIG_K3_SLICE = 2_880            # K3's twins on the path's inputs, steps
+GAN_GRAD_BOUND = 5e-3
+# the twin steps hold each gradient leaf within the bound of its own plus
+# the gradient's largest |value|, and within this many times the bound of
+# its own (`held_leaves`)
+OWN_FACTOR = 10
+# the configs whose kernels' shapes get rows of their own in the table
+CONFIG_ROWS = {"tokens_10s": ("K3",), "l2_weightnorm": ("K1", "K3"),
+               "bins512_commit": ("K1", "K3"), "disc256_bins256": ("K1",)}
+CONFIG_FIRST = 4000                # the seed of the phase's synthetic nights
+
+
+def configs_loaders(build, root: str, model_overrides: dict):
+    """`build_dataloaders` for `train.__main__.main` run on a published
+    config file as written: the caller gives the data root (the files say
+    `root: null`) and the synthetic dataset, cuts the virtual epochs to 2
+    training batches and one eval batch (`cut_epochs`' depth), and, for a
+    stand-in, sets `model_overrides` before the Trainer is built."""
+    from encodec_tpu_torch.train import ConfigNamespace
+
+    def cut(config, *shard):
+        config.dataset.root = root
+        config.dataset.datasets = ConfigNamespace({"synth": 1.0})
+        for key, value in model_overrides.items():
+            setattr(config.model, key, value)
+        train, val, mapping = build(config, *shard)
+        B = config.dataset.batch_size
+        train.dataset.size, val.dataset.size = TRAIN_ITEMS // 32 * B, B
+        return train, val, mapping
+    return cut
+
+
+def run_once(torch, fn) -> tuple:
+    """(`fn()`, its ms by CUDA events): one call, for a plain twin too slow
+    to repeat."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def config_k1_row(torch, kernels, seen: dict, label: str) -> dict:
+    """K1 on the first stage search a training step gave it: held against
+    its twin as `hold_captured` holds a path's inputs (indices equal where
+    the twin's margin is outside the tie guard, margins within the guard:
+    they are differences of squared distances at the trained latents'
+    scale), timed beside the twin, `cdist`+`argmin` and the bound."""
+    (x, e, *rest), kw = seen["nearest_codebook"]
+    idx, margin = kernels.nearest_codebook(x, e, *rest, **kw)
+    ref_idx, ref_margin = kernels.nearest_codebook_plain(x, e, *rest, **kw)
+    torch.cuda.synchronize()
+    safe = ref_margin >= TIE_THRESHOLD
+    n_bad = int((idx[safe] != ref_idx[safe]).sum())
+    err = float((margin - ref_margin).abs().max())
+    N, D = x.shape
+    bins = e.shape[0]
+    check(n_bad == 0 and err <= TIE_THRESHOLD,
+          f"K1 {label} N={N} D={D} bins={bins}: {n_bad} indices off the "
+          f"twin's outside the tie guard, margin max|d| {err}")
+    ms, how = device_or_event_ms(
+        torch, lambda: kernels.nearest_codebook(x, e), 20, "vq_nearest")
+    plain_ms, how_p = device_or_event_ms(
+        torch, lambda: kernels.nearest_codebook_plain(x, e), 5)
+    lib_ms, how_l = device_or_event_ms(
+        torch, lambda: torch.cdist(x, e).argmin(1), 5)
+    b_ms, b_by = bound(2.0 * N * bins * D, (N * D + bins * D + 2 * N) * 4)
+    print(f"K1 nearest_codebook on {label}'s first stage search (N={N}, "
+          f"D={D}, bins={bins}): idx equal outside margins < "
+          f"{TIE_THRESHOLD} ({int((~safe).sum())} rows flagged), margin "
+          f"max|d|={err:.3g}; device ms: kernel={ms:.4f} plain="
+          f"{plain_ms:.4f} library(cdist+argmin)={lib_ms:.4f} bound="
+          f"{b_ms:.5f} ({b_by}); timed by {how} / {how_p} / {how_l}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err, shape=f"N={N}, D={D}, "
+                f"bins={bins}")
+
+
+def config_k3_rows(torch, kernels, dev, seen: dict, label: str) -> tuple:
+    """K3's saving forward and its backward kernel on the first LSTM
+    layer's inputs a training step gave them: held against the twins (h
+    and c within 1e-4; dgates, dh0 and dc0 within 1e-4 of their largest
+    |value|), timed beside the twins (one call each by CUDA events: the
+    twin steps T times from Python), cuDNN's LSTM forward with gradients
+    on (the yardstick of the saving forward) and the bound, 8·B·T·H² FLOPs
+    each. Past `CONFIG_K3_SLICE` steps the twins run a slice: the forward
+    the first steps (the kernel's own launch held on them), the backward
+    the last (from the saved c before them; the launch's dgates held
+    there), and their one-call times are scaled by T over the slice."""
+    (xp, w_hh, *state), _ = seen["lstm_scan"]
+    h0, c0 = (state + [None, None])[:2]
+    B, T, H4 = xp.shape
+    H = H4 // 4
+    Ts = min(T, CONFIG_K3_SLICE)
+    out, c_seq = kernels.lstm_scan(xp, w_hh, h0, c0, save_c=True)
+    (p_out, p_c), fwd_plain_ms = run_once(torch, lambda: kernels.
+                                          lstm_scan_plain(
+                                              xp[:, :Ts].contiguous(), w_hh,
+                                              h0, c0, save_c=True))
+    fwd_err = max(float((out[:, :Ts] - p_out).abs().max()),
+                  float((c_seq[:, :Ts] - p_c).abs().max()))
+    check(fwd_err <= 1e-4, f"K3 saving forward {label} B={B} T={T} H={H}: "
+                           f"max|d| {fwd_err:.3g} from its twin")
+    del out, c_seq, p_out, p_c
+    (pre, c_bwd, dy, w_b, *rest), kw = seen["lstm_scan_backward"]
+    got = kernels.lstm_scan_backward(pre, c_bwd, dy, w_b, *rest, **kw)
+    s0 = T - Ts
+    if s0:
+        c0_s, dc_last = c_bwd[:, s0 - 1].contiguous(), (rest + [None] * 2)[1]
+        got = got[:1]
+        suffix = [t[:, s0:].contiguous() for t in (pre, c_bwd, dy)]
+    else:
+        c0_s, dc_last = (rest + [None] * 2)[:2]
+        suffix = [pre, c_bwd, dy]
+    want, bwd_plain_ms = run_once(torch, lambda: kernels.
+                                  lstm_scan_backward_plain(
+                                      *suffix, w_b, c0_s, dc_last))
+    got = [g if g is None or not s0 else g[:, s0:] for g in got]
+    bwd_err = max(float((g - r).abs().max()) / float(r.abs().max())
+                  for g, r in zip(got, want) if g is not None
+                  and float(r.abs().max()) > 0)
+    check(bwd_err <= 1e-4, f"K3 backward {label} B={B} T={T} H={H}: "
+                           f"{bwd_err:.3g} of its largest |value| from its "
+                           "twin")
+    abs_bwd = float((got[0] - want[0]).abs().max())
+    del got, want, suffix
+    fwd_plain_ms *= T / Ts
+    bwd_plain_ms *= T / Ts
+    held_on = "" if not s0 else (
+        f"; held on the first {Ts} steps (forward) and the last {Ts} "
+        f"(backward), the twins' one-call times scaled by {T / Ts:g} from "
+        "them")
+    fwd_ms, how_f = device_or_event_ms(torch, lambda: kernels.lstm_scan(
+        xp, w_hh, h0, c0, save_c=True), 3, "lstm_")
+    bwd_ms, how_b = device_or_event_ms(
+        torch, lambda: kernels.lstm_scan_backward(pre, c_bwd, dy, w_b,
+                                                  *rest, **kw), 3, "lstm_bwd")
+    cudnn = lstm_yardstick(torch, w_hh, dev)
+    x_req = xp.clone().requires_grad_(True)
+    state0 = None if h0 is None else (h0[None], c0[None])
+    lib_ms = time_ms(torch, lambda: cudnn(x_req, state0)[0], 3)
+    del cudnn, x_req
+    flops = 8.0 * B * T * H * H
+    f_ms, f_by = bound(flops, (B * T * 4 * H + 4 * H * H
+                               + 2 * B * T * H) * 4)
+    b_ms, b_by = bound(flops, (2 * B * T * 4 * H + 2 * B * T * H
+                               + 4 * H * H + 3 * B * H) * 4)
+    print(f"K3 on {label}'s first LSTM layer (B={B}, T={T}, H={H}): saving "
+          f"forward max|d| {fwd_err:.3g} from its twin, backward "
+          f"{bwd_err:.3g} of the largest |value|; device ms: saving "
+          f"forward={fwd_ms:.4f} ({fwd_ms / T * 1e3:.3f} us/step; plain "
+          f"{fwd_plain_ms:.4f}, CUDA events, one call; cuDNN LSTM forward "
+          f"with gradients on {lib_ms:.4f}, CUDA events; bound {f_ms:.5f} "
+          f"({f_by})), backward kernel={bwd_ms:.4f} "
+          f"({bwd_ms / T * 1e3:.3f} us/step; plain {bwd_plain_ms:.4f}, CUDA "
+          f"events, one call; bound {b_ms:.5f} ({b_by})); timed by "
+          f"{how_f} / {how_b}{held_on}")
+    shape = f"B={B}, T={T}, H={H}"
+    return (dict(ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=lib_ms,
+                 bound_ms=f_ms, bound_by=f_by, max_abs_err=fwd_err,
+                 shape=shape),
+            dict(ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=None,
+                 bound_ms=b_ms, bound_by=b_by, max_abs_err=abs_bwd,
+                 shape=shape))
+
+
+def grad_gap(torch, a, b) -> tuple:
+    """The largest gap between gradient trees `a` and `b`, each leaf's
+    max |a - b| over its own largest |b|: (gap, leaf, that leaf's largest
+    |value| over the tree's)."""
+    pairs = [(path, g, r) for (path, g), (_, r) in zip(par_leaves(a),
+                                                        par_leaves(b))]
+    top = max(float(r.abs().max()) for _, _, r in pairs)
+    return max((float((g - r).abs().max()) / max(float(r.abs().max()),
+                                                  1e-30),
+                path, float(r.abs().max()) / top) for path, g, r in pairs)
+
+
+def gap_text(gap: tuple) -> str:
+    return (f"{gap[0]:.3g} (at {gap[1]}, {gap[2]:.3g} of the top)" if gap[0]
+            else "0")
+
+
+def held_leaves(torch, mk, mp, mf, limit: float) -> tuple:
+    """The kernels' gradient (`mk`) against the twins' (`mp`), leaf by
+    leaf: each leaf within `limit` of its own plus the gradient's largest
+    |value| (`tests/test_torch_train.py`'s measure) and within
+    `OWN_FACTOR` x `limit` of its own. `mf` is the twins' step again with
+    cuDNN free to pick its algorithms: how far that moves a leaf, beside
+    the kernels' gap, is the leaf's own float32 spread (a leaf that is a
+    small sum of large terms moves with any rounding). Returns (whether
+    all hold, a summary)."""
+    kern = dict(par_leaves(mk["grads"]))
+    free = dict(par_leaves(mf["grads"]))
+    rows = [(path, float((kern[path] - r).abs().max()),
+             float((free[path] - r).abs().max()), float(r.abs().max()))
+            for path, r in par_leaves(mp["grads"])]
+    top = max(own for *_, own in rows)
+    both = max(d / (own + top) for _, d, _, own in rows)
+    own_gap, at, share = max((d / max(own, 1e-30), path, own / top)
+                             for path, d, _, own in rows)
+    over = sum(d > limit * own for _, d, _, own in rows)
+    spread, spread_at = max((df / max(own, 1e-30), path)
+                            for path, _, df, own in rows)
+    ok = both <= limit and own_gap <= OWN_FACTOR * limit
+    return ok, (f"gradient leaves within {both:.3g} of their own plus the "
+                f"gradient's largest |value| (bound {limit:g}) and "
+                f"{own_gap:.3g} of their own (bound {OWN_FACTOR * limit:g}; "
+                f"at {at}, whose largest |value| is {share:.3g} of the "
+                f"gradient's; {over} of {len(rows)} leaves beyond {limit:g} "
+                f"of their own); the twins' step with cuDNN free moves "
+                f"leaves by up to {spread:.3g} of their own (at {spread_at})")
+
+
+def config_steps_vs_twins(torch, trainer, state, x, gan: bool,
+                          control: bool = False) -> str:
+    """A generator step (with `gan`, the GAN generator step and a
+    discriminator step) from `state` on the kernels against the same steps
+    on the plain twins, with cuDNN held to deterministic algorithms (each
+    step then gives the same bits when repeated): codes stage by stage
+    outside the tie guard (`codes_off_ties`), losses within 1e-4, gradient
+    leaves as `held_leaves` holds them at 1e-3 (`GAN_GRAD_BOUND` in the
+    GAN generator step). With `control`, each generator step also runs a
+    second time, and the kernels' step twice and the twins' once as the
+    path runs (cuDNN free to pick non-deterministic algorithms), whose
+    gaps are printed beside the kernels'."""
+    from encodec_tpu_torch.train import make_train_steps
+
+    gen_p, disc_p = make_train_steps(trainer.model.cfg, trainer.disc_cfg,
+                                     freq_loss_kwargs=trainer.freq_kwargs,
+                                     clip=trainer.clip, plain=True)[:2]
+    w = trainer.weights_for_epoch(2)
+
+    def run(step):
+        _, m = step(state, x, w, use_gan=gan, keep_grads=True)
+        torch.cuda.synchronize()
+        return m
+
+    notes = []
+    if control:
+        ka, kb, pa = run(trainer.gen_step), run(trainer.gen_step), run(gen_p)
+        notes.append(f"as the path runs (cuDNN free): kernels vs twins "
+                     f"{gap_text(grad_gap(torch, ka['grads'], pa['grads']))}"
+                     f", kernels repeated "
+                     f"{gap_text(grad_gap(torch, ka['grads'], kb['grads']))}")
+        del ka, kb, pa
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mk, mp = run(trainer.gen_step), run(gen_p)
+        torch.backends.cudnn.deterministic = deterministic
+        mf = run(gen_p)
+        torch.backends.cudnn.deterministic = True
+        if control:
+            notes.insert(0, "repeated: kernels " + gap_text(grad_gap(
+                torch, mk["grads"], run(trainer.gen_step)["grads"]))
+                + ", twins " + gap_text(grad_gap(torch, mp["grads"],
+                                                 run(gen_p)["grads"])))
+        limit = GAN_GRAD_BOUND if gan else 1e-3
+        grads_ok, grads_text = held_leaves(torch, mk, mp, mf, limit)
+        held = codes_off_ties(torch, mk, mp)
+        keys = ("loss", "loss_gen", "loss_feat") if gan else ("loss",)
+        loss_err = max(abs(float(mk[k]) - float(mp[k])) / abs(float(mp[k]))
+                       for k in keys)
+        del mk, mp, mf
+        if gan:
+            _, dk = trainer.disc_step(state, x, w)
+            _, dq = disc_p(state, x, w)
+            d_err = max(abs(float(dk[k]) - float(dq[k])) / abs(float(dq[k]))
+                        for k in ("loss_disc", "logits_real", "logits_fake"))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    what = "GAN generator step" if gan else "generator step"
+    check(held[-1] == 0,
+          f"{what}: codes off the plain twins' outside the tie guard")
+    check(loss_err <= 1e-4, f"{what}: losses {loss_err:.3g} from the "
+                            "plain twins' > 1e-4 relative")
+    check(grads_ok, f"{what}: {grads_text}")
+    out = [f"{what} (cuDNN deterministic): losses {loss_err:.3g} relative "
+           f"(bound 1e-4); {codes_line(held)}; {grads_text}"]
+    out += notes
+    if gan:
+        check(d_err <= 1e-4, f"discriminator step: {d_err:.3g} from the "
+                             "plain twins' > 1e-4 relative")
+        out.append(f"discriminator step: loss and logits {d_err:.3g} "
+                   "relative (bound 1e-4)")
+    return "; ".join(out)
+
+
+def config_run(torch, kernels, dev, name: str, data: Path, base: Path,
+               x32, rows: dict, control: bool = False) -> tuple:
+    """One config of `phase_configs`: the first step's gradient, the
+    counted entry-point run (a stand-in where the config's own batch does
+    not fit), its resume, ms per step and peak memory at the run's batch
+    with K1 and K3 on that step's inputs and K2 on the eval encode's, and
+    the steps against the twins. Returns (launch counts, the run
+    directory)."""
+    from encodec_tpu_torch.train import (ConfigNamespace, Trainer,
+                                         load_checkpoint)
+    from encodec_tpu_torch.train import __main__ as train_entry
+    from encodec_tpu_torch.train.optim import tree_leaves
+    from encodec_tpu_torch.train.trainer import state_to_device
+
+    cfg = published_config(name, str(data))
+    B_file = cfg["dataset"]["batch_size"]
+    tr = Trainer(ConfigNamespace(cfg), [], [], str(base / name / "asis"),
+                 device=dev)
+    m = tr.model
+    H = m.params["encoder"]["lstm"]["layers"][0]["w_hh"].shape[1]
+    hop = m.cfg.seanet.hop_length
+    T = cfg["dataset"]["max_length"] // hop
+    gan = tr._gan_active(1)
+    w = tr.weights_for_epoch(1)
+    disc = ("off" if tr.disc_cfg is None else
+            f"n_fft {list(tr.disc_cfg.n_ffts)}, hop "
+            f"{list(tr.disc_cfg.hop_lengths)}, from epoch "
+            f"{cfg['model']['train_discriminator_start_epoch']}, "
+            + ("whole signal" if tr.disc_cfg.time_chunk is None else
+               f"{tr.disc_cfg.time_chunk}-frame chunks"))
+    loss = cfg["loss"]
+    print(f"configs {name} ({config_path(name)}): n_q {m.cfg.rvq.n_q} of "
+          f"{m.cfg.rvq.bins} bins (D={m.cfg.rvq.dimension}), norm "
+          f"{m.cfg.seanet.norm}, ratios {list(m.cfg.seanet.ratios)}, H={H} "
+          f"(K3 {'grid' if H > 512 else 'cluster'} kernel), hop {hop}, "
+          f"T={T} per 4 h night, batch {B_file}; losses l1 "
+          f"{loss['weight_l1']}, l2 {loss['weight_l2']}, freq "
+          f"{loss['weight_freq']}, commit {loss['weight_commit']}; the "
+          f"discriminator {disc}")
+
+    # -- the first step from a fresh state: every gradient leaf -----------
+    x2 = x32[:CONFIG_CHECK_B].contiguous()
+    s1, m1 = tr.gen_step(tr.state, x2, w, use_gan=gan, keep_grads=True)
+    grads = tree_leaves(m1["grads"])
+    bad = [i for i, g in enumerate(grads)
+           if not bool(torch.isfinite(g).all()) or float(g.abs().max()) == 0]
+    check(s1.qstate.inited and not bad,
+          f"configs {name} first step: k-means {s1.qstate.inited}, "
+          f"{len(bad)} of {len(grads)} gradient leaves zero or not finite")
+    print(f"configs {name} first step (fresh state, B={CONFIG_CHECK_B} x 4 "
+          f"h, k-means on {CONFIG_CHECK_B * T} rows"
+          + (", with the GAN terms" if gan else "") + f"): loss "
+          f"{float(m1['loss']):.5f}; all {len(grads)} gradient leaves "
+          "finite and non-zero")
+    del s1, m1, grads
+
+    overrides = CONFIG_STANDIN.get(name, {})
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- the entry point a user runs, counted -----------------------------
+    run = base / name / "run"
+    build = train_entry.build_dataloaders
+    train_entry.build_dataloaders = configs_loaders(build, str(data),
+                                                    overrides)
+    try:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer = train_entry.main(["--config", config_path(name),
+                                    "--log_dir", str(run), "--max_epochs",
+                                    "2", "--device", dev.type])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    finally:
+        train_entry.build_dataloaders = build
+    counts = launch_counts(kernels)
+    counts["lstm_save"] = kernels.lstm_scan.save_launches
+    steps = int(trainer.state.opt_state.count)
+    n_disc = int(trainer.state.disc_opt_state.count) if gan else 0
+    check(steps == 4 and (not gan or 0 < n_disc < steps),
+          f"configs {name}: 2 epochs ran {steps} generator steps and "
+          f"{n_disc} discriminator steps")
+    k3 = (counts["lstm_grid"] if H > 512
+          else counts["lstm_scan"] - counts["lstm_grid"])
+    check(counts["nearest_codebook"] > 0 and counts["rvq_encode_fused"] > 0
+          and k3 > 0 and counts["lstm_save"] == 4 * steps
+          and counts["lstm_scan_backward"] > 0,
+          f"configs {name}: the path did not launch K1, K2, K3 (saving "
+          f"forward and backward) as planned: {counts}")
+    standin = (f" with {overrides}, a stand-in departing from the config, "
+               "whose own batch does not fit the card" if overrides else
+               ", as written")
+    print(f"configs {name} path launches (train.__main__.main --config "
+          f"{config_path(name)}, B={B_file}{standin}; 2 epochs, {steps} "
+          "generator steps"
+          + (f", {steps - n_disc} of them with the GAN terms, {n_disc} "
+             f"discriminator steps" if gan else "")
+          + f", 2 evals): {json.dumps(counts)}; fit {fit_s:.1f} s (s per "
+          "epoch of 2 batches, data loading included: "
+          + ", ".join(f"{v:.1f}" for v in trainer.epoch_seconds.values())
+          + ")")
+
+    # -- resume bit for bit (the GAN run: the discriminator's state too) --
+    if gan:
+        cfg_run = json.loads(json.dumps(cfg))
+        cfg_run["model"].update(overrides)
+        fresh = Trainer(ConfigNamespace(cfg_run), [], [], str(run),
+                        device=dev)
+        fresh.resume()
+        check(fresh.start_epoch == 3 and states_equal(torch, fresh.state,
+                                                      trainer.state),
+              f"configs {name}: resume did not restore the generator, the "
+              "discriminator, both Adam states and the generator state "
+              "bit for bit")
+        print(f"configs {name} resume: epoch 3 from {run.name}/model.ckpt "
+              "in a fresh Trainer; params, qstate, Adam (count "
+              f"{int(fresh.state.opt_state.count)}), the discriminator and "
+              f"its Adam (count {int(fresh.state.disc_opt_state.count)}) "
+              "and the generator state equal the saved ones bit for bit")
+        del fresh
+
+    # -- at the run's batch from epoch 1's state: the kernels on the
+    # step's own inputs, ms per step and peak memory ----------------------
+    raw, epoch, _ = load_checkpoint(run / "model.ckpt.prev")
+    check(epoch == 1, f"model.ckpt.prev holds epoch {epoch}")
+    s_e1 = state_to_device(raw, dev)
+    del raw
+    xb, w2 = x32[:B_file].contiguous(), trainer.weights_for_epoch(2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, seen = capture_first(torch, lambda: trainer.gen_step(s_e1, xb, w2))
+    gen = step_ms(torch, lambda: trainer.gen_step(s_e1, xb, w2,
+                                                  use_gan=gan))
+    disc_ms = (step_ms(torch, lambda: trainer.disc_step(s_e1, xb, w2))
+               if gan else [])
+    print(f"configs {name} B={B_file} x 4 h{standin}: "
+          f"{statistics.median(gen):.1f} ms per "
+          f"{'GAN generator ' if gan else ''}step (median of "
+          f"{', '.join(f'{t:.1f}' for t in gen)}; host clock, synchronized)"
+          + (f", discriminator step {statistics.median(disc_ms):.1f} ms"
+             if gan else "")
+          + f"; peak {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+          "(max_memory_allocated)")
+    # the eval encode (K2) on the same batch, after the timed steps
+    seen["rvq_encode_fused"] = capture_first(
+        torch, lambda: trainer.eval_step(s_e1, xb, w2))[1]["rvq_encode_fused"]
+    t0 = time.perf_counter()
+    timed = CONFIG_ROWS.get(name, ())
+    if "K1" in timed:
+        rows["K1"].append((name, config_k1_row(torch, kernels, seen, name)))
+    if "K3" in timed:
+        f_row, b_row = config_k3_rows(torch, kernels, dev, seen, name)
+        rows["K3 forward"].append((name, f_row))
+        rows["K3 backward"].append((name, b_row))
+    rest = {k: v for k, v in seen.items() if not (
+        ("K1" in timed and k == "nearest_codebook")
+        or ("K3" in timed and k.startswith("lstm_scan")))}
+    if rest:
+        print(f"configs {name} kernels on the path's inputs (B={B_file}): "
+              + hold_captured(torch, kernels, rest, f"configs {name}"))
+    print(f"configs {name} kernels held and timed in "
+          f"{time.perf_counter() - t0:.1f} s")
+    del seen, rest, xb
+    torch.cuda.empty_cache()
+
+    # -- the kernels against the plain twins, B=2 from epoch 1's state, on
+    # the batch's first half hour: the twins step T times from Python (the
+    # 4 h shapes were held kernel by kernel above, on the path's own inputs)
+    x_h = x2[:, :CONFIG_CHECK_T].contiguous()
+    t0 = time.perf_counter()
+    held = config_steps_vs_twins(torch, trainer, s_e1, x_h, gan, control)
+    print(f"configs {name} B={CONFIG_CHECK_B} x 0.5 h from epoch 1's state, "
+          f"kernels vs plain twins: {held} [{time.perf_counter() - t0:.1f} "
+          "s]")
+    del trainer, s_e1
+    torch.cuda.empty_cache()
+    return counts, run
+
+
+def config_inference(torch, kernels, dev, run: Path, data: Path,
+                     out: Path) -> dict:
+    """`python -m encodec_tpu_torch.tools.inference --config
+    encodec_tpu_torch/params/default.yaml` on `run`'s checkpoint (the l2
+    run: default.yaml's model) over the synthetic nights' test split, with
+    its own launch counts."""
+    from encodec_tpu_torch.tools import inference
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    inference.main(["--config", config_path("default"), "--checkpoint",
+                    str(run / "model.ckpt"), "--data_root", str(data),
+                    "--dataset", "synth", "--out", str(out), "--device",
+                    dev.type])
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    counts = launch_counts(kernels)
+    files = sorted((out / "thorax").glob("*.npz"))
+    shapes = []
+    for f in files:
+        with np.load(f) as z:
+            codes = z["codes"]
+        check(codes.dtype == np.int32 and codes.shape[0] == 8
+              and 0 <= int(codes.min()) and int(codes.max()) < 1024,
+              f"inference {f.name}: codes {codes.dtype} {codes.shape}")
+        shapes.append(codes.shape)
+    check(files and counts["rvq_encode_fused"] > 0
+          and counts["lstm_grid"] > 0,
+          f"inference wrote {len(files)} files, launches {counts}")
+    print(f"configs inference (tools.inference --config "
+          f"{config_path('default')} on the l2 run's model.ckpt): "
+          f"{len(files)} nights' codes {shapes} in {took:.1f} s; launches "
+          f"{json.dumps(counts)}")
+    return counts
+
+
+def phase_configs(torch, kernels, dev, names=CONFIG_RUNS,
+                  control: bool = False):
+    """Six published configs never trained on the card before
+    (`CONFIG_RUNS`, or `names` of them) through `python -m
+    encodec_tpu_torch.train`'s `main` on
+    `encodec_tpu_torch/params/<name>.yaml` as written, with PyYAML hidden
+    as on a machine without it, each with its own launch counts (see the
+    module's docstring, item 16), then `tools.inference` on default.yaml
+    after l2. `control` adds the twin steps' repeats
+    (`config_steps_vs_twins`). Returns ({path: launch counts}, {kernel:
+    rows of the paths' own shapes})."""
+    import tempfile
+
+    from encodec_tpu_torch.train import ConfigNamespace
+    from encodec_tpu_torch.train import __main__ as train_entry
+
+    had_yaml, yaml_module = "yaml" in sys.modules, sys.modules.get("yaml")
+    sys.modules["yaml"] = None          # `import yaml` fails, as on the card
+    tmp = tempfile.TemporaryDirectory()
+    base = Path(tmp.name)
+    data = base / "data"
+    paths, rows = {}, {"K1": [], "K3 forward": [], "K3 backward": []}
+    try:
+        for c, chan in enumerate(("thorax", "abdominal")):
+            (data / "synth" / chan).mkdir(parents=True)
+            for i in range(8):
+                np.savez(data / "synth" / chan / f"night{i}.npz",
+                         data=breathing_signal(TRAIN_NIGHT,
+                                               CONFIG_FIRST + 10 * i + c),
+                         fs=10)
+        l2 = published_config("l2", str(data))
+        loader, _, _ = cut_epochs(train_entry.build_dataloaders)(
+            ConfigNamespace(l2))
+        x32 = torch.from_numpy(next(iter(loader))[0]["x"]).to(dev)
+        check(tuple(x32.shape) == (32, l2["dataset"]["max_length"], 1),
+              f"batch {tuple(x32.shape)}")
+        for name in names:
+            t0 = time.perf_counter()
+            paths[name], run = config_run(torch, kernels, dev, name, data,
+                                          base, x32, rows, control)
+            if name == "l2":
+                paths["inference"] = config_inference(
+                    torch, kernels, dev, run, data, base / "codes")
+            print(f"configs {name}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        if had_yaml:
+            sys.modules["yaml"] = yaml_module
+        else:
+            del sys.modules["yaml"]
+        tmp.cleanup()
+    return paths, rows
 
 
 def raw_ecdc(model, frames, audio_length: int) -> bytes:
@@ -3093,8 +3692,6 @@ def lm_step_split(torch, fn, attention_batch: int) -> tuple:
     ms}, wall ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", UserWarning)
         with profile(activities=[ProfilerActivity.CPU,
@@ -4552,10 +5149,18 @@ def hold_captured(torch, kernels, seen: dict, what: str) -> str:
         got = kernels.rvq_encode_fused(x, embed, n_q, shared)
         codes, margins = plain_stage_margins(torch, kernels, x, embed, n_q,
                                              shared)
-        untied = (margins >= TIE_THRESHOLD).all(0)
-        off = int((got != codes).any(0)[untied].sum())
-        check(off == 0, f"{what}: K2 off its twin at {off} untied rows")
-        out.append(f"K2 {off} of {int(untied.sum())} untied rows off")
+        # a row may differ only from a stage the twin's margin flags as
+        # tied; its later stages search other residuals
+        diff = got != codes
+        differs = diff.any(0)
+        first_tied = (margins < TIE_THRESHOLD).gather(
+            0, diff.int().argmax(0)[None])[0]
+        off = int((differs & ~first_tied).sum())
+        check(off == 0, f"{what}: K2 off its twin at {off} rows first at an "
+                        "untied stage")
+        out.append(f"K2 (N={x.shape[0]}, n_q={n_q}, bins={embed.shape[-2]}) "
+                   f"{int(differs.sum())} of {differs.numel()} rows differ, "
+                   f"{off} first at an untied stage")
     if "lstm_scan" in seen:
         a, k = seen["lstm_scan"]
         got, want = kernels.lstm_scan(*a, **k), kernels.lstm_scan_plain(*a,
@@ -4583,7 +5188,7 @@ def tf32_flags(torch) -> tuple:
 
 
 def phase_precision(torch, kernels, dev, model, registry):
-    """The reduced-precision modes (see the module's docstring, item 20).
+    """The reduced-precision modes (see the module's docstring, item 21).
     Returns the launch counts of (a)'s bf16 steps and of (b)'s requests.
 
     In bf16 a float32 rounding difference (K3 against its twin) can move a
@@ -4931,56 +5536,63 @@ def main() -> int:
     t_start = time.perf_counter()
     set_fp32_policy()
     dev = torch.device("cuda")
-    name = torch.cuda.get_device_name(0)
+    card = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()
-    print(f"device: {name}")
+    print(f"device: {card}")
     print(smi[0] if smi else "nvidia-smi: no output")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
     libs = build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    t_phases = time.perf_counter()
 
-    k1 = phase_k1(torch, kernels, dev)
-    k2 = phase_k2(torch, kernels, dev)
-    k3 = phase_k3(torch, kernels, dev)
-    counts, model, registry, wav10 = phase_main_path(torch, kernels, dev)
-    phase_profile(torch, kernels, model, registry, wav10, k2["ms"])
-    counts48, model48, wav48 = phase_main_path_48(torch, kernels, dev)
-    phase_profile_48(torch, model48, wav48)
-    phase_cli_48(model48)
-    phase_k3_state(torch, kernels, dev)
-    counts_stream = phase_stream(torch, kernels, model)
-    k3_grid = phase_k3_grid(torch, kernels, dev)
-    counts_breathing = phase_breathing(torch, kernels, dev)
-    counts_hires = phase_hires(torch, kernels, dev)
-    t0 = time.perf_counter()
-    k3_bwd = phase_k3_bwd(torch, kernels, dev)
-    t1 = time.perf_counter()
-    counts_train, train_tmp, train_run = phase_train(torch, kernels, dev)
-    t2 = time.perf_counter()
-    counts_gan = phase_gan(torch, kernels, dev)
-    t3 = time.perf_counter()
-    counts_lm, ac = phase_lm(torch, kernels, model, model48, wav10, wav48)
-    t4 = time.perf_counter()
-    counts_lm_train = phase_lm_train(torch, kernels, model, registry,
-                                     train_run)
+    took = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        took[label] = time.perf_counter() - t0
+        return out
+
+    k1 = timed("K1", phase_k1, torch, kernels, dev)
+    k2 = timed("K2", phase_k2, torch, kernels, dev)
+    k3 = timed("K3", phase_k3, torch, kernels, dev)
+    counts, model, registry, wav10 = timed("main path", phase_main_path,
+                                           torch, kernels, dev)
+    timed("profile", phase_profile, torch, kernels, model, registry, wav10,
+          k2["ms"])
+    counts48, model48, wav48 = timed("main path 48", phase_main_path_48,
+                                     torch, kernels, dev)
+    timed("profile 48", phase_profile_48, torch, model48, wav48)
+    timed("CLI 48", phase_cli_48, model48)
+    timed("K3 state", phase_k3_state, torch, kernels, dev)
+    counts_stream = timed("stream", phase_stream, torch, kernels, model)
+    k3_grid = timed("K3 grid", phase_k3_grid, torch, kernels, dev)
+    counts_breathing = timed("breathing", phase_breathing, torch, kernels,
+                             dev)
+    counts_hires = timed("hires", phase_hires, torch, kernels, dev)
+    k3_bwd = timed("K3 backward", phase_k3_bwd, torch, kernels, dev)
+    counts_train, train_tmp, train_run = timed("train", phase_train, torch,
+                                               kernels, dev)
+    counts_gan = timed("gan", phase_gan, torch, kernels, dev)
+    counts_cfg, cfg_rows = timed("configs", phase_configs, torch, kernels,
+                                 dev)
+    counts_lm, ac = timed("lm", phase_lm, torch, kernels, model, model48,
+                          wav10, wav48)
+    counts_lm_train = timed("lm_train", phase_lm_train, torch, kernels,
+                            model, registry, train_run)
     train_tmp.cleanup()
-    t5 = time.perf_counter()
-    counts_par, counts_ranks = phase_parallel(torch, kernels, dev, model)
-    t6 = time.perf_counter()
-    counts_seq = phase_seq_parallel(torch, kernels, dev)
-    t7 = time.perf_counter()
-    counts_bf16, counts_prec = phase_precision(torch, kernels, dev, model,
-                                               registry)
-    print(f"phases: K3 backward {t1 - t0:.1f} s, train {t2 - t1:.1f} s, "
-          f"gan {t3 - t2:.1f} s, lm {t4 - t3:.1f} s, lm_train "
-          f"{t5 - t4:.1f} s, parallel {t6 - t5:.1f} s, seq "
-          f"{t7 - t6:.1f} s, precision {time.perf_counter() - t7:.1f} s "
-          f"(at {t0 - t_start:.1f} s)")
+    counts_par, counts_ranks = timed("parallel", phase_parallel, torch,
+                                     kernels, dev, model)
+    counts_seq = timed("seq", phase_seq_parallel, torch, kernels, dev)
+    counts_bf16, counts_prec = timed("precision", phase_precision, torch,
+                                     kernels, dev, model, registry)
+    print("phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in took.items())
+          + f" (the build and the start {t_phases - t_start:.1f} s)")
 
     paths = {"24k": counts, "48k": counts48, "stream": counts_stream,
              "breathing": counts_breathing, "hires_tokens": counts_hires,
@@ -4994,6 +5606,8 @@ def main() -> int:
     paths["bf16_train"] = {k: v for k, v in counts_bf16.items()
                            if k != "lstm_save"}
     paths["precision_high_fast"] = counts_prec
+    for cfg_name, c in counts_cfg.items():
+        paths[f"configs_{cfg_name}"] = c
     for c in paths.values():   # lstm_scan counts both K3 kernels
         c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
     rows = [
@@ -5014,6 +5628,18 @@ def main() -> int:
          "stream/device_ac.py:222 + encodec_tpu/models/ilm.py:661",
          "ac_head_pull", ac),
     ]
+    # the configs' own shapes (phase_configs), each on its path's inputs
+    for kind, src, rep, fn, label in (
+            ("K1", "vq_search.cu", "kernels/vq_pallas.py:43",
+             "nearest_codebook", "K1 nearest_codebook"),
+            ("K3 forward", "lstm_scan.cu", "kernels/lstm_pallas.py:55",
+             "lstm_cluster", "K3 lstm_scan saving forward (cluster kernel)"),
+            ("K3 backward", "lstm_bwd.cu", "ops/lstm.py:56-72",
+             "lstm_scan_backward", "K3 lstm_scan_backward")):
+        for cfg_name, m in cfg_rows[kind]:
+            m = dict(m)
+            rows.append((f"{label}, {m.pop('shape')} ({cfg_name}.yaml)", src,
+                         rep, fn, m))
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda",
          "source": f"encodec_tpu_torch/kernels/csrc/{src}",
@@ -5028,7 +5654,7 @@ def main() -> int:
           "CUDA-event span")
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))
     return 0
 
 

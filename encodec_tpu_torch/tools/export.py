@@ -10,10 +10,11 @@ the JAX package, and loads into the reference's own torch modules.
         [--name NAME] [--device cuda|cpu]
 
 The run's config is `config.json` or `config.yaml`, whichever the run
-directory holds (`train.load_config` snapshots a JSON config as JSON; the
-machine with the card has no PyYAML, so YAML is read only where it is
-installed). The checkpoint is the port's own (`param_layout: torch`) or a
-JAX-written one, carried across by `models.zoo.train_state_from_jax`.
+directory holds (`train.load_config` snapshots a JSON config, or any config
+where PyYAML is missing, as JSON; it reads a `config.yaml` without PyYAML
+too, through its YAML subset reader). The checkpoint is the port's own
+(`param_layout: torch`) or a JAX-written one, carried across by
+`models.zoo.train_state_from_jax`.
 """
 
 from __future__ import annotations

@@ -9,9 +9,11 @@ and the command line
         --checkpoint MODEL.ckpt --data_root DIR --dataset NAME --out DIR \
         [--channel thorax] [--stream_chunk_hops N] [--device cuda]
 
-which reads a JAX-trained checkpoint (`train.checkpoint`) and writes the
-same `.npz` files as the JAX tool. Signals are `[C, T]` numpy arrays and
-codes `[K, T']` int32 numpy arrays, as in the JAX package.
+which reads a checkpoint of the JAX trainer or of the port's
+(`train.checkpoint`; the port's by its `param_layout`) and writes the same
+`.npz` files as the JAX tool. The config is YAML (read without PyYAML where
+it is missing, `train.load_config`) or JSON. Signals are `[C, T]` numpy
+arrays and codes `[K, T']` int32 numpy arrays, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -182,11 +184,13 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
     from ..data import BreathingDataset
     from ..models.zoo import params_from_jax
     from ..train import load_checkpoint, load_config, model_from_config
+    from ..train.trainer import PARAM_LAYOUT, state_to_device
 
     parser = argparse.ArgumentParser("encodec_tpu_torch.tools.inference")
     parser.add_argument("--config", required=True)
     parser.add_argument("--checkpoint", required=True,
-                        help="a .ckpt written by the JAX trainer")
+                        help="a .ckpt written by the JAX trainer or the "
+                             "port's")
     parser.add_argument("--data_root", required=True)
     parser.add_argument("--dataset", required=True)
     parser.add_argument("--channel", default="thorax")
@@ -201,11 +205,16 @@ def main(argv: tp.Optional[tp.Sequence[str]] = None) -> None:
     args = parser.parse_args(argv)
 
     model = model_from_config(load_config(args.config), device=args.device)
-    state, _, _ = load_checkpoint(args.checkpoint)
+    state, _, extra = load_checkpoint(args.checkpoint)
     # TrainState's first two fields: the model's parameters and its
-    # quantizer state
-    model.params, model.qstate = params_from_jax(state[0], state[1],
-                                                 model.cfg)
+    # quantizer state, in the JAX layout unless the port's trainer wrote
+    # them
+    if extra.get("param_layout") == PARAM_LAYOUT:
+        state = state_to_device(state, model.device)
+        model.params, model.qstate = state.params, state.qstate
+    else:
+        model.params, model.qstate = params_from_jax(state[0], state[1],
+                                                     model.cfg)
     ds = BreathingDataset(args.data_root, args.dataset, mode="test",
                           channels={args.channel: 1.0})
     n = process_dataset(model, ds, args.out,

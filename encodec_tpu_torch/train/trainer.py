@@ -43,7 +43,6 @@ from __future__ import annotations
 
 import dataclasses
 import importlib.util
-import json
 import logging
 import os
 import random
@@ -61,7 +60,8 @@ from ..quant import RVQState, num_quantizers_for_bandwidth
 from ..parallel import comm
 from .checkpoint import (AsyncCheckpointer, load_checkpoint_with_fallback,
                          previous_path, save_checkpoint)
-from .config import ConfigNamespace, config_to_dict, parse_segment
+from .config import (ConfigNamespace, config_to_dict, parse_segment,
+                     write_snapshot)
 from .metrics import Metrics
 from .optim import AdamState
 from .schedulers import linear_warmup_cosine
@@ -245,21 +245,12 @@ class Trainer:
         self._snapshot_config()
 
     def _snapshot_config(self) -> None:
-        """The experiment config in the run directory, for a self-contained
-        resume (ref train.py:379-384): config.yaml, or config.json where
-        PyYAML is missing. Rank 0 alone writes it."""
+        """The experiment config in the run directory (`write_snapshot`)
+        unless one is there already. Rank 0 alone writes it."""
         if self.rank != 0 or any(os.path.exists(os.path.join(self.log_dir, n))
                for n in ("config.yaml", "config.json")):
             return
-        cfg = config_to_dict(self.config)
-        try:
-            import yaml
-        except ImportError:
-            with open(os.path.join(self.log_dir, "config.json"), "w") as fh:
-                json.dump(cfg, fh)
-            return
-        with open(os.path.join(self.log_dir, "config.yaml"), "w") as fh:
-            yaml.dump(cfg, fh)
+        write_snapshot(config_to_dict(self.config), self.log_dir)
 
     def _sync_model(self) -> None:
         """`model.params` (and its weight-norm fold) and `model.qstate`

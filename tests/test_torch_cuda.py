@@ -19,7 +19,11 @@ a training step on the card against the CPU's, and the batch path against
 the streaming cell. The reduced-precision modes: a bf16 GAN and
 discriminator step against the float32 steps, the TF32 flags scoped to
 a model call at 'high', and K1, K2 and K3 launched at 'fast' and held to
-the plain twins.
+the plain twins. The published configs' training shapes: K1 at D=256 with
+256 and 512 bins (N=23,040 and 115,200: B=8 nights at hop 50 and 10), K2
+at their eval encodes (512 bins x 10 and 8 stages, 256 x 8), and K3's
+saving forward and backward at H=512 over a 4 h night at hop 10
+(T=14,400).
 
 This file imports no JAX (the GPU machine has none). On a machine without
 a CUDA device every test skips. Run on the H100 with:
@@ -185,7 +189,12 @@ RVQ_SHAPES = [(750, 128, 1024, 8, False), (750, 128, 1024, 32, False),
               (1500, 128, 1024, 16, False),
               # a streamed chunk's frames (6 or 7 per 80 ms chunk)
               (6, 128, 1024, 8, False), (6, 128, 1024, 32, False),
-              (7, 128, 1024, 8, False), (7, 128, 1024, 32, False)]
+              (7, 128, 1024, 8, False), (7, 128, 1024, 32, False),
+              # the published configs' eval encode, B=8 4 h nights at D=256
+              # on one shared book: l2_weightnorm (hop 10), multires_disc,
+              # bins512_commit and disc256_bins256 (hop 50)
+              (115_200, 256, 512, 10, True), (23_040, 256, 512, 10, True),
+              (23_040, 256, 512, 8, True), (23_040, 256, 256, 8, True)]
 
 
 def _rvq_inputs(dev, N, D, bins, n_q, shared, seed):
@@ -1261,3 +1270,42 @@ def test_fast_mode_launches_k1_k2_k3_and_holds_to_the_twins(dev,
     if torch.is_tensor(got):
         got, ref = (got,), (ref,)
     assert max(float((g - r).abs().max()) for g, r in zip(got, ref)) <= 1e-4
+
+
+# -- the published configs' training shapes (encodec_tpu_torch/params) ------
+
+@pytest.mark.parametrize("N,bins", [(23_040, 256), (23_040, 512),
+                                    (115_200, 512)])
+def test_nearest_kernel_at_the_configs_training_shapes(dev, N, bins):
+    """K1 at D=256 as a training step of B=8 4 h nights runs it:
+    disc256_bins256 and multires_disc / bins512_commit (hop 50, T=2,880 per
+    night) and l2_weightnorm (hop 10, T=14,400)."""
+    x = _rand((N, 256), 5, dev, scale=0.3)
+    e = _books((bins, 256), 6, dev)
+    idx, margin = nearest_codebook(x, e)
+    ref_idx, ref_margin = nearest_codebook_plain(x, e)
+    torch.cuda.synchronize()
+    safe = ref_margin >= 1e-5
+    assert torch.equal(idx[safe], ref_idx[safe])
+    assert torch.allclose(margin, ref_margin, atol=1e-4, rtol=0)
+
+
+def test_lstm_saving_forward_and_backward_over_a_4h_night_at_h512(dev):
+    """K3's saving forward and its backward kernel at H=512 over T=14,400
+    steps (l2_weightnorm: hop 10 on a 4 h night), B=2, against the twins."""
+    B, T, H = 2, 14_400, 512
+    xp, w, _, _ = _lstm_inputs(dev, B, T, H, 99)
+    out, c_seq = lstm_scan(xp, w, save_c=True)
+    plain_out, plain_c = lstm_scan_plain(xp, w, save_c=True)
+    torch.cuda.synchronize()
+    assert (out - plain_out).abs().max().item() <= 1e-4
+    assert (c_seq - plain_c).abs().max().item() <= 1e-4
+    pre = (xp + torch.cat([torch.zeros(B, 1, H, device=dev),
+                           plain_out[:, :-1]], 1) @ w.t()).contiguous()
+    dy = _rand((B, T, H), 100, dev)
+    got = lstm_scan_backward(pre, plain_c, dy, w)
+    want = lstm_scan_backward_plain(pre, plain_c, dy, w)
+    torch.cuda.synchronize()
+    for g, r in zip(got, want):
+        assert (g - r).abs().max().item() <= 1e-4 * max(
+            1.0, r.abs().max().item())
