@@ -10,7 +10,9 @@ Phases, in order (any failure exits non-zero before the last line):
    (one nvcc per source, in parallel);
 3. hold each kernel against its plain PyTorch twin on the card at the
    24 kHz and 48 kHz main-path shapes (K1 at N=750, 1500 and 3000 rows,
-   including exact duplicate rows in different CTAs' bin ranges; K2 at
+   including exact duplicate rows in different CTAs' bin ranges, and at
+   the first N of its row-block route, bit for bit against the cluster
+   route and timed beside it; K2 at
    N=750 and 3000 for 8 and 32 stages and a shared book and at N=1500 for
    16 stages, with its plan, and equal to the K1 chain at every position;
    K3 over two layers at B=1 and B=4, T=750, and at B=10, T=150 and B=1,
@@ -91,8 +93,9 @@ Phases, in order (any failure exits non-zero before the last line):
    step by kernel group (idle share); one B=4 step from epoch 1's state on
    the kernels against the plain twins (codes outside tie-flagged
    positions, loss within 1e-4, gradient leaves within 1e-3); K1 at the
-   training shape (N=15,360, D=256, 1024 bins) against its twin and
-   cdist+argmin;
+   training shape (N=15,360, D=256, 1024 bins: its row-block route, which
+   the path must have launched) against its twin and, bit for bit, the
+   cluster route, timed beside both and cdist+argmin;
 15. the GAN phase of training (`params/gan.yaml`, read so: default.yaml's
    generator with the MS-STFT discriminator in 512-frame chunks), with its
    own launch counts: the largest batch of gan.yaml as written at which a
@@ -278,7 +281,8 @@ def time_ms(torch, fn, iters: int) -> float:
 
 
 # The port's kernels by name, and the launch counter that counts each
-OWN_KERNELS = {"vq_nearest_kernel": "nearest_codebook",
+OWN_KERNELS = {"vq_nearest_kernel": "nearest_cluster",
+               "vq_nearest_rowblock_kernel": "nearest_rowblock",
                "vq_rvq_kernel": "rvq_encode_fused",
                "lstm_scan_kernel": "lstm_cluster",
                "lstm_grid_kernel": "lstm_grid",
@@ -297,6 +301,7 @@ def own_launches() -> dict:
 
     c = launch_counts(kernels)
     c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
+    c["nearest_cluster"] = c["nearest_codebook"] - c["nearest_rowblock"]
     return {name: c[counter] for name, counter in OWN_KERNELS.items()}
 
 
@@ -455,10 +460,43 @@ def gauss(torch, shape, seed, dev, scale):
                             .astype(np.float32)).to(dev)
 
 
+def k1_plan_text(plan) -> str:
+    return (f"{plan.route} route, {plan.row_tiles} blocks of {plan.rows} "
+            f"rows x cluster {plan.cluster} = {plan.ctas} CTAs, "
+            f"{plan.bins_per_cta} bins/CTA, {plan.smem_bytes} B shared "
+            "memory/CTA")
+
+
+def k1_against_cluster_route(torch, kernels, x, e, label: str) -> None:
+    """K1 as its plan launches it against the cluster route forced on the
+    same inputs: indices, margins and scores equal bit for bit."""
+    got = kernels.nearest_codebook(x, e, return_score=True)
+    want = kernels.nearest_codebook(x, e, return_score=True,
+                                    _route="cluster")
+    torch.cuda.synchronize()
+    diff = [int((g != w).sum()) for g, w in zip(got, want)]
+    check(not any(diff), f"{label}: idx, margin, score differ from the "
+                         f"cluster route's at {diff} rows")
+
+
+def k1_crossover(vq_cuda, bins: int, D: int, sms: int) -> int:
+    """The smallest N that `nearest_plan` sends to the row-block route."""
+    lo, hi = 1, 1 << 22
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if vq_cuda.nearest_plan(mid, bins, D, sms).route == "rowblock":
+            hi = mid
+        else:
+            lo = mid + 1
+    return lo
+
+
 def phase_k1(torch, kernels, dev):
     """K1 at N=750 (one RVQ stage of a 10 s 24 kHz request, the main path's
-    shape), N=1500 (a 10 s 48 kHz request: 10 segments of 150 frames) and
-    N=3000; the JSON row is N=750."""
+    shape), N=1500 (a 10 s 48 kHz request: 10 segments of 150 frames),
+    N=3000, and at the first N of the row-block route (4,225 on 132 SMs),
+    where it is also held bit for bit against the cluster route and timed
+    beside it; the JSON row is N=750."""
     from encodec_tpu_torch.kernels import vq_cuda
 
     D, bins = 128, 1024
@@ -470,7 +508,7 @@ def phase_k1(torch, kernels, dev):
     for j in dups[1:]:
         e_dup[j] = e_dup[dups[0]]
     rows = {}
-    for N in (750, 1500, 4 * 750):
+    for N in (750, 1500, 4 * 750, k1_crossover(vq_cuda, bins, D, sms)):
         plan = vq_cuda.nearest_plan(N, bins, D, sms)
         x = gauss(torch, (N, D), 10, dev, 0.3)
         idx, margin = kernels.nearest_codebook(x, e)
@@ -495,6 +533,13 @@ def phase_k1(torch, kernels, dev):
         check(bool((d_idx == min(dups)).all()) and bool((d_margin == 0).all()),
               f"K1 N={N}: duplicate rows across CTAs do not give the lowest "
               "index with margin 0")
+        vs_cluster = ""
+        if plan.route == "rowblock":
+            k1_against_cluster_route(torch, kernels, x, e, f"K1 N={N}")
+            cl_ms = device_ms(torch, lambda: kernels.nearest_codebook(
+                x, e, _route="cluster"), 50)
+            vs_cluster = (f"; idx, margin, score equal the cluster route's "
+                          f"bit for bit, whose device ms={cl_ms:.4f}")
         ms = device_ms(torch, lambda: kernels.nearest_codebook(x, e), 50)
         call_ms = time_ms(torch, lambda: kernels.nearest_codebook(x, e), 50)
         plain_ms = device_ms(
@@ -502,14 +547,13 @@ def phase_k1(torch, kernels, dev):
         lib_ms = device_ms(torch, lambda: torch.cdist(x, e).argmin(1), 20)
         b_ms, b_by = bound(2.0 * N * bins * D, (N * D + bins * D + 2 * N) * 4)
         print(f"K1 nearest_codebook N={N} D={D} bins={bins}: plan "
-              f"{plan.row_tiles} tiles x cluster {plan.cluster} = {plan.ctas} "
-              f"CTAs, {plan.bins_per_cta} bins/CTA; idx equal (margin>=1e-5), "
+              f"{k1_plan_text(plan)}; idx equal (margin>=1e-5), "
               f"margin max|d|={err:.3g}, winner score max|d|={score_err:.3g} "
               "(idx and margin unchanged with it), "
               f"duplicates {dups} -> {min(dups)}, "
               f"margin 0; device ms: kernel={ms:.4f} plain={plain_ms:.4f} "
               f"library(cdist+argmin)={lib_ms:.4f} bound={b_ms:.5f} ({b_by}); "
-              f"per wrapper call (events)={call_ms:.4f}")
+              f"per wrapper call (events)={call_ms:.4f}{vs_cluster}")
         rows[N] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by, max_abs_err=err)
     return rows[750]
@@ -814,10 +858,11 @@ def phase_main_path(torch, kernels, dev):
                                codec_s=t1 - t0, ecdc_s=t2 - t1))
     counts = launch_counts(kernels)
     print(f"main path launches: {json.dumps(counts)}")
-    # serving runs no backward kernel, a raw .ecdc no range decoder
+    # serving runs no backward kernel, a raw .ecdc no range decoder, and
+    # its searches are too small for K1's row-block route
     for name, n in counts.items():
         check(n > 0 or name in ("lstm_grid", "lstm_scan_backward",
-                                "ac_head_pull"),
+                                "ac_head_pull", "nearest_rowblock"),
               f"kernel {name} was never launched on the main path")
 
     # -- verification, not counted --------------------------------------
@@ -1004,7 +1049,7 @@ def phase_main_path_48(torch, kernels, dev):
     print(f"48 kHz path launches: {json.dumps(counts)}")
     for name, k in counts.items():
         check(k > 0 or name in ("lstm_grid", "lstm_scan_backward",
-                                "ac_head_pull"),
+                                "ac_head_pull", "nearest_rowblock"),
               f"kernel {name} was never launched on the 48 kHz path")
 
     # -- verification, not counted --------------------------------------
@@ -1542,7 +1587,9 @@ def phase_hires(torch, kernels, dev):
     per 4 h night; the cluster kernel's longest chain), built by
     `model_from_config` from `encodec_tpu_torch/params/hires_tokens.yaml`
     (`load_config`): one night encoded and decoded, K3's device ms per
-    layer. Counted as its own path."""
+    layer, and the layer alone against its twin (which steps 14,400 times
+    from Python: one call, timed by CUDA events). Counted as its own
+    path."""
     from encodec_tpu_torch.train import load_config, model_from_config
 
     model = model_from_config(load_config(config_path("hires_tokens")),
@@ -1575,13 +1622,16 @@ def phase_hires(torch, kernels, dev):
     H, T = w_hh.shape[1], n // 10
     xp = gauss(torch, (1, T, 4 * H), 58, dev, 1.0)
     cudnn = lstm_yardstick(torch, w_hh, dev)
-    err = float((kernels.lstm_scan(xp, w_hh)
-                 - kernels.lstm_scan_plain(xp, w_hh)).abs().max())
+    # the twin steps 14,400 times from Python: one call, timed by CUDA
+    # events, serves the check and the row
+    plain_out, plain_ms = run_once(torch,
+                                   lambda: kernels.lstm_scan_plain(xp, w_hh))
+    how_p = "CUDA events, one call"
+    err = float((kernels.lstm_scan(xp, w_hh) - plain_out).abs().max())
     check(err <= 1e-4, f"K3 B=1 T={T} H={H}: max|d| {err} > 1e-4")
+    del plain_out
     # 18.7 ms launches: the profiler drops such records late in a process
     ms, how = device_or_event_ms(torch, lambda: kernels.lstm_scan(xp, w_hh), 3)
-    plain_ms, how_p = device_or_event_ms(
-        torch, lambda: kernels.lstm_scan_plain(xp, w_hh), 1)
     with torch.no_grad():
         lib_ms, how_l = device_or_event_ms(torch, lambda: cudnn(xp), 2)
     b_ms, b_by = bound(2.0 * T * H * 4 * H, (T * 4 * H + 4 * H * H + T * H) * 4)
@@ -1688,12 +1738,13 @@ def phase_k3_bwd(torch, kernels, dev):
                         w_hh.t()),
             dgates.reshape(B * T, 4 * H).t() @ h_prev.reshape(B * T, H)), 3)
         # the twin launches 25 or so small kernels per step: over
-        # hires_tokens' 14,400 steps CUDA events time one call
+        # hires_tokens' 14,400 steps CUDA events time one call, unwarmed
         def plain():
             kernels.lstm_scan_backward_plain(pre, c_seq, dy, w_hh, c0)
 
         timed["plain"] = (device_or_event_ms(torch, plain, 1) if T <= 750
-                          else (time_ms(torch, plain, 1), "CUDA events"))
+                          else (run_once(torch, plain)[1],
+                                "CUDA events, one call"))
         cudnn = lstm_yardstick(torch, w_hh, dev)
         x_req = xp.clone().requires_grad_(True)
         lib_out = cudnn(x_req, (h0[None], c0[None]))[0]
@@ -1806,7 +1857,9 @@ def train_group(name: str) -> str:
     for group, key in (("K3 backward", "lstm_bwd_kernel"),
                        ("K3 forward", "lstm_grid_kernel"),
                        ("K3 forward", "lstm_scan_kernel"),
-                       ("K1", "vq_nearest_kernel"), ("K2", "vq_rvq_kernel")):
+                       ("K1", "vq_nearest_kernel"),
+                       ("K1", "vq_nearest_rowblock_kernel"),
+                       ("K2", "vq_rvq_kernel")):
         if key in name:
             return group
     low = name.lower()
@@ -1935,7 +1988,9 @@ def phase_train(torch, kernels, dev):
     per step at B=32 and the peak memory; one profiled step by kernel
     group; one step (B=4) from the state after epoch 1 on the kernels
     against the plain twins; K1 at the training shape (N=15,360, D=256,
-    1024 bins)."""
+    1024 bins: the row-block route), held against its twin and bit for bit
+    against the cluster route, timed beside both, `cdist`+`argmin` and the
+    bound: the `kernels` line's training row."""
     import tempfile
 
     from encodec_tpu_torch.train import (ConfigNamespace, Trainer,
@@ -2039,15 +2094,18 @@ def phase_train(torch, kernels, dev):
     steps = int(trainer.state.opt_state.count)
     check(steps == 4, f"2 epochs ran {steps} steps, not 4")
     check(counts["nearest_codebook"] > 0 and counts["rvq_encode_fused"] > 0
+          and counts["nearest_rowblock"] > 0
           and counts["lstm_save"] == 4 * steps
           and counts["lstm_scan_backward"] == 4 * steps
           and counts["lstm_grid"] == counts["lstm_scan"],
-          f"the train path did not launch K1, K2, the saving K3 and K3's "
-          f"backward as planned: {counts}")
+          f"the train path did not launch K1 (its row-block route), K2, the "
+          f"saving K3 and K3's backward as planned: {counts}")
     k1_kmeans = counts["nearest_codebook"] - 8 * steps
     print(f"train path launches (B=32 with remat, a stand-in for default.yaml, "
           f"2 epochs, {steps} steps, 2 evals): "
-          f"{json.dumps(counts)}; per step K1 8 (+{k1_kmeans} for the "
+          f"{json.dumps(counts)}; K1 {counts['nearest_rowblock']} of "
+          f"{counts['nearest_codebook']} on its row-block route; per step "
+          f"K1 8 (+{k1_kmeans} for the "
           f"k-means init on the first), K3 saving forward "
           f"{counts['lstm_save'] // steps}, K3 backward "
           f"{counts['lstm_scan_backward'] // steps}; per eval batch K2 1, K3 "
@@ -2135,24 +2193,30 @@ def phase_train(torch, kernels, dev):
     check(n_bad == 0 and err <= 1e-4,
           f"K1 N={N} D={D}: {n_bad} indices differ outside the tie guard, "
           f"margin max|d| {err}")
+    k1_against_cluster_route(torch, kernels, x, e, f"K1 N={N} D={D}")
     ms, how = device_or_event_ms(
         torch, lambda: kernels.nearest_codebook(x, e), 20, "vq_nearest")
+    cl_ms, how_c = device_or_event_ms(
+        torch, lambda: kernels.nearest_codebook(x, e, _route="cluster"), 20,
+        "vq_nearest")
     plain_ms, how_p = device_or_event_ms(
         torch, lambda: kernels.nearest_codebook_plain(x, e), 5)
     lib_ms, how_l = device_or_event_ms(
         torch, lambda: torch.cdist(x, e).argmin(1), 5)
     b_ms, b_by = bound(2.0 * N * bins * D, (N * D + bins * D + 2 * N) * 4)
     print(f"K1 nearest_codebook at the training shape N={N} D={D} "
-          f"bins={bins}: plan {plan.row_tiles} tiles x cluster "
-          f"{plan.cluster} = {plan.ctas} CTAs ({plan.smem_bytes} B shared "
-          f"memory/CTA); idx equal outside margins < {TIE_THRESHOLD} "
-          f"({int((~safe).sum())} rows flagged), margin max|d|={err:.3g}; "
-          f"device ms: kernel={ms:.4f} plain={plain_ms:.4f} "
-          f"library(cdist+argmin)={lib_ms:.4f} bound={b_ms:.5f} ({b_by}); "
-          f"timed by {how} / {how_p} / {how_l}")
+          f"bins={bins}: plan {k1_plan_text(plan)}; idx equal outside "
+          f"margins < {TIE_THRESHOLD} ({int((~safe).sum())} rows flagged), "
+          f"margin max|d|={err:.3g}; idx, margin, score equal the cluster "
+          f"route's bit for bit; device ms: kernel={ms:.4f} cluster route="
+          f"{cl_ms:.4f} plain={plain_ms:.4f} library(cdist+argmin)="
+          f"{lib_ms:.4f} bound={b_ms:.5f} ({b_by}); timed by {how} / "
+          f"{how_c} / {how_p} / {how_l}")
+    k1_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                  bound_by=b_by, max_abs_err=err)
     # the run directory stays for phase_lm_train's export (the caller
     # cleans `tmp` up)
-    return counts, tmp, run
+    return counts, tmp, run, k1_row
 
 
 # gan.yaml's discriminator, and the night length of the chunked-vs-whole
@@ -2399,11 +2463,13 @@ def phase_gan(torch, kernels, dev):
           "discriminator steps; wanted 4 and at least one of each kind")
     evals = 2          # one batch of VAL_ITEMS per eval
     check(counts["nearest_codebook"] > 0 and counts["rvq_encode_fused"] > 0
+          and counts["nearest_rowblock"] > 0
           and counts["lstm_save"] == 4 * steps
           and counts["lstm_scan_backward"] == 4 * steps
           and counts["lstm_scan"] == 4 * (steps + n_disc + evals)
           and counts["lstm_grid"] == counts["lstm_scan"],
-          f"the GAN path did not launch K1, K2, the saving K3, K3's "
+          f"the GAN path did not launch K1 (its row-block route), K2, the "
+          f"saving K3, K3's "
           f"backward and the plain K3 as planned: {counts}")
     print(f"gan path launches (B=32 with remat, a stand-in for gan.yaml; the "
           f"discriminator from epoch 1; 2 epochs, {steps} generator steps, "
@@ -2580,7 +2646,11 @@ def config_k1_row(torch, kernels, seen: dict, label: str) -> dict:
     its twin as `hold_captured` holds a path's inputs (indices equal where
     the twin's margin is outside the tie guard, margins within the guard:
     they are differences of squared distances at the trained latents'
-    scale), timed beside the twin, `cdist`+`argmin` and the bound."""
+    scale) and, on the row-block route, against the cluster route bit for
+    bit; timed beside the twin, the cluster route, `cdist`+`argmin` and the
+    bound."""
+    from encodec_tpu_torch.kernels import vq_cuda
+
     (x, e, *rest), kw = seen["nearest_codebook"]
     idx, margin = kernels.nearest_codebook(x, e, *rest, **kw)
     ref_idx, ref_margin = kernels.nearest_codebook_plain(x, e, *rest, **kw)
@@ -2593,6 +2663,16 @@ def config_k1_row(torch, kernels, seen: dict, label: str) -> dict:
     check(n_bad == 0 and err <= TIE_THRESHOLD,
           f"K1 {label} N={N} D={D} bins={bins}: {n_bad} indices off the "
           f"twin's outside the tie guard, margin max|d| {err}")
+    plan = vq_cuda.nearest_plan(N, bins, D, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
+    vs_cluster = ""
+    if plan.route == "rowblock":
+        k1_against_cluster_route(torch, kernels, x, e, f"K1 {label}")
+        cl_ms, how_c = device_or_event_ms(
+            torch, lambda: kernels.nearest_codebook(x, e, _route="cluster"),
+            20, "vq_nearest")
+        vs_cluster = (f"; idx, margin, score equal the cluster route's bit "
+                      f"for bit, whose device ms={cl_ms:.4f} ({how_c})")
     ms, how = device_or_event_ms(
         torch, lambda: kernels.nearest_codebook(x, e), 20, "vq_nearest")
     plain_ms, how_p = device_or_event_ms(
@@ -2601,14 +2681,15 @@ def config_k1_row(torch, kernels, seen: dict, label: str) -> dict:
         torch, lambda: torch.cdist(x, e).argmin(1), 5)
     b_ms, b_by = bound(2.0 * N * bins * D, (N * D + bins * D + 2 * N) * 4)
     print(f"K1 nearest_codebook on {label}'s first stage search (N={N}, "
-          f"D={D}, bins={bins}): idx equal outside margins < "
-          f"{TIE_THRESHOLD} ({int((~safe).sum())} rows flagged), margin "
-          f"max|d|={err:.3g}; device ms: kernel={ms:.4f} plain="
-          f"{plain_ms:.4f} library(cdist+argmin)={lib_ms:.4f} bound="
-          f"{b_ms:.5f} ({b_by}); timed by {how} / {how_p} / {how_l}")
+          f"D={D}, bins={bins}): plan {k1_plan_text(plan)}; idx equal "
+          f"outside margins < {TIE_THRESHOLD} ({int((~safe).sum())} rows "
+          f"flagged), margin max|d|={err:.3g}; device ms: kernel={ms:.4f} "
+          f"plain={plain_ms:.4f} library(cdist+argmin)={lib_ms:.4f} bound="
+          f"{b_ms:.5f} ({b_by}); timed by {how} / {how_p} / {how_l}"
+          f"{vs_cluster}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                 bound_by=b_by, max_abs_err=err, shape=f"N={N}, D={D}, "
-                f"bins={bins}")
+                f"bins={bins}", k1_route=plan.route)
 
 
 def config_k3_rows(torch, kernels, dev, seen: dict, label: str) -> tuple:
@@ -2952,11 +3033,16 @@ def config_run(torch, kernels, dev, name: str, data: Path, base: Path,
     xb, w2 = x32[:B_file].contiguous(), trainer.weights_for_epoch(2)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    _, seen = capture_first(torch, lambda: trainer.gen_step(s_e1, xb, w2))
+    # the timed steps before the capture: l2_weightnorm's GAN step at B=8
+    # peaks near 74 GiB on an 80 GB H100, and the kernels' inputs that a
+    # capture clones (GiBs, scattered over the allocator's segments) must
+    # not be held while it runs
     gen = step_ms(torch, lambda: trainer.gen_step(s_e1, xb, w2,
                                                   use_gan=gan))
     disc_ms = (step_ms(torch, lambda: trainer.disc_step(s_e1, xb, w2))
                if gan else [])
+    torch.cuda.empty_cache()
+    _, seen = capture_first(torch, lambda: trainer.gen_step(s_e1, xb, w2))
     print(f"configs {name} B={B_file} x 4 h{standin}: "
           f"{statistics.median(gen):.1f} ms per "
           f"{'GAN generator ' if gan else ''}step (median of "
@@ -5386,12 +5472,15 @@ def phase_precision(torch, kernels, dev, model, registry):
 
 
 def launch_counts(kernels) -> dict:
-    """The wrappers' launch counts, and the grid kernel's own."""
+    """The wrappers' launch counts, and those of K3's grid kernel and K1's
+    row-block route."""
     return dict(kernels.launch_counts(),
-                lstm_grid=kernels.lstm_scan.grid_launches)
+                lstm_grid=kernels.lstm_scan.grid_launches,
+                nearest_rowblock=kernels.nearest_codebook.rowblock_launches)
 
 
 KERNEL_GROUPS = (("K2", "vq_rvq_kernel"), ("K1", "vq_nearest_kernel"),
+                 ("K1", "vq_nearest_rowblock_kernel"),
                  ("K3", "lstm_scan_kernel"), ("K3", "lstm_grid_kernel"),
                  ("K3 backward", "lstm_bwd_kernel"),
                  ("AC", "ac_head_pull_kernel"))
@@ -5576,8 +5665,8 @@ def main() -> int:
                              dev)
     counts_hires = timed("hires", phase_hires, torch, kernels, dev)
     k3_bwd = timed("K3 backward", phase_k3_bwd, torch, kernels, dev)
-    counts_train, train_tmp, train_run = timed("train", phase_train, torch,
-                                               kernels, dev)
+    counts_train, train_tmp, train_run, k1_train = timed(
+        "train", phase_train, torch, kernels, dev)
     counts_gan = timed("gan", phase_gan, torch, kernels, dev)
     counts_cfg, cfg_rows = timed("configs", phase_configs, torch, kernels,
                                  dev)
@@ -5608,11 +5697,15 @@ def main() -> int:
     paths["precision_high_fast"] = counts_prec
     for cfg_name, c in counts_cfg.items():
         paths[f"configs_{cfg_name}"] = c
-    for c in paths.values():   # lstm_scan counts both K3 kernels
+    for c in paths.values():   # lstm_scan and nearest_codebook count both
         c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
+        c["nearest_cluster"] = c["nearest_codebook"] - c["nearest_rowblock"]
     rows = [
-        ("K1 nearest_codebook", "vq_search.cu", "kernels/vq_pallas.py:43",
-         "nearest_codebook", k1),
+        ("K1 nearest_codebook (cluster route)", "vq_search.cu",
+         "kernels/vq_pallas.py:43", "nearest_cluster", k1),
+        ("K1 nearest_codebook (row-block route), N=15,360, D=256, bins=1024 "
+         "(default.yaml training, B=32)", "vq_search.cu",
+         "kernels/vq_pallas.py:43", "nearest_rowblock", k1_train),
         ("K2 rvq_encode_fused", "vq_search.cu", "kernels/vq_pallas.py:124",
          "rvq_encode_fused", k2),
         ("K3 lstm_scan (cluster kernel, H <= 512)", "lstm_scan.cu",
@@ -5638,8 +5731,14 @@ def main() -> int:
              "lstm_scan_backward", "K3 lstm_scan_backward")):
         for cfg_name, m in cfg_rows[kind]:
             m = dict(m)
-            rows.append((f"{label}, {m.pop('shape')} ({cfg_name}.yaml)", src,
-                         rep, fn, m))
+            name, counter = label, fn
+            if kind == "K1":   # the route its plan took, and that counter
+                route = m.pop("k1_route")
+                counter = f"nearest_{route}"
+                name = (f"{label} (row-block route)" if route == "rowblock"
+                        else f"{label} (cluster route)")
+            rows.append((f"{name}, {m.pop('shape')} ({cfg_name}.yaml)", src,
+                         rep, counter, m))
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda",
          "source": f"encodec_tpu_torch/kernels/csrc/{src}",

@@ -17,6 +17,8 @@ fused decode scan.
 
 Each wrapper runs its plain twin for CPU tensors and launches its kernel
 for CUDA tensors (or raises); each counts its launches in `.launches`,
+`nearest_codebook.rowblock_launches` counts K1's row-block route (its
+second kernel, for large N),
 `lstm_scan.stateful_launches` counts K3's launches from a given `(h0, c0)`,
 `lstm_scan.grid_launches` those of K3's grid kernel and
 `lstm_scan.save_launches` those that saved every step's c for the backward.
@@ -45,6 +47,7 @@ WRAPPERS = (nearest_codebook, rvq_encode_fused, lstm_scan, lstm_scan_backward,
 def reset_launch_counts() -> None:
     for fn in WRAPPERS:
         fn.launches = 0  # type: ignore[attr-defined]
+    nearest_codebook.rowblock_launches = 0  # type: ignore[attr-defined]
     lstm_scan.stateful_launches = 0  # type: ignore[attr-defined]
     lstm_scan.grid_launches = 0  # type: ignore[attr-defined]
     lstm_scan.save_launches = 0  # type: ignore[attr-defined]

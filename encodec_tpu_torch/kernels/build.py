@@ -91,6 +91,16 @@ SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
         "vq_nearest_tile_bins": ([], _I),
         "vq_nearest_threads": ([], _I),
         "vq_nearest_max_cluster": ([], _I),
+        "vq_rowblock_launch": ([_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+                               _I),
+        "vq_rowblock_attributes": ([_P, _P, _P], _I),
+        "vq_rowblock_resident": ([_I], _I),
+        "vq_rowblock_smem_bytes": ([], _I),
+        "vq_rowblock_rows_per_cta": ([], _I),
+        "vq_rowblock_tile_bins": ([], _I),
+        "vq_rowblock_slab": ([], _I),
+        "vq_rowblock_stages": ([], _I),
+        "vq_rowblock_threads": ([], _I),
         "vq_rvq_launch": ([_P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P], _I),
         "vq_rvq_smem_bytes": ([_I], _I),
         "vq_rvq_rows_per_cta": ([], _I),

@@ -1,6 +1,7 @@
 // RVQ codebook search for Hopper (sm_90a): K1 and K2 of the port.
 //
-// K1 `vq_nearest_launch` replaces encodec_tpu/kernels/vq_pallas.py:43
+// K1 `vq_nearest_launch` and `vq_rowblock_launch` (two routes of one
+//    function) replace encodec_tpu/kernels/vq_pallas.py:43
 //    nearest_codebook_pallas (body _nearest_kernel): per row of x [N, D],
 //    idx = argmax_j -(|x|^2 - 2 x.e_j + |e_j|^2), first max wins. It also
 //    returns margin = best - max_{j != idx}, the top-2 gap the container
@@ -22,7 +23,29 @@
 // (one stage of a 10 s request) the FLOPs take ~3 us at peak, so what
 // bounds a launch in practice is how much of the card it fills.
 //
-// Both kernels are one cluster split-bins search (`search_slice`):
+// K1 has two routes, chosen by the wrapper's plan from (N, bins, D, SMs):
+// the cluster split-bins search below while its 32-row tiles leave room
+// for two CTAs per tile in a wave (the main path: N <= 4,224 at D=128,
+// <= 2,112 at D=256 on 132 SMs), and past that the row-block kernel
+// (`vq_nearest_rowblock_kernel`, after K2), which replaces the split's
+// C=1 plan at training's D=256 over tens of thousands of rows: one
+// 4-warp CTA per SM (166,912 B of shared memory at D=256), ||e||^2
+// recomputed by every thread on every row tile, and the whole book
+// re-read from L2 by every 32-row tile, at 26-30% of the FP32 bound and
+// behind cdist+argmin. The row-block kernel is bounded by the same FP32
+// FMAs; its design: 128-row blocks of 8 warps, an 8x8 register tile per
+// thread (16 FMAs per LDS.128, conflict-free), D streamed in k-slabs of
+// 32 through a 4-deep cp.async ring (150,016 B, one CTA per SM: 254
+// registers a thread), ||x||^2 and ||e||^2 once per CTA, and 2-CTA
+// clusters splitting the bins where 128-row blocks alone would leave a
+// second wave a third full. On the H100 at D=256 it reaches about half
+// the FP32 peak: 8 warps per SM and one LDS.128 per 16 FFMAs (shared
+// memory wavefronts and issue share the SM with the FMAs), and at
+// N=23,040 the 360 CTAs' third wave is 73% full. Its scores are the
+// cluster route's bit for bit (see its own note below).
+//
+// The cluster route and K2 are one cluster split-bins search
+// (`search_slice`):
 // - A thread-block cluster of C CTAs (C <= 8, chosen by the wrapper's plan)
 //   shares one tile of 32 rows; CTA r of the cluster searches only bins
 //   [r*per_cta, (r+1)*per_cta). The plan takes the largest C that keeps the
@@ -403,6 +426,281 @@ vq_nearest_kernel(const float* __restrict__ x, const float* __restrict__ book,
   cluster_sync();  // no CTA leaves while another still reads its results
 }
 
+// ------------------------------------------------- K1, row-block route ----
+//
+// For shapes whose 32-row tiles fill a wave of cluster slots (the split
+// plan's C=1: training's D=256 searches over tens of thousands of rows).
+// A row block is R_ROWS rows; a cluster of C CTAs splits its bins, CTA r
+// walking bins [r*per_cta, ...) in tiles of R_TILE_B. D streams through an
+// R_STAGES-deep cp.async ring of k-slabs that hold R_BK columns of the
+// block's rows and of the tile's bins; the ring counts slabs across the
+// tiles, so the next tile's first slabs land while this one finishes.
+// Thread (rg, bg) keeps an R_TM x R_TN tile of dot products (rows
+// rg + 16i, bins bg + 16q) in registers across the slabs, and its rows'
+// running (best, idx, second) across the bin tiles. The dot, |x|^2 and
+// |e|^2 are the same sequential fmaf chains over d as in `search_slice`,
+// columns past D zero-filled as its padded rows are (a zero step can only
+// turn a dot of -0 into +0, which leaves the score unchanged), and every
+// score is -((|x|^2 - 2 x.e) + |e|^2): the route's indices, margins and
+// scores equal the cluster route's bit for bit.
+
+constexpr int R_ROWS = 128;               // rows per block
+constexpr int R_TILE_B = 128;             // bins per tile
+constexpr int R_BK = 32;                  // columns per k-slab
+constexpr int R_LD = R_BK + 4;            // 4 * 9 floats: conflict-free LDS.128
+constexpr int R_STAGES = 4;               // k-slabs in flight
+constexpr int R_TM = 8;                   // rows per thread
+constexpr int R_TN = 8;                   // bins per thread
+constexpr int R_RG = R_ROWS / R_TM;       // 16 row groups
+constexpr int R_BG = R_TILE_B / R_TN;     // 16 bin groups
+constexpr int R_THREADS = R_RG * R_BG;    // 256
+constexpr int R_MIN_BLOCKS = 1;           // CTAs per SM the registers allow
+constexpr int R_SLAB = (R_ROWS + R_TILE_B) * R_LD;
+
+static_assert(R_THREADS == 256 && R_RG == 16 && R_BG == 16,
+              "the thread map below assumes 16 x 16 groups of 256 threads");
+static_assert(R_ROWS == 128 && R_TILE_B == R_ROWS,
+              "the copy map below assumes 128 x and 128 e rows per slab");
+static_assert(R_BK == 32, "the copy map below assumes 8 float4 per row");
+
+// the ring, then |x|^2 [R_ROWS], |e|^2 [R_TILE_B], and the CTA's best,
+// idx, runner-up [R_ROWS] each
+__host__ __device__ constexpr size_t k1r_smem_bytes() {
+  return ((size_t)R_STAGES * R_SLAB + R_ROWS + R_TILE_B + 3 * R_ROWS) *
+         sizeof(float);
+}
+
+static_assert(k1r_smem_bytes() <= 232448, "row-block CTA above 227 KB");
+
+__device__ __forceinline__ void cp_async16z(float* dst, const float* src,
+                                            int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4z(float* dst, const float* src,
+                                           int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(s), "l"(src), "r"(bytes) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+__global__ void __launch_bounds__(R_THREADS, R_MIN_BLOCKS)
+vq_nearest_rowblock_kernel(const float* __restrict__ x,
+                           const float* __restrict__ book, int N, int bins,
+                           int D, int per_cta, int vec16,
+                           int* __restrict__ idx_out,
+                           float* __restrict__ margin_out,
+                           float* __restrict__ score_out) {
+  extern __shared__ __align__(16) float smem[];
+  float* xsq_s = smem + R_STAGES * R_SLAB;           // [R_ROWS]
+  float* esq_s = xsq_s + R_ROWS;                     // [R_TILE_B]
+  float* part_best = esq_s + R_TILE_B;               // [R_ROWS] each
+  int* part_idx = reinterpret_cast<int*>(part_best + R_ROWS);
+  float* part_second = part_best + 2 * R_ROWS;
+
+  const unsigned rank = cluster_rank();
+  const unsigned csize = cluster_size();
+  const int n0 = (int)(blockIdx.x / csize) * R_ROWS;
+  const int nrows = min(R_ROWS, N - n0);
+  const int j0 = (int)rank * per_cta;
+  const int j1 = min(bins, j0 + per_cta);
+  const int slabs = (D + R_BK - 1) / R_BK;
+  const int total = slabs * ((j1 - j0 + R_TILE_B - 1) / R_TILE_B);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // a warp holds 4 consecutive row groups x 8 consecutive bin groups, so
+  // each LDS.128 reads 4 (rows) or 8 (bins) consecutive padded rows:
+  // distinct 16-byte bank groups, the rest broadcast
+  const int bg = (warp & 1) * 8 + (lane & 7);
+  const int rg = (warp >> 1) * 4 + (lane >> 3);
+
+  // ring slab g: columns [s*R_BK, +R_BK) of the block's rows and of bin
+  // tile t = g / slabs (s = g % slabs); rows past N and bins past j1
+  // repeat the last valid one (their results are never used), columns
+  // past D are zero-filled
+  auto load = [&](int g) {
+    if (g >= total) return;
+    const int t = g / slabs;
+    const int k0 = (g - t * slabs) * R_BK;
+    const int jt = j0 + t * R_TILE_B;
+    float* xs = smem + (g % R_STAGES) * R_SLAB;
+    float* es = xs + R_ROWS * R_LD;
+    if (vec16) {
+      const int c = k0 + 4 * (tid & 7);
+      const int bytes = c < D ? 16 : 0;
+      const int cc = c < D ? c : 0;
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int r = (tid >> 3) + 32 * v;
+        cp_async16z(xs + r * R_LD + 4 * (tid & 7),
+                    x + (size_t)min(n0 + r, N - 1) * D + cc, bytes);
+        cp_async16z(es + r * R_LD + 4 * (tid & 7),
+                    book + (size_t)min(jt + r, j1 - 1) * D + cc, bytes);
+      }
+    } else {
+      const int c = k0 + lane;
+      const int bytes = c < D ? 4 : 0;
+      const int cc = c < D ? c : 0;
+#pragma unroll 4
+      for (int v = 0; v < 16; ++v) {
+        const int r = warp + 8 * v;
+        cp_async4z(xs + r * R_LD + lane,
+                   x + (size_t)min(n0 + r, N - 1) * D + cc, bytes);
+        cp_async4z(es + r * R_LD + lane,
+                   book + (size_t)min(jt + r, j1 - 1) * D + cc, bytes);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int p = 0; p < R_STAGES - 1; ++p) {
+    load(p);
+    cp_async_commit();
+  }
+
+  Best st[R_TM];
+#pragma unroll
+  for (int i = 0; i < R_TM; ++i) {
+    st[i].best = -CUDART_INF_F;
+    st[i].idx = 0;
+    st[i].second = -CUDART_INF_F;
+  }
+  float acc[R_TM][R_TN];
+  // threads < R_TILE_B: |e|^2 of bin tid of the current tile; the others,
+  // during tile 0: |x|^2 of row tid - R_TILE_B
+  float chain = 0.f;
+  int s = 0, t = 0;
+  for (int g = 0; g < total; ++g) {
+    cp_async_wait<R_STAGES - 2>();  // slab g landed for this thread
+    __syncthreads();  // ... for every thread; slab g-1's slot is free
+    load(g + R_STAGES - 1);
+    cp_async_commit();
+    const float* xs = smem + (g % R_STAGES) * R_SLAB;
+    const float* es = xs + R_ROWS * R_LD;
+    if (s == 0) {
+#pragma unroll
+      for (int i = 0; i < R_TM; ++i)
+#pragma unroll
+        for (int q = 0; q < R_TN; ++q) acc[i][q] = 0.f;
+    }
+    if (tid < R_TILE_B || t == 0) {
+      const float* nr = tid < R_TILE_B ? es + tid * R_LD
+                                       : xs + (tid - R_TILE_B) * R_LD;
+#pragma unroll
+      for (int d = 0; d < R_BK; d += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(nr + d);
+        chain = fmaf(v.x, v.x, chain);
+        chain = fmaf(v.y, v.y, chain);
+        chain = fmaf(v.z, v.z, chain);
+        chain = fmaf(v.w, v.w, chain);
+      }
+    }
+    const float* xb = xs + rg * R_LD;
+    const float* eb = es + bg * R_LD;
+#pragma unroll
+    for (int kk = 0; kk < R_BK; kk += 4) {
+      float4 xv[R_TM];
+#pragma unroll
+      for (int i = 0; i < R_TM; ++i)
+        xv[i] = *reinterpret_cast<const float4*>(xb + i * R_RG * R_LD + kk);
+#pragma unroll
+      for (int q = 0; q < R_TN; ++q) {
+        const float4 ev =
+            *reinterpret_cast<const float4*>(eb + q * R_BG * R_LD + kk);
+#pragma unroll
+        for (int i = 0; i < R_TM; ++i) {
+          float a = acc[i][q];
+          a = fmaf(xv[i].x, ev.x, a);
+          a = fmaf(xv[i].y, ev.y, a);
+          a = fmaf(xv[i].z, ev.z, a);
+          a = fmaf(xv[i].w, ev.w, a);
+          acc[i][q] = a;
+        }
+      }
+    }
+    if (++s < slabs) continue;
+    // bin tile t is complete
+    s = 0;
+    if (tid < R_TILE_B || t == 0) {
+      *(tid < R_TILE_B ? esq_s + tid : xsq_s + (tid - R_TILE_B)) = chain;
+      chain = 0.f;
+    }
+    __syncthreads();  // |x|^2 and this tile's |e|^2 written
+    const int jt = j0 + t * R_TILE_B;
+    float xq[R_TM];
+#pragma unroll
+    for (int i = 0; i < R_TM; ++i) xq[i] = xsq_s[rg + i * R_RG];
+#pragma unroll
+    for (int q = 0; q < R_TN; ++q) {
+      const int j = jt + bg + q * R_BG;  // increasing in q and t
+      if (j < j1) {
+        const float eq = esq_s[bg + q * R_BG];
+#pragma unroll
+        for (int i = 0; i < R_TM; ++i)
+          // the reference association order: -((|x|^2 - 2 x.e) + |e|^2)
+          push(st[i], -((xq[i] - 2.f * acc[i][q]) + eq), j);
+      }
+    }
+    ++t;
+  }
+
+  // merge the 8 bin groups of a warp (lanes with equal lane >> 3), then
+  // the warp pair that shares the rows, then the cluster's CTAs
+#pragma unroll
+  for (int i = 0; i < R_TM; ++i) {
+#pragma unroll
+    for (int off = 1; off < 8; off <<= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, st[i].best, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, st[i].idx, off);
+      const float os = __shfl_xor_sync(0xffffffffu, st[i].second, off);
+      merge(st[i], ob, oi, os);
+    }
+  }
+  const bool writer = (lane & 7) == 0;
+  if (writer && (warp & 1) == 0) {
+#pragma unroll
+    for (int i = 0; i < R_TM; ++i) {
+      const int r = rg + i * R_RG;
+      part_best[r] = st[i].best;
+      part_idx[r] = st[i].idx;
+      part_second[r] = st[i].second;
+    }
+  }
+  __syncthreads();
+  if (writer && (warp & 1) == 1) {
+#pragma unroll
+    for (int i = 0; i < R_TM; ++i) {
+      const int r = rg + i * R_RG;
+      merge(st[i], part_best[r], part_idx[r], part_second[r]);
+      part_best[r] = st[i].best;
+      part_idx[r] = st[i].idx;
+      part_second[r] = st[i].second;
+    }
+  }
+
+  cluster_sync();  // every CTA's partial results are written and visible
+  if (tid < nrows && tid % (int)csize == (int)rank) {
+    Best m{part_best[tid], part_idx[tid], part_second[tid]};
+    for (unsigned c = 0; c < csize; ++c) {
+      if (c == rank) continue;
+      merge(m, map_rank(part_best, c)[tid], map_rank(part_idx, c)[tid],
+            map_rank(part_second, c)[tid]);
+    }
+    idx_out[n0 + tid] = m.idx;
+    margin_out[n0 + tid] = m.best - m.second;
+    if (score_out != nullptr) score_out[n0 + tid] = m.best;
+  }
+  cluster_sync();  // no CTA leaves while another still reads its results
+}
+
 // ---------------------------------------------------------------- K2 ----
 
 __global__ void __launch_bounds__(THREADS)
@@ -505,6 +803,7 @@ vq_rvq_kernel(const float* __restrict__ x, const float* __restrict__ books,
 // cudaFuncAttributeMaxDynamicSharedMemorySize, set once per device to the
 // most any valid D needs (the launch itself asks for what its D needs)
 std::atomic<bool> k1_ready[MAX_DEVICES];
+std::atomic<bool> k1r_ready[MAX_DEVICES];
 std::atomic<bool> k2_ready[MAX_DEVICES];
 
 cudaError_t allow_smem(const void* kernel, std::atomic<bool>* ready,
@@ -528,10 +827,11 @@ bool bad_split(int bins, int cluster, int per_cta) {
 }
 
 cudaLaunchConfig_t cluster_config(int N, int cluster, size_t smem,
-                                  cudaLaunchAttribute* attr, void* stream) {
+                                  cudaLaunchAttribute* attr, void* stream,
+                                  int rows = ROWS, int threads = THREADS) {
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((N + ROWS - 1) / ROWS) * cluster);
-  cfg.blockDim = dim3(THREADS);
+  cfg.gridDim = dim3(((N + rows - 1) / rows) * cluster);
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -558,6 +858,12 @@ int vq_nearest_tile_bins() { return TILE_B; }
 int vq_nearest_threads() { return THREADS; }
 int vq_nearest_max_cluster() { return MAX_CLUSTER; }
 int vq_nearest_smem_bytes(int D) { return static_cast<int>(k1_smem_bytes(D)); }
+int vq_rowblock_rows_per_cta() { return R_ROWS; }
+int vq_rowblock_tile_bins() { return R_TILE_B; }
+int vq_rowblock_slab() { return R_BK; }
+int vq_rowblock_stages() { return R_STAGES; }
+int vq_rowblock_threads() { return R_THREADS; }
+int vq_rowblock_smem_bytes() { return static_cast<int>(k1r_smem_bytes()); }
 int vq_rvq_rows_per_cta() { return ROWS; }
 int vq_rvq_tile_bins() { return TILE_B; }
 int vq_rvq_threads() { return THREADS; }
@@ -587,6 +893,63 @@ int vq_nearest_launch(const float* x, const float* book, int N, int bins,
                            per_cta, vec16, idx_out, margin_out, score_out);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// K1's row-block route: x, book and the outputs as vq_nearest_launch; the
+// plan: row blocks of 128, each searched by `cluster` CTAs, CTA r taking
+// bins [r*per_cta, min(bins, (r+1)*per_cta)) in tiles of 128.
+int vq_rowblock_launch(const float* x, const float* book, int N, int bins,
+                       int D, int cluster, int per_cta, int* idx_out,
+                       float* margin_out, float* score_out, void* stream) {
+  if (N == 0) return 0;
+  if (N < 0 || D < 1 || D > MAX_D || bad_split(bins, cluster, per_cta))
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      allow_smem(reinterpret_cast<const void*>(vq_nearest_rowblock_kernel),
+                 k1r_ready, k1r_smem_bytes());
+  if (err != cudaSuccess) return err;
+  const int vec16 = (D % 4 == 0) &&
+                    (reinterpret_cast<uintptr_t>(x) % 16 == 0) &&
+                    (reinterpret_cast<uintptr_t>(book) % 16 == 0);
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      N, cluster, k1r_smem_bytes(), &attr, stream, R_ROWS, R_THREADS);
+  err = cudaLaunchKernelEx(&cfg, vq_nearest_rowblock_kernel, x, book, N,
+                           bins, D, per_cta, vec16, idx_out, margin_out,
+                           score_out);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Clusters of `cluster` row-block CTAs the card holds at once (its
+// occupancy query), or -1 on an error.
+int vq_rowblock_resident(int cluster) {
+  if (cluster < 1 || cluster > MAX_CLUSTER) return -1;
+  const void* k = reinterpret_cast<const void*>(vq_nearest_rowblock_kernel);
+  if (allow_smem(k, k1r_ready, k1r_smem_bytes()) != cudaSuccess) return -1;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(
+      R_ROWS, cluster, k1r_smem_bytes(), &attr, nullptr, R_ROWS, R_THREADS);
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, k, &cfg) != cudaSuccess) return -1;
+  return n;
+}
+
+// The row-block kernel's resident CTAs per SM (the plan assumes
+// R_MIN_BLOCKS), its registers per thread and its local (spill) bytes;
+// -1 on an error.
+int vq_rowblock_attributes(int* blocks_per_sm, int* regs,
+                           int* local_bytes) {
+  const void* k = reinterpret_cast<const void*>(vq_nearest_rowblock_kernel);
+  if (allow_smem(k, k1r_ready, k1r_smem_bytes()) != cudaSuccess) return -1;
+  cudaFuncAttributes a;
+  if (cudaFuncGetAttributes(&a, k) != cudaSuccess) return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, k, R_THREADS, k1r_smem_bytes()) != cudaSuccess)
+    return -1;
+  *regs = a.numRegs;
+  *local_bytes = static_cast<int>(a.localSizeBytes);
+  return 0;
 }
 
 // x [N, D], books [n_books, bins, D] (contiguous f32; book 0 for every

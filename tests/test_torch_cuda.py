@@ -20,8 +20,11 @@ the streaming cell. The reduced-precision modes: a bf16 GAN and
 discriminator step against the float32 steps, the TF32 flags scoped to
 a model call at 'high', and K1, K2 and K3 launched at 'fast' and held to
 the plain twins. The published configs' training shapes: K1 at D=256 with
-256 and 512 bins (N=23,040 and 115,200: B=8 nights at hop 50 and 10), K2
-at their eval encodes (512 bins x 10 and 8 stages, 256 x 8), and K3's
+256 and 512 bins (N=23,040 and 115,200: B=8 nights at hop 50 and 10),
+K1's row-block route (which those shapes take) bit for bit against the
+cluster route, with duplicates across its bin tiles and CTAs, K2
+at their eval encodes (512 bins x 10 and 8 stages, 256 x 8) and at
+default.yaml's training batch (N=15,360, 1024 bins x 8), and K3's
 saving forward and backward at H=512 over a 4 h night at hop 10
 (T=14,400).
 
@@ -164,6 +167,25 @@ def test_kernel_layouts_match_the_plans(dev):
     assert vq.vq_rvq_max_cluster() == vq_cuda.K1_MAX_CLUSTER
     for D in (1, 7, 30, 48, 128, 256, 352):
         assert vq.vq_rvq_smem_bytes(D) == vq_cuda.rvq_smem_bytes(D)
+    assert vq.vq_rowblock_rows_per_cta() == vq_cuda.K1R_ROWS
+    assert vq.vq_rowblock_tile_bins() == vq_cuda.K1R_TILE_BINS
+    assert vq.vq_rowblock_slab() == vq_cuda.K1R_SLAB
+    assert vq.vq_rowblock_stages() == vq_cuda.K1R_STAGES
+    assert vq.vq_rowblock_threads() == vq_cuda.K1R_THREADS
+    assert vq.vq_rowblock_smem_bytes() == vq_cuda.rowblock_smem_bytes()
+    # the row-block plan's slots: resident CTAs per SM as the card counts
+    # them (registers and shared memory), and no spills
+    import ctypes
+    b, r, loc = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    assert vq.vq_rowblock_attributes(ctypes.byref(b), ctypes.byref(r),
+                                     ctypes.byref(loc)) == 0
+    assert b.value == vq_cuda.K1R_CTAS_PER_SM, (b.value, r.value)
+    assert loc.value == 0, (r.value, loc.value)
+    # the plan's waves count sm_count / C clusters: exact for C <= 2 (the
+    # training shapes' sizes); larger clusters pack less well
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert vq.vq_rowblock_resident(1) == sms * vq_cuda.K1R_CTAS_PER_SM
+    assert vq.vq_rowblock_resident(2) == sms * vq_cuda.K1R_CTAS_PER_SM // 2
     ls = build.load_library("lstm_scan")
     assert ls.lstm_scan_units_per_cta_max() == lstm_cuda.K3_MAX_UNITS
     assert ls.lstm_scan_max_cluster() == lstm_cuda.K3_MAX_CLUSTER
@@ -194,7 +216,10 @@ RVQ_SHAPES = [(750, 128, 1024, 8, False), (750, 128, 1024, 32, False),
               # on one shared book: l2_weightnorm (hop 10), multires_disc,
               # bins512_commit and disc256_bins256 (hop 50)
               (115_200, 256, 512, 10, True), (23_040, 256, 512, 10, True),
-              (23_040, 256, 512, 8, True), (23_040, 256, 256, 8, True)]
+              (23_040, 256, 512, 8, True), (23_040, 256, 256, 8, True),
+              # default.yaml's training batch (B=32 x 4 h at hop 300),
+              # whose K1 chain runs K1's row-block route
+              (15_360, 256, 1024, 8, True)]
 
 
 def _rvq_inputs(dev, N, D, bins, n_q, shared, seed):
@@ -1288,6 +1313,58 @@ def test_nearest_kernel_at_the_configs_training_shapes(dev, N, bins):
     safe = ref_margin >= 1e-5
     assert torch.equal(idx[safe], ref_idx[safe])
     assert torch.allclose(margin, ref_margin, atol=1e-4, rtol=0)
+
+
+# K1's row-block route (the plan's choice past the cluster split's C=1):
+# the four training searches at D=256, the first N past the crossover at
+# D=128, rows that do not fill a block, bins=1000 and 65, and D=250 (the
+# 4-byte copy path)
+ROWBLOCK_SHAPES = [(15_360, 256, 1024), (23_040, 256, 512),
+                   (115_200, 256, 512), (23_040, 256, 256),
+                   (4_225, 128, 1024), (20_001, 256, 1000),
+                   (5_001, 250, 1000), (9_999, 256, 65)]
+
+
+@pytest.mark.parametrize("N,D,bins", ROWBLOCK_SHAPES)
+def test_rowblock_route_equals_the_cluster_route_bit_for_bit(dev, N, D,
+                                                             bins):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert vq_cuda.nearest_plan(N, bins, D, sms).route == "rowblock"
+    x = _rand((N, D), 30, dev, scale=0.3)
+    e = _books((bins, D), 31, dev)
+    before = (nearest_codebook.launches, nearest_codebook.rowblock_launches)
+    got = nearest_codebook(x, e, return_score=True)
+    assert (nearest_codebook.launches, nearest_codebook.rowblock_launches) \
+        == (before[0] + 1, before[1] + 1)
+    want = nearest_codebook(x, e, return_score=True, _route="cluster")
+    assert nearest_codebook.rowblock_launches == before[1] + 1
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), int((g != w).sum())
+    # and without the score output, the same index and margin
+    idx, margin = nearest_codebook(x, e)
+    assert torch.equal(idx, got[0]) and torch.equal(margin, got[1])
+
+
+@pytest.mark.parametrize("N,bins,dups", [(23_040, 512, (400, 3, 130, 260)),
+                                         (15_360, 1024, (900, 5, 700, 129))])
+def test_rowblock_route_duplicates_across_tiles_and_ctas(dev, N, bins, dups):
+    # the nearest row at bins in different 128-bin tiles and (at 512 bins,
+    # C=2) different CTAs of the cluster: the lowest index, margin 0
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = vq_cuda.nearest_plan(N, bins, 256, sms)
+    assert plan.route == "rowblock"
+    assert len({j // 128 for j in dups}) == len(dups)
+    e = _books((bins, 256), 32, dev)
+    for j in dups[1:]:
+        e[j] = e[dups[0]]
+    x = (e[dups[0]][None] + _rand((N, 256), 33, dev, scale=1e-3)).contiguous()
+    idx, margin, score = nearest_codebook(x, e, return_score=True)
+    torch.cuda.synchronize()
+    assert idx.tolist() == [min(dups)] * N
+    assert margin.tolist() == [0.0] * N
+    want = nearest_codebook(x, e, return_score=True, _route="cluster")
+    assert torch.equal(score, want[2])
 
 
 def test_lstm_saving_forward_and_backward_over_a_4h_night_at_h512(dev):

@@ -59,8 +59,17 @@ def test_nearest_plan_at_main_path_shapes():
     p750 = vq_cuda.nearest_plan(750, 1024, 128, H100_SMS)
     assert (p750.row_tiles, p750.cluster, p750.bins_per_cta) == (24, 8, 128)
     assert p750.ctas == 192
+    p1500 = vq_cuda.nearest_plan(1500, 1024, 128, H100_SMS)
+    assert (p1500.row_tiles, p1500.cluster, p1500.bins_per_cta) == (47, 5,
+                                                                     205)
     p3000 = vq_cuda.nearest_plan(3000, 1024, 128, H100_SMS)
     assert (p3000.row_tiles, p3000.cluster) == (94, 2)
+    # the main path, the stream's chunks and parallel.tp's shards stay on
+    # the cluster route, with the cluster kernel's layout
+    for N in (6, 7, 32, 750, 1500, 3000):
+        plan = vq_cuda.nearest_plan(N, 1024, 128, H100_SMS)
+        assert (plan.route, plan.rows) == ("cluster", vq_cuda.K1_ROWS)
+        assert plan.smem_bytes == vq_cuda.nearest_smem_bytes(128)
     # bins that the split does not divide
     assert vq_cuda.nearest_plan(751, 100, 128, H100_SMS).bin_ranges() == [
         (0, 50), (50, 100)]
@@ -79,6 +88,136 @@ def test_nearest_plan_smem_layout():
         vq_cuda.nearest_plan(10, 1024, 353, H100_SMS)
     with pytest.raises(ValueError):
         vq_cuda.nearest_plan(10, 0, 128, H100_SMS)
+
+
+# K1's row-block route: the configs' training searches at D=256 (default
+# and gan.yaml B=32 x 4 h at hop 300; B=8 x 4 h at hop 50 and 10), the
+# first N past each crossover, 100,000 rows at D=128, and ragged rows,
+# bins and D
+ROWBLOCK_SHAPES = [(15_360, 1024, 256), (23_040, 512, 256),
+                   (115_200, 512, 256), (23_040, 256, 256),
+                   (100_000, 1024, 128), (4_225, 1024, 128),
+                   (2_113, 1024, 256), (5_001, 1000, 128),
+                   (20_001, 1000, 250), (9_999, 65, 256), (40_000, 7, 30),
+                   (11_520, 1024, 256)]
+
+
+def _rowblock_cost(plan):
+    """Waves of the card's row-block slots times bin tiles per CTA."""
+    slots = H100_SMS * vq_cuda.K1R_CTAS_PER_SM
+    return (-(-plan.ctas // slots)
+            * -(-plan.bins_per_cta // vq_cuda.K1R_TILE_BINS))
+
+
+@pytest.mark.parametrize("N,bins,D", ROWBLOCK_SHAPES)
+def test_rowblock_plan_covers_rows_and_bins_once(N, bins, D):
+    plan = vq_cuda.nearest_plan(N, bins, D, H100_SMS)
+    assert (plan.route, plan.rows) == ("rowblock", vq_cuda.K1R_ROWS)
+    _covers_once(plan.row_ranges(), N)
+    _covers_once(plan.bin_ranges(), bins)
+    assert plan.row_tiles == -(-N // 128)
+    assert 1 <= plan.cluster <= vq_cuda.K1_MAX_CLUSTER
+    # the launch's own check (vq_rowblock_launch): no CTA without bins
+    assert (plan.cluster - 1) * plan.bins_per_cta < bins <= (
+        plan.cluster * plan.bins_per_cta)
+    assert plan.smem_bytes == vq_cuda.rowblock_smem_bytes() <= SMEM_PER_BLOCK
+    assert vq_cuda.SMEM_PER_SM // (plan.smem_bytes + vq_cuda.SMEM_RESERVED) \
+        >= vq_cuda.K1R_CTAS_PER_SM
+    # the cluster size is the cheapest in waves x bin tiles, the smallest
+    # of those
+    for c in range(1, plan.cluster):
+        per = -(-bins // c)
+        other = vq_cuda.SearchPlan(N, bins, plan.row_tiles, c, per,
+                                   plan.smem_bytes, "rowblock", 128)
+        assert _rowblock_cost(other) > _rowblock_cost(plan)
+
+
+def test_rowblock_route_at_the_training_shapes():
+    # (row blocks, cluster, bins per CTA): one wave of 120 single CTAs at
+    # N=15,360; the 180 blocks at N=23,040 split in two (3 waves of half
+    # the bins, not 2 of all of them); 900 blocks at N=115,200 alone
+    want = {(15_360, 1024): (120, 1, 1024), (23_040, 512): (180, 2, 256),
+            (115_200, 512): (900, 1, 512), (23_040, 256): (180, 2, 128)}
+    for (N, bins), got in want.items():
+        plan = vq_cuda.nearest_plan(N, bins, 256, H100_SMS)
+        assert plan.route == "rowblock"
+        assert (plan.row_tiles, plan.cluster, plan.bins_per_cta) == got
+    assert vq_cuda.nearest_plan(100_000, 1024, 128,
+                                H100_SMS).route == "rowblock"
+
+
+@pytest.mark.parametrize("D,first", [(128, 4_225), (256, 2_113)])
+def test_nearest_plan_switches_route_where_the_split_is_one(D, first):
+    # the cluster route while its 32-row tiles leave room for two CTAs
+    # each in a wave of slots (2 per SM at D=128, 1 at D=256); from there
+    # on, where the split would be C=1, the row-block route
+    below = vq_cuda.nearest_plan(first - 1, 1024, D, H100_SMS)
+    assert below.route == "cluster" and below.cluster == 2
+    assert vq_cuda.nearest_plan(first, 1024, D, H100_SMS).route == "rowblock"
+    split = vq_cuda._split_plan("K1", first, 1024, D, H100_SMS,
+                                vq_cuda.nearest_smem_bytes(D))
+    assert split.cluster == 1
+    for N in range(first - 300, first + 300, 37):
+        plan = vq_cuda.nearest_plan(N, 1024, D, H100_SMS)
+        assert (plan.route == "rowblock") == (N >= first)
+
+
+def test_rowblock_smem_layout_and_thread_maps():
+    # the ring of k-slabs (128 rows + 128 bins, 32 columns padded to 36),
+    # |x|^2 and |e|^2 [128] each, best, idx, runner-up [128] each
+    ld = vq_cuda.K1R_SLAB + 4
+    assert ld % 4 == 0 and (ld // 4) % 2 == 1
+    assert vq_cuda.rowblock_smem_bytes() == (
+        4 * 256 * ld + 128 + 128 + 3 * 128) * 4 == 150_016
+    # thread tid of 256: bin group (warp & 1) * 8 + (lane & 7), row group
+    # (warp >> 1) * 4 + (lane >> 3); rows rg + 16 i, bins bg + 16 q
+    tid = np.arange(vq_cuda.K1R_THREADS)
+    lane, warp = tid & 31, tid >> 5
+    bg = (warp & 1) * 8 + (lane & 7)
+    rg = (warp >> 1) * 4 + (lane >> 3)
+    pairs = {(r + 16 * i, b + 16 * q) for r, b in zip(rg, bg)
+             for i in range(8) for q in range(8)}
+    assert pairs == {(r, b) for r in range(128) for b in range(128)}
+    # each LDS.128 of a warp: 4 consecutive rows, 8 consecutive bins, in
+    # distinct 16-byte bank groups of the padded stride
+    for w in range(8):
+        rows, bins_ = set(rg[warp == w]), set(bg[warp == w])
+        assert len({(r * ld // 4) % 8 for r in rows}) == 4
+        assert len({(b * ld // 4) % 8 for b in bins_}) == 8
+    # the 16-byte copy map: thread tid copies columns 4 (tid & 7) .. +3 of
+    # rows (tid >> 3) + 32 v, v < 4, of both the x and the e slab
+    chunks = {((t >> 3) + 32 * v, t & 7) for t in tid for v in range(4)}
+    assert chunks == {(r, c) for r in range(128) for c in range(8)}
+    # the 4-byte map: column lane of rows warp + 8 v, v < 16
+    elems = {(w + 8 * v, ln) for w, ln in zip(warp, lane) for v in range(16)}
+    assert elems == {(r, c) for r in range(128) for c in range(32)}
+
+
+def test_k1_route_choice_is_private_and_the_cpu_runs_the_twin():
+    import torch
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(300, 16).astype(np.float32))
+    e = torch.from_numpy(rng.randn(40, 16).astype(np.float32))
+    want = vq_cuda.nearest_codebook_plain(x, e, return_score=True)
+    for route in (None, "cluster", "rowblock"):
+        got = vq_cuda.nearest_codebook(x, e, True, _route=route)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    for route in ("cluster", "rowblock"):
+        plan = vq_cuda._route_plan(route, 300, 40, 16, H100_SMS)
+        assert plan.route == route
+    with pytest.raises(ValueError):
+        vq_cuda._route_plan("fallback", 300, 40, 16, H100_SMS)
+
+
+@pytest.mark.parametrize("N,bins,D", [(100_000, 1024, 353), (100_000, 0, 128),
+                                      (100_000, 1024, 0), (-1, 1024, 256),
+                                      (100_000, 1024, 4096)])
+def test_rowblock_route_refuses_what_the_kernels_cannot_take(N, bins, D):
+    with pytest.raises(ValueError):
+        vq_cuda.nearest_plan(N, bins, D, H100_SMS)
+    with pytest.raises(ValueError):
+        vq_cuda._route_plan("rowblock", N, bins, D, H100_SMS)
 
 
 SHAPES = [(750, 1024, 128), (3000, 1024, 128), (751, 1024, 128), (37, 100, 48),
