@@ -66,14 +66,19 @@ Phases, in order (any failure exits non-zero before the last line):
    share);
 12. `params/hires_tokens.yaml`'s model (H=256, T=14,400 steps per 4 h
    night) from the port's copy of the file: one night, K3 ms per layer;
-13. K3's backward kernel (`csrc/lstm_bwd.cu`) and the saving forward per
-   layer, from a given state, at H=1024 with B=1 and 32 (T=480), H=512
-   (B=4, T=750) and H=256 (B=1, T=14,400), each with its plan (rows and
-   columns per thread, the partial sums' buffer, registers; no spill):
+13. K3's backward kernels and the saving forward per layer, from a given
+   state: the grid backward (`csrc/lstm_bwd.cu`) at H=1024 with B=1 and
+   32 (T=480), the cluster backward (`csrc/lstm_bwd_cluster.cu`) at H=512
+   (B=4, T=750; the configs' B=8, T=1,440, two sequences per cluster) and
+   H=256 (B=1, T=14,400), each with its plan (the grid's rows and columns
+   per thread, partial sums' buffer and registers, no spill; the cluster's
+   clusters, sequences per cluster, waves, register/shared split of W_hh's
+   columns, summation order, registers and local bytes):
    the saving forward's `out` bit-equal to the plain launch's, dxp, dh0
    and dc0 within 1e-4 and dW_hh within 1e-3 of the largest |value| of the
-   plain twin's `torch.autograd.grad`, and at B=32 every sequence's
-   gradients alone equal to its row of the batch, bit for bit; device ms
+   plain twin's `torch.autograd.grad`, and for B > 1 every sequence's
+   gradients alone (at H <= 512 its saving forward too) equal to its row
+   of the batch, bit for bit; device ms
    of the saving forward beside cuDNN's LSTM forward with gradients on,
    the backward kernel beside its own bound (the recurrent product), the
    plain backward, and the layer's backward (the kernel and its two
@@ -280,13 +285,16 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-# The port's kernels by name, and the launch counter that counts each
+# The port's kernels by name, and the launch counter that counts each (a
+# name stands for every kernel whose name holds it: each template's
+# instantiations)
 OWN_KERNELS = {"vq_nearest_kernel": "nearest_cluster",
                "vq_nearest_rowblock_kernel": "nearest_rowblock",
                "vq_rvq_kernel": "rvq_encode_fused",
                "lstm_scan_kernel": "lstm_cluster",
                "lstm_grid_kernel": "lstm_grid",
-               "lstm_bwd_kernel": "lstm_scan_backward",
+               "lstm_bwd_kernel": "lstm_bwd_grid",
+               "lstm_bwd_cluster_kernel": "lstm_bwd_cluster",
                "ac_head_pull_kernel": "ac_head_pull"}
 PROFILE_WINDOWS = 20     # windows tried before a measurement fails
 PROFILE_EDGE_S = 0.05    # host time between a window's edges and its work
@@ -302,6 +310,7 @@ def own_launches() -> dict:
     c = launch_counts(kernels)
     c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
     c["nearest_cluster"] = c["nearest_codebook"] - c["nearest_rowblock"]
+    c["lstm_bwd_grid"] = c["lstm_scan_backward"] - c["lstm_bwd_cluster"]
     return {name: c[counter] for name, counter in OWN_KERNELS.items()}
 
 
@@ -662,22 +671,38 @@ def k3_plan_line(torch, dev, H):
 
     lib = build.load_library("lstm_scan")
     n_max = lstm_cuda.max_active_clusters(H, dev)
-    plan = lstm_cuda.lstm_plan(1, H, n_max)
-    attrs = []
+    plans = {seqs: lstm_cuda.lstm_plan(B, H, n_max)
+             for seqs, B in ((1, 1), (2, n_max + 1))}
+    attrs, local_b = {}, {}
+    for seqs, plan in plans.items():
+        check(plan.seqs_per_cluster == seqs
+              and lib.lstm_scan_smem_bytes(H, seqs) == plan.smem_bytes,
+              "K3 shared memory differs between the kernel and its plan")
+        for state in (0, 1, 2):
+            regs, local = ctypes.c_int(), ctypes.c_int()
+            build.check(lib, "lstm_scan", lib.lstm_scan_attributes(
+                H, state, seqs, ctypes.addressof(regs),
+                ctypes.addressof(local)))
+            attrs[state, seqs] = f"{regs.value} / {local.value} B"
+            local_b[state, seqs] = local.value
+    # two sequences per cluster must not spill more than one does
     for state in (0, 1, 2):
-        regs, local = ctypes.c_int(), ctypes.c_int()
-        build.check(lib, "lstm_scan", lib.lstm_scan_attributes(
-            H, state, ctypes.addressof(regs), ctypes.addressof(local)))
-        attrs.append(f"{regs.value} registers/thread ({local.value} B local)")
-    check(lib.lstm_scan_smem_bytes(H) == plan.smem_bytes,
-          "K3 shared memory differs between the kernel and its plan")
-    return (f"K3 plan H={H}: clusters of {plan.cluster} CTAs x "
-            f"{plan.units_per_cta} units, max active clusters {n_max}, "
-            f"{lstm_cuda.K3_THREADS} threads/CTA, zero state {attrs[0]}, "
-            f"from a state {attrs[1]}, saving every c (training) "
-            f"{attrs[2]}, {plan.smem_bytes} B shared "
-            f"memory/CTA; W_hh rows per CTA: {plan.reg_rows} in registers, "
-            f"{plan.smem_rows} in shared memory")
+        check(local_b[state, 2] <= local_b[state, 1],
+              f"K3 H={H} (state variant {state}): two sequences per cluster "
+              f"take {local_b[state, 2]} B of local memory, one "
+              f"{local_b[state, 1]} B")
+    p1, p2 = plans[1], plans[2]
+    return (f"K3 plan H={H}: clusters of {p1.cluster} CTAs x "
+            f"{p1.units_per_cta} units, max active clusters {n_max}, one "
+            f"sequence per cluster up to {n_max}, two above where cheaper "
+            f"({p2.n_clusters} clusters at B={p2.B}, {p2.waves} wave), "
+            f"{lstm_cuda.K3_THREADS} threads/CTA; registers/thread / local "
+            f"bytes, one / two sequences per cluster: zero state "
+            f"{attrs[0, 1]} / {attrs[0, 2]}, from a state {attrs[1, 1]} / "
+            f"{attrs[1, 2]}, saving every c (training) {attrs[2, 1]} / "
+            f"{attrs[2, 2]}; {p1.smem_bytes} / {p2.smem_bytes} B shared "
+            f"memory/CTA; W_hh rows per CTA: {p1.reg_rows} in registers, "
+            f"{p1.smem_rows} in shared memory")
 
 
 def lstm_yardstick(torch, w_hh, dev):
@@ -862,7 +887,8 @@ def phase_main_path(torch, kernels, dev):
     # its searches are too small for K1's row-block route
     for name, n in counts.items():
         check(n > 0 or name in ("lstm_grid", "lstm_scan_backward",
-                                "ac_head_pull", "nearest_rowblock"),
+                                "lstm_bwd_cluster", "ac_head_pull",
+                                "nearest_rowblock"),
               f"kernel {name} was never launched on the main path")
 
     # -- verification, not counted --------------------------------------
@@ -1049,7 +1075,8 @@ def phase_main_path_48(torch, kernels, dev):
     print(f"48 kHz path launches: {json.dumps(counts)}")
     for name, k in counts.items():
         check(k > 0 or name in ("lstm_grid", "lstm_scan_backward",
-                                "ac_head_pull", "nearest_rowblock"),
+                                "lstm_bwd_cluster", "ac_head_pull",
+                                "nearest_rowblock"),
               f"kernel {name} was never launched on the 48 kHz path")
 
     # -- verification, not counted --------------------------------------
@@ -1308,11 +1335,50 @@ def k3_grid_plan_line(torch, dev, H):
             f"{lstm_cuda.grid_max_batch(H)} sequences per launch")
 
 
+# The cluster backward's local memory per thread (its stack frame, spills
+# included) with one / two sequences per cluster, the most of any H: what
+# H=512 took on the H100 (255 registers; ptxas: 28 / 4 B spill stores).
+BWD_CLUSTER_LOCAL_BYTES = {1: 32, 2: 8}
+
+
 def k3_bwd_plan_line(torch, dev, B, H):
+    """The backward's plan at (B, H) by its route, its registers (the grid
+    backward must not spill, the cluster backward no more than it did when
+    measured) and its shared memory against the kernel's, and the launches
+    one call makes."""
     import ctypes
 
     from encodec_tpu_torch.kernels import build, lstm_cuda
 
+    if lstm_cuda.bwd_route(H) == "cluster":
+        lib = build.load_library("lstm_bwd_cluster")
+        n_max = lstm_cuda.max_bwd_clusters(H, dev)
+        plan = lstm_cuda.bwd_cluster_plan(B, H, n_max)
+        attrs = []
+        for seqs in (1, 2):
+            regs, local = ctypes.c_int(), ctypes.c_int()
+            build.check(lib, "lstm_bwd_cluster",
+                        lib.lstm_bwd_cluster_attributes(
+                            H, seqs, ctypes.addressof(regs),
+                            ctypes.addressof(local)))
+            check(local.value <= BWD_CLUSTER_LOCAL_BYTES[seqs],
+                  f"K3 cluster backward H={H}, {seqs} sequence(s) per "
+                  f"cluster: {local.value} B of local memory, more than the "
+                  f"{BWD_CLUSTER_LOCAL_BYTES[seqs]} B measured at H=512")
+            attrs.append(f"{regs.value} registers/thread ({local.value} B "
+                         f"local)")
+        check(lib.lstm_bwd_cluster_smem_bytes(H, plan.seqs_per_cluster)
+              == plan.smem_bytes, "K3 cluster backward shared memory "
+                                  "differs between the kernel and its plan")
+        return plan, 1, (
+            f"cluster backward plan: {plan.n_clusters} clusters (max active "
+            f"{n_max}) of {plan.cluster} CTAs x {plan.units_per_cta} units, "
+            f"{plan.seqs_per_cluster} sequence(s) per cluster, "
+            f"{plan.waves} wave(s), W_hh columns per CTA {plan.reg_rows} in "
+            f"registers / {plan.smem_rows} in shared memory, "
+            f"{plan.smem_bytes} B shared memory/CTA, dh summed as "
+            f"{plan.sum_order()}, one / two sequences per cluster "
+            f"{attrs[0]} / {attrs[1]}, 1 launch")
     lib = build.load_library("lstm_bwd")
     plan = lstm_cuda.bwd_plan(B, H, lstm_cuda.max_bwd_ctas(H, dev))
     regs, local = ctypes.c_int(), ctypes.c_int()
@@ -1323,8 +1389,8 @@ def k3_bwd_plan_line(torch, dev, B, H):
     check(lib.lstm_bwd_smem_bytes(plan.batch_per_launch, plan.ctas,
                                   plan.units_per_cta) == plan.smem_bytes,
           "K3 backward shared memory differs between the kernel and its plan")
-    return plan, (
-        f"plan {plan.ctas} CTAs x {plan.units_per_cta} units "
+    return plan, plan.n_launches, (
+        f"grid backward plan: {plan.ctas} CTAs x {plan.units_per_cta} units "
         f"({4 * plan.units_per_cta} W_hh rows x {lstm_cuda.BWD_COLS} columns "
         f"per thread), product batch tile {lstm_cuda.BWD_BATCH_TILE}, "
         f"{plan.n_launches} launch, {plan.smem_bytes} B shared memory/CTA, "
@@ -1644,15 +1710,19 @@ def phase_hires(torch, kernels, dev):
 
 
 def phase_k3_bwd(torch, kernels, dev):
-    """K3's backward kernel (`csrc/lstm_bwd.cu`) and the saving forward per
-    layer, from a given (h0, c0): H=1024 at B=1 and B=32 with T=480 (a 4 h
-    night of the breathing model; the training batch of 32 nights), H=512
-    at B=4, T=750 and H=256 at B=1, T=14,400 (hires_tokens). The saving
+    """K3's backward kernels and the saving forward per layer, from a given
+    (h0, c0): the grid backward (`csrc/lstm_bwd.cu`) at H=1024, B=1 and
+    B=32 with T=480 (a 4 h night of the breathing model; the training
+    batch of 32 nights); the cluster backward (`csrc/lstm_bwd_cluster.cu`)
+    at H=512, B=4, T=750, at the configs' B=8, T=1,440 (tokens_10s: two
+    sequences per cluster, one wave) and at H=256, B=1, T=14,400
+    (hires_tokens). The saving
     forward must give the plain launch's `out` bits; dxp, dh0 and dc0 must
     be within 1e-4 of the largest |value| of the plain twin's
     `torch.autograd.grad`, dW_hh within 1e-3 (a sum over B·T rows in
-    another order); at B=32 each sequence's backward alone must give its
-    row's bits. Device ms (torch.profiler, or CUDA events where no two
+    another order); for every B > 1 each sequence's backward alone must
+    give its row's bits, and at H <= 512 its saving forward alone too
+    (`out` and every c). Device ms (torch.profiler, or CUDA events where no two
     windows agree): the saving forward, the backward kernel, its two
     matmuls (pre-activations and dW_hh), the plain twin's backward; by CUDA
     events: cuDNN's LSTM forward with gradients on (beside the saving
@@ -1663,15 +1733,17 @@ def phase_k3_bwd(torch, kernels, dev):
     is bounded apart, by the three products and the bytes of xp, h, c, dy,
     W_hh, dxp and dW_hh, and held against cuDNN's backward, which also
     computes dx and dW_ih. No library call computes the kernel's function
-    alone, so its row has no `library_ms`. The JSON row is H=1024, B=32,
-    T=480."""
+    alone, so its rows have no `library_ms`. Returns the JSON rows of the
+    grid backward (H=1024, B=32, T=480) and of the cluster backward (H=512,
+    B=8, T=1,440)."""
+    from encodec_tpu_torch.kernels import lstm_cuda
     from encodec_tpu_torch.ops.lstm import LstmLayer
 
     rows = {}
     for B, T, H in ((1, 480, 1024), (32, 480, 1024), (4, 750, 512),
-                    (1, 14_400, 256)):
+                    (8, 1440, 512), (1, 14_400, 256)):
         t_shape = time.perf_counter()
-        plan, plan_text = k3_bwd_plan_line(torch, dev, B, H)
+        plan, n_launch, plan_text = k3_bwd_plan_line(torch, dev, B, H)
         w_hh = books(torch, (4 * H, H), 61, dev) / math.sqrt(6.0)  # ±1/√H
         xp = gauss(torch, (B, T, 4 * H), 62, dev, 1.0)
         h0 = torch.tanh(gauss(torch, (B, H), 63, dev, 1.0))
@@ -1691,7 +1763,7 @@ def phase_k3_bwd(torch, kernels, dev):
         before = kernels.lstm_scan_backward.launches
         y, _ = LstmLayer.apply(*leaves, False)
         got = torch.autograd.grad(y, leaves, dy)
-        check(kernels.lstm_scan_backward.launches == before + plan.n_launches,
+        check(kernels.lstm_scan_backward.launches == before + n_launch,
               f"K3 backward B={B} T={T} H={H} did not launch its plan")
         ref_leaves = [t.clone().requires_grad_(True)
                       for t in (xp, w_hh, h0, c0)]
@@ -1714,8 +1786,10 @@ def phase_k3_bwd(torch, kernels, dev):
         dgates, dh0, dc0 = kernels.lstm_scan_backward(pre, c_seq, dy, w_hh,
                                                       c0)
         slot_note = ""
-        if B > 1 and H == 1024:
-            # a sequence's bits do not depend on its slot or on B
+        if B > 1:
+            # a sequence's bits do not depend on its slot or on B (at H <=
+            # 512 B=8 runs two sequences per cluster, B=1 one)
+            cluster = lstm_cuda.bwd_route(H) == "cluster"
             for b in range(B):
                 one = slice(b, b + 1)
                 alone = kernels.lstm_scan_backward(pre[one], c_seq[one],
@@ -1724,9 +1798,17 @@ def phase_k3_bwd(torch, kernels, dev):
                           zip(alone, (dgates, dh0, dc0))),
                       f"K3 backward: sequence {b} alone differs from row {b} "
                       f"of the B={B} launch")
+                if cluster:
+                    fwd = kernels.lstm_scan(xp[one], w_hh, h0[one], c0[one],
+                                            save_c=True)
+                    check(torch.equal(fwd[0], out[one])
+                          and torch.equal(fwd[1], c_seq[one]),
+                          f"K3 saving forward: sequence {b} alone differs "
+                          f"from row {b} of the B={B} launch")
             slot_note = (f"; row b of the B={B} backward == the B=1 backward "
-                         "of sequence b, bit for bit (dgates, dh0, dc0), for "
-                         "every b")
+                         "of sequence b, bit for bit (dgates, dh0, dc0)"
+                         + (", and of the saving forward (out, every c)"
+                            if cluster else "") + ", for every b")
         timed = {}
         timed["fwd"] = device_or_event_ms(torch, lambda: kernels.lstm_scan(
             xp, w_hh, h0, c0, save_c=True), 3, "lstm_")
@@ -1801,7 +1883,7 @@ def phase_k3_bwd(torch, kernels, dev):
                              max_abs_err=abs_err)
         del xp, out, c_seq, plain_launch, pre, dgates, dh0, dc0, h_prev, dy
         torch.cuda.empty_cache()
-    return rows[32, 480, 1024]
+    return rows[32, 480, 1024], rows[8, 1440, 512]
 
 
 TRAIN_NIGHT = 4 * 36_000 + 600   # a 4 h crop with room to move
@@ -1855,6 +1937,7 @@ def cut_epochs(build):
 def train_group(name: str) -> str:
     """Kernel groups of a training step."""
     for group, key in (("K3 backward", "lstm_bwd_kernel"),
+                       ("K3 backward", "lstm_bwd_cluster_kernel"),
                        ("K3 forward", "lstm_grid_kernel"),
                        ("K3 forward", "lstm_scan_kernel"),
                        ("K1", "vq_nearest_kernel"),
@@ -2097,9 +2180,10 @@ def phase_train(torch, kernels, dev):
           and counts["nearest_rowblock"] > 0
           and counts["lstm_save"] == 4 * steps
           and counts["lstm_scan_backward"] == 4 * steps
+          and counts["lstm_bwd_cluster"] == 0
           and counts["lstm_grid"] == counts["lstm_scan"],
           f"the train path did not launch K1 (its row-block route), K2, the "
-          f"saving K3 and K3's backward as planned: {counts}")
+          f"saving K3 and K3's grid backward as planned: {counts}")
     k1_kmeans = counts["nearest_codebook"] - 8 * steps
     print(f"train path launches (B=32 with remat, a stand-in for default.yaml, "
           f"2 epochs, {steps} steps, 2 evals): "
@@ -2466,6 +2550,7 @@ def phase_gan(torch, kernels, dev):
           and counts["nearest_rowblock"] > 0
           and counts["lstm_save"] == 4 * steps
           and counts["lstm_scan_backward"] == 4 * steps
+          and counts["lstm_bwd_cluster"] == 0
           and counts["lstm_scan"] == 4 * (steps + n_disc + evals)
           and counts["lstm_grid"] == counts["lstm_scan"],
           f"the GAN path did not launch K1 (its row-block route), K2, the "
@@ -2703,6 +2788,8 @@ def config_k3_rows(torch, kernels, dev, seen: dict, label: str) -> tuple:
     the first steps (the kernel's own launch held on them), the backward
     the last (from the saved c before them; the launch's dgates held
     there), and their one-call times are scaled by T over the slice."""
+    from encodec_tpu_torch.kernels import lstm_cuda
+
     (xp, w_hh, *state), _ = seen["lstm_scan"]
     h0, c0 = (state + [None, None])[:2]
     B, T, H4 = xp.shape
@@ -2761,23 +2848,26 @@ def config_k3_rows(torch, kernels, dev, seen: dict, label: str) -> tuple:
                                + 2 * B * T * H) * 4)
     b_ms, b_by = bound(flops, (2 * B * T * 4 * H + 2 * B * T * H
                                + 4 * H * H + 3 * B * H) * 4)
-    print(f"K3 on {label}'s first LSTM layer (B={B}, T={T}, H={H}): saving "
-          f"forward max|d| {fwd_err:.3g} from its twin, backward "
-          f"{bwd_err:.3g} of the largest |value|; device ms: saving "
+    seqs = lstm_cuda.lstm_plan(B, H, lstm_cuda.max_active_clusters(
+        H, xp.device)).seqs_per_cluster
+    print(f"K3 on {label}'s first LSTM layer (B={B}, T={T}, H={H}; "
+          f"{seqs} sequence(s) per cluster): saving forward max|d| "
+          f"{fwd_err:.3g} from its twin, backward {bwd_err:.3g} of the "
+          f"largest |value|; device ms: saving "
           f"forward={fwd_ms:.4f} ({fwd_ms / T * 1e3:.3f} us/step; plain "
           f"{fwd_plain_ms:.4f}, CUDA events, one call; cuDNN LSTM forward "
           f"with gradients on {lib_ms:.4f}, CUDA events; bound {f_ms:.5f} "
-          f"({f_by})), backward kernel={bwd_ms:.4f} "
+          f"({f_by})), {lstm_cuda.bwd_route(H)} backward kernel={bwd_ms:.4f} "
           f"({bwd_ms / T * 1e3:.3f} us/step; plain {bwd_plain_ms:.4f}, CUDA "
           f"events, one call; bound {b_ms:.5f} ({b_by})); timed by "
           f"{how_f} / {how_b}{held_on}")
     shape = f"B={B}, T={T}, H={H}"
     return (dict(ms=fwd_ms, plain_ms=fwd_plain_ms, library_ms=lib_ms,
                  bound_ms=f_ms, bound_by=f_by, max_abs_err=fwd_err,
-                 shape=shape),
+                 shape=shape, k3_seqs=seqs),
             dict(ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=None,
                  bound_ms=b_ms, bound_by=b_by, max_abs_err=abs_bwd,
-                 shape=shape))
+                 shape=shape, k3_bwd_route=lstm_cuda.bwd_route(H)))
 
 
 def grad_gap(torch, a, b) -> tuple:
@@ -2987,11 +3077,15 @@ def config_run(torch, kernels, dev, name: str, data: Path, base: Path,
           f"{n_disc} discriminator steps")
     k3 = (counts["lstm_grid"] if H > 512
           else counts["lstm_scan"] - counts["lstm_grid"])
+    # the backward's route by H: the cluster kernel up to 512
+    bwd = (counts["lstm_scan_backward"] - counts["lstm_bwd_cluster"]
+           if H > 512 else counts["lstm_bwd_cluster"])
     check(counts["nearest_codebook"] > 0 and counts["rvq_encode_fused"] > 0
           and k3 > 0 and counts["lstm_save"] == 4 * steps
-          and counts["lstm_scan_backward"] > 0,
+          and counts["lstm_scan_backward"] > 0
+          and bwd == counts["lstm_scan_backward"],
           f"configs {name}: the path did not launch K1, K2, K3 (saving "
-          f"forward and backward) as planned: {counts}")
+          f"forward and the backward of its route) as planned: {counts}")
     standin = (f" with {overrides}, a stand-in departing from the config, "
                "whose own batch does not fit the card" if overrides else
                ", as written")
@@ -5472,10 +5566,11 @@ def phase_precision(torch, kernels, dev, model, registry):
 
 
 def launch_counts(kernels) -> dict:
-    """The wrappers' launch counts, and those of K3's grid kernel and K1's
-    row-block route."""
+    """The wrappers' launch counts, and those of K3's grid kernel, K3's
+    cluster backward and K1's row-block route."""
     return dict(kernels.launch_counts(),
                 lstm_grid=kernels.lstm_scan.grid_launches,
+                lstm_bwd_cluster=kernels.lstm_scan_backward.cluster_launches,
                 nearest_rowblock=kernels.nearest_codebook.rowblock_launches)
 
 
@@ -5483,6 +5578,7 @@ KERNEL_GROUPS = (("K2", "vq_rvq_kernel"), ("K1", "vq_nearest_kernel"),
                  ("K1", "vq_nearest_rowblock_kernel"),
                  ("K3", "lstm_scan_kernel"), ("K3", "lstm_grid_kernel"),
                  ("K3 backward", "lstm_bwd_kernel"),
+                 ("K3 backward", "lstm_bwd_cluster_kernel"),
                  ("AC", "ac_head_pull_kernel"))
 
 
@@ -5664,7 +5760,8 @@ def main() -> int:
     counts_breathing = timed("breathing", phase_breathing, torch, kernels,
                              dev)
     counts_hires = timed("hires", phase_hires, torch, kernels, dev)
-    k3_bwd = timed("K3 backward", phase_k3_bwd, torch, kernels, dev)
+    k3_bwd, k3_bwd_cluster = timed("K3 backward", phase_k3_bwd, torch,
+                                   kernels, dev)
     counts_train, train_tmp, train_run, k1_train = timed(
         "train", phase_train, torch, kernels, dev)
     counts_gan = timed("gan", phase_gan, torch, kernels, dev)
@@ -5697,9 +5794,11 @@ def main() -> int:
     paths["precision_high_fast"] = counts_prec
     for cfg_name, c in counts_cfg.items():
         paths[f"configs_{cfg_name}"] = c
-    for c in paths.values():   # lstm_scan and nearest_codebook count both
+    for c in paths.values():   # lstm_scan, nearest_codebook and
+        # lstm_scan_backward count both of their kernels
         c["lstm_cluster"] = c["lstm_scan"] - c["lstm_grid"]
         c["nearest_cluster"] = c["nearest_codebook"] - c["nearest_rowblock"]
+        c["lstm_bwd_grid"] = c["lstm_scan_backward"] - c["lstm_bwd_cluster"]
     rows = [
         ("K1 nearest_codebook (cluster route)", "vq_search.cu",
          "kernels/vq_pallas.py:43", "nearest_cluster", k1),
@@ -5713,8 +5812,11 @@ def main() -> int:
         ("K3 lstm_scan (grid kernel, 512 < H <= 1024)", "lstm_grid.cu",
          "kernels/lstm_pallas.py:55", "lstm_grid", k3_grid),
         # no TPU kernel: JAX's trainer differentiates the LSTM's lax.scan
-        ("K3 lstm_scan_backward (backward kernel, H <= 1024)", "lstm_bwd.cu",
-         "ops/lstm.py:56-72", "lstm_scan_backward", k3_bwd),
+        ("K3 lstm_scan_backward (grid backward, 512 < H <= 1024)",
+         "lstm_bwd.cu", "ops/lstm.py:56-72", "lstm_bwd_grid", k3_bwd),
+        ("K3 lstm_scan_backward (cluster backward, H <= 512), B=8, T=1440, "
+         "H=512", "lstm_bwd_cluster.cu", "ops/lstm.py:56-72",
+         "lstm_bwd_cluster", k3_bwd_cluster),
         # no TPU kernel: JAX runs its CDF head and scans the range decoder
         # in XLA
         ("AC ac_head_pull", "ac_decode.cu",
@@ -5731,14 +5833,22 @@ def main() -> int:
              "lstm_scan_backward", "K3 lstm_scan_backward")):
         for cfg_name, m in cfg_rows[kind]:
             m = dict(m)
-            name, counter = label, fn
+            name, counter, source = label, fn, src
             if kind == "K1":   # the route its plan took, and that counter
                 route = m.pop("k1_route")
                 counter = f"nearest_{route}"
                 name = (f"{label} (row-block route)" if route == "rowblock"
                         else f"{label} (cluster route)")
-            rows.append((f"{name}, {m.pop('shape')} ({cfg_name}.yaml)", src,
-                         rep, counter, m))
+            if kind == "K3 backward":   # the same for the backward
+                route = m.pop("k3_bwd_route")
+                counter = f"lstm_bwd_{route}"
+                name = f"{label} ({route} backward)"
+                source = ("lstm_bwd_cluster.cu" if route == "cluster"
+                          else "lstm_bwd.cu")
+            if kind == "K3 forward":
+                name = f"{label}, {m.pop('k3_seqs')} sequence(s) per cluster"
+            rows.append((f"{name}, {m.pop('shape')} ({cfg_name}.yaml)",
+                         source, rep, counter, m))
     print(json.dumps({"kernels": [
         {"name": n, "route": "cuda",
          "source": f"encodec_tpu_torch/kernels/csrc/{src}",

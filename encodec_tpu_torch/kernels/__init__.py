@@ -6,7 +6,8 @@
 | `rvq_encode_fused` (K2) | `vq_pallas.py::rvq_encode_pallas` | `csrc/vq_search.cu` |
 | `lstm_scan` (K3) | `lstm_pallas.py::lstm_scan_pallas` | `csrc/lstm_scan.cu` (H ≤ 512), |
 | | | `csrc/lstm_grid.cu` (512 < H ≤ 1024) |
-| `lstm_scan_backward` (K3's gradient) | none (see below) | `csrc/lstm_bwd.cu` (H ≤ 1024) |
+| `lstm_scan_backward` (K3's gradient) | none (see below) | `csrc/lstm_bwd_cluster.cu` (H ≤ 512), |
+| | | `csrc/lstm_bwd.cu` (512 < H ≤ 1024) |
 | `ac_head_pull` (the range decoder and the LM's head) | none (see below) | `csrc/ac_decode.cu` |
 
 K3's backward has no TPU kernel to replace: the JAX trainer differentiates
@@ -21,7 +22,8 @@ for CUDA tensors (or raises); each counts its launches in `.launches`,
 second kernel, for large N),
 `lstm_scan.stateful_launches` counts K3's launches from a given `(h0, c0)`,
 `lstm_scan.grid_launches` those of K3's grid kernel and
-`lstm_scan.save_launches` those that saved every step's c for the backward.
+`lstm_scan.save_launches` those that saved every step's c for the backward,
+and `lstm_scan_backward.cluster_launches` those of K3's cluster backward.
 `ac_head_pull.launches` also counts the replays of the LM decode's CUDA
 graph, one launch each.
 """
@@ -51,6 +53,7 @@ def reset_launch_counts() -> None:
     lstm_scan.stateful_launches = 0  # type: ignore[attr-defined]
     lstm_scan.grid_launches = 0  # type: ignore[attr-defined]
     lstm_scan.save_launches = 0  # type: ignore[attr-defined]
+    lstm_scan_backward.cluster_launches = 0  # type: ignore[attr-defined]
 
 
 def launch_counts() -> dict:

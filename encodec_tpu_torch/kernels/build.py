@@ -3,8 +3,9 @@
 Each source compiles with `nvcc` for `sm_90a` into its own shared library
 with a plain C interface, loaded with `ctypes` — no PyTorch headers, so a
 build takes seconds. Libraries land in `_build/<hash>/` next to this file
-(listed in `.gitignore`), keyed by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one is reused within a checkout.
+(listed in `.gitignore`), keyed by a hash of the source, the shared
+headers (`csrc/*.cuh`) and the flags, so an edited source or header
+rebuilds and an unchanged one is reused within a checkout.
 
 Nothing is built at import time: `load_library` builds on first use, and
 `build_all` starts one `nvcc` per source in parallel (used by the smoke
@@ -43,15 +44,29 @@ SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
     },
     "lstm_scan": {
         "lstm_scan_launch": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _P], _I),
+                              _I, _I, _P], _I),
         "lstm_scan_max_clusters": ([_I, _I], _I),
-        "lstm_scan_attributes": ([_I, _I, _P, _P], _I),
-        "lstm_scan_smem_bytes": ([_I], _I),
+        "lstm_scan_attributes": ([_I, _I, _I, _P, _P], _I),
+        "lstm_scan_smem_bytes": ([_I, _I], _I),
         "lstm_scan_units_per_cta_max": ([], _I),
         "lstm_scan_max_cluster": ([], _I),
-        "lstm_scan_reg_rows": ([], _I),
+        "lstm_scan_reg_rows": ([_I], _I),
         "lstm_scan_threads": ([], _I),
+        "lstm_scan_max_seqs": ([], _I),
         "lstm_scan_error_string": ([_I], ctypes.c_char_p),
+    },
+    "lstm_bwd_cluster": {
+        "lstm_bwd_cluster_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                     _I, _I, _I, _I, _I, _I, _P], _I),
+        "lstm_bwd_cluster_max_clusters": ([_I, _I], _I),
+        "lstm_bwd_cluster_attributes": ([_I, _I, _P, _P], _I),
+        "lstm_bwd_cluster_smem_bytes": ([_I, _I], _I),
+        "lstm_bwd_cluster_units_per_cta_max": ([], _I),
+        "lstm_bwd_cluster_max_cluster": ([], _I),
+        "lstm_bwd_cluster_reg_rows": ([_I], _I),
+        "lstm_bwd_cluster_threads": ([], _I),
+        "lstm_bwd_cluster_max_seqs": ([], _I),
+        "lstm_bwd_cluster_error_string": ([_I], ctypes.c_char_p),
     },
     "lstm_grid": {
         "lstm_grid_launch": ([_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -77,6 +92,7 @@ SIGNATURES: tp.Dict[str, tp.Dict[str, tp.Tuple[list, tp.Any]]] = {
         "lstm_bwd_smem_bytes": ([_I, _I, _I], _I),
         "lstm_bwd_threads": ([], _I),
         "lstm_bwd_max_units": ([], _I),
+        "lstm_bwd_min_units": ([], _I),
         "lstm_bwd_cols": ([], _I),
         "lstm_bwd_batch_tile": ([], _I),
         "lstm_bwd_max_h": ([], _I),
@@ -137,6 +153,8 @@ def _lib_path(name: str) -> Path:
     if not src.exists():
         raise KernelBuildError(f"missing kernel source {src}")
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):   # what the sources include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / h.hexdigest()[:16] / f"lib{name}.so"
 

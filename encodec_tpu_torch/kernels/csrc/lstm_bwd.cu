@@ -1,4 +1,5 @@
-// LSTM recurrence backward for Hopper (sm_90a): K3's backward kernel.
+// LSTM recurrence backward for Hopper (sm_90a): K3's grid backward kernel,
+// 512 < H <= 1024 (H <= 512 is lstm_bwd_cluster.cu's).
 //
 // The TPU kernel (encodec_tpu/kernels/lstm_pallas.py:55 lstm_scan_pallas)
 // is forward-only: the JAX trainer differentiates the `lax.scan` of
@@ -23,7 +24,8 @@
 // and the step's exchange crosses SMs through L2.
 //
 // Design: a persistent cooperative grid of G CTAs, one per SM.
-// - CTA g owns hidden units [g*U, g*U+U), U = ceil(H / SMs) <= 8, and holds
+// - CTA g owns hidden units [g*U, g*U+U), U = ceil(H / min(SMs, 128)),
+//   5 <= U <= 8 (H > 512 on at most 128 CTAs), and holds
 //   their 4U gate ROWS of W_hh (CTA row q = gate q / U of unit u0 + q % U,
 //   as in the forward): thread x keeps every row at columns k = x and
 //   x + 512 (64 registers at U = 8).
@@ -70,6 +72,9 @@ constexpr int COLS = 2;                             // columns per thread
 constexpr int MAX_H = COLS * THREADS;               // 1024
 constexpr int BATCH_TILE = 4;                       // sequences per product
 constexpr int MAX_CTAS = 128;
+constexpr int CLUSTER_MAX_H = 512;                  // lstm_bwd_cluster.cu's
+// the fewest units per CTA above that: ceil(513 / MAX_CTAS)
+constexpr int MIN_UNITS = CLUSTER_MAX_H / MAX_CTAS + 1;   // 5
 constexpr int CELL_INPUTS = 8;                      // pre (4), c, c', dy, dh
 constexpr int CHAINS = 16;                          // of a cell's partial sum
 constexpr uint32_t SPIN_LIMIT = 1u << 24;
@@ -398,18 +403,14 @@ int attributes(int* regs, int* local_bytes) {
 }
 
 bool valid(int B, int G, int U) {
-  return B >= 1 && U >= 1 && U <= MAX_UNITS && B * U <= THREADS && G >= 1 &&
-         G <= MAX_CTAS && smem_bytes(B, G, U) <= SMEM_LIMIT;
+  return B >= 1 && U >= MIN_UNITS && U <= MAX_UNITS && B * U <= THREADS &&
+         G >= 1 && G <= MAX_CTAS && smem_bytes(B, G, U) <= SMEM_LIMIT;
 }
 
 }  // namespace
 
 #define LSTM_BWD_BY_UNITS(CALL) \
   switch (U) {                  \
-    case 1: return CALL(1);     \
-    case 2: return CALL(2);     \
-    case 3: return CALL(3);     \
-    case 4: return CALL(4);     \
     case 5: return CALL(5);     \
     case 6: return CALL(6);     \
     case 7: return CALL(7);     \
@@ -426,6 +427,7 @@ const char* lstm_bwd_error_string(int err) {
 // Layout constants, for the wrapper's plan and its checks.
 int lstm_bwd_threads() { return THREADS; }
 int lstm_bwd_max_units() { return MAX_UNITS; }
+int lstm_bwd_min_units() { return MIN_UNITS; }
 int lstm_bwd_cols() { return COLS; }
 int lstm_bwd_batch_tile() { return BATCH_TILE; }
 int lstm_bwd_max_h() { return MAX_H; }
@@ -445,7 +447,8 @@ int lstm_bwd_max_ctas(int U, int B, int G) {
   return -static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Registers per thread and local (spill) bytes of the kernel for U units.
+// Registers per thread and local (spill) bytes of the kernel for U units
+// (MIN_UNITS <= U <= MAX_UNITS).
 int lstm_bwd_attributes(int U, int* regs, int* local_bytes) {
 #define CALL(N) attributes<N>(regs, local_bytes)
   LSTM_BWD_BY_UNITS(CALL)
@@ -461,15 +464,16 @@ int lstm_bwd_attributes(int U, int* regs, int* local_bytes) {
 // written); part: 16-byte aligned scratch of 2 x G x B x SB f32 (SB = G*U
 // rounded up to a multiple of 4); counter: one zeroed uint32 on the
 // device; both used by this launch only. The plan: G CTAs, CTA g
-// owning units [g*U, g*U+U).
+// owning units [g*U, g*U+U); 512 < H <= 1024.
 int lstm_bwd_launch(const float* pre, const float* c_seq, const float* c0,
                     const float* dy, const float* dc_last, const float* w_hh,
                     float* dgates, float* dh0, float* dc0, float* part,
                     unsigned* counter, int B, int T, int H, int U, int G,
                     void* stream) {
   if (T == 0) return 0;
-  if (H < 1 || H > MAX_H || !valid(B, G, U) || (long long)G * U < H ||
-      (long long)(G - 1) * U >= H || counter == nullptr ||
+  if (H <= CLUSTER_MAX_H || H > MAX_H || !valid(B, G, U) ||
+      (long long)G * U < H || (long long)(G - 1) * U >= H ||
+      counter == nullptr ||
       reinterpret_cast<uintptr_t>(part) % 16 != 0)
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

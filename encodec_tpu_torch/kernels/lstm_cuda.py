@@ -12,7 +12,10 @@ picks one by the hidden size:
   and send each step's h slice straight into every CTA's shared memory
   (`st.async` counted on the receiver's mbarrier): no grid-wide barrier,
   no L2 round trip. Sequences spread over as many clusters as the card
-  holds at once.
+  holds at once (7 at H=512 on an H100); above that count each cluster
+  steps two sequences together (one pass over the weights feeds both)
+  where that costs less than another wave of one (`cluster_batch`), so
+  B ≤ 14 runs in one wave.
 - 512 < H ≤ 1024 (`GRID_MAX_H`), the grid kernel (`csrc/lstm_grid.cu`,
   laid out by `grid_plan`): W_hh (16 MiB at H=1024) is more than any
   cluster holds, so one cooperative grid of one CTA per SM splits the
@@ -33,16 +36,26 @@ Training (`save_c=True`) runs a third compile-time variant of either
 kernel that also stores every step's c `[B, T, H]` for the backward; its
 `out` has the plain launch's bits.
 
-The backward, `lstm_scan_backward`, is a kernel of its own
-(`csrc/lstm_bwd.cu`, laid out by `bwd_plan`): the JAX package has no TPU
-kernel for it (its trainer differentiates the `lax.scan` of
-`encodec_tpu/ops/lstm.py:56-72`, and XLA runs the VJP). One cooperative
-grid of one CTA per SM runs the reverse recurrence for 1 ≤ H ≤ 1024, each
-CTA holding the gate rows of W_hh of its hidden units, writing its rows'
-products with dgates_t as partial sums to L2 and adding the partials of
-its own units after one grid barrier per step; its plain twin is
-`lstm_scan_backward_plain`. `ops.lstm` ties the two directions together in
-a `torch.autograd.Function`.
+The backward, `lstm_scan_backward`, has kernels of its own: the JAX
+package has no TPU kernel for it (its trainer differentiates the
+`lax.scan` of `encodec_tpu/ops/lstm.py:56-72`, and XLA runs the VJP). It
+picks one by H, as `lstm_scan` does:
+
+- H ≤ 512, the cluster backward (`csrc/lstm_bwd_cluster.cu`, laid out by
+  `bwd_cluster_plan`): the forward's cluster design transposed. CTA r of
+  a cluster holds the 4H × U slab of W_hh's columns of its units; each
+  step every CTA sends its units' dgates_t to every CTA's shared memory
+  (`st.async`), and each forms dh for its own units from the whole
+  dgates vector. Sequences per cluster as in the forward
+  (`cluster_batch`).
+- 512 < H ≤ 1024, the grid backward (`csrc/lstm_bwd.cu`, laid out by
+  `bwd_plan`): one cooperative grid of one CTA per SM, each CTA holding
+  the gate rows of W_hh of its hidden units, writing its rows' products
+  with dgates_t as partial sums to L2 and adding the partials of its own
+  units after one grid barrier per step.
+
+Their plain twin is `lstm_scan_backward_plain`. `ops.lstm` ties the two
+directions together in a `torch.autograd.Function`.
 
 `lstm_scan` and `lstm_scan_backward` are the entry points: for CPU tensors
 they run the plain PyTorch twins; for CUDA tensors they launch a kernel or
@@ -50,7 +63,8 @@ raise — there is no fallback. `lstm_scan.launches` counts forward launches
 of both kernels, `lstm_scan.stateful_launches` those that started from a
 given state, `lstm_scan.grid_launches` those of the grid kernel and
 `lstm_scan.save_launches` the saving ones; `lstm_scan_backward.launches`
-counts backward launches. A CUDA call of `lstm_scan` whose inputs need a
+counts backward launches and `lstm_scan_backward.cluster_launches` those
+of the cluster backward. A CUDA call of `lstm_scan` whose inputs need a
 gradient raises: the kernel's output carries none.
 """
 
@@ -76,6 +90,11 @@ K3_REG_ROWS = 12                             # of each warp's 16 rows
 K3_KCHUNK = 128                              # k covered by a float4 per lane
 K3_MAX_H = 4 * K3_KCHUNK
 K3_MAX_CLUSTER = 16                          # non-portable above 8
+K3_MAX_SEQS = 2                              # sequences side by side per cluster
+# a step of two sequences side by side, in steps of one, at H=512 on an
+# H100 (PERF.md §6): what `cluster_batch` weighs a round of two by
+K3_PAIR_STEP = 1.70                          # the forward
+K3_BWD_PAIR_STEP = 1.56                      # the cluster backward
 
 # The grid kernel's layout; `csrc/lstm_grid.cu` reports the same numbers
 # (lstm_grid_threads, _max_units, _lane_rows, _lane_k, _batch_tile,
@@ -97,8 +116,15 @@ GRID_FENCED_BATCH = 10                       # from here: a barrier per step
 # lanes are paired in this order whatever the batch tile
 BUTTERFLY = (16, 8, 4, 2, 1)
 
-# The backward kernel's layout; `csrc/lstm_bwd.cu` reports the same numbers
-# (lstm_bwd_threads, _max_units, _cols, _batch_tile, _max_h,
+# The cluster backward's layout (H ≤ 512) is the cluster kernel's: 8 warps
+# of 4 units, each warp's 16 rows (the W_hh columns of its units in each
+# gate block) split between registers and shared memory as `k3_reg_rows`
+# says, k in float4 slices of 128; `csrc/lstm_bwd_cluster.cu` reports the
+# same numbers (lstm_bwd_cluster_units_per_cta_max, _max_cluster,
+# _reg_rows, _threads, _max_seqs, _smem_bytes).
+
+# The grid backward's layout; `csrc/lstm_bwd.cu` reports the same numbers
+# (lstm_bwd_threads, _max_units, _min_units, _cols, _batch_tile, _max_h,
 # _max_ctas_limit, _smem_bytes). Thread x holds the CTA's
 # 4U gate rows of W_hh at columns x and x + 512.
 BWD_WARPS = 16
@@ -108,8 +134,17 @@ BWD_COLS = 2                                 # W_hh columns per thread
 BWD_BATCH_TILE = 4                           # sequences per product pass
 BWD_MAX_H = BWD_COLS * BWD_THREADS           # 1024
 BWD_MAX_CTAS = 128                           # CTAs of one launch
+BWD_MIN_UNITS = K3_MAX_H // BWD_MAX_CTAS + 1  # H > 512 on ≤ 128 CTAs: 5
 BWD_CELL_INPUTS = 8                          # a cell's pre (4), c, c_prev, dy, dh
 BWD_CHAINS = 16                              # of a cell's sum of partials
+
+
+def k3_reg_rows(seqs: int) -> int:
+    """W_hh rows per warp a cluster kernel (forward or backward) holds in
+    registers: 12 of 16 with one sequence per cluster; with two, their
+    accumulators take the registers of two rows, which move to shared
+    memory."""
+    return K3_REG_ROWS if seqs == 1 else K3_REG_ROWS - 2
 
 
 def lstm_cell(h: torch.Tensor, c: torch.Tensor, gates: torch.Tensor
@@ -195,20 +230,16 @@ def lstm_scan_backward_plain(pre: torch.Tensor, c_seq: torch.Tensor,
     return dgates, dh0, dc
 
 
-@dataclasses.dataclass(frozen=True)
-class LstmPlan:
-    """K3's launch: `n_clusters` clusters of `cluster` CTAs; CTA r owns
-    hidden units `[r·units_per_cta, (r+1)·units_per_cta)` ∩ `[0, H)`, and
-    cluster k runs batch items k, k + n_clusters, ..."""
+class _ClusterBatch:
+    """The batch of a cluster kernel's launch: cluster k takes batch items
+    k, k + n_clusters, ... and runs them `seqs_per_cluster` side by side,
+    in rounds (slot j of a round takes the round's j-th item)."""
     B: int
     H: int
     cluster: int
     units_per_cta: int
+    seqs_per_cluster: int
     n_clusters: int
-    k_chunks: int
-    reg_rows: int     # W_hh rows per CTA held in registers
-    smem_rows: int    # W_hh rows per CTA held in shared memory
-    smem_bytes: int
 
     def unit_ranges(self) -> tp.List[tp.Tuple[int, int]]:
         u = self.units_per_cta
@@ -218,14 +249,74 @@ class LstmPlan:
         return [list(range(k, self.B, self.n_clusters))
                 for k in range(self.n_clusters)]
 
+    def rounds(self) -> tp.List[tp.List[tp.List[int]]]:
+        """Per cluster, its items in rounds of at most `seqs_per_cluster`."""
+        s = self.seqs_per_cluster
+        return [[items[i:i + s] for i in range(0, len(items), s)]
+                for items in self.batch_items()]
 
-def lstm_smem_bytes(H: int) -> int:
-    """Dynamic shared memory of one K3 CTA: its shared W_hh rows and two h
-    buffers, each zero-padded to a multiple of 128 floats, and the two
-    buffers' mbarriers."""
+    @property
+    def waves(self) -> int:
+        """Rounds of the busiest cluster: T steps each (with all its
+        clusters resident at once, the launch's time in units of one
+        round)."""
+        return max(len(r) for r in self.rounds())
+
+
+@dataclasses.dataclass(frozen=True)
+class LstmPlan(_ClusterBatch):
+    """K3's launch: `n_clusters` clusters of `cluster` CTAs; CTA r owns
+    hidden units `[r·units_per_cta, (r+1)·units_per_cta)` ∩ `[0, H)`, and
+    cluster k runs batch items k, k + n_clusters, ..., `seqs_per_cluster`
+    side by side (`rounds`)."""
+    B: int
+    H: int
+    cluster: int
+    units_per_cta: int
+    seqs_per_cluster: int
+    n_clusters: int
+    k_chunks: int
+    reg_rows: int     # W_hh rows per CTA held in registers
+    smem_rows: int    # W_hh rows per CTA held in shared memory
+    smem_bytes: int
+
+
+def lstm_smem_bytes(H: int, seqs: int = 1) -> int:
+    """Dynamic shared memory of one K3 CTA: its shared W_hh rows and, per
+    sequence slot, two h buffers, each zero-padded to a multiple of 128
+    floats, and the two buffers' mbarriers."""
     hp = -(-H // K3_KCHUNK) * K3_KCHUNK
-    smem_rows = K3_WARPS * (K3_ROWS_PER_WARP - K3_REG_ROWS)
-    return (smem_rows + 2) * hp * 4 + 2 * 8
+    smem_rows = K3_WARPS * (K3_ROWS_PER_WARP - k3_reg_rows(seqs))
+    return (smem_rows + 2 * seqs) * hp * 4 + 2 * seqs * 8
+
+
+def _cluster_size(H: int) -> int:
+    """The smallest power-of-two cluster whose CTAs (≤ 32 units each)
+    cover H: 16 at H=512, 8 at H=200, 1 up to 32."""
+    cluster = 1
+    while cluster * K3_MAX_UNITS < H:
+        cluster *= 2
+    return cluster
+
+
+def cluster_batch(B: int, max_active_clusters: int,
+                  pair_step: float) -> tp.Tuple[int, int]:
+    """(sequences per cluster, clusters) of a cluster kernel's launch: one
+    sequence per cluster up to what the card holds at once; above it two
+    per cluster on ceil(B / 2) clusters, at most that count, where their
+    rounds at `pair_step` steps of one each cost less than ceil(B / count)
+    waves of one (a round whose second slot is idle costs a pair step
+    all the same). So B up to twice the count runs in one wave, and B
+    between twice and three times it (15-21 at H=512 on an H100) runs
+    three waves of one rather than two rounds of two."""
+    n = max_active_clusters
+    if B <= n:
+        return 1, max(1, B)
+    pairs = min(n, -(-B // K3_MAX_SEQS))
+    rounds = -(-(-(-B // pairs)) // K3_MAX_SEQS)
+    if rounds * pair_step < -(-B // n):
+        return K3_MAX_SEQS, pairs
+    return 1, n
 
 
 @dataclasses.dataclass(frozen=True)
@@ -337,25 +428,25 @@ def lstm_plan(B: int, H: int, max_active_clusters: int) -> LstmPlan:
     cluster whose CTAs (≤ 32 units each) cover H (H=512 → 16 CTAs of 32
     units; H=200 → 8 of 25), and one cluster per batch item up to what the
     card holds at once (`max_active_clusters`, from
-    `cudaOccupancyMaxActiveClusters` on the card). Above 512 the grid
-    kernel takes H (`grid_plan`)."""
+    `cudaOccupancyMaxActiveClusters` on the card), two per cluster above
+    it where that is cheaper (`cluster_batch`). Above 512 the grid kernel
+    takes H (`grid_plan`)."""
     if not 1 <= H <= K3_MAX_H:
         raise ValueError(f"the K3 cluster kernel takes 1 <= H <= {K3_MAX_H}, "
                          f"got {H}")
     if max_active_clusters < 1:
         raise RuntimeError("the card cannot hold one K3 cluster "
                            f"(max active clusters {max_active_clusters})")
-    cluster = 1
-    while cluster * K3_MAX_UNITS < H:
-        cluster *= 2
-    k_chunks = -(-H // K3_KCHUNK)
-    smem = lstm_smem_bytes(H)
+    cluster = _cluster_size(H)
+    seqs, n_clusters = cluster_batch(B, max_active_clusters, K3_PAIR_STEP)
+    smem = lstm_smem_bytes(H, seqs)
     assert smem <= SMEM_PER_BLOCK
     return LstmPlan(B=B, H=H, cluster=cluster, units_per_cta=-(-H // cluster),
-                    n_clusters=max(1, min(B, max_active_clusters)),
-                    k_chunks=k_chunks,
-                    reg_rows=K3_WARPS * K3_REG_ROWS,
-                    smem_rows=K3_WARPS * (K3_ROWS_PER_WARP - K3_REG_ROWS),
+                    seqs_per_cluster=seqs, n_clusters=n_clusters,
+                    k_chunks=-(-H // K3_KCHUNK),
+                    reg_rows=K3_WARPS * k3_reg_rows(seqs),
+                    smem_rows=K3_WARPS * (K3_ROWS_PER_WARP
+                                          - k3_reg_rows(seqs)),
                     smem_bytes=smem)
 
 
@@ -364,7 +455,7 @@ _MAX_ACTIVE: tp.Dict[tp.Tuple[int, int, int], int] = {}
 
 def max_active_clusters(H: int, device: torch.device) -> int:
     """How many K3 clusters for H the card holds at once (cached)."""
-    cluster = lstm_plan(1, H, 1).cluster
+    cluster = _cluster_size(H)
     key = (torch.cuda.current_device() if device.index is None
            else device.index, H, cluster)
     if key not in _MAX_ACTIVE:
@@ -504,8 +595,8 @@ def lstm_scan(xp: torch.Tensor, w_hh: torch.Tensor,
             None if c0 is None else c0.data_ptr(), out.data_ptr(),
             None if c_out is None else c_out.data_ptr(),
             None if c_seq is None else c_seq.data_ptr(), B, T, H,
-            plan.cluster, plan.units_per_cta, plan.n_clusters,
-            torch.cuda.current_stream(xp.device).cuda_stream)
+            plan.cluster, plan.units_per_cta, plan.seqs_per_cluster,
+            plan.n_clusters, torch.cuda.current_stream(xp.device).cuda_stream)
     build.check(lib, "lstm_scan", rc)
     _count_forward(h0, c_seq)
     return result()
@@ -518,8 +609,116 @@ lstm_scan.save_launches = 0  # type: ignore[attr-defined]
 
 
 # ---------------------------------------------------------------------------
-# The backward kernel
+# The backward kernels
 # ---------------------------------------------------------------------------
+
+def bwd_route(H: int) -> str:
+    """Which backward kernel takes H: "cluster" for H ≤ 512 (the forward's
+    cluster kernel's range), "grid" for 512 < H ≤ 1024."""
+    if not 1 <= H <= BWD_MAX_H:
+        raise ValueError(f"the K3 backward kernels take 1 <= H <= "
+                         f"{BWD_MAX_H}, got {H}")
+    return "cluster" if H <= K3_MAX_H else "grid"
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdClusterPlan(_ClusterBatch):
+    """The cluster backward's launch (H ≤ 512): `n_clusters` clusters of
+    `cluster` CTAs; CTA r owns hidden units `[r·units_per_cta,
+    (r+1)·units_per_cta)` ∩ `[0, H)` and holds their columns of W_hh, all
+    4H rows (`slab`); cluster k runs batch items k, k + n_clusters, ...,
+    `seqs_per_cluster` side by side (`rounds`). Each step every CTA sends
+    its units' 4 gates of dgates_t to every CTA, and dh of a unit is
+    summed in `sum_order`."""
+    B: int
+    H: int
+    cluster: int
+    units_per_cta: int
+    seqs_per_cluster: int
+    n_clusters: int
+    k_chunks: int
+    reg_rows: int     # W_hh columns per CTA held in registers
+    smem_rows: int    # W_hh columns per CTA held in shared memory
+    smem_bytes: int
+
+    def slab(self, rank: int) -> tp.List[tp.Tuple[int, int, str]]:
+        """CTA `rank`'s part of W_hh [4H, H], the columns of its units over
+        all 4H rows, as (gate g, unit u, where): W_hh[g·H : (g+1)·H, u],
+        k < H of it at lane k // 4 % 32 of float4 slice k // 128. Warp w
+        takes units w·4 .. w·4+3; its row q = g·4 + jj (unit w·4 + jj in
+        gate g's block) lives in registers for q < `k3_reg_rows` (12 with one
+        sequence per cluster, 10 with two), else in shared memory."""
+        u0, u1 = self.unit_ranges()[rank]
+        held = []
+        for w in range(K3_WARPS):
+            for q in range(K3_ROWS_PER_WARP):
+                u = u0 + w * K3_UNITS_PER_WARP + (q & 3)
+                if u < u1:
+                    held.append((q >> 2, u, "reg" if q < k3_reg_rows(
+                        self.seqs_per_cluster) else "smem"))
+        return held
+
+    @staticmethod
+    def sum_order() -> tp.Tuple:
+        """How dh_t of a unit is summed, the same in every slot and launch:
+        each lane sums its k slice of a row (k = m·128 + 4·lane .. +3, m
+        ascending, one fma chain), the butterfly pairs lanes xor 16, 8, 4,
+        2 (folds) and 1, the unit's four gate sums add in gate order, then
+        dy_t: (dy, (((i, f), g), o))."""
+        return ("dy", ((("i", "f"), "g"), "o"))
+
+
+def bwd_cluster_smem_bytes(H: int, seqs: int = 1) -> int:
+    """Dynamic shared memory of one cluster-backward CTA: its shared W_hh
+    columns and, per sequence slot, two dgates buffers (4 gate segments,
+    each zero-padded to a multiple of 128 floats) and their mbarriers."""
+    hp = -(-H // K3_KCHUNK) * K3_KCHUNK
+    smem_rows = K3_WARPS * (K3_ROWS_PER_WARP - k3_reg_rows(seqs))
+    return (smem_rows + 2 * seqs * 4) * hp * 4 + 2 * seqs * 8
+
+
+def bwd_cluster_plan(B: int, H: int,
+                     max_active_clusters: int) -> BwdClusterPlan:
+    """The cluster backward's launch (H ≤ 512): the forward's cluster and
+    units (H=512 → 16 CTAs of 32 units; H=200 → 8 of 25), one sequence per
+    cluster up to what the card holds at once (`max_active_clusters`, from
+    `cudaOccupancyMaxActiveClusters`), two above it where that is cheaper
+    (`cluster_batch`): one launch for any B. Above 512 the grid backward
+    takes H (`bwd_plan`)."""
+    if bwd_route(H) != "cluster":
+        raise ValueError(f"the K3 cluster backward takes 1 <= H <= "
+                         f"{K3_MAX_H}, got {H}")
+    if max_active_clusters < 1:
+        raise RuntimeError("the card cannot hold one K3 backward cluster "
+                           f"(max active clusters {max_active_clusters})")
+    cluster = _cluster_size(H)
+    seqs, n_clusters = cluster_batch(B, max_active_clusters,
+                                     K3_BWD_PAIR_STEP)
+    smem = bwd_cluster_smem_bytes(H, seqs)
+    assert smem <= SMEM_PER_BLOCK
+    return BwdClusterPlan(
+        B=B, H=H, cluster=cluster, units_per_cta=-(-H // cluster),
+        seqs_per_cluster=seqs, n_clusters=n_clusters,
+        k_chunks=-(-H // K3_KCHUNK), reg_rows=K3_WARPS * k3_reg_rows(seqs),
+        smem_rows=K3_WARPS * (K3_ROWS_PER_WARP - k3_reg_rows(seqs)),
+        smem_bytes=smem)
+
+
+def max_bwd_clusters(H: int, device: torch.device) -> int:
+    """How many cluster-backward clusters for H the card holds at once
+    (cached)."""
+    cluster = _cluster_size(H)
+    key = (torch.cuda.current_device() if device.index is None
+           else device.index, H, -3 - cluster)
+    if key not in _MAX_ACTIVE:
+        lib = build.load_library("lstm_bwd_cluster")
+        with torch.cuda.device(device):
+            n = lib.lstm_bwd_cluster_max_clusters(H, cluster)
+        if n < 0:
+            build.check(lib, "lstm_bwd_cluster", -n)
+        _MAX_ACTIVE[key] = n
+    return _MAX_ACTIVE[key]
+
 
 @dataclasses.dataclass(frozen=True)
 class BwdPlan:
@@ -619,12 +818,14 @@ def bwd_max_batch(ctas: int, units: int) -> int:
 
 
 def bwd_plan(B: int, H: int, max_ctas: int) -> BwdPlan:
-    """Units per CTA = ceil(H / min(max_ctas, 128)) (≤ 8), so the grid is
-    one CTA per SM or fewer (H=1024 on 132 SMs: 128 CTAs of 8 units;
-    H=512: 128 of 4; H=32: 32 of 1); the batch is split evenly over the
-    fewest launches that fit (`bwd_max_batch`)."""
-    if not 1 <= H <= BWD_MAX_H:
-        raise ValueError(f"the K3 backward kernel takes 1 <= H <= "
+    """The grid backward's launches (512 < H ≤ 1024): units per CTA =
+    ceil(H / min(max_ctas, 128)) (≤ 8), so the grid is one CTA per SM or
+    fewer (H=1024 on 132 SMs: 128 CTAs of 8 units; H=513: 103 of 5); the
+    batch is split evenly over the fewest launches that fit
+    (`bwd_max_batch`). H ≤ 512 is the cluster backward's
+    (`bwd_cluster_plan`)."""
+    if bwd_route(H) != "grid":
+        raise ValueError(f"the K3 grid backward takes {K3_MAX_H} < H <= "
                          f"{BWD_MAX_H}, got {H}")
     if max_ctas < 1:
         raise RuntimeError(f"the card cannot hold one K3 backward CTA "
@@ -670,7 +871,7 @@ def lstm_scan_backward(pre: torch.Tensor, c_seq: torch.Tensor,
                        c0: tp.Optional[torch.Tensor] = None,
                        dc_last: tp.Optional[torch.Tensor] = None,
                        state_grad: bool = True):
-    """The gradient of one LSTM layer's recurrence (the backward kernel).
+    """The gradient of one LSTM layer's recurrence (the backward kernels).
 
     pre: `[B, T, 4H]` the forward's pre-activations `xp + [h0; h_{<T-1}]
     W_hhᵀ`; c_seq: `[B, T, H]` its cell states (`lstm_scan(save_c=True)`);
@@ -679,8 +880,10 @@ def lstm_scan_backward(pre: torch.Tensor, c_seq: torch.Tensor,
     gradient of its final c (None: zero). All f32, contiguous, on one
     device. Returns (dgates `[B, T, 4H]` — the gradient of xp —, dh0, dc0
     `[B, H]`, both None when not `state_grad`); dW_hh is `dgatesᵀ [h0;
-    h_{<T-1}]`, one matmul outside. On CUDA one launch per batch range of
-    `bwd_plan`, with `plan.partial_bytes` of scratch."""
+    h_{<T-1}]`, one matmul outside. On CUDA, H ≤ 512 runs one launch of
+    the cluster backward (`bwd_cluster_plan`), 512 < H ≤ 1024 the grid
+    backward (`bwd_plan`: one launch per batch range, with
+    `plan.partial_bytes` of scratch)."""
     check_tensor("pre", pre, ndim=3)
     check_tensor("w_hh", w_hh, ndim=2)
     B, T, H4 = pre.shape
@@ -704,11 +907,9 @@ def lstm_scan_backward(pre: torch.Tensor, c_seq: torch.Tensor,
         dgates, dh0, dc0 = lstm_scan_backward_plain(pre, c_seq, dy, w_hh, c0,
                                                     dc_last)
         return (dgates, dh0, dc0) if state_grad else (dgates, None, None)
-    if not 1 <= H <= BWD_MAX_H:
-        raise ValueError(f"the K3 backward kernel takes 1 <= H <= "
-                         f"{BWD_MAX_H}, got {H}")
-    plan = bwd_plan(B, H, max_bwd_ctas(H, pre.device))
-    lib = build.load_library("lstm_bwd")
+    cluster = bwd_route(H) == "cluster"
+    plan = (bwd_cluster_plan(B, H, max_bwd_clusters(H, pre.device))
+            if cluster else bwd_plan(B, H, max_bwd_ctas(H, pre.device)))
     dgates = torch.empty_like(pre)
     dh0 = pre.new_zeros(B, H) if state_grad else None
     dc0 = None
@@ -716,6 +917,11 @@ def lstm_scan_backward(pre: torch.Tensor, c_seq: torch.Tensor,
         dc0 = pre.new_zeros(B, H) if dc_last is None else dc_last.clone()
     if B == 0 or T == 0:
         return dgates, dh0, dc0
+    if cluster:
+        _launch_bwd_cluster(plan, pre, c_seq, c0, dy, dc_last, w_hh, dgates,
+                            dh0, dc0)
+        return dgates, dh0, dc0
+    lib = build.load_library("lstm_bwd")
     counters = torch.zeros(plan.n_launches, device=pre.device,
                            dtype=torch.int32)
     part = torch.empty(plan.partial_bytes // 4, device=pre.device,
@@ -738,4 +944,25 @@ def lstm_scan_backward(pre: torch.Tensor, c_seq: torch.Tensor,
     return dgates, dh0, dc0
 
 
+def _launch_bwd_cluster(plan: BwdClusterPlan, pre, c_seq, c0, dy, dc_last,
+                        w_hh, dgates, dh0, dc0) -> None:
+    """One launch of the cluster backward over the whole batch."""
+    lib = build.load_library("lstm_bwd_cluster")
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(pre.device):
+        rc = lib.lstm_bwd_cluster_launch(
+            pre.data_ptr(), c_seq.data_ptr(), ptr(c0), dy.data_ptr(),
+            ptr(dc_last), w_hh.data_ptr(), dgates.data_ptr(), ptr(dh0),
+            ptr(dc0), plan.B, pre.shape[1], plan.H, plan.cluster,
+            plan.units_per_cta, plan.seqs_per_cluster, plan.n_clusters,
+            torch.cuda.current_stream(pre.device).cuda_stream)
+    build.check(lib, "lstm_bwd_cluster", rc)
+    lstm_scan_backward.launches += 1
+    lstm_scan_backward.cluster_launches += 1
+
+
 lstm_scan_backward.launches = 0  # type: ignore[attr-defined]
+lstm_scan_backward.cluster_launches = 0  # type: ignore[attr-defined]

@@ -1,9 +1,21 @@
 #!/usr/bin/env python3
-"""K3's grid and backward kernels timed on the card, for one checkout or two.
+"""K3's kernels timed on the card, for one checkout or two.
 
     python3 probes/k3_compare.py                 # this checkout
     python3 probes/k3_compare.py --parent DIR    # DIR, this, this, DIR
     python3 probes/k3_compare.py --barrier       # the step boundary alone
+    python3 probes/k3_compare.py --parent DIR --only cluster bwd
+
+Shapes: the grid kernel at H=1024 (B=1 and 32, T=480; B=1, T=64; from
+zero state and from a state) and its saving variant (B=1, 16 and 32); the
+cluster kernel at H=512 from zero state at the 24 kHz main path's B=1 and
+4 (T=750), from a state at the batch tool's chunk (B=1, T=256), from
+zero state at the 48 kHz request's B=10 (T=150) and at B=15, 16 (the LM
+trainer's codes) and 21 (T=750), saving at the configs' B=8 (T = 1,440,
+2,880, 14,400) and at B=14; the backward at H=1024 (B=1 and 32, T=480;
+the grid backward), and at H ≤ 512 (the cluster backward in a checkout
+that has it, else the grid one): B=4, T=750 and B=8, 14, 16 and 32 at
+T=1,440, B=8 at T=2,880 and 14,400 (H=512), B=1, T=14,400 (H=256).
 
 Each checkout runs in a process of its own (`--worker ROOT` imports
 `encodec_tpu_torch` from ROOT and builds its kernels there), so two
@@ -40,7 +52,13 @@ HERE = Path(__file__).resolve().parent.parent
 GRID = [(1, 480, False), (1, 480, True), (32, 480, False), (32, 480, True),
         (1, 64, False), (1, 64, True)]
 SAVE = [(1, 480), (16, 480), (32, 480)]
-BWD = [(1, 480, 1024), (32, 480, 1024), (4, 750, 512), (1, 14_400, 256)]
+CLUSTER = [(1, 750, "zero"), (4, 750, "zero"), (1, 256, "state"),
+           (10, 150, "zero"), (15, 750, "zero"),
+           (16, 750, "zero"), (21, 750, "zero"), (8, 1440, "save"),
+           (8, 2880, "save"), (8, 14_400, "save"), (14, 1440, "save")]
+BWD = [(1, 480, 1024), (32, 480, 1024), (4, 750, 512), (8, 1440, 512),
+       (8, 2880, 512), (8, 14_400, 512), (14, 1440, 512), (16, 1440, 512),
+       (32, 1440, 512), (1, 14_400, 256)]
 
 
 def gauss(torch, shape, seed, dev, scale=1.0):
@@ -72,7 +90,10 @@ def window_ms(torch, fn, iters: int, windows: int = 5) -> float:
     return statistics.median(times)
 
 
-def worker(root: str) -> dict:
+GROUPS = ("grid", "save", "cluster", "bwd")
+
+
+def worker(root: str, only=GROUPS) -> dict:
     sys.path.insert(0, root)
     import torch
 
@@ -89,20 +110,33 @@ def worker(root: str) -> dict:
     res = {}
     H = 1024
     w = weights(torch, H, 51, dev)
-    for B, T, stateful in GRID:
+    for B, T, stateful in GRID if "grid" in only else ():
         xp = gauss(torch, (B, T, 4 * H), 52, dev)
         st = ((torch.tanh(gauss(torch, (B, H), 53, dev)),
                gauss(torch, (B, H), 54, dev)) if stateful else (None, None))
         res[f"grid B={B} T={T}{' state' if stateful else ''}"] = window_ms(
             torch, lambda: kernels.lstm_scan(xp, w, *st, return_state=True),
             20 if T >= 480 else 100)
-    for B, T in SAVE:
+    for B, T in SAVE if "save" in only else ():
         xp = gauss(torch, (B, T, 4 * H), 52, dev)
         h0 = torch.tanh(gauss(torch, (B, H), 53, dev))
         c0 = gauss(torch, (B, H), 54, dev)
         res[f"save B={B} T={T}"] = window_ms(
             torch, lambda: kernels.lstm_scan(xp, w, h0, c0, save_c=True), 20)
-    for B, T, Hb in BWD:
+    Hc = 512
+    wc = weights(torch, Hc, 51, dev)
+    for B, T, mode in CLUSTER if "cluster" in only else ():
+        xp = gauss(torch, (B, T, 4 * Hc), 52, dev)
+        st = ((torch.tanh(gauss(torch, (B, Hc), 53, dev)),
+               gauss(torch, (B, Hc), 54, dev)) if mode == "state"
+              else (None, None))
+        res[f"cluster {mode} B={B} T={T} H={Hc}"] = window_ms(
+            torch, lambda: kernels.lstm_scan(
+                xp, wc, *st, return_state=mode == "state",
+                save_c=mode == "save"),
+            3 if T > 2000 else 10)
+        del xp
+    for B, T, Hb in BWD if "bwd" in only else ():
         wb = weights(torch, Hb, 61, dev)
         xp = gauss(torch, (B, T, 4 * Hb), 62, dev)
         h0 = torch.tanh(gauss(torch, (B, Hb), 63, dev))
@@ -113,7 +147,7 @@ def worker(root: str) -> dict:
         pre = (xp + h_prev @ wb.t()).contiguous()
         res[f"bwd B={B} T={T} H={Hb}"] = window_ms(
             torch, lambda: kernels.lstm_scan_backward(pre, c_seq, dy, wb, c0),
-            3 if T > 1000 else 20)
+            3 if T > 2000 else 10 if T > 1000 else 20)
         del xp, out, c_seq, h_prev, pre, dy
         torch.cuda.empty_cache()
     return res
@@ -164,13 +198,15 @@ def main() -> int:
     ap.add_argument("--parent", help="the other checkout's root")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--barrier", action="store_true")
+    ap.add_argument("--only", nargs="+", choices=GROUPS, default=GROUPS,
+                    help="the groups of shapes to time (default: all)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("k3_compare: no CUDA device", file=sys.stderr)
         return 2
     if args.worker:
-        print("K3TIMES " + json.dumps(worker(args.worker)))
+        print("K3TIMES " + json.dumps(worker(args.worker, args.only)))
         return 0
     if args.barrier:
         barrier()
@@ -185,7 +221,8 @@ def main() -> int:
              if parent else [("this", str(HERE))])
     runs = []
     for label, root in order:
-        proc = subprocess.run([sys.executable, __file__, "--worker", root],
+        proc = subprocess.run([sys.executable, __file__, "--worker", root,
+                               "--only", *args.only],
                               capture_output=True, text=True, cwd=root)
         line = next((ln for ln in proc.stdout.splitlines()
                      if ln.startswith("K3TIMES ")), None)

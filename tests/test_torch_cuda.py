@@ -8,9 +8,12 @@ kernel at H=1024: a 4 h night is T=480, a training batch B=32), and the
 lmv=3 integer LM's CDF rows on the card against the CPU's, the range
 decoder with the LM's head fused in against its twin, and the decode's
 CUDA graph against the CPU and the card's eager runner. Training:
-K3's saving forward (the same `out` bits as the plain launch), the K3
-backward kernel against its plain twin and against autograd through the
-plain recurrence, and one generator step of a tiny breathing model on the
+K3's saving forward (the same `out` bits as the plain launch), K3's
+backward kernels (the cluster backward for H <= 512, the grid backward
+above) against their plain twin and against autograd through the plain
+recurrence, each sequence's bits independent of its slot and of B (two
+sequences per cluster from B=8 at H <= 512, in both directions), and one
+generator step of a tiny breathing model on the
 kernels against the same step on the plain twins; the GAN phase: a GAN
 generator step and a discriminator step (chunked and whole-signal) on the
 kernels against the plain twins, the chunked discriminator against the
@@ -189,10 +192,27 @@ def test_kernel_layouts_match_the_plans(dev):
     ls = build.load_library("lstm_scan")
     assert ls.lstm_scan_units_per_cta_max() == lstm_cuda.K3_MAX_UNITS
     assert ls.lstm_scan_max_cluster() == lstm_cuda.K3_MAX_CLUSTER
-    assert ls.lstm_scan_reg_rows() == lstm_cuda.K3_REG_ROWS
+    for seqs in (1, 2):
+        assert ls.lstm_scan_reg_rows(seqs) == lstm_cuda.k3_reg_rows(seqs)
     assert ls.lstm_scan_threads() == lstm_cuda.K3_THREADS
+    assert ls.lstm_scan_max_seqs() == lstm_cuda.K3_MAX_SEQS
     for H in (1, 32, 200, 512):
-        assert ls.lstm_scan_smem_bytes(H) == lstm_cuda.lstm_smem_bytes(H)
+        for seqs in (1, 2):
+            assert ls.lstm_scan_smem_bytes(H, seqs) == (
+                lstm_cuda.lstm_smem_bytes(H, seqs))
+        assert ls.lstm_scan_smem_bytes(H, 3) == -1
+        # the kernel of two sequences per cluster spills no more than the
+        # one of one sequence, in every state variant
+        for state in (0, 1, 2):
+            local = []
+            for seqs in (1, 2):
+                regs, loc = ctypes.c_int(), ctypes.c_int()
+                build.check(ls, "lstm_scan", ls.lstm_scan_attributes(
+                    H, state, seqs, ctypes.addressof(regs),
+                    ctypes.addressof(loc)))
+                assert regs.value <= 255
+                local.append(loc.value)
+            assert local[1] <= local[0], (H, state, local)
     # the served shape's cluster (16 CTAs) must be schedulable
     assert lstm_cuda.max_active_clusters(512, dev) >= 1
 
@@ -317,10 +337,12 @@ def test_lstm_scan_kernel_matches_plain(dev, B, T, H):
 
 
 def test_lstm_scan_kernel_batch_above_cluster_count(dev):
-    # more sequences than clusters in flight: each cluster runs several
+    # more sequences than clusters in flight: each cluster runs two side
+    # by side
     H, T = 512, 40
     B = lstm_cuda.max_active_clusters(H, dev) + 3
-    assert lstm_cuda.lstm_plan(B, H, B - 3).n_clusters < B
+    plan = lstm_cuda.lstm_plan(B, H, B - 3)
+    assert plan.n_clusters < B and plan.seqs_per_cluster == 2
     xp = _rand((B, T, 4 * H), 8, dev)
     bound = 1.0 / np.sqrt(H)
     w = torch.from_numpy(np.random.RandomState(9).uniform(
@@ -505,12 +527,15 @@ def test_lstm_grid_kernel_layout_matches_the_plan(dev):
             assert local.value == 0 and regs.value <= 128
 
 
-@pytest.mark.parametrize("H", [1000, 1024])
-@pytest.mark.parametrize("B", [1, 3, 32, 49])
+@pytest.mark.parametrize("H", [200, 512, 1000, 1024])
+@pytest.mark.parametrize("B", [1, 3, 8, 11, 14, 22, 32, 49])
 def test_lstm_grid_kernel_batch_slot_bits(dev, B, H):
     """A sequence's bits do not depend on its slot or on B: row b of a
-    B-sequence launch (two launches at B=49) equals the launch of
-    sequence b alone, from zero state and from a state, saving or not."""
+    B-sequence launch (two launches at B=49 on the grid kernel; on the
+    cluster kernel, H <= 512, two sequences per cluster at B = 8, 11, 14,
+    22 and 49 on an H100 (11: one cluster of one; 22 and 49: a last round
+    with an idle slot), waves of one at 32) equals the launch of sequence b
+    alone, from zero state and from a state, saving or not."""
     T = 40
     xp, w, h0, c0 = _lstm_inputs(dev, B, T, H, 85)
     whole, _, cT = lstm_scan(xp, w, h0, c0, return_state=True)
@@ -594,6 +619,14 @@ def _bwd_inputs(dev, B, T, H, seed, stateful):
     return xp, w, h0, c0, pre.contiguous(), c_seq, dy, dc_last
 
 
+def _bwd_launches(dev, B, H):
+    """Launches of one backward call: one of the cluster backward (H <=
+    512), one per batch range of the grid backward."""
+    if lstm_cuda.bwd_route(H) == "cluster":
+        return 1
+    return lstm_cuda.bwd_plan(B, H, lstm_cuda.max_bwd_ctas(H, dev)).n_launches
+
+
 @pytest.mark.parametrize("B,T,H,stateful", [(2, 37, 32, False),
                                             (4, 50, 512, True),
                                             (1, 30, 1024, False),
@@ -608,8 +641,7 @@ def test_lstm_backward_kernel_matches_twin(dev, B, T, H, stateful):
     got = lstm_scan_backward(pre, c_seq, dy, w, c0, dc_last)
     want = lstm_scan_backward_plain(pre, c_seq, dy, w, c0, dc_last)
     torch.cuda.synchronize()
-    assert lstm_scan_backward.launches == before + lstm_cuda.bwd_plan(
-        B, H, lstm_cuda.max_bwd_ctas(H, dev)).n_launches
+    assert lstm_scan_backward.launches == before + _bwd_launches(dev, B, H)
     for g, r in zip(got, want):
         # T recurrent products summed in another order than cuBLAS
         assert (g - r).abs().max().item() <= 1e-4 * max(
@@ -655,12 +687,13 @@ def test_lstm_backward_kernel_layout_matches_the_plan(dev):
     lib = build.load_library("lstm_bwd")
     assert lib.lstm_bwd_threads() == lstm_cuda.BWD_THREADS
     assert lib.lstm_bwd_max_units() == lstm_cuda.BWD_MAX_UNITS
+    assert lib.lstm_bwd_min_units() == lstm_cuda.BWD_MIN_UNITS
     assert lib.lstm_bwd_cols() == lstm_cuda.BWD_COLS
     assert lib.lstm_bwd_batch_tile() == lstm_cuda.BWD_BATCH_TILE
     assert lib.lstm_bwd_max_h() == lstm_cuda.BWD_MAX_H
     assert lib.lstm_bwd_max_ctas_limit() == lstm_cuda.BWD_MAX_CTAS
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for H in (32, 256, 512, 1000, 1024):
+    for H in (513, 640, 1000, 1024):
         n = lstm_cuda.max_bwd_ctas(H, dev)
         assert n >= sms
         plan = lstm_cuda.bwd_plan(32, H, n)
@@ -671,20 +704,87 @@ def test_lstm_backward_kernel_layout_matches_the_plan(dev):
                 B, G, U)
         assert lib.lstm_bwd_smem_bytes(lstm_cuda.bwd_max_batch(G, U) + 1, G,
                                        U) == -1
-    # W_hh stays in registers: no spill for any units per CTA
-    for U in range(1, lstm_cuda.BWD_MAX_UNITS + 1):
+    # W_hh stays in registers: no spill for any units per CTA the plan
+    # takes (512 < H: at least 5); fewer are not built
+    for U in range(lstm_cuda.BWD_MIN_UNITS, lstm_cuda.BWD_MAX_UNITS + 1):
         regs, local = ctypes.c_int(), ctypes.c_int()
         build.check(lib, "lstm_bwd", lib.lstm_bwd_attributes(
             U, ctypes.addressof(regs), ctypes.addressof(local)))
         assert local.value == 0 and regs.value <= 128
+    assert lib.lstm_bwd_attributes(lstm_cuda.BWD_MIN_UNITS - 1,
+                                   ctypes.addressof(regs),
+                                   ctypes.addressof(local)) != 0
 
 
-@pytest.mark.parametrize("H", [1000, 1024])
-@pytest.mark.parametrize("B", [1, 3, 32, 49])
+@pytest.mark.parametrize("H", [32, 200, 256, 512])
+@pytest.mark.parametrize("B", [1, 4, 8, 15])
+@pytest.mark.parametrize("T", [1, 2, 750])
+@pytest.mark.parametrize("stateful", [False, True])
+def test_lstm_cluster_backward_matches_twin(dev, H, B, T, stateful):
+    """The cluster backward (H <= 512) against its twin: one sequence per
+    cluster (B <= 7 on an H100), two side by side in one wave (B=8) and in
+    two (B=15); T=1 runs no recurrent product, T=2 one."""
+    _, w, _, c0, pre, c_seq, dy, dc_last = _bwd_inputs(dev, B, T, H,
+                                                       130 + T, stateful)
+    before = (lstm_scan_backward.launches,
+              lstm_scan_backward.cluster_launches)
+    got = lstm_scan_backward(pre, c_seq, dy, w, c0, dc_last)
+    want = lstm_scan_backward_plain(pre, c_seq, dy, w, c0, dc_last)
+    torch.cuda.synchronize()
+    assert (lstm_scan_backward.launches,
+            lstm_scan_backward.cluster_launches) == (before[0] + 1,
+                                                     before[1] + 1)
+    for g, r in zip(got, want):
+        # T recurrent products summed in another order than cuBLAS
+        assert (g - r).abs().max().item() <= 1e-4 * max(
+            1.0, r.abs().max().item())
+    d2, dh0, dc0 = lstm_scan_backward(pre, c_seq, dy, w, c0, dc_last,
+                                      state_grad=False)
+    assert dh0 is None and dc0 is None and torch.equal(d2, got[0])
+
+
+def test_lstm_cluster_backward_layout_matches_the_plan(dev):
+    import ctypes
+    lib = build.load_library("lstm_bwd_cluster")
+    assert lib.lstm_bwd_cluster_units_per_cta_max() == lstm_cuda.K3_MAX_UNITS
+    assert lib.lstm_bwd_cluster_max_cluster() == lstm_cuda.K3_MAX_CLUSTER
+    for seqs in (1, 2):
+        assert lib.lstm_bwd_cluster_reg_rows(seqs) == lstm_cuda.k3_reg_rows(
+            seqs)
+    assert lib.lstm_bwd_cluster_threads() == lstm_cuda.K3_THREADS
+    assert lib.lstm_bwd_cluster_max_seqs() == lstm_cuda.K3_MAX_SEQS
+    for H in (1, 32, 200, 256, 512):
+        for seqs in (1, 2):
+            assert lib.lstm_bwd_cluster_smem_bytes(H, seqs) == (
+                lstm_cuda.bwd_cluster_smem_bytes(H, seqs))
+            regs, local = ctypes.c_int(), ctypes.c_int()
+            build.check(lib, "lstm_bwd_cluster",
+                        lib.lstm_bwd_cluster_attributes(
+                            H, seqs, ctypes.addressof(regs),
+                            ctypes.addressof(local)))
+            assert regs.value <= 255
+        assert lib.lstm_bwd_cluster_smem_bytes(H, 3) == -1
+        # B up to twice the clusters the card holds runs in one wave (at
+        # H=512 as many clusters as the forward's: 7 on an H100; at small H
+        # the forward fits two CTAs per SM, the backward one)
+        n = lstm_cuda.max_bwd_clusters(H, dev)
+        assert n >= 1
+        if H == 512:
+            assert n == lstm_cuda.max_active_clusters(H, dev)
+        plan = lstm_cuda.bwd_cluster_plan(2 * n, H, n)
+        assert (plan.n_clusters, plan.seqs_per_cluster, plan.waves) == (
+            n, 2, 1)
+    assert lib.lstm_bwd_cluster_smem_bytes(513, 1) == -1
+
+
+@pytest.mark.parametrize("H", [200, 512, 1000, 1024])
+@pytest.mark.parametrize("B", [1, 3, 8, 11, 14, 22, 32, 49])
 def test_lstm_backward_kernel_batch_slot_bits(dev, B, H):
     """A sequence's gradient bits do not depend on its slot or on B: row b
     of a B-sequence backward equals the backward of sequence b alone
-    (dgates, dh0, dc0)."""
+    (dgates, dh0, dc0); at H=512 on an H100 B = 8, 11 and 14 run two
+    sequences per cluster in one wave (11: one cluster of one), 22, 32
+    and 49 in rounds of two, some clusters' last with an idle slot."""
     _, w, _, c0, pre, c_seq, dy, dc_last = _bwd_inputs(dev, B, 30, H, 96,
                                                        True)
     whole = lstm_scan_backward(pre, c_seq, dy, w, c0, dc_last)

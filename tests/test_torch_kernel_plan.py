@@ -7,13 +7,17 @@ K1 (`vq_cuda.nearest_plan`) and K2 (`vq_cuda.rvq_plan`): row tiles and
 the cluster's split of the bins, each from its kernel's shared memory.
 K3: for H ≤ 512 the cluster kernel (`lstm_cuda.lstm_plan`: units per
 CTA, the register/shared-memory split of W_hh, the h messages between the
-cluster's CTAs, and the batch spread over clusters); for 512 < H ≤ 1024
-the grid kernel (`lstm_cuda.grid_plan`: CTAs, units per CTA, the batch
-per launch); K3's backward kernel (`lstm_cuda.bwd_plan`: CTAs, the
-columns of W_hh each holds, the gate rows of each thread, the batch per
-launch). Every plan
-must fit one block's shared memory and cover every row, bin, gate row,
-unit and batch item exactly once.
+cluster's CTAs, and the batch spread over clusters, one or two sequences
+per cluster); for 512 < H ≤ 1024 the grid kernel (`lstm_cuda.grid_plan`:
+CTAs, units per CTA, the batch per launch); K3's backward kernels, chosen
+by H (`lstm_cuda.bwd_route`): for H ≤ 512 the cluster backward
+(`lstm_cuda.bwd_cluster_plan`: the forward's cluster and units, each
+CTA's slab of W_hh's columns, the dgates messages, the summation order,
+sequences per cluster and waves), for 512 < H ≤ 1024 the grid backward
+(`lstm_cuda.bwd_plan`: CTAs, the columns of W_hh each holds, the gate
+rows of each thread, the batch per launch). Every plan must fit one
+block's shared memory and cover every row, bin, gate row, unit and batch
+item exactly once.
 """
 
 import numpy as np
@@ -295,7 +299,8 @@ def _k3_rows(plan):
             for q in range(lstm_cuda.K3_ROWS_PER_WARP):
                 lu = w * lstm_cuda.K3_UNITS_PER_WARP + (q & 3)
                 if lu < nu:
-                    where = "reg" if q < lstm_cuda.K3_REG_ROWS else "smem"
+                    where = ("reg" if q < lstm_cuda.k3_reg_rows(
+                        plan.seqs_per_cluster) else "smem")
                     placed.append(((q >> 2) * plan.H + u0 + lu, where))
     return placed
 
@@ -322,10 +327,17 @@ def test_lstm_plan_covers_units_rows_and_batch_once(H, B, max_active):
         lstm_cuda.K3_WARPS * lstm_cuda.K3_ROWS_PER_WARP)
     assert plan.smem_bytes <= SMEM_PER_BLOCK
     assert plan.smem_bytes >= plan.smem_rows * plan.k_chunks * 128 * 4
-    # every batch item on exactly one cluster, at most max_active clusters
+    # every batch item on exactly one cluster, at most max_active clusters,
+    # one sequence per cluster up to max_active (two only above it)
     items = sorted(b for seq in plan.batch_items() for b in seq)
     assert items == list(range(B))
     assert 1 <= plan.n_clusters <= min(B, max_active)
+    assert plan.seqs_per_cluster == 1 or B > max_active
+    assert [sum(r, []) for r in plan.rounds()] == plan.batch_items()
+    assert all(1 <= len(r) <= plan.seqs_per_cluster
+               for rs in plan.rounds() for r in rs)
+    assert plan.smem_bytes == lstm_cuda.lstm_smem_bytes(
+        H, plan.seqs_per_cluster)
 
 
 @pytest.mark.parametrize("H", [1, 7, 33, 96, 200, 500, 512])
@@ -348,14 +360,64 @@ def test_lstm_h_messages_deliver_every_unit_once(H):
 
 def test_lstm_plan_at_served_shapes():
     # H=512: 16 CTAs (a non-portable cluster) of 32 units; B=1 on one
-    # cluster, B=4 on four, B=8 wraps onto the 7 clusters the card holds
+    # cluster, B=4 on four, B=8 (past the 7 clusters the card holds) on
+    # four clusters of two sequences side by side: one wave
     p1 = lstm_cuda.lstm_plan(1, 512, 7)
     assert (p1.cluster, p1.units_per_cta, p1.n_clusters) == (16, 32, 1)
     assert (p1.reg_rows, p1.smem_rows) == (96, 32)
     assert lstm_cuda.lstm_plan(4, 512, 7).n_clusters == 4
-    assert lstm_cuda.lstm_plan(8, 512, 7).batch_items()[0] == [0, 7]
+    p8 = lstm_cuda.lstm_plan(8, 512, 7)
+    assert p8.batch_items()[0] == [0, 4] and p8.rounds()[0] == [[0, 4]]
+    assert (p8.seqs_per_cluster, p8.n_clusters, p8.waves) == (2, 4, 1)
     p200 = lstm_cuda.lstm_plan(3, 200, 7)
     assert (p200.cluster, p200.units_per_cta) == (8, 25)
+
+
+@pytest.mark.parametrize("B,seqs,clusters,waves", [
+    (1, 1, 1, 1), (4, 1, 4, 1), (7, 1, 7, 1), (8, 2, 4, 1), (10, 2, 5, 1),
+    (14, 2, 7, 1), (15, 1, 7, 3), (16, 1, 7, 3), (21, 1, 7, 3),
+    (22, 2, 7, 2), (32, 1, 7, 5)])
+def test_lstm_plan_runs_two_sequences_per_cluster_above_the_count(
+        B, seqs, clusters, waves):
+    """H=512 on the 7 clusters an H100 holds: one sequence per cluster up
+    to 7 (the 24 kHz path's B=1, the stream's, B=4: as before), two side by
+    side above it where a round of two (1.7 steps of one) saves a wave, so
+    the configs' B=8 and the 48 kHz request's B=10 run in one wave, and B =
+    15-21 (two rounds of two: 3.4) and 32 (three: 5.1) run three and five
+    waves of one; each slot has its own two h buffers and mbarriers, and
+    two sequences' accumulators push two more W_hh rows per warp (8 per
+    CTA) into shared memory."""
+    plan = lstm_cuda.lstm_plan(B, 512, 7)
+    assert (plan.seqs_per_cluster, plan.n_clusters, plan.waves) == (
+        seqs, clusters, waves)
+    smem_rows = 32 if seqs == 1 else 48
+    assert (plan.reg_rows, plan.smem_rows) == (128 - smem_rows, smem_rows)
+    assert plan.smem_bytes == (smem_rows + 2 * seqs) * 512 * 4 + 2 * seqs * 8
+
+
+@pytest.mark.parametrize("max_active", [1, 2, 7, 15])
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_cluster_batch_takes_the_cheaper_of_one_and_two_per_cluster(
+        max_active, direction):
+    """Two sequences per cluster only above the count, and only where their
+    rounds, each a pair step (`K3_PAIR_STEP` steps of one forward,
+    `K3_BWD_PAIR_STEP` backward; a round with an idle slot too), cost less
+    than ceil(B / count) waves of one."""
+    plan_of, step = ((lstm_cuda.lstm_plan, lstm_cuda.K3_PAIR_STEP)
+                     if direction == "forward" else
+                     (lstm_cuda.bwd_cluster_plan, lstm_cuda.K3_BWD_PAIR_STEP))
+    for B in range(1, 8 * max_active + 2):
+        plan = plan_of(B, 512, max_active)
+        one = -(-B // max_active)
+        pairs = min(max_active, -(-B // 2))
+        two = -(-(-(-B // pairs)) // 2) * step
+        if plan.seqs_per_cluster == 1:
+            assert plan.n_clusters == min(B, max_active)
+            assert plan.waves == one and (B <= max_active or one <= two)
+        else:
+            assert B > max_active and two < one
+            assert plan.n_clusters == pairs
+            assert plan.waves * step == two
 
 
 def test_lstm_plan_refuses_what_the_kernel_cannot_take():
@@ -570,7 +632,7 @@ def test_grid_butterfly_sums_a_sequence_alike_in_every_tile():
 
 
 def _bwd_rows(plan):
-    """The backward kernel's rows: CTA g holds row q = gate q // U of unit
+    """The grid backward's rows: CTA g holds row q = gate q // U of unit
     u0 + q % U for q % U < nu."""
     placed = []
     U = plan.units_per_cta
@@ -580,9 +642,44 @@ def _bwd_rows(plan):
     return placed
 
 
+def _check_bwd_cluster_plan(plan, B):
+    """The cluster backward's launch: units covered once, as the forward's;
+    every (gate block, unit) column of W_hh [4H, H] in exactly one CTA's
+    slab, 12 of a warp's 16 in registers, each over every k < H (the lanes'
+    float4 slices); every batch item once; shared memory within a block."""
+    H, U = plan.H, plan.units_per_cta
+    assert plan.cluster & (plan.cluster - 1) == 0
+    assert plan.cluster <= lstm_cuda.K3_MAX_CLUSTER and U <= 32
+    _covers_once(plan.unit_ranges(), H)
+    assert (plan.cluster - 1) * U < H <= plan.cluster * U
+    held = [entry for r in range(plan.cluster) for entry in plan.slab(r)]
+    assert sorted((g, u) for g, u, _ in held) == [
+        (g, u) for g in range(4) for u in range(H)]
+    for r in range(plan.cluster):
+        n_reg = sum(where == "reg" for _, _, where in plan.slab(r))
+        assert n_reg <= plan.reg_rows
+        assert len(plan.slab(r)) == 4 * (plan.unit_ranges()[r][1]
+                                         - plan.unit_ranges()[r][0])
+    lane_k = sorted(m * 128 + 4 * lane + e for m in range(plan.k_chunks)
+                    for lane in range(32) for e in range(4))
+    assert lane_k == list(range(plan.k_chunks * 128))
+    assert plan.k_chunks * 128 >= H
+    assert plan.reg_rows + plan.smem_rows == 8 * 16
+    assert plan.smem_bytes == lstm_cuda.bwd_cluster_smem_bytes(
+        H, plan.seqs_per_cluster) <= SMEM_PER_BLOCK
+    items = sorted(b for seq in plan.batch_items() for b in seq)
+    assert items == list(range(B))
+    assert [sum(r, []) for r in plan.rounds()] == plan.batch_items()
+
+
 @pytest.mark.parametrize("H", [1, 7, 32, 256, 512, 513, 1000, 1024])
 @pytest.mark.parametrize("B", [1, 2, 3, 32, 64, 65, 200])
 def test_bwd_plan_covers_columns_rows_and_batch_once(H, B):
+    if lstm_cuda.bwd_route(H) == "cluster":
+        plan = lstm_cuda.bwd_cluster_plan(B, H, 7)
+        _check_bwd_cluster_plan(plan, B)
+        assert plan.n_clusters == min(7, -(-B // plan.seqs_per_cluster))
+        return
     plan = lstm_cuda.bwd_plan(B, H, H100_SMS)
     U = plan.units_per_cta
     assert 1 <= U <= lstm_cuda.BWD_MAX_UNITS
@@ -612,21 +709,37 @@ def test_bwd_plan_covers_columns_rows_and_batch_once(H, B):
 
 
 @pytest.mark.parametrize("H,ctas,units,max_batch", [
-    (1024, 128, 8, 51), (512, 128, 4, 100), (256, 128, 2, 188),
-    (32, 32, 1, 512)])
+    (1024, 128, 8, 51), (512, 16, 32, 14), (256, 8, 32, 14),
+    (32, 1, 32, 14)])
 def test_bwd_plan_at_training_shapes(H, ctas, units, max_batch):
-    # H=1024: default.yaml's LSTM (B=32 nights: one launch); 512 and 256:
-    # the 24 kHz codec's and hires_tokens.yaml's; 32: the tests' tiny model
-    plan = lstm_cuda.bwd_plan(32, H, H100_SMS)
-    assert (plan.ctas, plan.units_per_cta, plan.n_launches) == (
-        ctas, units, 1)
-    assert lstm_cuda.bwd_max_batch(ctas, units) == max_batch
-    # dgates of 32 rows and the block of partials (+ the bank pad) per
-    # sequence, 8 inputs of the coming step per cell
-    sb = -(-ctas * units // 4) * 4
-    assert plan.smem_bytes == 32 * (32 + sb + -(-units // 4) * 4
-                                    + 8 * units) * 4
-    assert lstm_cuda.BWD_MAX_H == 1024
+    # H=1024: default.yaml's LSTM (B=32 nights: one grid launch of 128
+    # CTAs); 512 and 256: the 24 kHz codec's and hires_tokens.yaml's, 32:
+    # the tests' tiny model, on the cluster backward: clusters of `ctas`
+    # CTAs, at most 7 clusters of 2 sequences in a wave (max_batch)
+    if lstm_cuda.bwd_route(H) == "grid":
+        plan = lstm_cuda.bwd_plan(32, H, H100_SMS)
+        assert (plan.ctas, plan.units_per_cta, plan.n_launches) == (
+            ctas, units, 1)
+        assert lstm_cuda.bwd_max_batch(ctas, units) == max_batch
+        # dgates of 32 rows and the block of partials (+ the bank pad) per
+        # sequence, 8 inputs of the coming step per cell
+        sb = -(-ctas * units // 4) * 4
+        assert plan.smem_bytes == 32 * (32 + sb + -(-units // 4) * 4
+                                        + 8 * units) * 4
+        assert lstm_cuda.BWD_MAX_H == 1024
+        return
+    plan = lstm_cuda.bwd_cluster_plan(max_batch, H, 7)
+    assert (plan.cluster, plan.units_per_cta, plan.seqs_per_cluster) == (
+        ctas, units, 2)
+    assert plan.waves == 1
+    # one more: three waves of one, cheaper than two rounds of two
+    past = lstm_cuda.bwd_cluster_plan(max_batch + 1, H, 7)
+    assert (past.seqs_per_cluster, past.waves) == (1, 3)
+    # 48 W_hh columns per CTA in shared memory (6 per warp: two sequences
+    # per cluster), and per slot two dgates buffers of 4 gate segments
+    # padded to 128 floats
+    hp = -(-H // 128) * 128
+    assert plan.smem_bytes == (48 + 2 * 2 * 4) * hp * 4 + 2 * 2 * 8
 
 
 def test_bwd_plan_refuses_what_the_kernel_cannot_take():
@@ -635,16 +748,111 @@ def test_bwd_plan_refuses_what_the_kernel_cannot_take():
     with pytest.raises(RuntimeError):
         lstm_cuda.bwd_plan(1, 1024, 100)   # 11 units per CTA: more than 8
     with pytest.raises(RuntimeError):
-        lstm_cuda.bwd_plan(1, 32, 0)
+        lstm_cuda.bwd_cluster_plan(1, 32, 0)
+    # each H is one route's: the grid backward takes 512 < H <= 1024, the
+    # cluster backward 1 <= H <= 512
+    for H in (32, 512):
+        with pytest.raises(ValueError):
+            lstm_cuda.bwd_plan(1, H, H100_SMS)
+    for H in (0, 513, 1025):
+        with pytest.raises(ValueError):
+            lstm_cuda.bwd_cluster_plan(1, H, 7)
 
 
-@pytest.mark.parametrize("H", [7, 32, 256, 512, 1000, 1024])
+@pytest.mark.parametrize("H", [1, 7, 32, 200, 256, 512, 513, 1024, 1025])
+def test_bwd_route_splits_h_between_the_kernels(H):
+    """`lstm_scan_backward` takes the cluster backward for H <= 512 and the
+    grid backward above it, as `lstm_scan` splits the forward: exactly one
+    plan takes each H up to 1024, none above."""
+    takes = []
+    for name, plan, n in (("cluster", lstm_cuda.bwd_cluster_plan, 7),
+                          ("grid", lstm_cuda.bwd_plan, H100_SMS)):
+        try:
+            plan(1, H, n)
+            takes.append(name)
+        except ValueError:
+            pass
+    want = ["cluster"] if H <= 512 else ["grid"] if H <= 1024 else []
+    assert takes == want
+    if want:
+        assert lstm_cuda.bwd_route(H) == want[0]
+
+
+@pytest.mark.parametrize("H,cluster,units", [(512, 16, 32), (256, 8, 32),
+                                             (200, 8, 25), (32, 1, 32)])
+@pytest.mark.parametrize("B,seqs,clusters,waves", [
+    (1, 1, 1, 1), (4, 1, 4, 1), (7, 1, 7, 1), (8, 2, 4, 1), (14, 2, 7, 1),
+    (15, 1, 7, 3), (16, 1, 7, 3), (21, 1, 7, 3), (32, 2, 7, 3)])
+def test_bwd_cluster_plan_sequences_and_waves(H, cluster, units, B, seqs,
+                                              clusters, waves):
+    """The cluster backward on the 7 clusters an H100 holds: the forward's
+    cluster and units; one sequence per cluster up to 7, two side by side
+    above where that saves time (the configs' B=8 and B up to 14 in one
+    wave; 15-21 in three waves of one; 32 in three rounds of two, at 1.56
+    steps of one each, against five waves: the forward, at 1.7, takes
+    five)."""
+    plan = lstm_cuda.bwd_cluster_plan(B, H, 7)
+    assert (plan.cluster, plan.units_per_cta) == (cluster, units)
+    assert (plan.seqs_per_cluster, plan.n_clusters, plan.waves) == (
+        seqs, clusters, waves)
+    fwd = lstm_cuda.lstm_plan(B, H, 7)
+    assert (fwd.cluster, fwd.units_per_cta) == (cluster, units)
+    if B != 32:
+        assert (fwd.seqs_per_cluster, fwd.n_clusters, fwd.waves) == (
+            seqs, clusters, waves)
+    _check_bwd_cluster_plan(plan, B)
+
+
+def _butterfly_rows():
+    """butterfly16 on symbolic partials: lane l starts with the 16 rows'
+    partials {(lane, row)}; returns each lane's set after the four folds
+    (xor 16, 8, 4, 2) and the pair's sum (xor 1)."""
+    acc = [[frozenset({(lane, q)}) for q in range(16)] for lane in range(32)]
+    for half in (8, 4, 2, 1):
+        new = []
+        for lane in range(32):
+            up = bool(lane & (2 * half))
+            part = lane ^ (2 * half)
+            row = []
+            for i in range(half):
+                keep = acc[lane][i + half] if up else acc[lane][i]
+                send = acc[part][i + half] if up else acc[part][i]
+                row.append(keep | send)
+            new.append(row + acc[lane][half:])
+        acc = new
+    return [acc[lane][0] | acc[lane ^ 1][0] for lane in range(32)]
+
+
+@pytest.mark.parametrize("H", [7, 32, 200, 256, 512, 1000, 1024])
 def test_bwd_partials_cover_every_source_and_column_once(H):
-    """One parity of the partials: CTA g's partial for (sequence b, column
-    k) has a slot of its own, inside the block of k's owner, and the owner
-    finds each of its units' G partials there, once each, summed in four
-    chains of sources in source order."""
+    """The grid backward (512 < H): one parity of the partials: CTA g's
+    partial for (sequence b, column k) has a slot of its own, inside the
+    block of k's owner, and the owner finds each of its units' G partials
+    there, once each, summed in four chains of sources in source order.
+    The cluster backward (H <= 512) sums no partials across CTAs: each CTA
+    sends its units' 4 gates of dgates_t to every CTA (16·H bytes per
+    barrier, one copy of each), and a unit's dh sums every lane's k slice
+    of each of its 4 rows once (the butterfly: lane l holds row l >> 1),
+    the gates in order, then dy."""
     B = 3
+    if lstm_cuda.bwd_route(H) == "cluster":
+        plan = lstm_cuda.bwd_cluster_plan(B, H, 7)
+        sent = []
+        for u0, u1 in plan.unit_ranges():
+            for w in range(8):
+                warp_u = u0 + 4 * w
+                warp_nu = max(0, min(4, u1 - warp_u))
+                vec = warp_nu == 4 and warp_u % 4 == 0
+                sent += [(g, u) for g in range(4)
+                         for u in range(warp_u, warp_u + (4 if vec
+                                                           else warp_nu))]
+        assert sorted(sent) == [(g, u) for g in range(4) for u in range(H)]
+        assert 4 * len(sent) == 16 * H
+        rows = _butterfly_rows()
+        for lane in range(32):
+            assert rows[lane] == {(x, lane >> 1) for x in range(32)}
+        assert plan.sum_order() == ("dy", ((("i", "f"), "g"), "o"))
+        return
     plan = lstm_cuda.bwd_plan(B, H, H100_SMS)
     U, G = plan.units_per_cta, plan.ctas
     sb = -(-G * U // 4) * 4
@@ -683,12 +891,21 @@ def test_bwd_partials_cover_every_source_and_column_once(H):
 
 
 @pytest.mark.parametrize("B,H,mib", [(32, 1024, 32), (1, 1024, 1),
-                                     (4, 512, 2), (1, 256, 0.25),
+                                     (4, 512, 1 / 64), (1, 256, 1 / 128),
                                      (64, 1024, 32)])
 def test_bwd_partial_buffer_at_training_shapes(B, H, mib):
-    # B=32, H=1024 (default.yaml's batch): 32 MiB of partial sums per
-    # launch, two parities of 128 CTAs x 32 x 1024 floats; B=64 runs as two
-    # launches of 32 that share it
+    # the grid backward: B=32, H=1024 (default.yaml's batch): 32 MiB of
+    # partial sums per launch, two parities of 128 CTAs x 32 x 1024 floats;
+    # B=64 runs as two launches of 32 that share it
+    if lstm_cuda.bwd_route(H) == "cluster":
+        # no scratch on the device: a CTA's two dgates buffers per slot
+        # (4H floats each, here one slot) are in its shared memory
+        plan = lstm_cuda.bwd_cluster_plan(B, H, 7)
+        buffers = 2 * plan.seqs_per_cluster * 4 * plan.k_chunks * 128 * 4
+        assert buffers == mib * 2 ** 20
+        assert plan.smem_bytes == (plan.smem_rows * plan.k_chunks * 128 * 4
+                                   + buffers + 2 * plan.seqs_per_cluster * 8)
+        return
     plan = lstm_cuda.bwd_plan(B, H, H100_SMS)
     assert plan.partial_bytes == mib * 2 ** 20
     # a step moves one parity: written once, read once
