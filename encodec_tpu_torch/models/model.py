@@ -55,6 +55,7 @@ from ..quant import (RVQConfig, RVQState, init_rvq, num_quantizers_for_bandwidth
                      resolve_ties_f64, rvq_decode, rvq_encode,
                      rvq_encode_margins, rvq_forward)
 from ..utils.overlap import linear_overlap_add
+from ..utils.profiling import count, span
 from .seanet import (SEANetConfig, init_seanet_decoder, init_seanet_encoder,
                      seanet_decoder, seanet_encoder)
 
@@ -137,8 +138,9 @@ def encode_frame(params, qstate: RVQState, x: torch.Tensor,
     `compute_dtype` (bf16) is the encoder trunk's dtype, the latents go to
     the RVQ in float32."""
     x, scale = _normalize(x, cfg)
-    emb = seanet_encoder(params["encoder"], x.to(compute_dtype), cfg.seanet,
-                         plain=plain).float()
+    with span("seanet.encoder"):
+        emb = seanet_encoder(params["encoder"], x.to(compute_dtype),
+                             cfg.seanet, plain=plain).float()
     codes = rvq_encode(qstate, emb, cfg.rvq, n_q=n_q, plain=plain)
     return codes.permute(1, 0, 2), scale
 
@@ -166,8 +168,9 @@ def decode_frame(params, qstate: RVQState, codes: torch.Tensor,
     float32 (K3; `plain=True` runs its plain twin, even on CUDA tensors;
     `compute_dtype` is the decoder trunk's dtype)."""
     emb = rvq_decode(qstate, codes.permute(1, 0, 2), cfg.rvq)
-    out = seanet_decoder(params["decoder"], emb.to(compute_dtype),
-                         cfg.seanet, plain=plain).float()
+    with span("seanet.decoder"):
+        out = seanet_decoder(params["decoder"], emb.to(compute_dtype),
+                             cfg.seanet, plain=plain).float()
     if scale is not None:
         out = out * scale.reshape(-1, 1, 1)
     return out
@@ -208,23 +211,27 @@ def forward_train(params, qstate: RVQState, x: torch.Tensor,
     exactly (`parallel.sp.check_seq_parallel`, as `make_train_steps`
     does); a length that is not a multiple of seq × hop raises here."""
     x_c = x.to(compute_dtype)
-    if seq is None:
-        emb = seanet_encoder(params["encoder"], x_c, cfg.seanet, plain=plain)
-    else:
+    if seq is not None:
         # imported here: parallel.sp builds on this package's SEANet ops
         from ..parallel.sp import seanet_decode_seq, seanet_encode_seq
-        emb = seanet_encode_seq(params["encoder"], x_c, cfg.seanet, seq,
-                                plain=plain)
+    with span("seanet.encoder"):
+        if seq is None:
+            emb = seanet_encoder(params["encoder"], x_c, cfg.seanet,
+                                 plain=plain)
+        else:
+            emb = seanet_encode_seq(params["encoder"], x_c, cfg.seanet, seq,
+                                    plain=plain)
     quantized, codes, commit, new_qstate = rvq_forward(
         qstate, emb.float(), cfg.rvq, n_q=n_q, training=training,
         generator=generator, plain=plain, dp=dp, **draws)
     quantized = quantized.to(compute_dtype)
-    if seq is None:
-        out = seanet_decoder(params["decoder"], quantized, cfg.seanet,
-                             plain=plain)
-    else:
-        out = seanet_decode_seq(params["decoder"], quantized, cfg.seanet,
-                                seq, plain=plain)
+    with span("seanet.decoder"):
+        if seq is None:
+            out = seanet_decoder(params["decoder"], quantized, cfg.seanet,
+                                 plain=plain)
+        else:
+            out = seanet_decode_seq(params["decoder"], quantized,
+                                    cfg.seanet, seq, plain=plain)
     return (out[:, :x.shape[1]].float(), codes.permute(1, 0, 2), commit,
             new_qstate)
 
@@ -263,6 +270,14 @@ def _to_device(tree, device: torch.device):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
     return tree
+
+
+def _copy_in(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """`t` on `device`. A copy from host memory to a CUDA device makes the
+    host wait for the device (`sync.codec_input`)."""
+    if t.device.type == "cpu" and device.type == "cuda":
+        count("sync.codec_input")
+    return t.to(device)
 
 
 def _in_mode(fn):
@@ -402,7 +417,8 @@ class EncodecModel:
         x = torch.as_tensor(x)
         if x.dim() != 3 or not 0 < x.shape[1] <= 2 or x.shape[2] == 0:
             raise ValueError(f"expected [B, C, T] audio, got {tuple(x.shape)}")
-        x = _float_from_pcm16(x.to(self.device)).transpose(1, 2)
+        with span("codec.input"):
+            x = _float_from_pcm16(_copy_in(x, self.device)).transpose(1, 2)
         by_len: tp.Dict[int, tp.List[tp.Tuple[int, int]]] = {}
         for i, (off, length) in enumerate(self.cfg.segments(x.shape[1])):
             by_len.setdefault(length, []).append((i, off))
@@ -425,16 +441,18 @@ class EncodecModel:
     @torch.inference_mode()
     def encode(self, x) -> tp.List[EncodedFrame]:
         """x: `[B, C, T]` audio (float in [-1, 1], or int16 PCM). Returns one
-        `(codes [B, K, T'] int32, scale [B, 1] or None)` frame per segment."""
-        B, groups = self.segment_groups(x)
-        frames: tp.List[tp.Optional[EncodedFrame]] = [None] * sum(
-            len(idxs) for idxs, _ in groups)
-        for idxs, stacked in groups:
-            codes, scale = encode_frame(self.infer_params, self.qstate,
-                                        stacked, self.cfg, self.n_q_active,
-                                        compute_dtype=self.compute_dtype)
-            self._split(B, idxs, codes, scale, frames)
-        return frames  # type: ignore[return-value]
+        `(codes [B, K, T'] int32, scale [B, 1] or None)` frame per segment
+        (the `codec.encode` span)."""
+        with span("codec.encode"):
+            B, groups = self.segment_groups(x)
+            frames: tp.List[tp.Optional[EncodedFrame]] = [None] * sum(
+                len(idxs) for idxs, _ in groups)
+            for idxs, stacked in groups:
+                codes, scale = encode_frame(
+                    self.infer_params, self.qstate, stacked, self.cfg,
+                    self.n_q_active, compute_dtype=self.compute_dtype)
+                self._split(B, idxs, codes, scale, frames)
+            return frames  # type: ignore[return-value]
 
     @_in_mode
     @torch.inference_mode()
@@ -498,21 +516,24 @@ class EncodecModel:
         for i, (codes, scale) in enumerate(frames):
             by_key.setdefault((codes.shape[-1], scale is None), []).append(i)
         outs: tp.List[tp.Optional[torch.Tensor]] = [None] * len(frames)
-        for (_, no_scale), idxs in by_key.items():
-            codes = torch.cat([torch.as_tensor(frames[i][0]) for i in idxs])
-            scale = None if no_scale else torch.cat(
-                [torch.as_tensor(frames[i][1]) for i in idxs]).to(self.device)
-            out = decode_frame(self.infer_params, self.qstate,
-                               codes.to(self.device), self.cfg, scale,
-                               compute_dtype=self.compute_dtype)
-            for j, i in enumerate(idxs):
-                outs[i] = out[j * B:(j + 1) * B]
-        if self.cfg.segment is None:
-            out = outs[0]
-        else:
-            out = linear_overlap_add(outs, self.segment_stride)
-        out = out.transpose(1, 2)
-        return _pcm16_from_float(out) if pcm16 else out
+        with span("codec.decode"):
+            for (_, no_scale), idxs in by_key.items():
+                codes = torch.cat([torch.as_tensor(frames[i][0])
+                                   for i in idxs])
+                scale = None if no_scale else _copy_in(torch.cat(
+                    [torch.as_tensor(frames[i][1]) for i in idxs]),
+                    self.device)
+                out = decode_frame(self.infer_params, self.qstate,
+                                   _copy_in(codes, self.device), self.cfg,
+                                   scale, compute_dtype=self.compute_dtype)
+                for j, i in enumerate(idxs):
+                    outs[i] = out[j * B:(j + 1) * B]
+            if self.cfg.segment is None:
+                out = outs[0]
+            else:
+                out = linear_overlap_add(outs, self.segment_stride)
+            out = out.transpose(1, 2)
+            return _pcm16_from_float(out) if pcm16 else out
 
     @_in_mode
     def forward(self, x):

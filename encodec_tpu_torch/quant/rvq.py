@@ -33,6 +33,9 @@ rank, the EMA statistics are summed over ranks before the decay, the
 expiry draws row indices over the global N (the owning rank contributes
 each drawn row, the others zeros, summed: x + 0 is exact), and the commit
 loss is the global mean.
+
+`rvq_encode`, `rvq_decode` and the training half are the spans `rvq.encode`,
+`rvq.decode` and `rvq.train` of `utils.profiling`.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch
 from ..kernels import (nearest_codebook, nearest_codebook_plain,
                        rvq_encode_fused, rvq_encode_fused_plain)
 from ..ops.batch_reduce import LOCAL, BatchReduce
+from ..utils.profiling import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,10 +105,11 @@ def rvq_encode(state: RVQState, x: torch.Tensor, cfg: RVQConfig,
     """Encode `[B, T, D]` → codes `[K, B, T]` int32 (K2)."""
     n_q = _active_n_q(cfg, n_q)
     B, T, D = x.shape
-    flat = x.reshape(B * T, D).contiguous()
-    embed = state.embed.contiguous()
-    fn = rvq_encode_fused_plain if plain else rvq_encode_fused
-    return fn(flat, embed, n_q, cfg.shared_codebook).reshape(n_q, B, T)
+    with span("rvq.encode"):
+        flat = x.reshape(B * T, D).contiguous()
+        embed = state.embed.contiguous()
+        fn = rvq_encode_fused_plain if plain else rvq_encode_fused
+        return fn(flat, embed, n_q, cfg.shared_codebook).reshape(n_q, B, T)
 
 
 def rvq_encode_margins(state: RVQState, x: torch.Tensor, cfg: RVQConfig,
@@ -160,13 +165,14 @@ def rvq_decode(state: RVQState, codes: torch.Tensor, cfg: RVQConfig
                ) -> torch.Tensor:
     """Decode codes `[K, B, T]` → quantized latents `[B, T, D]`."""
     n_q = codes.shape[0]
-    codes = codes.long()
-    if cfg.shared_codebook:
-        quantized = state.embed[0][codes]                      # [K, B, T, D]
-    else:
-        stages = torch.arange(n_q, device=codes.device)[:, None, None]
-        quantized = state.embed[stages, codes]                 # [K, B, T, D]
-    return quantized.sum(dim=0)
+    with span("rvq.decode"):
+        codes = codes.long()
+        if cfg.shared_codebook:
+            quantized = state.embed[0][codes]                  # [K, B, T, D]
+        else:
+            stages = torch.arange(n_q, device=codes.device)[:, None, None]
+            quantized = state.embed[stages, codes]             # [K, B, T, D]
+        return quantized.sum(dim=0)
 
 
 # ---------------------------------------------------------------------------
@@ -191,11 +197,14 @@ def _draw(n: int, num: int, generator: tp.Optional[torch.Generator],
           device: torch.device) -> torch.Tensor:
     """`num` row indices of n: the first `num` of a permutation when n ≥ num,
     else `num` uniform draws (JAX's `permutation` / `randint` choice). Drawn
-    on the CPU, so the card and the CPU draw alike."""
+    on the CPU, so the card and the CPU draw alike; copied to a CUDA
+    `device`, the host waits for the device (`sync.rvq_draw`)."""
     if n >= num:
         idx = torch.randperm(n, generator=generator)[:num]
     else:
         idx = torch.randint(0, n, (num,), generator=generator)
+    if torch.device(device).type == "cuda":
+        count("sync.rvq_draw")
     return idx.to(device)
 
 
@@ -319,11 +328,21 @@ def rvq_forward(state: RVQState, x: torch.Tensor, cfg: RVQConfig, *,
     reductions and draws over a data-parallel step's ranks (x is this
     rank's rows)."""
     n_q = _active_n_q(cfg, n_q)
-    B, T, D = x.shape
     if not training:
         codes = rvq_encode(state, x.detach(), cfg, n_q=n_q, plain=plain)
         quantized = rvq_decode(state, codes, cfg)
         return quantized, codes, x.new_zeros(n_q), state
+    with span("rvq.train"):
+        return _rvq_train(state, x, cfg, n_q, generator, plain, init_idx,
+                          sample_idx, margins, dp)
+
+
+def _rvq_train(state: RVQState, x: torch.Tensor, cfg: RVQConfig, n_q: int,
+               generator: tp.Optional[torch.Generator], plain: bool,
+               init_idx: Draws, sample_idx: Draws,
+               margins: tp.Optional[list], dp: BatchReduce):
+    """`rvq_forward`'s training half (the `rvq.train` span)."""
+    B, T, D = x.shape
     flat = x.reshape(B * T, D)
 
     # Lazy k-means init on the first training batch (ref core_vq.py:142-153):

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.lm import LMConfig, lm_forward_batch
-from ..utils.profiling import annotate
+from ..utils.profiling import span
 from .optim import AdamState, adam_update, init_adam, tree_map
 from .steps import _grads, _with_grad
 
@@ -72,17 +72,17 @@ def make_lm_train_step(cfg: LMConfig, opt: LMOptimizer):
     one update on a `[B, K, T]` batch of codes. The inputs are not changed;
     the metrics are detached scalars (`nll`, `bits_per_code`, and
     `grad_norm`, the raw gradient's global norm). The forward, the
-    backward and the Adam update are named ranges of a `torch.profiler`
-    trace (`lm_train.forward`, `.backward`, `.adam`)."""
+    backward and the Adam update are the spans `lm_train.forward`,
+    `.backward` and `.adam` (`utils.profiling`)."""
 
     def step(params: dict, opt_state: AdamState, codes: torch.Tensor):
         params = _with_grad(params)
         with torch.enable_grad():
-            with annotate("lm_train.forward"):
+            with span("lm_train.forward"):
                 loss, metrics = lm_loss(params, codes, cfg)
-            with annotate("lm_train.backward"):
+            with span("lm_train.backward"):
                 grads = _grads(loss, params)
-        with torch.no_grad(), annotate("lm_train.adam"):
+        with torch.no_grad(), span("lm_train.adam"):
             new_params, opt_state, norm = adam_update(
                 grads, opt_state, tree_map(torch.Tensor.detach, params),
                 opt.lr, clip=opt.clip, b1=B1, b2=B2, eps=EPS)

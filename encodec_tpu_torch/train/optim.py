@@ -26,6 +26,8 @@ import typing as tp
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 B1, B2, EPS, EPS_ROOT = 0.8, 0.9, 1e-8, 0.0
 
 
@@ -86,21 +88,26 @@ def adam_update(grads, state: AdamState, params, lr: float,
                 b2: float = B2, eps: float = EPS, eps_root: float = EPS_ROOT):
     """One step: (new_params, new_state, global norm of the raw grads).
 
-    `lr` is rounded to float32 first, as `inject_hyperparams` holds it."""
-    norm = global_norm(grads)
-    if clip:
-        grads, _ = clip_by_global_norm(grads, clip)
-    mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
-    nu = tree_map(lambda g, v: (1 - b2) * g.square() + b2 * v, grads,
-                  state.nu)
-    count = state.count + 1
-    # 1 - b^count in float32, as optax's bias correction
-    c = count.to(torch.float32)
-    bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=c.device) ** c
-    bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=c.device) ** c
-    step = -float(np.float32(lr))
-    new_params = tree_map(
-        lambda p, m, v: p + step * ((m / bc1)
-                                    / ((v / bc2 + eps_root).sqrt() + eps)),
-        params, mu, nu)
-    return new_params, AdamState(count=count, mu=mu, nu=nu), norm
+    `lr` is rounded to float32 first, as `inject_hyperparams` holds it.
+    The step is the `optim.adam` span."""
+    with profiling.span("optim.adam"):
+        norm = global_norm(grads)
+        if clip:
+            grads, _ = clip_by_global_norm(grads, clip)
+        mu = tree_map(lambda g, m: (1 - b1) * g + b1 * m, grads, state.mu)
+        nu = tree_map(lambda g, v: (1 - b2) * g.square() + b2 * v, grads,
+                      state.nu)
+        count = state.count + 1
+        # 1 - b^count in float32, as optax's bias correction; each scalar
+        # made on the host waits for the device when it is copied there
+        c = count.to(torch.float32)
+        bc1 = 1 - torch.tensor(b1, dtype=torch.float32, device=c.device) ** c
+        bc2 = 1 - torch.tensor(b2, dtype=torch.float32, device=c.device) ** c
+        if c.is_cuda:
+            profiling.count("sync.adam_scalar", 2)
+        step = -float(np.float32(lr))
+        new_params = tree_map(
+            lambda p, m, v: p + step * ((m / bc1)
+                                        / ((v / bc2 + eps_root).sqrt() + eps)),
+            params, mu, nu)
+        return new_params, AdamState(count=count, mu=mu, nu=nu), norm

@@ -97,6 +97,11 @@ statistics), the STFT, the logits, every loss and feature-map sum, the
 master parameters and the Adam state. No autocast wraps a step. Under a
 mesh the same casts run on every rank; the seq exchanges carry float32 on
 the wire (`parallel.comm`).
+
+Tracing (`utils.profiling`): the generator and discriminator steps are
+the spans `train.gen_step` and `train.disc_step`, each holding
+`train.forward`, `train.loss`, `train.backward` and the optimizer's
+`optim.adam`.
 """
 
 from __future__ import annotations
@@ -119,6 +124,7 @@ from ..ops.conv import spectral_norm_update_tree
 from ..parallel import comm
 from ..parallel.sp import check_seq_parallel
 from ..quant import RVQState
+from ..utils.profiling import span
 from .optim import AdamState, adam_update, init_adam, tree_leaves, tree_map
 
 COMPUTE_DTYPES = {"float32": torch.float32, "f32": torch.float32,
@@ -425,6 +431,10 @@ def make_train_steps(model_cfg: EncodecConfig,
         if use_gan and (disc_cfg is None or state.disc_params is None):
             raise ValueError("use_gan needs a discriminator config and "
                              "state")
+        with span("train.gen_step"):
+            return _gen_step(state, batch, weights, use_gan, keep_grads)
+
+    def _gen_step(state, batch, weights, use_gan, keep_grads):
         generator = torch.Generator()
         generator.set_state(state.rng)
         # the spectral-norm power iteration (the identity without it)
@@ -432,25 +442,28 @@ def make_train_steps(model_cfg: EncodecConfig,
         params = _with_grad(params_in)
         margins: tp.Optional[list] = [] if keep_grads else None
         with torch.enable_grad():
-            x_hat, codes, commit, new_qstate = forward_train(
-                params, state.qstate, batch, model_cfg, n_q, generator,
-                training=True, plain=plain, dp=dp, seq=seq, margins=margins,
-                compute_dtype=compute_dtype)
-            commit_mean = commit.mean()
-            freq = freq_loss(batch, x_hat)
-            losses_g = total_loss(None, None, None, batch, x_hat, dp)
-            loss = (losses_g["l_1"] * weights.l1
-                    + freq["total_loss"] * weights.freq
-                    + losses_g["l_2"] * weights.l2
-                    + commit_mean * weights.commit
-                    + commit_mean * weights.codebook)
-            if use_gan:
-                l_g, l_feat = gan_terms(state.disc_params, disc_cfg, batch,
-                                        x_hat, disc_remat, dp, seq,
-                                        compute_dtype)
-                loss = loss + l_g * weights.gen + l_feat * weights.feat
-            grads = reduce_grads(_grads(loss, params,
-                                        scaled(torch.ones_like(loss))))
+            with span("train.forward"):
+                x_hat, codes, commit, new_qstate = forward_train(
+                    params, state.qstate, batch, model_cfg, n_q, generator,
+                    training=True, plain=plain, dp=dp, seq=seq,
+                    margins=margins, compute_dtype=compute_dtype)
+            with span("train.loss"):
+                commit_mean = commit.mean()
+                freq = freq_loss(batch, x_hat)
+                losses_g = total_loss(None, None, None, batch, x_hat, dp)
+                loss = (losses_g["l_1"] * weights.l1
+                        + freq["total_loss"] * weights.freq
+                        + losses_g["l_2"] * weights.l2
+                        + commit_mean * weights.commit
+                        + commit_mean * weights.codebook)
+                if use_gan:
+                    l_g, l_feat = gan_terms(state.disc_params, disc_cfg,
+                                            batch, x_hat, disc_remat, dp, seq,
+                                            compute_dtype)
+                    loss = loss + l_g * weights.gen + l_feat * weights.feat
+            with span("train.backward"):
+                grads = reduce_grads(_grads(loss, params,
+                                            scaled(torch.ones_like(loss))))
         new_params, new_opt, grad_norm = adam_update(
             grads, state.opt_state, params_in, weights.lr, clip)
         metrics = {
@@ -523,23 +536,29 @@ def make_train_steps(model_cfg: EncodecConfig,
         if disc_cfg is None or state.disc_params is None:
             raise ValueError("disc_step needs a discriminator config and "
                              "state")
+        with span("train.disc_step"):
+            return _disc_step(state, batch, weights, keep_grads)
+
+    def _disc_step(state, batch, weights, keep_grads):
         generator = torch.Generator()
         generator.set_state(state.rng)
         disc_in = spectral_norm_update_tree(state.disc_params)
         # the generator's forward as JAX runs it (training mode, its own
         # draws), without a graph; its quantizer update is dropped
-        with torch.no_grad():
+        with torch.no_grad(), span("train.forward"):
             x_hat, _, _, _ = forward_train(
                 state.params, state.qstate, batch, model_cfg, n_q, generator,
                 training=True, plain=plain, dp=dp, seq=seq,
                 compute_dtype=compute_dtype)
         disc = _with_grad(disc_in)
         with torch.enable_grad():
-            loss, lr_mean, lf_mean = disc_losses(disc, disc_cfg, batch,
-                                                 x_hat, disc_remat, dp, seq,
-                                                 compute_dtype)
-            grads = reduce_grads(_grads(loss, disc,
-                                        scaled(torch.ones_like(loss))))
+            with span("train.loss"):
+                loss, lr_mean, lf_mean = disc_losses(
+                    disc, disc_cfg, batch, x_hat, disc_remat, dp, seq,
+                    compute_dtype)
+            with span("train.backward"):
+                grads = reduce_grads(_grads(loss, disc,
+                                            scaled(torch.ones_like(loss))))
         new_disc, new_opt, grad_norm = adam_update(
             grads, state.disc_opt_state, disc_in, weights.disc_lr, clip)
         metrics = {"loss_disc": loss.detach(),

@@ -29,7 +29,9 @@ cluster route, with duplicates across its bin tiles and CTAs, K2
 at their eval encodes (512 bins x 10 and 8 stages, 256 x 8) and at
 default.yaml's training batch (N=15,360, 1024 bins x 8), and K3's
 saving forward and backward at H=512 over a 4 h night at hop 10
-(T=14,400).
+(T=14,400). Tracing: the program's `sync.*` counters against CUDA's sync
+debug mode over a generator step and an encode and decode (every call
+that makes the host wait is counted, and the spans add none).
 
 This file imports no JAX (the GPU machine has none). On a machine without
 a CUDA device every test skips. Run on the H100 with:
@@ -838,6 +840,82 @@ def test_gen_step_on_the_kernels_matches_the_plain_twins(dev):
         assert (a - b).abs().max().item() <= 1e-4 * max(
             1.0, b.abs().max().item())
 
+
+
+def test_sync_counters_equal_the_sync_debug_modes_warnings(dev, capsys):
+    """One generator step of a tiny breathing model and one encode and
+    decode of a tiny 24 kHz-shaped codec fed host audio, under CUDA's sync
+    debug mode with the spans on: every call that makes the host wait
+    warns once, and the program's `sync.*` counters rose by exactly as
+    many, so every such site on these paths is counted (the spans add
+    none). The warnings' sites are printed, each with the program's
+    innermost frames."""
+    import traceback
+    import warnings
+
+    from encodec_tpu_torch.models import build_model
+    from encodec_tpu_torch.train import (LossWeights, create_train_state,
+                                         make_train_steps)
+    from encodec_tpu_torch.utils import profiling
+
+    model = build_model([0.08], sample_rate=10, channels=1, causal=True,
+                        model_norm="layer_norm", name="breathing_model",
+                        ratios=[5, 2, 1], bins=32, dimension=16, n_filters=4,
+                        decoder_final_norm="none", shared_codebook=True,
+                        kmeans_init=False, seed=3, device=dev)
+    x = _rand((2, 600, 1), 0, dev)
+    gen = make_train_steps(model.cfg, freq_loss_kwargs=dict(
+        n_fft=64, win_length=64, hop_length=16, sampling_rate=10))[0]
+    w = LossWeights.make(commit=0.25)
+    state, _ = gen(create_train_state(model, seed=0), x, w)
+    codec = build_model([1.5], sample_rate=24000, channels=1, causal=True,
+                        model_norm="weight_norm", ratios=[8, 5, 4, 2],
+                        bins=64, dimension=16, n_filters=4,
+                        kmeans_init=False, name="encodec_24khz", seed=0,
+                        device=dev)
+    codec.set_target_bandwidth(1.5)
+    host = torch.from_numpy(np.random.RandomState(1).randn(2, 1, 24000)
+                            .astype(np.float32) * 0.1)
+    codec.decode(codec.encode(host))
+    torch.cuda.synchronize()
+
+    def syncs():
+        return {k: v for k, v in profiling.counters().items()
+                if k.startswith("sync.")}
+
+    made, other = [], []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing CUDA operation" not in str(message):
+            other.append(f"{filename}:{lineno} {str(message)[:120]}")
+            return
+        ours = ["/".join(f.filename.split("/")[-2:]) + f":{f.lineno}"
+                for f in traceback.extract_stack()
+                if "encodec_tpu_torch" in f.filename]
+        made.append(f"{filename}:{lineno} <- {ours[-3:]}")
+
+    profiling.reset()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with profiling.tracing():
+                gen(state, x, w)
+                codec.decode(codec.encode(host))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    counted = syncs()
+    with capsys.disabled():
+        print("\nsync sites:\n  " + "\n  ".join(made)
+              + f"\nsync counters: {counted}\nother warnings: {other}")
+    assert len(made) == sum(counted.values()), (made, counted)
+    assert counted == {"sync.rvq_draw": model.cfg.rvq.n_q,
+                       "sync.adam_scalar": 2, "sync.codec_input": 1}
+    recs = profiling.records()
+    assert sum(r.syncs for r in recs if r.parent is None) == len(made)
+    assert all(r.stream_ms is not None and r.stream_ms >= 0 for r in recs)
+    profiling.reset()
 
 def _tiny_gan(dev, norm="layer_norm", chunk=7):
     from encodec_tpu_torch.models import MSSTFTConfig, build_model

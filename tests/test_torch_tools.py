@@ -57,8 +57,8 @@ from encodec_tpu_torch.tools import batch, benchmark, export, visualize
 from encodec_tpu_torch.train import ConfigNamespace, Trainer
 from encodec_tpu_torch.train.optim import tree_leaves
 from encodec_tpu_torch.utils.audio import convert_audio, load_wav, save_wav
-from encodec_tpu_torch.utils.profiling import (StageTimer, annotate,
-                                               device_trace)
+from encodec_tpu_torch.utils import profiling
+from encodec_tpu_torch.utils.profiling import device_trace, span
 
 CODEC_24 = dict(sample_rate=24000, channels=1, causal=True,
                 model_norm="weight_norm", ratios=[8, 5, 4, 2], bins=64,
@@ -492,22 +492,28 @@ def test_bench_on_the_cpu_returns_its_keys(codecs):
                                iters=1)).isdisjoint({"lm_batched_s"})
 
 
-def test_stage_timer_averages_and_survives_an_exception(tmp_path):
-    timer = StageTimer()
-    for _ in range(3):
-        with timer.stage("sin") as s:
-            s.watch(torch.sin(torch.ones(256)).sum())
-    with pytest.raises(RuntimeError):
-        with timer.stage("boom"):
-            raise RuntimeError("x")
-    rep = timer.report()
-    assert set(rep) == {"sin", "boom"} and timer.counts == {"sin": 3,
-                                                            "boom": 1}
-    assert all(np.isfinite(v) and v >= 0 for v in rep.values())
+def test_device_trace_holds_the_spans_of_its_block(tmp_path):
+    """`device_trace` writes a trace file that names the spans opened in
+    its block, and keeps their records, a span that raises included;
+    outside the block spans are off again and record nothing."""
+    profiling.reset()
     with device_trace(str(tmp_path / "trace")):
-        with annotate("region"):
-            torch.ones(8).add_(1)
-    assert any((tmp_path / "trace").rglob("*.json"))
+        for _ in range(3):
+            with span("sin"):
+                torch.sin(torch.ones(256)).sum()
+        with pytest.raises(RuntimeError):
+            with span("boom"):
+                raise RuntimeError("x")
+    with span("after"):
+        torch.ones(8).add_(1)
+    files = list((tmp_path / "trace").rglob("*.json"))
+    assert files
+    text = files[0].read_text()
+    assert '"sin"' in text and '"boom"' in text and '"after"' not in text
+    recs = profiling.records()
+    assert [r.name for r in recs] == ["sin"] * 3 + ["boom"]
+    assert all(r.end_ns >= r.start_ns for r in recs)
+    profiling.reset()
 
 
 # -- data: BWH and curation ---------------------------------------------------
